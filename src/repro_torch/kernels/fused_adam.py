@@ -1,0 +1,65 @@
+"""One fused Adam step over one leaf.
+
+Port of ``repro/kernels/fused_adam.py``.  On CUDA tensors the wrapper
+launches the hand-written kernel in ``csrc/fused_adam.cu``; on CPU
+tensors it runs the plain version, ``ref.fused_adam_ref``.
+"""
+from __future__ import annotations
+
+from ctypes import c_double, c_int, c_int64, c_void_p
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+launches = 0          # kernel launches since the last reset
+
+_ARGTYPES = [c_void_p] * 8 + [c_int64, c_int64, c_int] + [c_double] * 5 + [
+    c_void_p]
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fused_adam(p, g, m, v, step, *, lr: float, b1: float = 0.9,
+               b2: float = 0.999, eps: float = 1e-8,
+               weight_decay: float = 0.0):
+    """One Adam step; returns new (p, m, v) and leaves the inputs as
+    they are.  p and g are float32 or bfloat16 of one shape, m and v
+    float32.  ``step`` is an int32 tensor on the same device: a scalar,
+    or [C] for a leaf stacked over C entities ([C, ...]), each row then
+    corrected with its own count."""
+    if not (p.shape == g.shape == m.shape == v.shape):
+        raise ValueError(f"shape mismatch: p {tuple(p.shape)}, g "
+                         f"{tuple(g.shape)}, m {tuple(m.shape)}, v "
+                         f"{tuple(v.shape)}")
+    if p.dtype not in _DTYPES or g.dtype != p.dtype:
+        raise TypeError(f"p and g must share float32 or bfloat16, got "
+                        f"{p.dtype} and {g.dtype}")
+    if m.dtype != torch.float32 or v.dtype != torch.float32:
+        raise TypeError("m and v must be float32")
+    if step.dtype != torch.int32 or tuple(step.shape) != tuple(
+            p.shape[:step.dim()]):
+        raise ValueError(f"step must be int32 of shape () or the leading "
+                         f"dims of p, got {step.dtype} {tuple(step.shape)}")
+    if len({t.device for t in (p, g, m, v, step)}) != 1:
+        raise ValueError("p, g, m, v and step must lie on one device")
+    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    if p.device.type == "cpu":
+        return ref.fused_adam_ref(p, g, m, v, step, **kw)
+    if p.device.type != "cuda":
+        raise ValueError(f"no fused_adam kernel for {p.device}")
+    if not all(t.is_contiguous() for t in (p, g, m, v, step)):
+        raise ValueError("fused_adam needs contiguous operands")
+    p2, m2, v2 = (torch.empty_like(p), torch.empty_like(m),
+                  torch.empty_like(v))
+    n = p.numel()
+    if n == 0:
+        return p2, m2, v2
+    fn = _build.entry("fused_adam", _ARGTYPES)
+    global launches
+    launches += 1
+    _build.check(fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+                    step.data_ptr(), p2.data_ptr(), m2.data_ptr(),
+                    v2.data_ptr(), n, n // step.numel(), _DTYPES[p.dtype],
+                    lr, b1, b2, eps, weight_decay, _build.stream_of(p)),
+                 "fused_adam")
+    return p2, m2, v2
