@@ -67,6 +67,17 @@ class CycleConfig:
         return self
 
 
+def _slot(tree, c: int):
+    """Cohort slot ``c`` of a [C, ...]-stacked batch: a tensor, or any
+    tree of them (the transformer task's ``{"tokens": [C, b, S]}``), as
+    the JAX package's vmap takes any pytree."""
+    return tree_map(lambda a: a[c], tree)
+
+
+def _n_slots(tree) -> int:
+    return tree_leaves(tree)[0].shape[0]
+
+
 def _maybe_clip(grads, max_norm: Optional[float]):
     if max_norm is None:
         return grads
@@ -166,7 +177,7 @@ def feature_gradients(task: SplitTask, server_params, feats, ys,
     frozen = tree_map(lambda p: p.detach(), server_params)
     f = feats.detach().requires_grad_(True)
     with torch.enable_grad():
-        total = sum(task.server_loss(frozen, f[c], ys[c])
+        total = sum(task.server_loss(frozen, f[c], _slot(ys, c))
                     for c in range(f.shape[0]))
         (grads,) = torch.autograd.grad(total, f)
     if ccfg.avg_client_grads:
@@ -210,8 +221,8 @@ def client_updates(task: SplitTask, clients: EntityState, opt_c: Optimizer,
     their grad norm reads 0.
     """
     per_slot = [_client_grads(task, tree_map(lambda p: p[c], clients.params),
-                              xs[c], feat_grads[c], grad_clip)
-                for c in range(xs.shape[0])]
+                              _slot(xs, c), feat_grads[c], grad_clip)
+                for c in range(_n_slots(xs))]
     grads = tree_map(lambda *gs: torch.stack(gs),
                      *(g for g, _ in per_slot))
     gnorms = torch.stack([n for _, n in per_slot])
@@ -227,8 +238,8 @@ def extract_features(task: SplitTask, client_params, xs) -> torch.Tensor:
     (the client phase recomputes its forward under its own VJP)."""
     with torch.no_grad():
         return torch.stack([task.client_forward(
-            tree_map(lambda p: p[c], client_params), xs[c])
-            for c in range(xs.shape[0])])
+            tree_map(lambda p: p[c], client_params), _slot(xs, c))
+            for c in range(_n_slots(xs))])
 
 
 def cyclesl_extract(task: SplitTask, clients: EntityState, xs, ys

@@ -1,6 +1,8 @@
 """Split-model abstraction: θ_CS = θ_S ∘ θ_C with an explicit cut.
 
-Port of the StageModel half of ``repro/core/split.py``.
+Port of ``repro/core/split.py``: the StageModel zoo's tasks and the
+decoder-only transformer cut after ``cfg.cut_layers`` blocks (whisper's
+encoder-decoder task is not ported yet).
 """
 from __future__ import annotations
 
@@ -9,8 +11,10 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.models.cnn import StageModel
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.models.transformer import Transformer, positions_for
+from repro_torch.utils.tree import tree_leaves, tree_slice
 
 
 @dataclass(frozen=True)
@@ -86,3 +90,66 @@ def make_stage_task(model: StageModel, cut: int, kind: str = "xent",
                      init_client, init_server, client_forward,
                      server_apply, xent_loss, xent_metrics,
                      server_head=server_head)
+
+
+# -------------------------------------------------- Transformer builder
+def make_transformer_task(cfg: ArchConfig) -> SplitTask:
+    """Cut a decoder-only arch after ``cfg.cut_layers`` blocks.
+
+    θ_C = embedding + blocks[:cut] (the smashed data is the block-`cut`
+    activation); θ_S = blocks[cut:] + final norm + head.  Labels are the
+    next-token ids; the server also owns the MoE aux losses.  Each side
+    draws the whole model from its own generator and keeps its half, as
+    the JAX package does with keys.
+    """
+    cut = cfg.cut_layers
+
+    def init_client(gen):
+        p = Transformer.init(gen, cfg)
+        return {"embed": p["embed"], "blocks": tree_slice(p["blocks"], 0, cut)}
+
+    def init_server(gen):
+        p = Transformer.init(gen, cfg)
+        out = {"blocks": tree_slice(p["blocks"], cut, None),
+               "final_norm": p["final_norm"]}
+        if not cfg.tie_embeddings:
+            out["lm_head"] = p["lm_head"]
+        else:
+            out["embed"] = p["embed"]    # unembedding copy server-side
+        return out
+
+    def client_forward(cp, batch):
+        tokens = batch["tokens"] if isinstance(batch, dict) else batch
+        patch = batch.get("patch_embeds") if isinstance(batch, dict) else None
+        B, S = tokens.shape
+        x = Transformer.embed_inputs(cp, cfg, tokens, patch)
+        x, _ = Transformer.stack_forward(cp, cfg, x,
+                                         positions_for(B, S, tokens.device),
+                                         first_block=0, n_blocks=cut)
+        return x
+
+    def server_apply(sp, features):
+        """Final hidden states + MoE aux; the loss computes the
+        cross-entropy chunked from hidden, so the [S, vocab] logits are
+        never materialized at once."""
+        B, S = features.shape[:2]
+        x, metrics = Transformer.stack_forward(
+            sp, cfg, features, positions_for(B, S, features.device),
+            first_block=cut, n_blocks=cfg.n_layers - cut)
+        return {"hidden": x, "aux": metrics, "params": sp}
+
+    def loss(outputs, labels):
+        nll, _ = Transformer.chunked_lm_loss(
+            outputs["params"], cfg, outputs["hidden"], labels)
+        if cfg.moe is not None:
+            nll = (nll + cfg.moe.aux_weight * outputs["aux"]["aux_loss"]
+                   + cfg.moe.router_z_weight * outputs["aux"]["z_loss"])
+        return nll
+
+    def metrics(outputs, labels):
+        _, acc = Transformer.chunked_lm_loss(
+            outputs["params"], cfg, outputs["hidden"], labels)
+        return {"accuracy": acc}
+
+    return SplitTask(f"{cfg.name}@cut{cut}", init_client, init_server,
+                     client_forward, server_apply, loss, metrics)

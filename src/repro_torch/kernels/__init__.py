@@ -11,4 +11,6 @@ Kernels:
   feature_resample — CycleSL resampling gather (one block per row)
   fused_adam       — one-pass Adam step with a device step counter
   gather_loss      — fused gather + linear-head cross-entropy
+  flash_attention  — full-sequence attention, online softmax (forward)
+  topk_gating      — MoE router softmax + top-k + renormalization
 """

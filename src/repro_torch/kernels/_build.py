@@ -22,7 +22,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("feature_resample", "fused_adam", "gather_loss")
+SOURCES = ("feature_resample", "fused_adam", "gather_loss", "flash_attention",
+           "topk_gating")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

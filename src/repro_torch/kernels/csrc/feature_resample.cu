@@ -10,15 +10,27 @@
 // rows of 12,544 bytes) that is about 0.12 us, far below a launch, so in
 // practice the call is bound by launch latency.
 //
-// Design: one block per output row.  The block reads its own index (the
-// TPU prefetched it into scalar memory), then copies the row with the
-// widest vector that the row length and both base pointers allow (16, 8,
-// 4, 2 or 1 bytes), so the kernel is agnostic to the element type.  A
-// row index outside [0, T) yields a zero row instead of a wild read.
+// The transformer round gathers the other extreme: 2 rows of 8 MB (the
+// pooled [C * b, S, d] bf16 activations, server batch 2), whose 33.5 MB
+// take about 10 us at the HBM rate.
+//
+// Design: blockIdx.x is the output row, blockIdx.y a chunk of it of at
+// most CHUNK_VECS vectors, so a few long rows still spread over every SM
+// (as one block each, 2 rows would keep 2 of 132 SMs busy) while a short
+// row stays one block.  Each block reads its row
+// index (the TPU prefetched it into scalar memory), then copies its chunk
+// with the widest vector that the row length and both base pointers allow
+// (16, 8, 4, 2 or 1 bytes), so the kernel is agnostic to the element
+// type.  A row index outside [0, T) yields a zero row instead of a wild
+// read.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int THREADS = 256;
+constexpr int64_t CHUNK_VECS = 4 * THREADS;   // vectors a block copies
+constexpr int64_t MAX_CHUNKS = 65535;         // gridDim.y limit
 
 template <typename V>
 __global__ void gather_rows_kernel(const V* __restrict__ src,
@@ -27,13 +39,15 @@ __global__ void gather_rows_kernel(const V* __restrict__ src,
                                    int64_t row_vecs) {
   const int64_t i = blockIdx.x;
   const int32_t r = idx[i];
+  const bool valid = r >= 0 && r < T;
+  const V* s = src + (valid ? static_cast<int64_t>(r) * row_vecs : 0);
   V* dst = out + i * row_vecs;
-  if (r < 0 || r >= T) {
-    for (int64_t j = threadIdx.x; j < row_vecs; j += blockDim.x) dst[j] = V{};
-    return;
+  for (int64_t lo = blockIdx.y * CHUNK_VECS; lo < row_vecs;
+       lo += static_cast<int64_t>(gridDim.y) * CHUNK_VECS) {
+    const int64_t hi = lo + CHUNK_VECS < row_vecs ? lo + CHUNK_VECS : row_vecs;
+    for (int64_t j = lo + threadIdx.x; j < hi; j += blockDim.x)
+      dst[j] = valid ? s[j] : V{};
   }
-  const V* s = src + static_cast<int64_t>(r) * row_vecs;
-  for (int64_t j = threadIdx.x; j < row_vecs; j += blockDim.x) dst[j] = s[j];
 }
 
 template <typename V>
@@ -41,8 +55,11 @@ void launch(const void* src, const int32_t* idx, void* out, int64_t T,
             int64_t M, int64_t row_bytes, cudaStream_t stream) {
   const int64_t row_vecs = row_bytes / static_cast<int64_t>(sizeof(V));
   int threads = 32;
-  while (threads < 256 && threads < row_vecs) threads *= 2;
-  gather_rows_kernel<V><<<static_cast<unsigned>(M), threads, 0, stream>>>(
+  while (threads < THREADS && threads < row_vecs) threads *= 2;
+  int64_t chunks = (row_vecs + CHUNK_VECS - 1) / CHUNK_VECS;
+  if (chunks > MAX_CHUNKS) chunks = MAX_CHUNKS;
+  const dim3 grid(static_cast<unsigned>(M), static_cast<unsigned>(chunks));
+  gather_rows_kernel<V><<<grid, threads, 0, stream>>>(
       static_cast<const V*>(src), idx, static_cast<V*>(out), T, row_vecs);
 }
 

@@ -1,1 +1,1 @@
-"""Launch layer: the training CLI."""
+"""Launch layer: the training CLI and the step builders."""

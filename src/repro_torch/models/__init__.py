@@ -1,2 +1,3 @@
-"""Model substrate: stage-list models over param dicts (NHWC at stage
-boundaries, as in the JAX package)."""
+"""Model substrate over param dicts: the stage-list CNN zoo (NHWC at
+stage boundaries) and the decoder-only transformer (dense, MoE), in the
+JAX package's layouts."""

@@ -61,3 +61,8 @@ def tree_unflatten_like(tree: Any, leaves: list) -> Any:
     if next(it, None) is not None:
         raise ValueError("more leaves than the tree has slots")
     return out
+
+
+def tree_slice(tree: Any, start: int, stop: int | None = None) -> Any:
+    """Slice every leaf's leading dim: used to split stacked layer params."""
+    return tree_map(lambda x: x[start:stop], tree)

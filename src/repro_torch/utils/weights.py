@@ -1,7 +1,9 @@
 """Carry weights and training state between the JAX package and the port.
 
 The JAX package's trees hold numpy-convertible arrays (for example after
-``jax.device_get``) in nested lists, tuples, dicts and NamedTuples.  The
+``jax.device_get``) in nested lists, tuples, dicts and NamedTuples: the
+CNN zoo's stage lists, a ``Transformer`` parameter dict with its stacked
+[L, ...] blocks, and the ``EntityState``/``TrainState`` around them.  The
 port keeps the same layout, so carrying is a leafwise conversion; the
 NamedTuples ``TrainState`` and ``EntityState`` are matched by field
 name, so nothing of the JAX package is imported here.
@@ -38,7 +40,11 @@ def to_numpy(tree: Any) -> Any:
     return tree_map(one, tree)
 
 
-def _entity(e, device) -> EntityState | None:
+def entity_from_reference(e, device="cpu") -> EntityState | None:
+    """A JAX-package ``EntityState`` (one entity or a [C]-stacked
+    cohort; numpy or JAX leaves, bfloat16 included) -> the port's: the
+    params tree leaf for leaf (a ``Transformer`` split half keeps its
+    stacked [L, ...] blocks), Adam's ``{"m", "v"}`` and the int32 step."""
     if e is None:
         return None
     return EntityState(to_torch(e.params, device),
@@ -49,6 +55,6 @@ def _entity(e, device) -> EntityState | None:
 def train_state_from_reference(state: Any, device="cpu") -> TrainState:
     """A JAX-package ``TrainState`` (numpy or JAX leaves) -> the port's,
     with its Adam moments ``{"m", "v"}`` and int32 step counters."""
-    return TrainState(_entity(state.server, device),
-                      _entity(state.clients, device),
-                      _entity(state.client_global, device))
+    return TrainState(entity_from_reference(state.server, device),
+                      entity_from_reference(state.clients, device),
+                      entity_from_reference(state.client_global, device))

@@ -38,7 +38,14 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert out["bad"] == []
     for mod in ("repro_torch.api.engine", "repro_torch.core.cyclesl",
                 "repro_torch.kernels.gather_loss", "repro_torch.launch.train",
-                "repro_torch.utils.weights"):
+                "repro_torch.utils.weights", "repro_torch.configs.registry",
+                "repro_torch.configs.olmoe_1b_7b",
+                "repro_torch.configs.gemma2_2b",
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.kernels.topk_gating",
+                "repro_torch.models.attention", "repro_torch.models.moe",
+                "repro_torch.models.transformer", "repro_torch.core.split",
+                "repro_torch.launch.inputs", "repro_torch.launch.steps"):
         assert mod in out["modules"]
 
 

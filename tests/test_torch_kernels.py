@@ -16,12 +16,16 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.feature_resample import feature_resample as j_feature_resample
+from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.fused_adam import fused_adam as j_fused_adam
 from repro.kernels.gather_loss import gather_loss_microbatch as j_gather_loss
+from repro.kernels.topk_gating import topk_gating as j_topk
 from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.feature_resample import feature_resample
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_adam import fused_adam
 from repro_torch.kernels.gather_loss import gather_loss_microbatch
+from repro_torch.kernels.topk_gating import topk_gating
 
 RNG = np.random.default_rng(7)
 
@@ -317,7 +321,8 @@ def test_every_kernel_has_a_source_and_a_plain_version():
         assert f'extern "C" int {name}_launch(' in src
         assert "Replaces: src/repro/kernels/" in src
     assert {"feature_resample_ref", "gather_loss_microbatch_ref",
-            "fused_adam_ref"} <= set(dir(ref))
+            "fused_adam_ref", "flash_attention_ref",
+            "topk_gating_ref"} <= set(dir(ref))
 
 
 @pytest.mark.parametrize("momentum", [0.0, 0.9])
@@ -334,3 +339,137 @@ def test_sgd_matches_reference_optimizer(momentum):
         tu, ts = t_opt.update({"w": torch.from_numpy(g)}, ts)
     np.testing.assert_allclose(tu["w"].numpy(), np.asarray(ju["w"]),
                                atol=1e-7)
+
+
+# ------------------------------------------------------- flash attention
+# The port's wrapper on CPU tensors runs the plain version (sdpa, as the
+# JAX package's attend_full).  Tolerances of tests/test_kernels.py:
+# 2e-5 in float32 (both sides float32 math, sums in another order), 2e-2
+# in bfloat16 (the output rounds to 8 bits of mantissa).
+FA_CASES = [
+    # B, Sq, Sk, H, Hkv, D, causal, window, softcap (tests/test_kernels.py)
+    (1, 128, 128, 4, 4, 64, True, None, None),
+    (2, 128, 128, 4, 2, 64, True, None, None),       # GQA
+    (1, 256, 256, 8, 1, 32, True, None, None),       # MQA
+    (2, 128, 128, 4, 4, 64, True, 32, None),         # sliding window
+    (1, 128, 128, 4, 2, 64, True, None, 50.0),       # softcap (gemma2)
+    (1, 64, 64, 2, 2, 128, False, None, None),       # bidirectional
+    (1, 192, 192, 4, 4, 64, True, 64, 30.0),         # window+cap
+    # Sq != Sk: causal by index, top-left aligned
+    (1, 64, 128, 4, 2, 64, True, None, None),
+    (2, 128, 64, 2, 1, 64, False, None, 30.0),
+]
+
+
+def _qkv(case, dtype):
+    B, Sq, Sk, H, Hkv, D = case[:6]
+    return (_pair(RNG.normal(size=(B, Sq, H, D)), dtype),
+            _pair(RNG.normal(size=(B, Sk, Hkv, D)), dtype),
+            _pair(RNG.normal(size=(B, Sk, Hkv, D)), dtype))
+
+
+@pytest.mark.parametrize("case", FA_CASES, ids=[str(c) for c in FA_CASES])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_matches_reference_kernel_and_oracle(case, dtype):
+    causal, window, cap = case[6:]
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(case, dtype)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out = flash_attention(qt, kt, vt, **kw)
+    assert out.dtype == qt.dtype and out.shape == qt.shape
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    for want in (j_flash(qj, kj, vj, block_q=64, block_k=64, interpret=True,
+                         **kw),
+                 jref.flash_attention_ref(qj, kj, vj, **kw)):
+        np.testing.assert_allclose(_np(out), _np(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", [FA_CASES[1], FA_CASES[6], FA_CASES[8]],
+                         ids=["gqa", "window-cap", "bidir-sq>sk"])
+@pytest.mark.parametrize("chunked", [False, True], ids=["whole", "qchunks"])
+def test_flash_attention_grads_match_jax_grad_of_sdpa(case, chunked,
+                                                      monkeypatch):
+    """The autograd.Function's input gradients (a plain recompute, one
+    query chunk at a time above the threshold) against jax.grad of the
+    reference's einsum ``sdpa``; atol 1e-5 (float32 sums in another
+    order)."""
+    from repro.models.attention import _mask_bias, sdpa as j_sdpa
+    if chunked:
+        monkeypatch.setattr(ref, "QCHUNK_THRESHOLD", 32)
+        monkeypatch.setattr(ref, "QCHUNK", 48)
+    causal, window, cap = case[6:]
+    (qj, qt), (kj, kt), (vj, vt) = _qkv(case, "float32")
+    ct = RNG.normal(size=qt.shape).astype(np.float32)
+    Sq, Sk = qt.shape[1], kt.shape[1]
+    bias = _mask_bias(jnp.arange(Sq)[None], jnp.arange(Sk)[None], window,
+                      causal)
+
+    def j_loss(q, k, v):
+        return jnp.sum(j_sdpa(q, k, v, bias, cap) * ct)
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(qj, kj, vj)
+    leaves = [t.clone().requires_grad_(True) for t in (qt, kt, vt)]
+    out = ops.flash_attention(*leaves, causal=causal, window=window,
+                              softcap=cap)
+    got = torch.autograd.grad((out * torch.from_numpy(ct)).sum(), leaves)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+
+
+def test_flash_attention_wrapper_contract():
+    q = torch.zeros(1, 8, 4, 64)
+    with pytest.raises(ValueError):
+        flash_attention(q, torch.zeros(1, 8, 3, 64), torch.zeros(1, 8, 3, 64))
+    with pytest.raises(TypeError):
+        flash_attention(q, q.double(), q.double())
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q, window=0)
+    meta = torch.empty(1, 8, 4, 64, device="meta")
+    with pytest.raises(ValueError):
+        flash_attention(meta, meta, meta)
+
+
+# ----------------------------------------------------------- topk gating
+# ids exactly equal (a tie goes to the lower index on both sides), weights
+# atol 1e-6 as tests/test_kernels.py holds the Pallas kernel to its oracle
+@pytest.mark.parametrize("T,E,k,bt", [(256, 8, 2, 64), (512, 64, 8, 128),
+                                      (128, 4, 4, 128), (1024, 16, 1, 256)])
+@pytest.mark.parametrize("ties", [False, True], ids=["distinct", "tied"])
+def test_topk_gating_matches_reference_kernel_and_oracle(T, E, k, bt, ties):
+    x = (RNG.integers(-2, 3, size=(T, E)) if ties
+         else RNG.normal(size=(T, E))).astype(np.float32)
+    w, ids = topk_gating(torch.from_numpy(x), k)
+    assert w.dtype == torch.float32 and ids.dtype == torch.int32
+    for wj, ij in (j_topk(jnp.asarray(x), k, block_t=min(bt, T),
+                          interpret=True),
+                   jref.topk_gating_ref(jnp.asarray(x), k)):
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(ij))
+        np.testing.assert_allclose(w.numpy(), np.asarray(wj), atol=1e-6)
+
+
+@pytest.mark.parametrize("T,E,k", [(37, 8, 2), (64, 16, 4)])
+def test_topk_gating_weight_grad_matches_jax_grad_of_top_k(T, E, k):
+    """The Function's logits gradient against jax.grad through
+    ``lax.top_k`` and the renormalization (the reference's moe.py);
+    atol 1e-7."""
+    x = RNG.normal(size=(T, E)).astype(np.float32)
+    ct = RNG.normal(size=(T, k)).astype(np.float32)
+
+    def j_loss(logits):
+        w, _ = jref.topk_gating_ref(logits, k)
+        return jnp.sum(w * ct)
+
+    want = jax.grad(j_loss)(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    w, ids = ops.topk_gating(xt, k)
+    assert not ids.requires_grad
+    (got,) = torch.autograd.grad((w * torch.from_numpy(ct)).sum(), xt)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-7)
+
+
+def test_topk_gating_wrapper_contract():
+    with pytest.raises(ValueError):
+        topk_gating(torch.zeros(4, 8), 9)
+    with pytest.raises(ValueError):
+        topk_gating(torch.zeros(4, 8, 2), 2)
+    with pytest.raises(ValueError):
+        topk_gating(torch.empty(4, 8, device="meta"), 2)
