@@ -12,9 +12,9 @@ Phases, each of which ends the script with a non-zero exit on failure:
 2. build: every CUDA source under src/repro_torch/kernels/csrc, compiled
    with nvcc from this checkout (one process per source, in parallel);
 3. kernel checks: each kernel against its plain PyTorch version on the
-   card, at the shapes the main path and the olmoe round give it and at
-   edge cases, with its time, its bound and a one-call PyTorch
-   yardstick where one exists;
+   card, at the shapes the main path, the olmoe and zamba2 rounds and
+   the mamba2 prefill give it and at edge cases, with its time, its
+   bound and a one-call PyTorch yardstick where one exists;
 4. main path: ``Engine.run()`` of cyclesfl on femnist_cnn at the paper's
    width 32 (cut 2), with the kernels' launch counters reset before and
    read after;
@@ -29,8 +29,14 @@ Phases, each of which ends the script with a non-zero exit on failure:
    read after;
 8. prefill: ``build_prefill_step`` at the same config, batch 2,
    sequence 2048;
-9. card against CPU for the transformer round: olmoe-1b-7b and
-   gemma2-2b at smoke size, float32, TF32 off, 2 rounds.
+9. card against CPU for the transformer round: olmoe-1b-7b, gemma2-2b,
+   mamba2-2.7b and zamba2-1.2b at smoke size, float32, TF32 off, 2
+   rounds;
+10. hybrid round: the same as 7 for zamba2-1.2b whole (38 mamba2
+    blocks cut after 4 as published, the shared attention block after
+    blocks 12 and 25 on the server), bf16, 3 rounds;
+11. SSM prefills: ``build_prefill_step`` for zamba2-1.2b and for
+    mamba2-2.7b at its full 64 blocks, batch 2, sequence 2048.
 
 It then prints the ``kernels`` JSON line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -54,9 +60,16 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 MAIN = dict(n_clients=100, attendance=0.05, batch=16, width=32)
-# the transformer round: olmoe-1b-7b at full width, 16 layers cut to 4
-OLMOE_DEPTH, OLMOE_COHORT, OLMOE_BATCH, OLMOE_SEQ = 4, 2, 2, 2048
-OLMOE_ROUNDS = 3
+# the transformer rounds: cohort 2, batch 2 a client, sequence 2048, 3
+# rounds; olmoe-1b-7b at full width with its 16 layers cut to 4, and
+# zamba2-1.2b whole
+COHORT, BATCH, SEQ, ROUNDS = 2, 2, 2048, 3
+OLMOE_DEPTH = 4
+# ssd_scan in float32 is held to this share of max|plain| (the f32 sums
+# of the kernel's 64-row tiles and the plain version's chunks differ by
+# about 1e-6 of it); a dropped diagonal term or a missing carry moves
+# the output by far more, which the checks print and assert
+SSD_F32_REL = 1e-4
 CHECKS = []           # every kernel check of phase 3, for the report
 
 
@@ -170,7 +183,7 @@ def kernel_checks(torch, dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = {}
     olmoe = get_config("olmoe-1b-7b")
-    pool = OLMOE_COHORT * OLMOE_BATCH       # rows of the round's feature pool
+    pool = COHORT * BATCH       # rows of the round's feature pool
 
     # ---- feature_resample: the pooled features and labels of one step
     def resample(name, src, m):
@@ -197,11 +210,11 @@ def kernel_checks(torch, dev):
     # the olmoe round's server step: the pooled bf16 block-cut activations
     # [C * b, S, d] and int32 next-token labels [C * b, S], server batch b
     resample("feature_resample", torch.randn(
-        pool, OLMOE_SEQ, olmoe.d_model, device=dev, generator=gen
-    ).bfloat16(), OLMOE_BATCH)
+        pool, SEQ, olmoe.d_model, device=dev, generator=gen
+    ).bfloat16(), BATCH)
     resample("feature_resample", torch.randint(
-        0, olmoe.vocab, (pool, OLMOE_SEQ), device=dev, generator=gen,
-        dtype=torch.int32), OLMOE_BATCH)
+        0, olmoe.vocab, (pool, SEQ), device=dev, generator=gen,
+        dtype=torch.int32), BATCH)
     # rows too short or misaligned for wide vectors: the 2- and 1-byte paths
     resample("feature_resample", torch.randn(38, 13, device=dev,
                                              generator=gen).bfloat16()[1:], 16)
@@ -247,9 +260,9 @@ def kernel_checks(torch, dev):
     # moments and a step per slot; the embedding, and the gate projections
     # of the client's experts (2^29 elements, 2^31 bytes a moment)
     mo = olmoe.moe
-    adam((OLMOE_COHORT, olmoe.vocab_padded, olmoe.d_model), [0, 3],
+    adam((COHORT, olmoe.vocab_padded, olmoe.d_model), [0, 3],
          dtype=torch.bfloat16)
-    adam((OLMOE_COHORT, olmoe.cut_layers, mo.n_experts, olmoe.d_model,
+    adam((COHORT, olmoe.cut_layers, mo.n_experts, olmoe.d_model,
           mo.d_ff_expert), [2, 0], dtype=torch.bfloat16)
 
     # ---- gather_loss: the cut-3 head over the pooled dense features
@@ -319,6 +332,11 @@ def kernel_checks(torch, dev):
         attention(1, 200, 200, 4, 2, 64, dtype)
         attention(2, 100, 300, 4, 2, 128, dtype)
     attention(1, 256, 256, 4, 4, 128, torch.float32, causal=False)
+    # zamba2-1.2b's shared attention block: 32 heads of 64, causal
+    zamba = get_config("zamba2-1.2b")
+    for dtype in (torch.bfloat16, torch.float32):
+        attention(BATCH, SEQ, SEQ, zamba.n_heads, zamba.n_kv_heads, zamba.hd,
+                  dtype, main=True)
 
     # ---- topk_gating: the olmoe router's group, a small router, ties
     def gating(T, E, k, ties=False):
@@ -342,15 +360,124 @@ def kernel_checks(torch, dev):
     rows["topk_gating"] = gating(4096, 64, 8)
     gating(4096, 8, 2)
     gating(4096, 64, 8, ties=True)
+
+    rows["ssd_scan"] = ssd_checks(torch, dev, gen)
     return rows
+
+
+def ssd_checks(torch, dev, gen):
+    """``ssd_scan`` against its plain chunked version, with inputs drawn
+    as the model makes them (x, B, C ~ N(0, 1), dt = softplus(N(0, 1)),
+    A = -linspace(1, 16, H)): at zamba2-1.2b's and mamba2-2.7b's shapes
+    (batch 2, sequence 2048, their chunk 256, G = 1; x, B and C as the
+    column slices of one conv output that the model passes), in bf16 and
+    float32; with B and C per head (G = H, the TPU kernel's contract); a
+    single chunk; chunk 64; a slow decay (A = -1e-3), where the state
+    grows over 2048 steps; and a ragged shape (L, P and N not multiples
+    of the kernel's tiles).  float32 outputs are held to SSD_F32_REL of
+    max|plain|, after printing what a dropped diagonal term and a
+    missing inter-chunk carry move the output by at the main shape;
+    bf16 outputs to one bf16 ulp (the float32 sums differ in the last
+    bits and flip a rounding now and then)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+
+    def inputs(B, L, H, P, N, G, dtype, A, sliced):
+        if sliced:          # column slices of one [B, L, conv_ch] tensor
+            flat = torch.randn(B, L, H * P + 2 * G * N, device=dev,
+                               generator=gen).to(dtype)
+            x, bm, cm = torch.split(flat, [H * P, G * N, G * N], dim=-1)
+            x = x.reshape(B, L, H, P)
+            bm, cm = bm.reshape(B, L, G, N), cm.reshape(B, L, G, N)
+        else:
+            x = torch.randn(B, L, H, P, device=dev, generator=gen).to(dtype)
+            bm = torch.randn(B, L, G, N, device=dev, generator=gen).to(dtype)
+            cm = torch.randn(B, L, G, N, device=dev, generator=gen).to(dtype)
+        dt = F.softplus(torch.randn(B, L, H, device=dev, generator=gen))
+        if A is None:
+            A = -torch.linspace(1.0, 16.0, H, device=dev)
+        return x, dt, A.to(device=dev, dtype=torch.float32), bm, cm
+
+    def sensitivity(x, dt, A, bm, cm, chunk, want, scale):
+        """What dropping the diagonal term (C_i . B_i) dt_i x_i, or the
+        state carried into each chunk, moves the output by."""
+        rep = x.shape[2] // bm.shape[2]
+        cb = torch.einsum("blgn,blgn->blg", cm.float(), bm.float())
+        diag = (cb.repeat_interleave(rep, dim=2) * dt)[..., None] * x.float()
+        h0 = torch.zeros((x.shape[0], x.shape[2], bm.shape[3], x.shape[3]),
+                         device=dev)
+        fresh = torch.cat([ref.ssd_chunk(h0, x[:, lo:lo + chunk],
+                                         dt[:, lo:lo + chunk], A,
+                                         bm[:, lo:lo + chunk],
+                                         cm[:, lo:lo + chunk])[0]
+                           for lo in range(0, x.shape[1], chunk)], dim=1)
+        return (float(diag.abs().max()) / scale,
+                float((fresh - want.float()).abs().max()) / scale)
+
+    def scan(label, B, L, H, P, N, G, dtype, chunk, A=None, sliced=False,
+             main=False):
+        x, dt, A, bm, cm = inputs(B, L, H, P, N, G, dtype, A, sliced)
+        want = ref.ssd_chunked(x, dt, A, bm, cm, chunk)
+        scale = max(float(w.float().abs().max()) for w in want)
+        if main:
+            drop_diag, no_carry = sensitivity(x, dt, A, bm, cm, chunk,
+                                              want[0], scale)
+            print(f"ssd_scan {label}: a dropped diagonal term moves y by "
+                  f"{drop_diag:.3e} of max|y|, a missing carry by "
+                  f"{no_carry:.3e}; the f32 tolerance is {SSD_F32_REL:.0e}")
+            if not SSD_F32_REL <= 0.1 * min(drop_diag, no_carry):
+                raise AssertionError("ssd_scan: the f32 tolerance would not "
+                                     "catch a dropped term or carry")
+        el = x.element_size()
+        # the function's least work, independent of the chunk: the
+        # recurrence's decay and dt B x^T update of h (3 N P a row and
+        # head) and y = C h (2 N P); a chunked form does more
+        flops = 5 * B * L * H * N * P
+        nbytes = (2 * x.numel() * el + (bm.numel() + cm.numel()) * el
+                  + 4 * (dt.numel() + A.numel() + B * H * N * P))
+        row = check("ssd_scan", f"{label} x[{B}, {L}, {H}, {P}] "
+                    f"B/C[{B}, {L}, {G}, {N}] {str(dtype)[6:]} chunk {chunk}"
+                    + (" sliced" if sliced else ""),
+                    lambda: ssd_scan(x, dt, A, bm, cm, chunk=chunk),
+                    lambda: ref.ssd_chunked(x, dt, A, bm, cm, chunk),
+                    SSD_F32_REL * scale, nbytes, flops, dtype=dtype,
+                    ulps=1 if dtype == torch.bfloat16 else None)
+        row["max_rel_err"] = row["max_abs_err"] / scale
+        print(f"ssd_scan {label}: max|y, h| {scale:.4g}, error "
+              f"{row['max_rel_err']:.3e} of it")
+        return row
+
+    def dims(arch):
+        """(B, L, H, P, N, G) of the model's scan, and its chunk."""
+        c = get_config(arch)
+        s = c.ssm
+        H = s.expand * c.d_model // s.head_dim
+        return (BATCH, SEQ, H, s.head_dim, s.d_state, s.n_groups), s.chunk
+
+    (zb, chunk), (mb, _) = dims("zamba2-1.2b"), dims("mamba2-2.7b")
+    B, L, H, P, N, _ = zb
+    main = scan("zamba2", *zb, torch.bfloat16, chunk, sliced=True)
+    scan("zamba2", *zb, torch.float32, chunk, sliced=True, main=True)
+    scan("mamba2", *mb, torch.bfloat16, chunk, sliced=True)
+    scan("mamba2", *mb, torch.float32, chunk, sliced=True)
+    scan("per-head B/C (G = H)", B, L, H, P, N, H, torch.float32, chunk)
+    scan("one chunk", B, chunk, H, P, N, 1, torch.float32, chunk)
+    scan("chunk 64", B, L, H, P, N, 1, torch.float32, 64)
+    scan("slow decay A = -1e-3", B, L, H, P, N, 1, torch.float32, chunk,
+         A=torch.full((H,), -1e-3))
+    scan("ragged", 1, 96, 3, 48, 20, 1, torch.float32, 32)
+    return main
 
 
 def counters():
     from repro_torch.kernels import (feature_resample, flash_attention,
-                                     fused_adam, gather_loss, topk_gating)
+                                     fused_adam, gather_loss, ssd_scan,
+                                     topk_gating)
     return {"feature_resample": feature_resample, "fused_adam": fused_adam,
             "gather_loss": gather_loss, "flash_attention": flash_attention,
-            "topk_gating": topk_gating}
+            "topk_gating": topk_gating, "ssd_scan": ssd_scan}
 
 
 def reset_counters():
@@ -502,30 +629,51 @@ def card_against_cpu(torch):
     return out
 
 
-def olmoe_round(torch, rounds=OLMOE_ROUNDS, profile=False):
-    """The transformer path: ``build_train_step`` for olmoe-1b-7b at full
-    width, depth 4 (cut 2), cohort 2, batch 2 a client, sequence 2048,
-    bf16; random init on the card, tokens from a numpy seed.
+def block_launches(cfg, lo, hi):
+    """Kernel launches of one forward through blocks [lo, hi): an
+    attention block launches flash_attention once (and topk_gating once
+    when it is MoE), a mamba2 block ssd_scan once, and the hybrid
+    family's shared attention block flash_attention once after each of
+    its positions inside the range.  Nothing is checkpointed, so no
+    forward runs twice, and the backwards recompute plain versions,
+    which launch nothing."""
+    from repro_torch.models.transformer import block_kind
+    kind, n = block_kind(cfg), hi - lo
+    if kind in ("mamba", "hybrid"):
+        shared = cfg.ssm.shared_attn_positions if kind == "hybrid" else ()
+        return {"ssd_scan": n, "topk_gating": 0,
+                "flash_attention": sum(lo <= p < hi for p in shared)}
+    return {"ssd_scan": 0, "flash_attention": n,
+            "topk_gating": n if kind == "moe" else 0}
 
-    Expected launches per round (no checkpointing, so no recompute; the
-    attention and router backwards are plain torch and launch nothing):
-    every block forward launches flash_attention once and topk_gating
-    once (a client's or a server step's 2 x 2048 tokens are one dispatch
-    group), and blocks run cut * C times in the extract, (L - cut) *
-    steps in the server steps, (L - cut) * C in the feature gradients
-    and cut * C in the client VJPs, with steps = C * b / server batch;
-    feature_resample gathers features and labels once a server step;
-    fused_adam steps every server leaf once a server step and every
-    stacked client leaf once."""
-    from repro_torch.configs import InputShape, get_config
+
+def split_round(torch, label, cfg, rounds=ROUNDS, profile=False):
+    """A transformer path: ``build_train_step`` for ``cfg`` (its
+    published cut), cohort 2, batch 2 a client, sequence 2048; random
+    init on the card, tokens from a numpy seed; ``rounds`` CycleSL
+    rounds with the launch counters reset before and read after.
+
+    Expected launches per round: the client blocks [0, cut) run C times
+    in the extract and C times in the client VJPs, the server blocks
+    [cut, L) once in each of the steps = C * b / server batch server
+    steps and C times in the feature gradients, each forward launching
+    ``block_launches``; feature_resample gathers features and labels
+    once a server step; fused_adam steps every server leaf once a server
+    step and every stacked client leaf once; gather_loss never runs (no
+    linear server head).  olmoe-1b-7b at depth 4, cut 2: 16 block
+    forwards a round, each one flash_attention and one topk_gating
+    launch.  zamba2-1.2b, 38 blocks cut after 4: 8 + 68 + 68 + 8 = 152
+    ssd_scan launches a round, and flash_attention 2 * (steps + C) = 8
+    (the shared block after blocks 12 and 25, both on the server)."""
+    from repro_torch.configs import InputShape
     from repro_torch.core.cyclesl import CycleConfig
     from repro_torch.launch.steps import build_train_step
     from repro_torch.utils.tree import tree_leaves
-    cfg = get_config("olmoe-1b-7b").with_(n_layers=OLMOE_DEPTH)
-    L, cut, C, b = cfg.n_layers, cfg.cut_layers, OLMOE_COHORT, OLMOE_BATCH
-    shape = InputShape("olmoe_round", OLMOE_SEQ, C * b, "train")
+    L, cut, C, b = cfg.n_layers, cfg.cut_layers, COHORT, BATCH
+    shape = InputShape(label, SEQ, C * b, "train")
     cycle = CycleConfig(server_epochs=1, server_batch=b)
     bundle = build_train_step(cfg, shape, cycle, cohort=C, device="cuda")
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     server, clients = bundle.init_state(0)
@@ -536,71 +684,68 @@ def olmoe_round(torch, rounds=OLMOE_ROUNDS, profile=False):
     n_server = sum(t.numel() for t in tree_leaves(server.params))
     n_client = sum(t.numel() for t in tree_leaves(clients.params)) // C
     steps = cycle.server_epochs * (C * b // cycle.server_batch)
-    blocks = cut * C + (L - cut) * steps + (L - cut) * C + cut * C
-    expect = {"flash_attention": blocks * rounds,
-              "topk_gating": blocks * rounds,
-              "feature_resample": 2 * steps * rounds,
-              "fused_adam": (len(tree_leaves(server.params)) * steps
-                             + len(tree_leaves(clients.params))) * rounds,
-              "gather_loss": 0}
+    client, srv = block_launches(cfg, 0, cut), block_launches(cfg, cut, L)
+    per_round = {k: 2 * C * client[k] + (steps + C) * srv[k] for k in client}
+    expect = {k: n * rounds for k, n in per_round.items()}
+    expect.update(feature_resample=2 * steps * rounds, gather_loss=0,
+                  fused_adam=(len(tree_leaves(server.params)) * steps
+                              + len(tree_leaves(clients.params))) * rounds)
     batches = [bundle.make_batch(r) for r in range(rounds)]
     torch.cuda.synchronize()
     reset_counters()
-    stamps, per_round = [time.perf_counter()], []
+    stamps, metrics = [time.perf_counter()], []
     for r in range(rounds):
         xs, ys = batches[r]
         server, clients, m = bundle.fn(server, clients, xs, ys, r)
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
-        per_round.append({k: float(v) for k, v in m.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
     launches = read_counters()
     peak = torch.cuda.max_memory_allocated()
-    steady = stamps[-1] - stamps[1]
-    rps = (rounds - 1) / steady
-    tokens = C * b * OLMOE_SEQ
-    print(f"olmoe round: {cfg.name} L={L} cut={cut} d={cfg.d_model} "
-          f"E={cfg.moe.n_experts} top{cfg.moe.top_k}, params {n_client:,} "
-          f"a client, {n_server:,} the server; C={C} b={b} S={OLMOE_SEQ} "
-          f"bf16; init {init_s:.2f}s; entity states {state_bytes / 1e9:.2f} "
-          f"GB")
-    for r, m in enumerate(per_round):
-        print(f"olmoe round {r + 1}: {stamps[r + 1] - stamps[r]:.3f}s "
+    rps = (rounds - 1) / (stamps[-1] - stamps[1])
+    tokens = C * b * SEQ
+    print(f"{label}: {cfg.name} L={L} cut={cut} d={cfg.d_model}, params "
+          f"{n_client:,} a client, {n_server:,} the server; C={C} b={b} "
+          f"S={SEQ} {cfg.dtype}; init {init_s:.2f}s; entity states "
+          f"{state_bytes / 1e9:.2f} GB")
+    for r, m in enumerate(metrics):
+        print(f"{label} {r + 1}: {stamps[r + 1] - stamps[r]:.3f}s "
               + " ".join(f"{k}={v:.6g}" for k, v in m.items()))
-    print(f"olmoe round: rounds 2..{rounds} at {rps:.3f} rounds/s, "
+    print(f"{label}: rounds 2..{rounds} at {rps:.3f} rounds/s, "
           f"{rps * tokens:.1f} tokens/s; peak memory {peak / 1e9:.2f} GB; "
-          f"launches {launches} (expected {expect}: {blocks} block forwards "
-          f"a round = cut*C {cut * C} + (L-cut)*steps {(L - cut) * steps} "
-          f"+ (L-cut)*C {(L - cut) * C} + cut*C {cut * C})")
-    vals = [v for m in per_round for v in m.values()]
+          f"launches {launches} (expected {expect}; a round: client blocks "
+          f"{client} x {2 * C}, server blocks {srv} x {steps + C})")
+    vals = [v for m in metrics for v in m.values()]
     if not all(math.isfinite(x) for x in vals):
-        raise AssertionError(f"olmoe round: non-finite metrics {per_round}")
+        raise AssertionError(f"{label}: non-finite metrics {metrics}")
     for k, n in expect.items():
         if launches[k] != n:
-            raise AssertionError(f"olmoe round: {k} launched {launches[k]} "
+            raise AssertionError(f"{label}: {k} launched {launches[k]} "
                                  f"times, expected {n}")
     prof = None
     if profile:                 # one more round, after the counted ones
-        prof = device_profile(torch, "olmoe round", lambda: bundle.fn(
+        prof = device_profile(torch, label, lambda: bundle.fn(
             server, clients, *batches[0], 0))
-    return {"profile": prof, "config": {"arch": cfg.name, "n_layers": L, "cut": cut,
-                       "cohort": C, "batch": b, "seq": OLMOE_SEQ,
-                       "server_steps": steps, "dtype": cfg.dtype},
+    return {"profile": prof, "config": {
+                "arch": cfg.name, "n_layers": L, "cut": cut, "cohort": C,
+                "batch": b, "seq": SEQ, "server_steps": steps,
+                "dtype": cfg.dtype},
             "params_client": n_client, "params_server": n_server,
             "state_bytes": state_bytes, "init_s": init_s,
             "round_s": [b - a for a, b in zip(stamps, stamps[1:])],
             "rounds_per_s": rps, "tokens_per_s": rps * tokens,
-            "peak_bytes": peak, "metrics": per_round, "launches": launches,
+            "peak_bytes": peak, "metrics": metrics, "launches": launches,
             "expected_launches": expect}
 
 
-def olmoe_prefill(torch):
-    """``build_prefill_step`` at the round's config: batch 2, sequence
-    2048; one flash_attention and one topk_gating launch a layer."""
-    from repro_torch.configs import InputShape, get_config
+def prefill(torch, label, cfg):
+    """``build_prefill_step`` for ``cfg``, batch 2, sequence 2048: one
+    forward through every block (``block_launches`` of [0, L))."""
+    from repro_torch.configs import InputShape
     from repro_torch.launch.steps import build_prefill_step
-    cfg = get_config("olmoe-1b-7b").with_(n_layers=OLMOE_DEPTH)
-    shape = InputShape("olmoe_prefill", OLMOE_SEQ, OLMOE_BATCH, "prefill")
+    shape = InputShape(label, SEQ, BATCH, "prefill")
     bundle = build_prefill_step(cfg, shape, device="cuda")
+    torch.cuda.empty_cache()
     (params,), (batch,) = bundle.init_state(0), bundle.make_batch(0)
     bundle.fn(params, batch)                       # warm
     torch.cuda.synchronize()
@@ -611,18 +756,17 @@ def olmoe_prefill(torch):
     ms = (time.perf_counter() - t0) * 1e3
     launches = read_counters()
     ok = bool(torch.isfinite(logits.float()).all())
-    print(f"prefill: {cfg.name} L={cfg.n_layers} B={OLMOE_BATCH} "
-          f"S={OLMOE_SEQ}: last-token logits {list(logits.shape)} "
-          f"{str(logits.dtype)[6:]} finite={ok} in {ms:.2f} ms "
-          f"({OLMOE_BATCH * OLMOE_SEQ / ms * 1e3:.0f} tokens/s); launches "
-          f"{launches}")
-    want = {"flash_attention": cfg.n_layers, "topk_gating": cfg.n_layers}
-    if not ok or tuple(logits.shape) != (OLMOE_BATCH, cfg.vocab):
-        raise AssertionError("prefill: logits not finite or of the wrong "
-                             "shape")
+    want = block_launches(cfg, 0, cfg.n_layers)
+    print(f"{label}: {cfg.name} L={cfg.n_layers} B={BATCH} S={SEQ}: "
+          f"last-token logits {list(logits.shape)} {str(logits.dtype)[6:]} "
+          f"finite={ok} in {ms:.2f} ms ({BATCH * SEQ / ms * 1e3:.0f} "
+          f"tokens/s); launches {launches} (expected {want})")
+    if not ok or tuple(logits.shape) != (BATCH, cfg.vocab):
+        raise AssertionError(f"{label}: logits not finite or of the wrong "
+                             f"shape")
     for k, n in want.items():
         if launches[k] != n:
-            raise AssertionError(f"prefill: {k} launched {launches[k]} "
+            raise AssertionError(f"{label}: {k} launched {launches[k]} "
                                  f"times, expected {n}")
     return {"ms": ms, "launches": launches, "shape": list(logits.shape)}
 
@@ -630,9 +774,12 @@ def olmoe_prefill(torch):
 def transformer_card_against_cpu(torch):
     """Two rounds of the transformer round on the CPU (plain versions)
     and on the card (kernels), float32 with TF32 off, from one init
-    drawn on the CPU and with one plan, for olmoe-1b-7b and gemma2-2b at
-    smoke size (gemma2 4 deep, so the server holds a local and a global
-    block).  Per-round metrics must agree to rtol 1e-4 (the feature-
+    drawn on the CPU and with one plan, for olmoe-1b-7b, gemma2-2b,
+    mamba2-2.7b and zamba2-1.2b at smoke size (gemma2 4 deep, so the
+    server holds a local and a global block; zamba2's shared attention
+    after block 1 on the server; the sequence of 64 is two of the SSM
+    configs' 32-row chunks, so the state carries).  Per-round metrics
+    must agree to rtol 1e-4 (the feature-
     gradient norms' std against their mean): float32 sums in another
     order move them by about 1e-6; one flipped router choice
     would move the loss by far more, and at these inputs the router's
@@ -652,7 +799,8 @@ def transformer_card_against_cpu(torch):
         return resample_plan(key, C * 2, epochs, sb), None
 
     out = {}
-    for arch, depth in (("olmoe-1b-7b", 2), ("gemma2-2b", 4)):
+    for arch, depth in (("olmoe-1b-7b", 2), ("gemma2-2b", 4),
+                        ("mamba2-2.7b", 2), ("zamba2-1.2b", 4)):
         cfg = smoke_config(arch).with_(n_layers=depth)
         init = build_train_step(cfg, shape, cohort=C, device="cpu"
                                 ).init_state(0)
@@ -703,7 +851,7 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="write the full report here")
     ap.add_argument("--profile", action="store_true",
                     help="also profile the main path, its fused variant "
-                         "and one olmoe round")
+                         "and one olmoe and one zamba2 round")
     args = ap.parse_args(argv)
 
     import torch
@@ -755,19 +903,30 @@ def main(argv=None):
     parity = card_against_cpu(torch)
 
     # 7-9. the transformer round, its prefill, card against CPU
-    olmoe = olmoe_round(torch, profile=args.profile)
-    prefill = olmoe_prefill(torch)
+    from repro_torch.configs import get_config
+    olmoe_cfg = get_config("olmoe-1b-7b").with_(n_layers=OLMOE_DEPTH)
+    olmoe = split_round(torch, "olmoe round", olmoe_cfg,
+                        profile=args.profile)
+    prefills = {"olmoe-1b-7b": prefill(torch, "olmoe prefill", olmoe_cfg)}
     parity.update(transformer_card_against_cpu(torch))
+
+    # 10-11. the hybrid round (zamba2-1.2b whole) and the SSM prefills
+    zamba = split_round(torch, "zamba2 round", get_config("zamba2-1.2b"),
+                        profile=args.profile)
+    for arch in ("zamba2-1.2b", "mamba2-2.7b"):
+        prefills[arch] = prefill(torch, f"{arch.split('-')[0]} prefill",
+                                 get_config(arch))
 
     sources = {"feature_resample": "src/repro/kernels/feature_resample.py:24",
                "fused_adam": "src/repro/kernels/fused_adam.py:44",
                "gather_loss": "src/repro/kernels/gather_loss.py:47",
                "flash_attention": "src/repro/kernels/flash_attention.py:70",
-               "topk_gating": "src/repro/kernels/topk_gating.py:38"}
+               "topk_gating": "src/repro/kernels/topk_gating.py:38",
+               "ssd_scan": "src/repro/kernels/ssd_scan.py:61"}
     kernels = []
     for name, row in rows.items():
         run = {"gather_loss": fused_run, "flash_attention": olmoe,
-               "topk_gating": olmoe}.get(name, main_run)
+               "topk_gating": olmoe, "ssd_scan": zamba}.get(name, main_run)
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -782,7 +941,7 @@ def main(argv=None):
                        "cuda": torch.version.cuda, "kernels": kernels,
                        "main": main_run, "fused": fused_run,
                        "checks": CHECKS, "olmoe_round": olmoe,
-                       "prefill": prefill,
+                       "zamba2_round": zamba, "prefill": prefills,
                        "profile": profiles, "card_vs_cpu": parity}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))

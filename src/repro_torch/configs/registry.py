@@ -1,8 +1,9 @@
 """Architecture registry: ``--arch <id>`` -> ArchConfig (full or smoke).
 
 The same ten names as ``repro/configs/registry.py``.  The port runs the
-dense, MoE and VLM decoder families so far; an arch of another family
-raises ``NotImplementedError`` naming the port that brings it.
+dense, MoE, VLM, SSM and hybrid decoder families; whisper-base (the
+encoder-decoder family) raises ``NotImplementedError`` naming the port
+that brings it.
 """
 from __future__ import annotations
 
@@ -16,17 +17,15 @@ _ARCH_MODULES = {
     "pixtral-12b": "repro_torch.configs.pixtral_12b",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "glm4-9b": "repro_torch.configs.glm4_9b",
-    "mamba2-2.7b": None,
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2p7b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
-    "zamba2-1.2b": None,
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
     "phi3-mini-3.8b": "repro_torch.configs.phi3_mini_3p8b",
     "whisper-base": None,
 }
 
 # archs whose family the port does not run yet -> the port that brings it
 _LATER = {
-    "mamba2-2.7b": "the port of the SSM family (mamba2.py, ssd_scan)",
-    "zamba2-1.2b": "the port of the SSM family (mamba2.py, the hybrid stack, ssd_scan)",
     "whisper-base": "the port of the encoder-decoder family (encdec.py)",
 }
 

@@ -1,8 +1,8 @@
 """Split-model abstraction: θ_CS = θ_S ∘ θ_C with an explicit cut.
 
 Port of ``repro/core/split.py``: the StageModel zoo's tasks and the
-decoder-only transformer cut after ``cfg.cut_layers`` blocks (whisper's
-encoder-decoder task is not ported yet).
+decoder-only transformer cut after ``cfg.cut_layers`` blocks, dense,
+MoE, SSM and hybrid (whisper's encoder-decoder task is not ported yet).
 """
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.cnn import StageModel
-from repro_torch.models.transformer import Transformer, positions_for
+from repro_torch.models.transformer import (Transformer, block_kind,
+                                            positions_for)
 from repro_torch.utils.tree import tree_leaves, tree_slice
 
 
@@ -98,9 +99,10 @@ def make_transformer_task(cfg: ArchConfig) -> SplitTask:
 
     θ_C = embedding + blocks[:cut] (the smashed data is the block-`cut`
     activation); θ_S = blocks[cut:] + final norm + head.  Labels are the
-    next-token ids; the server also owns the MoE aux losses.  Each side
-    draws the whole model from its own generator and keeps its half, as
-    the JAX package does with keys.
+    next-token ids; the server also owns the MoE aux losses and, for the
+    hybrid family, the shared attention block (a client cut must end
+    before its first position).  Each side draws the whole model from its
+    own generator and keeps its half, as the JAX package does with keys.
     """
     cut = cfg.cut_layers
 
@@ -116,6 +118,8 @@ def make_transformer_task(cfg: ArchConfig) -> SplitTask:
             out["lm_head"] = p["lm_head"]
         else:
             out["embed"] = p["embed"]    # unembedding copy server-side
+        if block_kind(cfg) == "hybrid":
+            out["shared_attn"] = p["shared_attn"]
         return out
 
     def client_forward(cp, batch):

@@ -13,4 +13,5 @@ Kernels:
   gather_loss      — fused gather + linear-head cross-entropy
   flash_attention  — full-sequence attention, online softmax (forward)
   topk_gating      — MoE router softmax + top-k + renormalization
+  ssd_scan         — Mamba-2 SSD scan, state carried along the sequence
 """

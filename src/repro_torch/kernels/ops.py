@@ -14,6 +14,7 @@ from repro_torch.kernels import feature_resample as _fr
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gather_loss as _gl
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import topk_gating as _tk
 from repro_torch.kernels.fused_adam import fused_adam  # noqa: F401 (public)
 
@@ -141,3 +142,39 @@ def topk_gating(logits, k: int):
     int32) of ``kernels.topk_gating.topk_gating``; ids carry no
     gradient."""
     return _TopkGating.apply(logits, k)
+
+
+class _SSDScan(torch.autograd.Function):
+    """The SSD scan whose forward is the ``ssd_scan`` kernel (its plain
+    version on the CPU) and whose backward recomputes that plain version,
+    ``ref.ssd_chunked``, under autograd (the JAX package has no kernel
+    backward and differentiates ``ssd_chunked``, checkpointed per chunk,
+    the same way).  The recompute runs every chunk at once, folded into
+    the batch, from the states entering the chunks; their float32
+    [B * L / Q, Q, Q, H] tensors are 268 MB each at zamba2-1.2b's B 2,
+    L 2048, Q 256, H 64, some 1.6 GB for the few that autograd keeps; a
+    loop over chunks would keep an eighth of that but launch eight times
+    the kernels.  The final state carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        y, h = _ssd.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        ctx.mark_non_differentiable(h)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, gy, _gh):
+        leaves = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            y, _ = ref.ssd_chunked(*leaves, ctx.chunk)
+            grads = torch.autograd.grad(y, leaves, gy)
+        return (*grads, None)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
+    """Differentiable SSD scan: (y [B, L, H, P] in x's dtype, final
+    state h [B, H, N, P] float32 without gradient) of
+    ``kernels.ssd_scan.ssd_scan``; gradients reach x, dt, A, B and C."""
+    return _SSDScan.apply(x, dt, A, Bm, Cm, chunk)

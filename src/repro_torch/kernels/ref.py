@@ -134,6 +134,145 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
+# ------------------------------------------------------------------ SSD
+# Layouts of the JAX package's mamba2.py: x [B, L, H, P], dt [B, L, H],
+# A [H] (negative), B and C [B, L, G, N] with head h reading group
+# h // (H / G); G = H is the TPU kernel's per-head contract.
+
+def check_ssd(x, dt, A, Bm, Cm):
+    """Raise ValueError unless the five SSD inputs have the layouts
+    above; return H // G."""
+    if x.dim() != 4 or dt.dim() != 3 or A.dim() != 1 or Bm.dim() != 4:
+        raise ValueError(f"expected x [B, L, H, P], dt [B, L, H], A [H], "
+                         f"B/C [B, L, G, N], got {tuple(x.shape)}, "
+                         f"{tuple(dt.shape)}, {tuple(A.shape)}, "
+                         f"{tuple(Bm.shape)}")
+    Bsz, L, H, _ = x.shape
+    G = Bm.shape[2]
+    if (tuple(dt.shape) != (Bsz, L, H) or tuple(A.shape) != (H,)
+            or Bm.shape != Cm.shape or tuple(Bm.shape[:2]) != (Bsz, L)
+            or G == 0 or H % G):
+        raise ValueError(f"x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)}, B {tuple(Bm.shape)}, C "
+                         f"{tuple(Cm.shape)} do not match (H % G == 0)")
+    return H // G
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm):
+    """The sequential SSD recurrence, one position at a time:
+    h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t^T and y_t = C_t h_t.
+
+    Returns (y [B, L, H, P] in x's dtype, the final state h [B, H, N, P]
+    float32); float32 math.  The oracle of the tests."""
+    rep = check_ssd(x, dt, A, Bm, Cm)
+    Bsz, L, H, P = x.shape
+    N = Bm.shape[-1]
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf = Bm.float().repeat_interleave(rep, dim=2)
+    Cf = Cm.float().repeat_interleave(rep, dim=2)
+    h = torch.zeros((Bsz, H, N, P), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(L):
+        dA = torch.exp(dtf[:, t] * Af)                          # [B, H]
+        h = (dA[..., None, None] * h
+             + torch.einsum("bh,bhn,bhp->bhnp", dtf[:, t], Bf[:, t], xf[:, t]))
+        ys.append(torch.einsum("bhn,bhnp->bhp", Cf[:, t], h))
+    return torch.stack(ys, dim=1).to(x.dtype), h
+
+
+def _chunk_inputs(x, dt, A, Bm, rep):
+    """float32 x, dt, B repeated to heads, and the within-chunk cumulative
+    decay cum_i = sum_{k <= i} dt_k A."""
+    dtf = dt.float()
+    return (x.float(), dtf, Bm.float().repeat_interleave(rep, dim=2),
+            torch.cumsum(dtf * A.float(), dim=1))
+
+
+def _chunk_state(h, xf, dtf, bf, cum):
+    """The state leaving a chunk: the carried h decayed over the chunk
+    plus each row's dt_j B_j x_j^T decayed from row j to the chunk's end
+    (exp of a non-positive sum, so nothing overflows)."""
+    last = cum[:, -1:, :]                                       # [B, 1, H]
+    u = dtf * torch.exp(last - cum)                             # [B, Q, H]
+    return (torch.exp(last[:, 0])[:, :, None, None] * h
+            + torch.einsum("bqhn,bqhp->bhnp", bf, u[..., None] * xf))
+
+
+def ssd_chunk(h, x, dt, A, Bm, Cm):
+    """One chunk of the SSD dual form (float32 math) on the state ``h``
+    [B, H, N, P] carried in: x [B, Q, H, P], dt [B, Q, H], B/C
+    [B, Q, G, N].  Returns (y [B, Q, H, P] float32, h' float32).
+
+    y_i = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j (the
+    diagonal j = i included) + exp(cum_i) C_i h.  The decay is taken as
+    exp(where(j <= i, cum_i - cum_j, 0)) and then masked, as the JAX
+    package's double where: the masked differences are positive and
+    would overflow exp."""
+    rep = x.shape[2] // Bm.shape[2]
+    xf, dtf, bf, cum = _chunk_inputs(x, dt, A, Bm, rep)
+    cf = Cm.float().repeat_interleave(rep, dim=2)
+    Q = x.shape[1]
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                device=x.device))[None, :, :, None]
+    diff = cum[:, :, None, :] - cum[:, None, :, :]              # [B, Qi, Qj, H]
+    lmat = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
+    w = torch.einsum("bqhn,bkhn->bqkh", cf, bf) * lmat * dtf[:, None, :, :]
+    y = torch.einsum("bqkh,bkhp->bqhp", w, xf)
+    y = y + torch.einsum("bqhn,bhnp->bqhp", cf * torch.exp(cum)[..., None], h)
+    return y, _chunk_state(h, xf, dtf, bf, cum)
+
+
+def fold_chunks(t, chunk: int):
+    """[B, L, ...] -> [B * L / chunk, chunk, ...]: chunks folded into the
+    batch dim (a view of the model's column slices too)."""
+    return t.reshape((t.shape[0] * (t.shape[1] // chunk), chunk)
+                     + tuple(t.shape[2:]))
+
+
+def ssd_chunk_states(x, dt, A, Bm, chunk: int):
+    """The state entering each chunk, [B, L / chunk, H, N, P] float32 (the
+    first is zero): every chunk's own contribution at once, with the
+    chunks folded into the batch, then the carry h_{c+1} = exp(cum_last)
+    h_c + S_c in order."""
+    rep = check_ssd(x, dt, A, Bm, Bm)
+    Bsz, L, H, P = x.shape
+    nc, N = L // chunk, Bm.shape[-1]
+    xf, dtf, bf, cum = _chunk_inputs(fold_chunks(x, chunk),
+                                     fold_chunks(dt, chunk), A,
+                                     fold_chunks(Bm, chunk), rep)
+    zero = torch.zeros((Bsz * nc, H, N, P), dtype=torch.float32,
+                       device=x.device)
+    own = _chunk_state(zero, xf, dtf, bf, cum).reshape(Bsz, nc, H, N, P)
+    decay = torch.exp(cum[:, -1]).reshape(Bsz, nc, H)[..., None, None]
+    states = [torch.zeros_like(own[:, 0])]
+    for c in range(nc - 1):
+        states.append(decay[:, c] * states[-1] + own[:, c])
+    return torch.stack(states, dim=1)
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
+    """The chunked SSD scan, the ``ssd_scan`` kernel's plain version and
+    the port of the JAX package's ``models/mamba2.ssd_chunked``: the
+    state entering each chunk from ``ssd_chunk_states``, then every chunk
+    at once in the dual form of ``ssd_chunk``, the chunks folded into the
+    batch.  L % chunk == 0.  ``ops.ssd_scan``'s backward differentiates
+    this same function under autograd.
+
+    Returns (y [B, L, H, P] in x's dtype, the final state h [B, H, N, P]
+    float32, the state leaving the last chunk)."""
+    check_ssd(x, dt, A, Bm, Cm)
+    Bsz, L, H, P = x.shape
+    if chunk < 1 or L % chunk:
+        raise ValueError(f"L={L} not divisible by chunk={chunk}")
+    nc, N = L // chunk, Bm.shape[-1]
+    states = ssd_chunk_states(x, dt, A, Bm, chunk)
+    y, h_out = ssd_chunk(states.reshape(Bsz * nc, H, N, P),
+                         *(fold_chunks(t, chunk) for t in (x, dt)), A,
+                         fold_chunks(Bm, chunk), fold_chunks(Cm, chunk))
+    return (y.reshape(x.shape).to(x.dtype),
+            h_out.reshape(Bsz, nc, H, N, P)[:, -1])
+
+
 # --------------------------------------------------------------- gating
 def topk_gating_ref(logits, k: int):
     """Softmax over E, then k rounds of argmax-and-mask (a tie goes to

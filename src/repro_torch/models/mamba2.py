@@ -1,0 +1,97 @@
+"""Mamba-2 block: SSD (state-space duality) with a chunked scan.
+
+Port of the full-sequence half of ``repro/models/mamba2.py``
+(arXiv:2405.21060): the block wrapper (input projection, depthwise
+causal conv, gating) shared by the pure-SSM (mamba2-2.7b) and hybrid
+(zamba2) archs.  The scan goes through ``kernels.ops.ssd_scan``: the
+CUDA kernel on the card and, on the CPU, its plain version
+``ssd_chunked`` (the JAX package's chunked oracle, kept in
+``kernels.ref`` beside the kernel).  The decode half (``MambaState``,
+``ssd_decode_step``, ``mamba_decode``) comes with the port of the
+serving path.
+
+Layout: x [B, L, H, P] (heads x head_dim), B/C [B, L, G, N] (groups x
+state), dt [B, L, H], A [H] negative reals.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig, SSMConfig
+from repro_torch.kernels import ops
+# the chunked scan lives beside the kernel as its plain version; this is
+# its name in the JAX package's mamba2.py
+from repro_torch.kernels.ref import ssd_chunked  # noqa: F401
+from repro_torch.models import module
+from repro_torch.models.layers import rmsnorm, rmsnorm_init
+
+
+def _conv_channels(cfg: ArchConfig) -> int:
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    return d_inner + 2 * s.n_groups * s.d_state
+
+
+def mamba_init(gen, cfg: ArchConfig, dtype):
+    """Block params drawn on ``gen``'s device; ``a_log``, ``dt_bias`` and
+    ``D`` stay float32 whatever the model's dtype, as in the JAX
+    package."""
+    s: SSMConfig = cfg.ssm
+    d = cfg.d_model
+    d_inner = s.expand * d
+    H = d_inner // s.head_dim
+    conv_ch = _conv_channels(cfg)
+    d_in_proj = 2 * d_inner + 2 * s.n_groups * s.d_state + H
+    dev = gen.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {
+        "w_in": module.dense_init(gen, d, d_in_proj, dtype),
+        "conv_w": module.normal(gen, (s.d_conv, conv_ch), 0.1, dtype),
+        "conv_b": torch.zeros((conv_ch,), dtype=dtype, device=dev),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, H, **f32)),
+        "dt_bias": torch.zeros((H,), **f32),
+        "D": torch.ones((H,), **f32),
+        "gate_norm": rmsnorm_init(d_inner, dtype, dev),
+        "w_out": module.dense_init(gen, d_inner, d, dtype),
+    }
+
+
+def _split_in_proj(cfg: ArchConfig, zxbcdt):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    H = d_inner // s.head_dim
+    gN = s.n_groups * s.d_state
+    z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * gN, H], dim=-1)
+    return z, xbc, dt, d_inner, H, gN
+
+
+def _causal_conv(w, b, xbc):
+    """Depthwise causal conv over time as the JAX package writes it:
+    K shifted products summed in order.  xbc [B, L, C]; w [K, C]."""
+    K, L = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, K - 1, 0))
+    y = sum(pad[:, i:i + L, :] * w[i] for i in range(K))
+    return F.silu(y + b)
+
+
+def mamba_forward(params, cfg: ArchConfig, x):
+    """Full-sequence forward of one mamba2 block.  x [B, L, d] ->
+    (y [B, L, d], final SSD state [B, H, N, P] float32)."""
+    s = cfg.ssm
+    zxbcdt = x @ params["w_in"]
+    z, xbc, dt, d_inner, H, gN = _split_in_proj(cfg, zxbcdt)
+    xbc = _causal_conv(params["conv_w"], params["conv_b"], xbc)
+    # column slices of one conv output; the kernel reads them in place
+    xs, Bm, Cm = torch.split(xbc, [d_inner, gN, gN], dim=-1)
+    Bsz, L = x.shape[0], x.shape[1]
+    xs = xs.reshape(Bsz, L, H, s.head_dim)
+    Bm = Bm.reshape(Bsz, L, s.n_groups, s.d_state)
+    Cm = Cm.reshape(Bsz, L, s.n_groups, s.d_state)
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    A = -torch.exp(params["a_log"])
+    y, h = ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=min(s.chunk, L))
+    y = y + xs * params["D"][:, None].to(xs.dtype)
+    y = y.reshape(Bsz, L, d_inner)
+    y = rmsnorm(params["gate_norm"], y) * F.silu(z)
+    return y @ params["w_out"], h

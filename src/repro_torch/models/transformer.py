@@ -1,7 +1,6 @@
-"""Decoder-only transformer assembly (dense / MoE / VLM).
+"""Decoder-only transformer assembly (dense / MoE / SSM / hybrid / VLM).
 
-Port of ``repro/models/transformer.py`` for the dense and moe block
-kinds:
+Port of ``repro/models/transformer.py`` for the full-sequence path:
 
   embed -> [client blocks] -> CUT -> [server blocks] -> final_norm -> head
 
@@ -10,14 +9,15 @@ over groups of ``period`` blocks (2 for gemma2's local/global pair, else
 1) under ``jax.checkpoint``; here a Python loop runs the groups and
 nothing is checkpointed: each block's activations stay for the backward
 (a few GB at the full-width olmoe round, B = 2, S = 2048), and every
-attention and router kernel launches once per block per forward, with
-no recompute.  The attention backward recomputes the plain attention
-(``kernels.ops.flash_attention``), which launches no kernel.  The
-split-learning cut is a leading-dim slice of the stacked block params,
-so client and server halves run the same code (``core.split``).
+attention, router and SSD-scan kernel launches once per block per
+forward, with no recompute.  The attention and scan backwards recompute
+their plain versions (``kernels.ops``), which launch no kernel.  The
+hybrid family (zamba2) applies ONE shared attention block after each
+listed mamba block.  The split-learning
+cut is a leading-dim slice of the stacked block params, so client and
+server halves run the same code (``core.split``).
 
-The mamba and hybrid stacks and the decode methods are not ported yet
-and raise ``NotImplementedError``.
+The decode methods are not ported yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (embedding, rmsnorm, rmsnorm_init,
                                        softcap, unembed)
@@ -39,12 +40,6 @@ from repro_torch.utils.tree import tree_leaves, tree_map
 def _zero_metrics(device):
     z = torch.zeros((), dtype=torch.float32, device=device)
     return {"aux_loss": z, "z_loss": z}
-
-
-def _ssm_later(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with the port of the SSM family "
-        f"(mamba2.py, the hybrid stack, ssd_scan)")
 
 
 # ---------------------------------------------------------------- helpers
@@ -101,10 +96,17 @@ def _moe_block_init(gen, cfg: ArchConfig, dtype):
     return p
 
 
+def _mamba_block_init(gen, cfg: ArchConfig, dtype):
+    return {
+        "mamba": mamba_lib.mamba_init(gen, cfg, dtype),
+        "norm": rmsnorm_init(cfg.d_model, dtype, gen.device),
+    }
+
+
 def block_init(gen, cfg: ArchConfig, dtype):
     kind = block_kind(cfg)
     if kind in ("mamba", "hybrid"):
-        raise _ssm_later(f"the {kind} block")
+        return _mamba_block_init(gen, cfg, dtype)
     if kind == "moe":
         return _moe_block_init(gen, cfg, dtype)
     return _dense_block_init(gen, cfg, dtype)
@@ -133,7 +135,11 @@ def dense_or_moe_block(params, cfg: ArchConfig, x, positions, window):
 
 
 def mamba_block(params, cfg: ArchConfig, x):
-    raise _ssm_later("mamba_block")
+    """One mamba2 block (pre-norm, residual); its final SSD state is
+    dropped.  Returns (x, metrics)."""
+    h = rmsnorm(params["norm"], x, cfg.norm_eps)
+    y, _ = mamba_lib.mamba_forward(params["mamba"], cfg, h)
+    return x + y, _zero_metrics(x.device)
 
 
 # --------------------------------------------------------------- the model
@@ -156,6 +162,9 @@ class Transformer:
             params["lm_head"] = {"w": normal(gen, (cfg.d_model,
                                                    cfg.vocab_padded),
                                              0.02, dtype)}
+        if block_kind(cfg) == "hybrid":
+            # one SHARED attention block (zamba2), reused at each position
+            params["shared_attn"] = _dense_block_init(gen, cfg, dtype)
         return params
 
     # -------------- stacks -----------------
@@ -164,6 +173,7 @@ class Transformer:
                    long_context: bool):
         """Blocks in order, in groups of ``period``.  Returns
         (x, metrics summed over the blocks)."""
+        kind = block_kind(cfg)
         period = pattern_period(cfg)
         n = tree_leaves(blocks)[0].shape[0]
         metrics = _zero_metrics(x.device)
@@ -172,18 +182,33 @@ class Transformer:
         assert n % period == 0, f"stack of {n} not divisible by period {period}"
         for i in range(n):
             bp = tree_map(lambda a: a[i], blocks)
-            slot = i % period
-            local = _is_local(cfg, (layer_offset + slot) % period
-                              if period > 1 else 0)
-            window = attn_lib.layer_window(cfg, local, long_context)
-            x, m = dense_or_moe_block(bp, cfg, x, positions, window)
+            if kind in ("mamba", "hybrid"):
+                x, m = mamba_block(bp, cfg, x)
+            else:
+                slot = i % period
+                local = _is_local(cfg, (layer_offset + slot) % period
+                                  if period > 1 else 0)
+                window = attn_lib.layer_window(cfg, local, long_context)
+                x, m = dense_or_moe_block(bp, cfg, x, positions, window)
             metrics = {k: metrics[k] + m[k] for k in metrics}
         return x, metrics
 
     @staticmethod
     def _hybrid_stack(blocks, shared_attn, cfg: ArchConfig, x, positions, *,
                       first_block: int, n_blocks: int, long_context: bool):
-        raise _ssm_later("the hybrid stack")
+        """Mamba blocks [first, first + n) with the shared attention block
+        applied after every block index listed in
+        ``cfg.ssm.shared_attn_positions``."""
+        window = attn_lib.layer_window(cfg, False, long_context)
+        metrics = _zero_metrics(x.device)
+        for i in range(n_blocks):
+            x, m = mamba_block(tree_map(lambda a: a[i], blocks), cfg, x)
+            metrics = {k: metrics[k] + m[k] for k in metrics}
+            if first_block + i in cfg.ssm.shared_attn_positions:
+                x, m = dense_or_moe_block(shared_attn, cfg, x, positions,
+                                          window)
+                metrics = {k: metrics[k] + m[k] for k in metrics}
+        return x, metrics
 
     # -------------- forward -----------------
     @staticmethod
@@ -204,9 +229,19 @@ class Transformer:
         if n_blocks == 0:
             return x, _zero_metrics(x.device)
         if block_kind(cfg) == "hybrid":
+            shared = params.get("shared_attn")
+            if shared is None and any(
+                    first_block <= p < first_block + n_blocks
+                    for p in cfg.ssm.shared_attn_positions):
+                # a split-client stack holds no shared block
+                raise ValueError(
+                    f"blocks [{first_block}, {first_block + n_blocks}) "
+                    f"cross a shared-attention position "
+                    f"{cfg.ssm.shared_attn_positions} but the params hold "
+                    f"no shared_attn block")
             return Transformer._hybrid_stack(
-                params["blocks"], params.get("shared_attn"), cfg, x,
-                positions, first_block=first_block, n_blocks=n_blocks,
+                params["blocks"], shared, cfg, x, positions,
+                first_block=first_block, n_blocks=n_blocks,
                 long_context=long_context)
         return Transformer._run_stack(
             params["blocks"], cfg, x, positions, layer_offset=first_block,

@@ -43,6 +43,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.configs.gemma2_2b",
                 "repro_torch.kernels.flash_attention",
                 "repro_torch.kernels.topk_gating",
+                "repro_torch.kernels.ssd_scan",
+                "repro_torch.configs.mamba2_2p7b",
+                "repro_torch.configs.zamba2_1p2b",
+                "repro_torch.models.mamba2",
                 "repro_torch.models.attention", "repro_torch.models.moe",
                 "repro_torch.models.transformer", "repro_torch.core.split",
                 "repro_torch.launch.inputs", "repro_torch.launch.steps"):
