@@ -46,6 +46,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -71,6 +72,10 @@ OLMOE_DEPTH = 4
 # the output by far more, which the checks print and assert
 SSD_F32_REL = 1e-4
 CHECKS = []           # every kernel check of phase 3, for the report
+# the __global__ functions of src/repro_torch/kernels/csrc, for profiles
+PORT_KERNELS = ("gather_rows_kernel", "fused_adam_kernel",
+                "gather_loss_kernel", "flash_wgmma_kernel", "flash_fwd_kernel",
+                "topk_gating_kernel", "ssd_scan_kernel")
 
 
 def eager_ms(fn, iters=50, warmup=5):
@@ -288,55 +293,7 @@ def kernel_checks(torch, dev):
     gather_loss(8192, 2048, 62, 2048)
     gather_loss(37, 33, 7, 19, dtype=torch.bfloat16, labels=torch.int32)
 
-    # ---- flash_attention: the olmoe round's heads, gemma2's, edge cases
-    # (tolerances of tests/test_kernels.py: 2e-2 bf16, 2e-5 float32); each
-    # bf16 case runs in float32 too, where 2e-5 would catch a key dropped,
-    # doubled or off by one at a mask's edge
-    def attention(B, Sq, Sk, H, Hkv, D, dtype, causal=True, window=None,
-                  cap=None, main=False):
-        q = torch.randn(B, Sq, H, D, device=dev, generator=gen).to(dtype)
-        k = torch.randn(B, Sk, Hkv, D, device=dev, generator=gen).to(dtype)
-        v = torch.randn(B, Sk, Hkv, D, device=dev, generator=gen).to(dtype)
-        kw = dict(causal=causal, window=window, softcap=cap)
-        # the (query, key) pairs this mask keeps: the work the call does
-        i = torch.arange(Sq, device=dev)[:, None]
-        j = torch.arange(Sk, device=dev)[None, :]
-        keep = torch.ones(Sq, Sk, dtype=torch.bool, device=dev)
-        if causal:
-            keep &= j <= i
-        if window is not None:
-            keep &= i - j < window
-        pairs = int(keep.sum())
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        lib = None
-        if main:
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                         is_causal=causal)
-        return check("flash_attention",
-                     f"q[{B}, {Sq}, {H}, {D}] kv[{B}, {Sk}, {Hkv}, {D}] "
-                     f"{str(dtype)[6:]} causal={causal} window={window} "
-                     f"softcap={cap}",
-                     lambda: (flash_attention(q, k, v, **kw),),
-                     lambda: (ref.flash_attention_ref(q, k, v, **kw),),
-                     2e-2 if dtype == torch.bfloat16 else 2e-5, nbytes,
-                     4 * B * H * D * pairs, library=lib, dtype=dtype)
-
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention
-    rows["flash_attention"] = attention(2, 2048, 2048, 16, 16, 128,
-                                        torch.bfloat16, main=True)
-    attention(2, 2048, 2048, 16, 16, 128, torch.float32)
-    for dtype in (torch.bfloat16, torch.float32):
-        attention(1, 2048, 2048, 8, 4, 256, dtype, window=1024, cap=50.0)
-        attention(1, 200, 200, 4, 2, 64, dtype)
-        attention(2, 100, 300, 4, 2, 128, dtype)
-    attention(1, 256, 256, 4, 4, 128, torch.float32, causal=False)
-    # zamba2-1.2b's shared attention block: 32 heads of 64, causal
-    zamba = get_config("zamba2-1.2b")
-    for dtype in (torch.bfloat16, torch.float32):
-        attention(BATCH, SEQ, SEQ, zamba.n_heads, zamba.n_kv_heads, zamba.hd,
-                  dtype, main=True)
+    rows["flash_attention"] = flash_checks(torch, dev, gen)
 
     # ---- topk_gating: the olmoe router's group, a small router, ties
     def gating(T, E, k, ties=False):
@@ -363,6 +320,109 @@ def kernel_checks(torch, dev):
 
     rows["ssd_scan"] = ssd_checks(torch, dev, gen)
     return rows
+
+
+def flash_checks(torch, dev, gen):
+    """``flash_attention`` against its plain version (tolerances of
+    tests/test_kernels.py: 2e-2 bf16, 2e-5 float32): the olmoe round's
+    heads [2, 2048, 16, 128] and zamba2's [2, 2048, 32, 64], bf16 causal
+    (the tensor-core design), and edge cases of the tensor-core kernel's
+    tiles (128 query rows as two warpgroups of 64, 128-row key tiles):
+    ragged Sq = Sk = 200, Sq 100 / Sk 300, GQA with H / Hkv = 4, a window
+    of 100 that starts inside a key tile, softcap 50, no causal mask, and
+    q, k, v as strided slices of one fused [B, S, 3, H, D] tensor;
+    gemma2's D = 256 (the CUDA-core design in bf16 too).  Each case runs
+    in float32 too (the CUDA-core design), where 2e-5 would catch a key
+    dropped, doubled or off by one at a mask's edge.  Before the checks it prints how far
+    the plain bf16 output moves when the last key tile is dropped and
+    when the diagonal is masked off by one, against 2e-2.  Returns the
+    olmoe bf16 row."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import design, flash_attention
+
+    def qkv(B, Sq, Sk, H, Hkv, D, dtype, fused):
+        if fused:           # one [B, S, 3, H, D] projection, sliced
+            t = torch.randn(B, Sq, 3, H, D, device=dev, generator=gen
+                            ).to(dtype)
+            return t[:, :, 0], t[:, :, 1], t[:, :, 2]
+        return (torch.randn(B, Sq, H, D, device=dev, generator=gen).to(dtype),
+                torch.randn(B, Sk, Hkv, D, device=dev, generator=gen
+                            ).to(dtype),
+                torch.randn(B, Sk, Hkv, D, device=dev, generator=gen
+                            ).to(dtype))
+
+    def sensitivity(label, q, k, v):
+        """What dropping the keys of the last 128-row tile, or masking
+        each row's own key (j < i instead of j <= i), moves the plain
+        causal output by."""
+        want = ref.flash_attention_ref(q, k, v).float()
+        cut = k.shape[1] - 128
+        drop = ref.flash_attention_ref(q, k[:, :cut], v[:, :cut]).float()
+        shift = ref.flash_attention_ref(q[:, 1:], k[:, :-1], v[:, :-1]
+                                        ).float()
+        d_tile = float((drop - want).abs().max())
+        d_diag = float((shift - want[:, 1:]).abs().max())
+        print(f"flash_attention {label}: dropping the last key tile moves "
+              f"the plain output by {d_tile:.3e}, masking the diagonal off "
+              f"by one by {d_diag:.3e}; the bf16 tolerance is 2e-2")
+        if not min(d_tile, d_diag) > 2 * 2e-2:
+            raise AssertionError("flash_attention: the bf16 tolerance would "
+                                 "not catch a dropped tile or diagonal")
+
+    def attention(B, Sq, Sk, H, Hkv, D, dtype, causal=True, window=None,
+                  cap=None, main=False, fused=False):
+        q, k, v = qkv(B, Sq, Sk, H, Hkv, D, dtype, fused)
+        kw = dict(causal=causal, window=window, softcap=cap)
+        # the (query, key) pairs this mask keeps: the work the call does
+        i = torch.arange(Sq, device=dev)[:, None]
+        j = torch.arange(Sk, device=dev)[None, :]
+        keep = torch.ones(Sq, Sk, dtype=torch.bool, device=dev)
+        if causal:
+            keep &= j <= i
+        if window is not None:
+            keep &= i - j < window
+        pairs = int(keep.sum())
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        lib = None
+        if main:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                         is_causal=causal)
+        if main and dtype == torch.bfloat16:
+            sensitivity(f"[{B}, {Sq}, {H}, {D}]", q, k, v)
+        kind = design(dtype, D)
+        row = check("flash_attention",
+                    f"q[{B}, {Sq}, {H}, {D}] kv[{B}, {Sk}, {Hkv}, {D}] "
+                    f"{str(dtype)[6:]} causal={causal} window={window} "
+                    f"softcap={cap}" + (" fused-qkv" if fused else "")
+                    + f" design={kind}",
+                    lambda: (flash_attention(q, k, v, **kw),),
+                    lambda: (ref.flash_attention_ref(q, k, v, **kw),),
+                    2e-2 if dtype == torch.bfloat16 else 2e-5, nbytes,
+                    4 * B * H * D * pairs, library=lib, dtype=dtype)
+        row["design"] = kind
+        return row
+
+    main = attention(2, 2048, 2048, 16, 16, 128, torch.bfloat16, main=True)
+    attention(2, 2048, 2048, 16, 16, 128, torch.float32)
+    # zamba2-1.2b's shared attention block: 32 heads of 64, causal
+    zamba = get_config("zamba2-1.2b")
+    for dtype in (torch.bfloat16, torch.float32):
+        attention(BATCH, SEQ, SEQ, zamba.n_heads, zamba.n_kv_heads, zamba.hd,
+                  dtype, main=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        attention(1, 2048, 2048, 8, 4, 256, dtype, window=1024, cap=50.0)
+        for D in (64, 128):
+            attention(1, 200, 200, 4, 2, D, dtype)
+            attention(2, 100, 300, 4, 2, D, dtype)
+            attention(1, 512, 512, 8, 2, D, dtype)
+            attention(1, 512, 512, 4, 4, D, dtype, window=100)
+            attention(1, 512, 512, 4, 4, D, dtype, cap=50.0)
+            attention(1, 256, 256, 4, 4, D, dtype, causal=False)
+            attention(2, 512, 512, 4, 4, D, dtype, fused=True)
+    return main
 
 
 def ssd_checks(torch, dev, gen):
@@ -483,10 +543,19 @@ def counters():
 def reset_counters():
     for mod in counters().values():
         mod.launches = 0
+        for kind in getattr(mod, "design_launches", {}):
+            mod.design_launches[kind] = 0
 
 
 def read_counters():
-    return {k: mod.launches for k, mod in counters().items()}
+    """Launches by kernel, and flash_attention's also by design
+    (``flash_attention/wgmma``, ``flash_attention/simt``)."""
+    out = {}
+    for k, mod in counters().items():
+        out[k] = mod.launches
+        for kind, n in getattr(mod, "design_launches", {}).items():
+            out[f"{k}/{kind}"] = n
+    return out
 
 
 def drive(torch, label, cfg, expect):
@@ -554,9 +623,17 @@ def device_profile(torch, label, run):
           f"{busy / 1e3:.1f}ms ({busy / wall_us:.1%})")
     for name, count, t in rows[:12]:
         print(f"profile {label}:   {t / 1e3:8.3f}ms {count:6d}x {name[:90]}")
+    # the port's own kernels, however small, by their function names
+    ours = [{"name": fn, "count": c, "device_ms": t / 1e3}
+            for n, c, t in rows for fn in PORT_KERNELS
+            if re.search(rf"\b{fn}\b", n)]
+    for r in ours:
+        print(f"profile {label}: port kernel {r['name']} {r['count']}x "
+              f"{r['device_ms']:.3f}ms ({r['device_ms'] * 1e3 / busy:.2%} of "
+              f"device busy)")
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "top": [{"name": n, "count": c, "device_ms": t / 1e3}
-                    for n, c, t in rows[:25]]}
+                    for n, c, t in rows[:25]], "port_kernels": ours}
 
 
 def profile_rounds(torch, cfg):
@@ -637,14 +714,22 @@ def block_launches(cfg, lo, hi):
     its positions inside the range.  Nothing is checkpointed, so no
     forward runs twice, and the backwards recompute plain versions,
     which launch nothing."""
+    import torch
     from repro_torch.models.transformer import block_kind
     kind, n = block_kind(cfg), hi - lo
     if kind in ("mamba", "hybrid"):
         shared = cfg.ssm.shared_attn_positions if kind == "hybrid" else ()
-        return {"ssd_scan": n, "topk_gating": 0,
-                "flash_attention": sum(lo <= p < hi for p in shared)}
-    return {"ssd_scan": 0, "flash_attention": n,
-            "topk_gating": n if kind == "moe" else 0}
+        out = {"ssd_scan": n, "topk_gating": 0,
+               "flash_attention": sum(lo <= p < hi for p in shared)}
+    else:
+        out = {"ssd_scan": 0, "flash_attention": n,
+               "topk_gating": n if kind == "moe" else 0}
+    # bf16 attention at head_dim 64 or 128 (olmoe, zamba2) runs on the
+    # tensor cores, every launch of it
+    tc = cfg.torch_dtype == torch.bfloat16 and cfg.hd in (64, 128)
+    out["flash_attention/wgmma"] = out["flash_attention"] if tc else 0
+    out["flash_attention/simt"] = 0 if tc else out["flash_attention"]
+    return out
 
 
 def split_round(torch, label, cfg, rounds=ROUNDS, profile=False):
@@ -933,7 +1018,8 @@ def main(argv=None):
             "replaces": sources[name], "launches": run["launches"][name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            **({"design": row["design"]} if "design" in row else {})})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` has a plain C entry point and compiles with
 ``sm_90a``.  The build happens at first use, into
 ``build/repro_torch_kernels/`` at the repository root, and every source
 compiles in its own ``nvcc`` process, all started together.  A library
-is named after a hash of its source and flags, so an edited source is
+is named after a hash of its source, every shared header
+(``csrc/*.cuh``) and the flags, so an edited source or header is
 rebuilt and an unchanged one is loaded as it is.  Nothing here runs at
 import time: this module imports on a machine with no CUDA toolkit.
 """
@@ -44,8 +45,11 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
