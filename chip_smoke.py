@@ -75,7 +75,7 @@ CHECKS = []           # every kernel check of phase 3, for the report
 # the __global__ functions of src/repro_torch/kernels/csrc, for profiles
 PORT_KERNELS = ("gather_rows_kernel", "fused_adam_kernel",
                 "gather_loss_kernel", "flash_wgmma_kernel", "flash_fwd_kernel",
-                "topk_gating_kernel", "ssd_scan_kernel")
+                "topk_gating_kernel", "ssd_wgmma_kernel", "ssd_scan_kernel")
 
 
 def eager_ms(fn, iters=50, warmup=5):
@@ -331,9 +331,10 @@ def flash_checks(torch, dev, gen):
     ragged Sq = Sk = 200, Sq 100 / Sk 300, GQA with H / Hkv = 4, a window
     of 100 that starts inside a key tile, softcap 50, no causal mask, and
     q, k, v as strided slices of one fused [B, S, 3, H, D] tensor;
-    gemma2's D = 256 (the CUDA-core design in bf16 too).  Each case runs
-    in float32 too (the CUDA-core design), where 2e-5 would catch a key
-    dropped, doubled or off by one at a mask's edge.  Before the checks it prints how far
+    gemma2's D = 256 and phi3-mini's [2, 2048, 32, 96] causal (the
+    CUDA-core design in bf16 too).  Each case runs in float32 too (the
+    CUDA-core design), where 2e-5 would catch a key dropped, doubled or
+    off by one at a mask's edge.  Before the checks it prints how far
     the plain bf16 output moves when the last key tile is dropped and
     when the diagonal is masked off by one, against 2e-2.  Returns the
     olmoe bf16 row."""
@@ -412,6 +413,11 @@ def flash_checks(torch, dev, gen):
     for dtype in (torch.bfloat16, torch.float32):
         attention(BATCH, SEQ, SEQ, zamba.n_heads, zamba.n_kv_heads, zamba.hd,
                   dtype, main=True)
+    # phi3-mini-3.8b: 32 heads of 96, kv 32, causal
+    phi3 = get_config("phi3-mini-3.8b")
+    for dtype in (torch.bfloat16, torch.float32):
+        attention(BATCH, SEQ, SEQ, phi3.n_heads, phi3.n_kv_heads, phi3.hd,
+                  dtype, main=True)
     for dtype in (torch.bfloat16, torch.float32):
         attention(1, 2048, 2048, 8, 4, 256, dtype, window=1024, cap=50.0)
         for D in (64, 128):
@@ -434,15 +440,20 @@ def ssd_checks(torch, dev, gen):
     float32; with B and C per head (G = H, the TPU kernel's contract); a
     single chunk; chunk 64; a slow decay (A = -1e-3), where the state
     grows over 2048 steps; and a ragged shape (L, P and N not multiples
-    of the kernel's tiles).  float32 outputs are held to SSD_F32_REL of
+    of the kernel's tiles).  bf16 at the paths' (N, P) runs on the
+    tensor-core design, which is also held, in bf16, with B and C per
+    head, in a single chunk, at chunk 64, at the slow decay, and at L =
+    96 with chunk 32 (a half-filled last 64-row tile); the ragged shape
+    stays float32.  float32 outputs are held to SSD_F32_REL of
     max|plain|, after printing what a dropped diagonal term and a
     missing inter-chunk carry move the output by at the main shape;
-    bf16 outputs to one bf16 ulp (the float32 sums differ in the last
-    bits and flip a rounding now and then)."""
+    bf16 y to one bf16 ulp (the float32 sums differ in the last bits and
+    flip a rounding now and then) and its float32 state to SSD_F32_REL
+    of max|y, h|."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import design, ssd_scan
 
     def inputs(B, L, H, P, N, G, dtype, A, sliced):
         if sliced:          # column slices of one [B, L, conv_ch] tensor
@@ -497,16 +508,23 @@ def ssd_checks(torch, dev, gen):
         flops = 5 * B * L * H * N * P
         nbytes = (2 * x.numel() * el + (bm.numel() + cm.numel()) * el
                   + 4 * (dt.numel() + A.numel() + B * H * N * P))
+        kind = design(dtype, N, P)
         row = check("ssd_scan", f"{label} x[{B}, {L}, {H}, {P}] "
                     f"B/C[{B}, {L}, {G}, {N}] {str(dtype)[6:]} chunk {chunk}"
-                    + (" sliced" if sliced else ""),
+                    + (" sliced" if sliced else "") + f" design={kind}",
                     lambda: ssd_scan(x, dt, A, bm, cm, chunk=chunk),
                     lambda: ref.ssd_chunked(x, dt, A, bm, cm, chunk),
                     SSD_F32_REL * scale, nbytes, flops, dtype=dtype,
                     ulps=1 if dtype == torch.bfloat16 else None)
         row["max_rel_err"] = row["max_abs_err"] / scale
+        row["design"] = kind
+        got = ssd_scan(x, dt, A, bm, cm, chunk=chunk)
+        row["y_rel_err"], row["h_rel_err"] = (
+            float((g.double() - w.double()).abs().max()) / scale
+            for g, w in zip(got, want))
         print(f"ssd_scan {label}: max|y, h| {scale:.4g}, error "
-              f"{row['max_rel_err']:.3e} of it")
+              f"{row['max_rel_err']:.3e} of it (y {row['y_rel_err']:.3e}, "
+              f"final state {row['h_rel_err']:.3e})")
         return row
 
     def dims(arch):
@@ -522,11 +540,13 @@ def ssd_checks(torch, dev, gen):
     scan("zamba2", *zb, torch.float32, chunk, sliced=True, main=True)
     scan("mamba2", *mb, torch.bfloat16, chunk, sliced=True)
     scan("mamba2", *mb, torch.float32, chunk, sliced=True)
-    scan("per-head B/C (G = H)", B, L, H, P, N, H, torch.float32, chunk)
-    scan("one chunk", B, chunk, H, P, N, 1, torch.float32, chunk)
-    scan("chunk 64", B, L, H, P, N, 1, torch.float32, 64)
-    scan("slow decay A = -1e-3", B, L, H, P, N, 1, torch.float32, chunk,
-         A=torch.full((H,), -1e-3))
+    for dtype in (torch.float32, torch.bfloat16):
+        scan("per-head B/C (G = H)", B, L, H, P, N, H, dtype, chunk)
+        scan("one chunk", B, chunk, H, P, N, 1, dtype, chunk)
+        scan("chunk 64", B, L, H, P, N, 1, dtype, 64)
+        scan("slow decay A = -1e-3", B, L, H, P, N, 1, dtype, chunk,
+             A=torch.full((H,), -1e-3))
+    scan("half-filled last tile", 1, 96, 3, 64, 64, 1, torch.bfloat16, 32)
     scan("ragged", 1, 96, 3, 48, 20, 1, torch.float32, 32)
     return main
 
@@ -548,8 +568,8 @@ def reset_counters():
 
 
 def read_counters():
-    """Launches by kernel, and flash_attention's also by design
-    (``flash_attention/wgmma``, ``flash_attention/simt``)."""
+    """Launches by kernel, and flash_attention's and ssd_scan's also by
+    design (``flash_attention/wgmma``, ``ssd_scan/simt``, ...)."""
     out = {}
     for k, mod in counters().items():
         out[k] = mod.launches
@@ -724,11 +744,16 @@ def block_launches(cfg, lo, hi):
     else:
         out = {"ssd_scan": 0, "flash_attention": n,
                "topk_gating": n if kind == "moe" else 0}
-    # bf16 attention at head_dim 64 or 128 (olmoe, zamba2) runs on the
-    # tensor cores, every launch of it
-    tc = cfg.torch_dtype == torch.bfloat16 and cfg.hd in (64, 128)
-    out["flash_attention/wgmma"] = out["flash_attention"] if tc else 0
-    out["flash_attention/simt"] = 0 if tc else out["flash_attention"]
+    # bf16 attention at head_dim 64 or 128 (olmoe, zamba2) and the bf16
+    # SSD scan at (N, P) = (64, 64) or (128, 64) (zamba2, mamba2-2.7b) run
+    # on the tensor cores, every launch of them
+    bf16 = cfg.torch_dtype == torch.bfloat16
+    tc = {"flash_attention": bf16 and cfg.hd in (64, 128),
+          "ssd_scan": bf16 and cfg.ssm is not None and (
+              cfg.ssm.d_state, cfg.ssm.head_dim) in ((64, 64), (128, 64))}
+    for k, on in tc.items():
+        out[f"{k}/wgmma"] = out[k] if on else 0
+        out[f"{k}/simt"] = 0 if on else out[k]
     return out
 
 

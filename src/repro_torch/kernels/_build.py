@@ -78,14 +78,16 @@ def build_all(names=SOURCES) -> dict[str, Path]:
     return {n: _target(n) for n in names}
 
 
-def entry(name: str, argtypes: list):
-    """The C entry point ``<name>_launch`` of ``csrc/<name>.cu``, built
-    if needed, with its argument types declared (ctypes would otherwise
-    pass every Python int as a 32-bit int and cut the pointers)."""
+def entry(name: str, argtypes: list, source: str | None = None):
+    """The C entry point ``<name>_launch`` of ``csrc/<name>.cu`` (or the
+    function ``name`` of ``csrc/<source>.cu``), built if needed, with its
+    argument types declared (ctypes would otherwise pass every Python
+    int as a 32-bit int and cut the pointers)."""
     fn = _ENTRIES.get(name)
     if fn is None:
-        fn = getattr(ctypes.CDLL(str(build_all((name,))[name])),
-                     f"{name}_launch")
+        src = source or name
+        fn = getattr(ctypes.CDLL(str(build_all((src,))[src])),
+                     name if source else f"{name}_launch")
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _ENTRIES[name] = fn
@@ -99,6 +101,19 @@ def stream_of(t: torch.Tensor) -> int:
         raise ValueError(f"tensor on {t.device} but the current device is "
                          f"cuda:{torch.cuda.current_device()}")
     return torch.cuda.current_stream().cuda_stream
+
+
+def check_16b_rows(kernel: str, name: str, t: torch.Tensor,
+                   dims: str) -> None:
+    """Raise ValueError unless ``t``'s base is 16-byte aligned and its
+    first three strides (``dims``) are multiples of 16 bytes: what a
+    tensor-core kernel's 16-byte copies and TMA tensor maps need."""
+    ptr, st, size = t.data_ptr(), t.stride(), t.element_size()
+    if ptr % 16 or any(s * size % 16 for s in st[:3]):
+        raise ValueError(f"{kernel} ({name}): the tensor-core kernel needs a "
+                         f"16-byte aligned base and {dims} strides of whole "
+                         f"16 bytes, got address {ptr:#x}, strides {st} of "
+                         f"{size}-byte elements")
 
 
 def check(rc: int, name: str) -> None:

@@ -56,17 +56,19 @@
 // warpgroup does not overlap its softmax with its next product: that is
 // the next step.
 //
-// simt (float32, and bf16 at head_dim 256): the products on the CUDA
-// cores in float32.  One block of 256 threads owns 64 query rows and
-// walks 64-row key tiles: thread (rg, cg) = (tid / 16, tid % 16) owns
-// rows 4rg..4rg+3, score columns cg + 16j and output dims cg + 16j; the
-// 16 threads of a row group reduce the row max and sum with shuffles.
-// Q (scaled, float32), the K and V tiles (input type) and the
-// probabilities are staged in shared memory with one extra word per
-// row, so the strided reads of one warp fall in distinct banks.  256 in
-// float32 needs 214,016 bytes of shared memory.  It keeps float32
-// products exact (the port keeps TF32 off), and D = 256 in bf16 stays
-// here: 128-row K and V tiles of 256 columns do not fit two stages.
+// simt (float32, and bf16 at head_dim 96 and 256): the products on the
+// CUDA cores in float32, at head_dim 64, 96, 128 and 256.  One block of
+// 256 threads owns 64 query rows and walks 64-row key tiles: thread
+// (rg, cg) = (tid / 16, tid % 16) owns rows 4rg..4rg+3, score columns
+// cg + 16j and output dims cg + 16j; the 16 threads of a row group
+// reduce the row max and sum with shuffles.  Q (scaled, float32), the
+// K and V tiles (input type) and the probabilities are staged in shared
+// memory with one extra word per row, so the strided reads of one warp
+// fall in distinct banks.  256 in float32 needs 214,016 bytes of shared
+// memory.  It keeps float32 products exact (the port keeps TF32 off).
+// bf16 at D = 256 stays here because 128-row K and V tiles of 256
+// columns do not fit two stages, and at D = 96 because the tensor-core
+// kernel's swizzle works in 64-column blocks.
 #include <cuda.h>          // CUtensorMap and its enums (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -294,6 +296,7 @@ template <typename T>
 cudaError_t dispatch(const Params& p, int B, int D, cudaStream_t stream) {
   switch (D) {
     case 64: return launch<T, 64>(p, B, stream);
+    case 96: return launch<T, 96>(p, B, stream);
     case 128: return launch<T, 128>(p, B, stream);
     case 256: return launch<T, 256>(p, B, stream);
     default: return cudaErrorInvalidValue;

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the hand-written kernels:
 // shared-memory addresses and the 128-byte swizzle, wgmma matrix
 // descriptors and the bf16 warpgroup products, mbarriers, TMA tile
-// loads and register reallocation.  Everything is inline PTX on the
-// CUDA toolkit's own headers, and nothing here links libcuda.
+// loads, register reallocation, cp.async copies and the split of a
+// float32 value into a bf16 hi/lo pair.  Everything is inline PTX on
+// the CUDA toolkit's own headers, and nothing here links libcuda.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -109,6 +110,32 @@ __device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// m64n64k16 with both operands from shared memory; TA and TB choose each
+// operand's layout: 0 K-major, 1 MN-major (for A, rows of 64 along M,
+// one row per k; the descriptor as for an MN-major B).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss64(float (&d)[32], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
 template <>
@@ -238,6 +265,47 @@ __device__ __forceinline__ void regs_alloc() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two float32 values as two bf16 pairs whose sum keeps ~16 of their 24
+// bits: hi = bf16(v), lo = bf16(v - hi).  A product with hi and one
+// with lo, into one float32 accumulator, is then within ~2^-17 of the
+// float32 operand's product, where bf16(v) alone is within 2^-9.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - __low2float(h), b - __high2float(h));
+}
+
+// ---- cp.async: 16- and 4-byte copies from global to shared memory,
+// zero-filled when `valid` is false; a group per commit, waited to N in
+// flight
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory (stores,
+// cp.async) before later reads by the async proxy (wgmma); a barrier
+// then publishes them to the warpgroup.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 }  // namespace hopper

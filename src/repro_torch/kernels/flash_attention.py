@@ -4,8 +4,8 @@ Port of ``repro/kernels/flash_attention.py``.  On CUDA tensors the
 wrapper launches one of the two hand-written kernels in
 ``csrc/flash_attention.cu``, as ``design`` routes the call: bf16 at
 head_dim 64 and 128 on the tensor cores (``wgmma``), float32, and bf16
-at 256, on the CUDA cores (``simt``, float32 products).  On CPU tensors
-it runs the plain version, ``ref.flash_attention_ref``.
+at 96 and 256, on the CUDA cores (``simt``, float32 products).  On CPU
+tensors it runs the plain version, ``ref.flash_attention_ref``.
 ``ops.flash_attention`` is the differentiable entry point.
 """
 from __future__ import annotations
@@ -24,7 +24,7 @@ _ARGTYPES = ([c_void_p] * 4 + [c_int] * 6 + [c_int64] * 9
              + [c_int, c_int, c_double, c_int, c_int, c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DESIGNS = {"simt": 0, "wgmma": 1}
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 96, 128, 256)
 WGMMA_HEAD_DIMS = (64, 128)
 
 
@@ -32,9 +32,11 @@ def design(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a CUDA call takes: ``"wgmma"`` (bf16 products on the
     tensor cores) for bf16 at head_dim 64 and 128; ``"simt"`` (float32
     products on the CUDA cores) for float32, whose checks hold the
-    kernel to full float32 products, and for bf16 at 256, whose
-    128-row K and V tiles would not fit two stages of shared memory.
-    Raises for a dtype or head_dim that has no kernel."""
+    kernel to full float32 products, for bf16 at 96 (phi3-mini), which
+    the tensor-core kernel's 64-column swizzle blocks do not divide, and
+    for bf16 at 256, whose 128-row K and V tiles would not fit two
+    stages of shared memory.  Raises for a dtype or head_dim that has no
+    kernel."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{dtype}")
@@ -51,12 +53,7 @@ def check_wgmma_layout(name: str, t: torch.Tensor) -> None:
     16-byte aligned base and strides of whole 16 bytes: raise ValueError
     unless ``t``'s base is so aligned and its batch, sequence and head
     strides are multiples of 16 bytes."""
-    ptr, st, size = t.data_ptr(), t.stride(), t.element_size()
-    if ptr % 16 or any(s * size % 16 for s in st[:3]):
-        raise ValueError(f"flash_attention ({name}): the tensor-core kernel "
-                         f"needs a 16-byte aligned base and [B, S, H] "
-                         f"strides of whole 16 bytes, got address {ptr:#x}, "
-                         f"strides {st} of {size}-byte elements")
+    _build.check_16b_rows("flash_attention", name, t, "[B, S, H]")
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -14,6 +14,7 @@ import shutil
 import pytest
 import torch
 
+from repro_torch.configs import get_config, list_archs
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 
@@ -21,8 +22,10 @@ from repro_torch.kernels import flash_attention as fa
 @pytest.mark.parametrize("dtype,head_dim,want", [
     (torch.bfloat16, 64, "wgmma"),      # zamba2-1.2b's shared block
     (torch.bfloat16, 128, "wgmma"),     # olmoe-1b-7b
+    (torch.bfloat16, 96, "simt"),       # phi3-mini-3.8b: 64-col blocks
     (torch.bfloat16, 256, "simt"),      # gemma2-2b: tiles too large
     (torch.float32, 64, "simt"),        # float32 products stay exact
+    (torch.float32, 96, "simt"),
     (torch.float32, 128, "simt"),
     (torch.float32, 256, "simt"),
 ])
@@ -32,13 +35,25 @@ def test_design_routes_by_dtype_and_head_dim(dtype, head_dim, want):
 
 @pytest.mark.parametrize("dtype,head_dim,exc", [
     (torch.bfloat16, 32, ValueError),
-    (torch.bfloat16, 96, ValueError),
+    (torch.bfloat16, 80, ValueError),
     (torch.float32, 512, ValueError),
     (torch.float16, 64, TypeError),
 ])
 def test_design_refuses_what_has_no_kernel(dtype, head_dim, exc):
     with pytest.raises(exc):
         fa.design(dtype, head_dim)
+
+
+# every config the port runs that has attention (whisper-base's family
+# is not ported and raises; mamba2 has no attention)
+ATTENTION_ARCHS = [a for a in list_archs() if a != "whisper-base"
+                   and get_config(a).family != "ssm"]
+
+
+@pytest.mark.parametrize("arch", ATTENTION_ARCHS)
+def test_every_registered_config_has_a_kernel_for_its_heads(arch):
+    cfg = get_config(arch)
+    assert fa.design(cfg.torch_dtype, cfg.hd) in fa._DESIGNS
 
 
 def test_every_design_has_a_counter_and_a_code():
