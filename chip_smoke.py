@@ -14,7 +14,8 @@ Phases, each of which ends the script with a non-zero exit on failure:
 3. kernel checks: each kernel against its plain PyTorch version on the
    card, at the shapes the main path, the olmoe and zamba2 rounds and
    the mamba2 prefill give it and at edge cases, with its time, its
-   bound and a one-call PyTorch yardstick where one exists;
+   bound and a one-call PyTorch yardstick where one exists, and the
+   time of an empty kernel (the launch floor) by the same timers;
 4. main path: ``Engine.run()`` of cyclesfl on femnist_cnn at the paper's
    width 32 (cut 2), with the kernels' launch counters reset before and
    read after;
@@ -270,56 +271,164 @@ def kernel_checks(torch, dev):
     adam((COHORT, olmoe.cut_layers, mo.n_experts, olmoe.d_model,
           mo.d_ff_expert), [2, 0], dtype=torch.bfloat16)
 
-    # ---- gather_loss: the cut-3 head over the pooled dense features
-    def gather_loss(t, d, k, m, dtype=torch.float32, labels=torch.int64):
+    rows["gather_loss"] = gather_loss_checks(torch, dev, gen)
+    rows["flash_attention"] = flash_checks(torch, dev, gen)
+
+    rows["topk_gating"] = gating_checks(torch, dev, gen)
+    rows["ssd_scan"] = ssd_checks(torch, dev, gen)
+    return rows
+
+
+def gather_loss_checks(torch, dev, gen):
+    """``gather_loss`` against its plain version within 1e-4 (float32
+    sums in another order): femnist cut 3's head ([80, 2048] x [2048,
+    10], idx 16, one row tile split over a cluster), a large server batch
+    ([8192, 2048] x [2048, 62], idx 2048), and the design's edges: K past
+    one class tile (129, 300), a bias, D not a multiple of the 128-wide
+    chunk (16- and 4-byte copies), M = 1, bf16 operands (odd lengths take
+    the 2-byte copies), int32 labels; then an index and a label out of range,
+    which give NaN on their rows and leave the others as the plain
+    version's.  Each line names the launch shape.  Returns femnist's row."""
+    from repro_torch.kernels import gather_loss as gl
+    from repro_torch.kernels import ops, ref
+
+    def inputs(t, d, k, m, dtype, w_dtype, labels, bias):
         src = torch.relu(torch.randn(t, d, device=dev, generator=gen)
                          ).to(dtype)
         lab = torch.randint(0, k, (t,), generator=gen, device=dev
                             ).to(labels)
         w = (torch.randn(d, k, device=dev, generator=gen) / d ** 0.5
-             ).to(dtype)
+             ).to(w_dtype)
         idx = torch.randint(0, t, (m,), generator=gen, device=dev,
                             dtype=torch.int32)
+        b = (torch.randn(k, device=dev, generator=gen) if bias else None)
+        return src, lab, w, idx, b
+
+    def case(t, d, k, m, dtype=torch.float32, w_dtype=None,
+             labels=torch.int64, bias=False):
+        w_dtype = w_dtype or dtype
+        src, lab, w, idx, b = inputs(t, d, k, m, dtype, w_dtype, labels, bias)
         nbytes = (len(set(idx.tolist())) * d * src.element_size()
                   + d * k * w.element_size() + m * lab.element_size()
-                  + m * 4 + m * 4)
-        return check("gather_loss", f"[{t}, {d}] w[{d}, {k}] idx[{m}] "
-                     f"{str(dtype)[6:]} labels {str(labels)[6:]}",
-                     lambda: (ops.gather_loss_microbatch(src, lab, idx, w),),
-                     lambda: (ref.gather_loss_microbatch_ref(src, lab, idx, w),),
-                     1e-4, nbytes, 2 * m * d * k + 6 * m * k, dtype=dtype)
+                  + m * 4 + m * 4 + (4 * k if bias else 0))
+        shape = gl.card_shape(src, w, m)
+        row = check("gather_loss", f"[{t}, {d}] w[{d}, {k}] idx[{m}] "
+                    f"{str(dtype)[6:]}" + (f" w {str(w_dtype)[6:]}"
+                                           if w_dtype != dtype else "")
+                    + f" labels {str(labels)[6:]}" + (" bias" if bias else "")
+                    + f" (row tile {gl.ROW_TILE}, k tile {shape['k_tile']}, "
+                    f"cluster {shape['cluster']})",
+                    lambda: (ops.gather_loss_microbatch(src, lab, idx, w, b),),
+                    lambda: (ref.gather_loss_microbatch_ref(src, lab, idx, w,
+                                                            b),),
+                    1e-4, nbytes, 2 * m * d * k + 6 * m * k, dtype=dtype)
+        row["launch"] = {"row_tile": gl.ROW_TILE, **shape}
+        return row
 
-    rows["gather_loss"] = gather_loss(80, 2048, 10, 16)
-    gather_loss(8192, 2048, 62, 2048)
-    gather_loss(37, 33, 7, 19, dtype=torch.bfloat16, labels=torch.int32)
+    main = case(80, 2048, 10, 16)
+    case(8192, 2048, 62, 2048)
+    case(37, 33, 7, 19, dtype=torch.bfloat16, labels=torch.int32)
+    case(80, 2048, 10, 16, dtype=torch.bfloat16)
+    case(80, 2048, 10, 16, dtype=torch.bfloat16, w_dtype=torch.float32)
+    case(512, 256, 300, 200, bias=True)
+    case(512, 1000, 62, 130, bias=True)
+    case(97, 1001, 129, 70, labels=torch.int32)
+    case(40, 96, 62, 1)
+    case(8192, 2048, 300, 2048, dtype=torch.bfloat16, bias=True)
 
-    rows["flash_attention"] = flash_checks(torch, dev, gen)
+    # out of range: idx -1 and T, a label K; the other rows as the plain's
+    src, lab, w, idx, b = inputs(64, 300, 62, 40, torch.float32,
+                                 torch.float32, torch.int64, True)
+    lab[int(idx[5])] = 62
+    idx[3], idx[7] = -1, 64
+    bad = torch.zeros(40, dtype=torch.bool, device=dev)
+    bad[3] = bad[7] = True
+    bad |= lab[idx.clamp(0, 63).long()] == 62
+    got = ops.gather_loss_microbatch(src, lab, idx, w, b)
+    keep = ~bad
+    want = ref.gather_loss_microbatch_ref(src, lab.clamp(max=61),
+                                          idx.clamp(0, 63), w, b)
+    torch.cuda.synchronize()
+    if not (torch.isnan(got[bad]).all() and torch.isfinite(got[keep]).all()
+            and within(got[keep], want[keep], 1e-4)):
+        raise AssertionError("gather_loss: an index or label out of range "
+                             "must give NaN on its row alone")
+    print(f"check gather_loss out of range: {int(bad.sum())} NaN rows of 40, "
+          f"the rest within 1e-4 of the plain version")
+    return main
 
-    # ---- topk_gating: the olmoe router's group, a small router, ties
-    def gating(T, E, k, ties=False):
-        if ties:
-            x = torch.randint(-2, 3, (T, E), device=dev, generator=gen
-                              ).float()
+
+def gating_checks(torch, dev, gen):
+    """``topk_gating`` against its plain version: ids exactly equal,
+    weights within 1e-6, at olmoe's router group ([4096, 64] k 8, the
+    returned row), moonshot's (E 64, k 6) and grok-1's (E 8, k 2), and at
+    the design's edges: integer (tied) logits, rows all equal, logits so
+    spread that most probabilities underflow to +0 (then ids in index
+    order), bf16, E not a multiple of a lane's 8 (60, 7, 4), E = 256 with
+    k 8 and k = E (the rounds past 8), and T not a multiple of the rows a
+    warp takes.  Each line names the lanes a row takes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.topk_gating import lanes_per_row, topk_gating
+
+    def case(T, E, k, kind="randn", dtype=torch.float32):
+        if kind == "tied":
+            x = torch.randint(-2, 3, (T, E), device=dev, generator=gen).float()
+        elif kind == "equal":
+            x = torch.full((T, E), 0.75, device=dev)
+        elif kind == "underflow":
+            x = torch.randn(T, E, device=dev, generator=gen) * 200
         else:
             x = torch.randn(T, E, device=dev, generator=gen)
-        nbytes = x.numel() * 4 + T * k * 8
+        x = x.to(dtype)
+        nbytes = x.numel() * x.element_size() + T * k * 8
         got, want = topk_gating(x, k), ref.topk_gating_ref(x, k)
         if not torch.equal(got[1], want[1]):
-            raise AssertionError(f"topk_gating [{T}, {E}] k={k}: ids differ "
-                                 f"from the plain version")
-        return check("topk_gating", f"[{T}, {E}] k={k}"
-                     + (" tied" if ties else ""),
-                     lambda: (topk_gating(x, k)[0],),
-                     lambda: (ref.topk_gating_ref(x, k)[0],),
-                     1e-6, nbytes, T * E * (4 + 2 * k), dtype=x.dtype)
+            raise AssertionError(f"topk_gating [{T}, {E}] k={k} {kind}: ids "
+                                 f"differ from the plain version")
+        lanes = lanes_per_row(E)
+        row = check("topk_gating", f"[{T}, {E}] k={k}"
+                    + ("" if kind == "randn" else f" {kind}")
+                    + ("" if dtype == torch.float32 else f" {str(dtype)[6:]}")
+                    + f" ({lanes} lane{'s' if lanes > 1 else ''} a row, "
+                    f"{32 // lanes} row{'s' if lanes < 32 else ''} a warp)",
+                    lambda: (topk_gating(x, k)[0],),
+                    lambda: (ref.topk_gating_ref(x, k)[0],),
+                    1e-6, nbytes, T * E * (4 + 2 * k), dtype=x.dtype)
+        row["launch"] = {"lanes_per_row": lanes}
+        return row
 
-    from repro_torch.kernels.topk_gating import topk_gating
-    rows["topk_gating"] = gating(4096, 64, 8)
-    gating(4096, 8, 2)
-    gating(4096, 64, 8, ties=True)
+    main = case(4096, 64, 8)
+    case(4096, 8, 2)
+    case(4096, 64, 8, "tied")
+    case(4096, 64, 6)
+    case(4096, 64, 8, dtype=torch.bfloat16)
+    case(4093, 64, 8)
+    case(1000, 64, 8, "equal")
+    case(1000, 64, 8, "underflow")
+    case(1000, 60, 6)
+    case(1001, 7, 7, "tied")
+    case(999, 4, 1)
+    case(1000, 256, 8)
+    case(300, 256, 256)
+    case(333, 16, 16, "tied", torch.bfloat16)
+    return main
 
-    rows["ssd_scan"] = ssd_checks(torch, dev, gen)
-    return rows
+
+def launch_floor(torch):
+    """Device and eager time of an empty kernel, by the timers of the
+    kernel checks: what a launch of a us-scale kernel costs at least."""
+    from ctypes import c_void_p
+    from repro_torch.kernels import _build
+    fn = _build.entry("launch_floor", [c_void_p])
+
+    def run():
+        _build.check(fn(torch.cuda.current_stream().cuda_stream),
+                     "launch_floor")
+
+    out = {"ms": device_ms(run), "eager_ms": eager_ms(run)}
+    print(f"launch floor (empty kernel): {out['ms']:.4f}ms "
+          f"(eager {out['eager_ms']:.4f}ms)")
+    return out
 
 
 def flash_checks(torch, dev, gen):
@@ -987,8 +1096,9 @@ def main(argv=None):
     print(f"build: {len(libs)} kernels from src/repro_torch/kernels/csrc in "
           f"{time.perf_counter() - t0:.2f}s -> {_build.BUILD_DIR}")
 
-    # 3. kernel checks
+    # 3. kernel checks, and the launch floor they are read against
     rows = kernel_checks(torch, dev)
+    floor = launch_floor(torch)
 
     # 4-5. the main path and the fused variant
     r = args.rounds
@@ -1053,7 +1163,8 @@ def main(argv=None):
                        "main": main_run, "fused": fused_run,
                        "checks": CHECKS, "olmoe_round": olmoe,
                        "zamba2_round": zamba, "prefill": prefills,
-                       "profile": profiles, "card_vs_cpu": parity}, f,
+                       "profile": profiles, "card_vs_cpu": parity,
+                       "launch_floor": floor}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,7 @@ tensors it runs the plain version, ``ref.gather_loss_microbatch_ref``.
 from __future__ import annotations
 
 from ctypes import c_int, c_int64, c_void_p
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -15,9 +15,78 @@ from repro_torch.kernels import _build, ref
 
 launches = 0          # kernel launches since the last reset
 
-_ARGTYPES = [c_void_p] * 6 + [c_int64] * 3 + [c_int] * 4 + [c_void_p]
+_ARGTYPES = [c_void_p] * 6 + [c_int64] * 3 + [c_int] * 9 + [c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _LABELS = {torch.int32: 4, torch.int64: 8}
+ROW_TILE, D_CHUNK, MAX_CLUSTER = 32, 128, 8    # the kernel's tiles
+
+
+def class_tile(K: int) -> int:
+    """The kernel's class tile for K classes: 16, 32 or 64, the smallest
+    that holds K, at most 64."""
+    k_tile = 16
+    while k_tile < min(K, 64):
+        k_tile *= 2
+    return k_tile
+
+
+def launch_shape(M: int, D: int, K: int, sms: int,
+                 max_clusters: Optional[Callable[[int], int]] = None) -> dict:
+    """How the kernel covers an [M] x [D, K] call on a card of ``sms``
+    SMs (one block of 8 warps an SM): row tiles of 32 gathered rows; a
+    class tile of 16, 32 or 64 (the smallest that holds K, at most 64,
+    walked in turn past that); and a cluster of 1 to 8 blocks that split
+    D, doubled while the blocks still fit the SMs, every block keeps a
+    128-wide chunk of D and, where ``max_clusters(c)`` says how many
+    clusters of c blocks the card holds at once, the launch stays one
+    wave."""
+    k_tile = class_tile(K)
+    tiles = -(-M // ROW_TILE)
+    chunks = -(-D // D_CHUNK)
+    cluster = 1
+    while (cluster < MAX_CLUSTER and cluster * 2 <= chunks
+           and tiles * cluster * 2 <= sms
+           and (max_clusters is None or tiles <= max_clusters(cluster * 2))):
+        cluster *= 2
+    return {"row_tiles": tiles, "k_tile": k_tile, "cluster": cluster}
+
+
+def copy_bytes(t: torch.Tensor) -> int:
+    """Bytes of one copy of a row of ``t`` [rows, n] into shared memory:
+    16, 8 or 4 where the base and the row length allow (no copy then
+    straddles a row's end), else 2 (bfloat16 rows of odd length)."""
+    row = t.shape[1] * t.element_size()
+    for c in (16, 8, 4):
+        if t.data_ptr() % c == 0 and row % c == 0:
+            return c
+    return 2
+
+
+_SMS: dict = {}          # card index -> its SM count
+_CLUSTERS: dict = {}     # (card, src, w, k_tile, cluster) -> clusters at once
+
+
+def card_shape(src: torch.Tensor, w: torch.Tensor, M: int) -> dict:
+    """``launch_shape`` on the card that holds ``src`` [T, D] and ``w``
+    [D, K], with its SM count and its answer to how many clusters of c
+    blocks it holds at once (asked once per kernel instance and c)."""
+    card = src.device.index
+    if card not in _SMS:
+        _SMS[card] = torch.cuda.get_device_properties(
+            card).multi_processor_count
+    K = w.shape[1]
+    key = (card, _DTYPES[src.dtype], _DTYPES[w.dtype], class_tile(K))
+    fn = _build.entry("gather_loss_max_clusters", [c_int] * 4,
+                      source="gather_loss")
+
+    def max_clusters(c: int) -> int:
+        if key + (c,) not in _CLUSTERS:
+            n = fn(*key[1:], c)
+            if n < 0:
+                raise RuntimeError("gather_loss: the occupancy query failed")
+            _CLUSTERS[key + (c,)] = n
+        return _CLUSTERS[key + (c,)]
+    return launch_shape(M, src.shape[1], K, _SMS[card], max_clusters)
 
 
 def gather_loss_microbatch(src, labels, idx, w,
@@ -58,13 +127,15 @@ def gather_loss_microbatch(src, labels, idx, w,
     out = torch.empty((M,), dtype=torch.float32, device=src.device)
     if M == 0:
         return out
+    shape = card_shape(src, w, M)
     fn = _build.entry("gather_loss", _ARGTYPES)
     global launches
     launches += 1
     _build.check(fn(src.data_ptr(), labels.data_ptr(), idx.data_ptr(),
                     w.data_ptr(), None if b is None else b.data_ptr(),
                     out.data_ptr(), T, M, D, K, _DTYPES[src.dtype],
-                    _DTYPES[w.dtype], _LABELS[labels.dtype],
-                    _build.stream_of(src)),
+                    _DTYPES[w.dtype], _LABELS[labels.dtype], shape["k_tile"],
+                    shape["cluster"], copy_bytes(src), copy_bytes(w),
+                    int(w.data_ptr() % 16 == 0), _build.stream_of(src)),
                  "gather_loss")
     return out

@@ -15,9 +15,23 @@ from repro_torch.kernels import _build, ref
 
 launches = 0          # kernel launches since the last reset
 
-_ARGTYPES = [c_void_p] * 3 + [c_int64, c_int, c_int, c_int, c_void_p]
+_ARGTYPES = [c_void_p] * 3 + [c_int64] + [c_int] * 5 + [c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_EXPERTS = 256
+EXPERTS_PER_LANE = 8      # the kernel's registers a lane
+
+
+def lanes_per_row(E: int) -> int:
+    """The lanes of a warp that hold one row of E logits: the power of
+    two that gives each lane at most 8 experts (E = 64: 8 lanes, 4 rows
+    a warp; E <= 8: 1 lane, 32 rows a warp)."""
+    if not 1 <= E <= MAX_EXPERTS:
+        raise ValueError(f"topk_gating holds 1 to {MAX_EXPERTS} experts a "
+                         f"row, got {E}")
+    lanes = 1
+    while lanes * EXPERTS_PER_LANE < E:
+        lanes *= 2
+    return lanes
 
 
 def topk_gating(logits: torch.Tensor, k: int):
@@ -45,10 +59,13 @@ def topk_gating(logits: torch.Tensor, k: int):
     ids = torch.empty((T, k), dtype=torch.int32, device=logits.device)
     if T == 0:
         return w, ids
+    # each lane's experts load as 4-element vectors when rows and base allow
+    vec = E % 4 == 0 and logits.data_ptr() % 16 == 0
     fn = _build.entry("topk_gating", _ARGTYPES)
     global launches
     launches += 1
     _build.check(fn(logits.data_ptr(), w.data_ptr(), ids.data_ptr(), T, E, k,
-                    _DTYPES[logits.dtype], _build.stream_of(logits)),
+                    _DTYPES[logits.dtype], lanes_per_row(E), int(vec),
+                    _build.stream_of(logits)),
                  "topk_gating")
     return w, ids

@@ -89,7 +89,11 @@ def test_resample_rows_takes_int64_labels():
 
 # --------------------------------------------------- fused gather + loss
 GL_CASES = [(37, 16, 5, 12), (300, 24, 3, 50), (64, 8, 10, 64),
-            (128, 33, 7, 19)]
+            (128, 33, 7, 19),
+            # the row-tiled kernel's edges: D not a multiple of its
+            # 128-wide chunk, one row, K past one 64-class tile (129, 300)
+            (64, 100, 7, 33), (40, 130, 62, 1), (50, 70, 300, 20),
+            (33, 65, 129, 17)]
 
 
 # atol 1e-5: both sides take the K dot products in float32, in another
@@ -442,6 +446,38 @@ def test_topk_gating_matches_reference_kernel_and_oracle(T, E, k, bt, ties):
     for wj, ij in (j_topk(jnp.asarray(x), k, block_t=min(bt, T),
                           interpret=True),
                    jref.topk_gating_ref(jnp.asarray(x), k)):
+        np.testing.assert_array_equal(ids.numpy(), np.asarray(ij))
+        np.testing.assert_allclose(w.numpy(), np.asarray(wj), atol=1e-6)
+
+
+# the lane-per-8-experts kernel's edges: E below, at and past a lane's 8
+# (4, 8, 60, 64, 256), k of 1 to E (past 8 the rounds are written as
+# they come), integer (tied) logits, rows all equal, bf16 logits, and T
+# not a multiple of the rows a warp takes
+TK_EDGES = [(37, 4, 1, "randn", "float32"), (37, 4, 4, "tied", "float32"),
+            (41, 8, 2, "equal", "float32"), (41, 8, 8, "tied", "bfloat16"),
+            (33, 60, 6, "randn", "float32"), (33, 60, 60, "tied", "float32"),
+            (35, 64, 8, "randn", "bfloat16"), (35, 64, 8, "equal", "float32"),
+            (35, 64, 64, "tied", "float32"), (19, 256, 8, "randn", "float32"),
+            (9, 256, 256, "tied", "bfloat16")]
+
+
+@pytest.mark.parametrize("T,E,k,kind,dtype", TK_EDGES,
+                         ids=["-".join(map(str, c)) for c in TK_EDGES])
+def test_topk_gating_design_edges_match_reference_kernel_and_oracle(
+        T, E, k, kind, dtype):
+    """ids exactly equal, weights atol 1e-6, as above; the Pallas kernel
+    takes the whole T as one block."""
+    if kind == "tied":
+        x = RNG.integers(-2, 3, size=(T, E))
+    elif kind == "equal":
+        x = np.full((T, E), 0.75)
+    else:
+        x = RNG.normal(size=(T, E))
+    xj, xt = _pair(x, dtype)
+    w, ids = topk_gating(xt, k)
+    for wj, ij in (j_topk(xj, k, block_t=T, interpret=True),
+                   jref.topk_gating_ref(xj, k)):
         np.testing.assert_array_equal(ids.numpy(), np.asarray(ij))
         np.testing.assert_allclose(w.numpy(), np.asarray(wj), atol=1e-6)
 
