@@ -37,7 +37,14 @@ Phases, each of which ends the script with a non-zero exit on failure:
     blocks cut after 4 as published, the shared attention block after
     blocks 12 and 25 on the server), bf16, 3 rounds;
 11. SSM prefills: ``build_prefill_step`` for zamba2-1.2b and for
-    mamba2-2.7b at its full 64 blocks, batch 2, sequence 2048.
+    mamba2-2.7b at its full 64 blocks, batch 2, sequence 2048;
+12. the algorithm zoo: ``Engine.run()`` of each of the ten programs at
+    the main path's configuration, with the launch counters reset
+    before and read after, then psl, cyclepsl, cyclesglr and ssl again
+    under variable attendance (padded slots drawn), and the time of the
+    per-client store's commit scatter;
+13. card against CPU for every program, as in 6, under variable
+    attendance with a padded slot drawn.
 
 It then prints the ``kernels`` JSON line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -716,6 +723,13 @@ def drive(torch, label, cfg, expect):
           f"at {rps:.2f} rounds/s; server_loss per round {losses}; "
           f"test_loss={hist['test_loss']:.4f} accuracy={hist['accuracy']:.4f}; "
           f"launches {launches} (expected {expect})")
+    padded = 0
+    if cfg.pad_cohorts:       # replay the sampler: padded slots drawn
+        import numpy as np
+        rng = np.random.default_rng(cfg.seed + 1)
+        padded = sum(int((eng.sample_round(rng)[3] == 0).sum())
+                     for _ in range(cfg.rounds))
+        print(f"{label}: {padded} padded slots in {cfg.rounds} rounds")
     vals = [v for _, m in eng_stamps for v in m.values()]
     vals += [hist["test_loss"], hist["train_loss"]]
     if not all(math.isfinite(x) for x in vals):
@@ -726,7 +740,7 @@ def drive(torch, label, cfg, expect):
                                  f"expected {n}")
     return {"rounds": cfg.rounds, "wall_s": wall, "rounds_per_s": rps,
             "server_loss": losses, "history": res["history"],
-            "launches": launches}
+            "launches": launches, "padded_slots": padded}
 
 
 def device_profile(torch, label, run):
@@ -770,8 +784,31 @@ def profile_rounds(torch, cfg):
     from repro_torch.api import Engine
     eng = Engine(cfg, device="cuda", log=lambda msg: None)
     eng.run()                                   # warm: cuDNN picks, caches
-    return device_profile(torch, f"cut{cfg.cut} ({cfg.rounds} rounds + eval)",
-                          eng.run)
+    return device_profile(torch, f"{cfg.algo} cut{cfg.cut} ({cfg.rounds} "
+                          f"rounds + eval)", eng.run)
+
+
+def cpu_and_card(torch, cfg, plan_fn):
+    """``Engine.run()`` of ``cfg`` on the CPU (plain versions) and on the
+    card (kernels) from one init drawn on the CPU: each side's per-round
+    metrics, final state, last evaluation and Engine."""
+    from repro_torch.api import Engine
+    from repro_torch.utils.tree import tree_map
+    init = Engine(cfg, device="cpu", log=lambda msg: None).init_state()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        rows, final = [], []
+
+        class Rec:
+            def on_round(self, engine, rnd, state, metrics):
+                rows.append({k: float(v) for k, v in metrics.items()})
+                final[:] = [state]
+
+        eng = Engine(cfg, device=dev, callbacks=[Rec()], plan_fn=plan_fn,
+                     log=lambda msg: None)
+        res = eng.run(state=tree_map(lambda t: t.to(dev), init))
+        runs[dev] = (rows, final[0], res["history"][-1], eng)
+    return runs
 
 
 def card_against_cpu(torch):
@@ -780,9 +817,9 @@ def card_against_cpu(torch):
     metrics must agree to rtol 1e-4 (float32 sums in another order);
     weights to 1e-5 but for at most 0.1% of them, each within the
     2 * lr * steps that Adam's near-sign steps can move a weight."""
-    from repro_torch.api import Engine, ExperimentConfig
+    from repro_torch.api import ExperimentConfig
     from repro_torch.core.feature_store import masked_resample_plan
-    from repro_torch.utils.tree import tree_leaves, tree_map
+    from repro_torch.utils.tree import tree_leaves
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print("card-vs-cpu: TF32 off for cuDNN convolutions and matmuls")
@@ -796,20 +833,7 @@ def card_against_cpu(torch):
                                attendance=0.3, batch=8, width=8, cut=cut
                                ).with_cycle(server_epochs=2,
                                             fused_gather_loss=fused)
-        runs = {}
-        for dev in ("cpu", "cuda"):
-            rows, final = [], []
-
-            class Rec:
-                def on_round(self, engine, rnd, state, metrics):
-                    rows.append({k: float(v) for k, v in metrics.items()})
-                    final[:] = [state]
-
-            eng = Engine(cfg, device=dev, callbacks=[Rec()], plan_fn=plan_fn,
-                         log=lambda msg: None)
-            init = Engine(cfg, device="cpu", log=lambda msg: None).init_state()
-            eng.run(state=tree_map(lambda t: t.to(dev), init))
-            runs[dev] = (rows, final[0])
+        runs = cpu_and_card(torch, cfg, plan_fn)
         worst = 0.0
         for rc, rg in zip(runs["cpu"][0], runs["cuda"][0]):
             for k in rc:
@@ -1063,14 +1087,173 @@ def transformer_card_against_cpu(torch):
     return out
 
 
+# phase 12 drives these again under variable attendance: the PSL family
+# (per-client store: sentinel scatter, per-client evaluation of padded
+# cohorts) and ssl (the masked chain of server and client steps)
+VARIABLE_RERUN = ("psl", "cyclepsl", "cyclesglr", "ssl")
+
+
+def zoo_launches(algo, rounds):
+    """Launches of ``rounds`` rounds of ``algo`` at the main path's
+    configuration (cut 2): L_s = 2 server and L_c = 4 client leaves, C = 5
+    slots, S = 5 server inner-loop steps (80 pooled rows / server batch
+    16).  The cycle programs run the inner loop (S server steps, each
+    gathering features and labels: 2 S feature_resample) and step the
+    client stack once (L_c), but cyclessl steps its one client along the
+    chain (C L_c).  psl, sflv1 and sglr step the server once (replicas
+    stacked, or on the mean gradient) and the client stack once, as
+    fedavg steps its server and client replicas; sflv2 steps its server
+    once a slot (C L_s) and the client copies once; ssl steps both once a
+    slot.  Padded slots step and are then deselected, so the counts do
+    not depend on attendance."""
+    Ls, Lc, C, S = 2, 4, 5, 5
+    adam = {"cyclesfl": S * Ls + Lc, "cyclepsl": S * Ls + Lc,
+            "cyclesglr": S * Ls + Lc, "cyclessl": S * Ls + C * Lc,
+            "psl": Ls + Lc, "sflv1": Ls + Lc, "sglr": Ls + Lc,
+            "fedavg": Ls + Lc, "sflv2": C * Ls + Lc, "ssl": C * (Ls + Lc)}
+    resample = 2 * S if algo.startswith("cycle") else 0
+    return {"fused_adam": adam[algo] * rounds,
+            "feature_resample": resample * rounds, "gather_loss": 0}
+
+
+def put_entities_time(torch):
+    """The per-client store's commit scatter at the main path's size
+    ([100, ...] params, m and v of femnist_cnn's client half, cut 2): one
+    cohort of 4 clients and a padded slot, device and eager ms."""
+    from repro_torch.api import Engine, ExperimentConfig
+    from repro_torch.core.protocol import put_entities, take_entities
+    from repro_torch.utils.tree import tree_leaves
+    eng = Engine(ExperimentConfig(algo="cyclepsl", cut=2, **MAIN),
+                 device="cuda", log=lambda msg: None)
+    store = eng.init_state().clients
+    cohort = torch.tensor([3, 17, 42, 99, 100], device=store.step.device)
+    vals = take_entities(store, cohort)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(store))
+    run = lambda: put_entities(store, cohort, vals)
+    ms, eager = device_ms(run), eager_ms(run)
+    print(f"put_entities: store {nbytes / 1e6:.2f} MB in "
+          f"{len(tree_leaves(store))} leaves, cohort 5 (one padded): "
+          f"{ms:.4f} ms device, {eager:.4f} ms eager")
+    return {"store_bytes": nbytes, "ms": ms, "eager_ms": eager}
+
+
+def zoo(torch, rounds):
+    """Phase 12: every program at the main path's configuration, with
+    exact launch counts, then ``VARIABLE_RERUN`` under variable
+    attendance, which must draw padded slots."""
+    from repro_torch.api import ExperimentConfig, algorithm_names
+    out = {}
+    for algo in algorithm_names():
+        out[algo] = drive(torch, f"zoo {algo}", ExperimentConfig(
+            algo=algo, rounds=rounds, eval_every=rounds, cut=2, **MAIN),
+            zoo_launches(algo, rounds))
+    for algo in VARIABLE_RERUN:
+        run = drive(torch, f"zoo {algo} variable", ExperimentConfig(
+            algo=algo, rounds=rounds, eval_every=rounds, cut=2,
+            variable_attendance=True, **MAIN), zoo_launches(algo, rounds))
+        if not run["padded_slots"]:
+            raise AssertionError(f"zoo {algo} variable: no padded slot drawn")
+        out[f"{algo}/variable"] = run
+    print("zoo rounds/s (host-bound; compare within this call only): "
+          + ", ".join(f"{k} {v['rounds_per_s']:.2f}" for k, v in out.items()))
+    out["put_entities"] = put_entities_time(torch)
+    return out
+
+
+def zoo_card_against_cpu(torch):
+    """Phase 13: phase 6 for every program, two rounds at width 8 under
+    variable attendance, server epochs 2, seed 4: its second round draws
+    2 clients into 3 slots.  Not a first round of 2: the Adam steps of
+    two slots' first step are +-lr, so a FedAvg of two leaves some
+    biases at float32 rounding noise; 67% of the pixels are exactly 0,
+    where the pre-activation is that bias, so the next round's ReLU
+    gates them by the noise's sign, which differs by device, and the
+    client gradients then differ by ~1e-3 relative (seed 1: 4.6e-3 in
+    cyclesfl), a discontinuity of the task, not of either side.
+    Per-round metrics with the same keys to
+    rtol 1e-4 (``feat_grad_norm_std`` also within 1e-5 of
+    ``feat_grad_norm_mean``: SGLR's slots share one gradient, so the std
+    of their equal norms is float32 rounding of the mean); the test loss
+    to rtol 1e-4, the accuracy within one flipped test sample; int32
+    steps equal; weights, the per-client store included, within 1e-5
+    but for 0.1% of a leaf (one value in a smaller leaf, for such a
+    bias), each within the 2 * lr * steps that Adam's near-sign steps
+    can move a weight, with steps the most any entity took."""
+    from repro_torch.api import ExperimentConfig, algorithm_names
+    from repro_torch.core.feature_store import masked_resample_plan
+    from repro_torch.utils.tree import tree_leaves
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def plan_fn(key, valid, epochs, sb):
+        return masked_resample_plan(key, valid.cpu(), epochs, sb)
+
+    out = {}
+    for algo in algorithm_names():
+        cfg = ExperimentConfig(algo=algo, rounds=2, eval_every=2,
+                               n_clients=10, attendance=0.3, batch=8,
+                               width=8, cut=2, seed=4,
+                               variable_attendance=True
+                               ).with_cycle(server_epochs=2)
+        runs = cpu_and_card(torch, cfg, plan_fn)
+        (rows_c, sc, hc, eng), (rows_g, sg, hg, _) = runs["cpu"], runs["cuda"]
+        worst = 0.0
+        for rc, rg in zip(rows_c, rows_g):
+            if set(rc) != set(rg):
+                raise AssertionError(f"card-vs-cpu {algo}: metric keys "
+                                     f"{sorted(rc)} vs {sorted(rg)}")
+            for k in rc:
+                atol = (1e-5 * abs(rc["feat_grad_norm_mean"])
+                        if k == "feat_grad_norm_std" else 0.0)
+                worst = max(worst, max(abs(rg[k] - rc[k]) - atol, 0.0)
+                            / max(abs(rc[k]), 1e-12))
+        loss_rel = abs(hg["test_loss"] - hc["test_loss"]) / abs(hc["test_loss"])
+        if sc.clients is None:
+            scored = len(eng.fed.test_arrays()[1])
+        else:
+            held = [c for c in eng.fed.clients if len(c.x_test)][:40]
+            scored = min(len(c.x_test) for c in held) * len(held)
+        acc_ok = abs(hg["accuracy"] - hc["accuracy"]) <= 1.0 / scored + 1e-6
+        ints = [t for t in tree_leaves(sc) if t.dtype == torch.int32]
+        steps = max(int(t.max()) for t in ints)
+        w_max, over, steps_ok = 0.0, 0, True
+        for a, b in zip(tree_leaves(sc), tree_leaves(sg)):
+            d = (a.double() - b.cpu().double()).abs()
+            if a.dtype == torch.int32:
+                steps_ok &= bool((d == 0).all())
+                continue
+            w_max = max(w_max, float(d.max()))
+            n = int((d > 1e-5).sum())
+            over = max(over, n - max(1, int(1e-3 * d.numel())))
+        store = (None if sc.clients is None else max(
+            float((a.double() - b.cpu().double()).abs().max())
+            for a, b in zip(tree_leaves(sc.clients.params),
+                            tree_leaves(sg.clients.params))))
+        print(f"card-vs-cpu {algo}: worst metric rel diff {worst:.3e} (tol "
+              f"1e-4); test loss rel diff {loss_rel:.3e}, accuracy "
+              f"{hc['accuracy']:.4f} / {hg['accuracy']:.4f}; weights max abs "
+              f"diff {w_max:.3e} (bound {2 * 1e-3 * steps:.0e})"
+              + ("" if store is None else f", per-client store {store:.3e}")
+              + f"; leaves over their outlier allowance {max(over, 0)}; "
+              f"steps equal {steps_ok}")
+        if not (worst <= 1e-4 and loss_rel <= 1e-4 and acc_ok
+                and w_max <= 2 * 1e-3 * steps and over <= 0 and steps_ok):
+            raise AssertionError(f"card-vs-cpu {algo}: card and CPU disagree")
+        out[algo] = {"worst_metric_rel_diff": worst,
+                     "test_loss_rel_diff": loss_rel, "weights_max_abs": w_max,
+                     "store_max_abs": store, "steps": steps}
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=10,
-                    help="rounds of the main path and of the fused variant")
+                    help="rounds of the main path, of the fused variant "
+                         "and of each program of the zoo")
     ap.add_argument("--out", default=None, help="write the full report here")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile the main path, its fused variant "
-                         "and one olmoe and one zamba2 round")
+                    help="also profile the main path, its fused variant, "
+                         "psl and ssl, and one olmoe and one zamba2 round")
     args = ap.parse_args(argv)
 
     import torch
@@ -1118,6 +1301,9 @@ def main(argv=None):
             profiles[f"cut{cut}"] = profile_rounds(torch, ExperimentConfig(
                 rounds=r, eval_every=r, cut=cut, **MAIN).with_cycle(
                     fused_gather_loss=cut == 3))
+        for algo in ("psl", "ssl"):
+            profiles[algo] = profile_rounds(torch, ExperimentConfig(
+                algo=algo, rounds=r, eval_every=r, cut=2, **MAIN))
 
     # 6. card against CPU
     parity = card_against_cpu(torch)
@@ -1136,6 +1322,11 @@ def main(argv=None):
     for arch in ("zamba2-1.2b", "mamba2-2.7b"):
         prefills[arch] = prefill(torch, f"{arch.split('-')[0]} prefill",
                                  get_config(arch))
+
+    # 12-13. the algorithm zoo at the main path's width, card against CPU
+    zoo_runs = zoo(torch, r)
+    parity.update({f"zoo/{k}": v for k, v in
+                   zoo_card_against_cpu(torch).items()})
 
     sources = {"feature_resample": "src/repro/kernels/feature_resample.py:24",
                "fused_adam": "src/repro/kernels/fused_adam.py:44",
@@ -1164,7 +1355,7 @@ def main(argv=None):
                        "checks": CHECKS, "olmoe_round": olmoe,
                        "zamba2_round": zamba, "prefill": prefills,
                        "profile": profiles, "card_vs_cpu": parity,
-                       "launch_floor": floor}, f,
+                       "launch_floor": floor, "zoo": zoo_runs}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,5 +9,18 @@
 """
 from repro_torch.api.config import ExperimentConfig
 from repro_torch.api.engine import Engine, evaluate
+from repro_torch.api.phases import (ClientUpdate, Commit, ExtractFeatures,
+                                    FeatureGradients, Phase, PhaseContext,
+                                    RoundProgram, RoundVars, ServerUpdate,
+                                    SLAlgorithm, TrainState, build_algorithm,
+                                    init_train_state)
+from repro_torch.api.registry import (PROGRAMS, algorithm_names, get_program,
+                                      register_program)
 
-__all__ = ["ExperimentConfig", "Engine", "evaluate"]
+__all__ = [
+    "ExperimentConfig", "Engine", "evaluate",
+    "Phase", "PhaseContext", "RoundProgram", "RoundVars", "TrainState",
+    "SLAlgorithm", "ExtractFeatures", "ServerUpdate", "FeatureGradients",
+    "ClientUpdate", "Commit", "build_algorithm", "init_train_state",
+    "PROGRAMS", "algorithm_names", "get_program", "register_program",
+]

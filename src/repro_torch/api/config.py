@@ -55,11 +55,12 @@ class ExperimentConfig:
     # pad every cohort to the static capacity round(attendance * N) and
     # thread an attendance mask through the round
     pad_cohorts: bool = True
+    # Binomial(N, attendance) cohort sizes, clipped to [min_cohort, C_max]
+    variable_attendance: bool = False
     # ---- not ported yet: each must keep its default ----
     ckpt_dir: Optional[str] = None
     collect_timing: bool = False
     sync_every: int = 1
-    variable_attendance: bool = False
     mesh_shape: Optional[tuple] = None
     mesh_axes: tuple = ("data", "model")
     shard_cohort: bool = True
@@ -102,7 +103,7 @@ class ExperimentConfig:
         ported ones."""
         defaults = ExperimentConfig()
         for name in ("ckpt_dir", "collect_timing", "sync_every",
-                     "variable_attendance", "mesh_shape", "mesh_axes",
+                     "mesh_shape", "mesh_axes",
                      "shard_cohort", "resume", "pipeline_depth",
                      "pipeline_staleness", "staleness_weighting",
                      "staleness_lambda", "scenario", "resilience", "serve"):
@@ -143,6 +144,8 @@ class ExperimentConfig:
         ap.add_argument("--eval-every", type=int, default=20)
         ap.add_argument("--no-pad-cohorts", action="store_true",
                         help="disable fixed-shape padded cohorts")
+        ap.add_argument("--variable-attendance", action="store_true",
+                        help="Binomial(N, attendance) cohort sizes per round")
         return ap
 
     @classmethod
@@ -154,6 +157,7 @@ class ExperimentConfig:
             lr_client=args.lr_client, alpha=args.alpha, seed=args.seed,
             width=args.width, cut=args.cut, eval_every=args.eval_every,
             pad_cohorts=not args.no_pad_cohorts,
+            variable_attendance=args.variable_attendance,
             cycle=CycleConfig(server_epochs=args.server_epochs,
                               server_batch=args.server_batch,
                               grad_clip=args.grad_clip,

@@ -16,6 +16,7 @@ with ``on_round(engine, rnd, state, metrics)`` and/or
 """
 from __future__ import annotations
 
+import math
 import time
 import warnings
 from typing import Optional, Sequence
@@ -32,6 +33,7 @@ from repro_torch.core.drift import GradStabilityTracker
 from repro_torch.core.split import SplitTask
 from repro_torch.data.federated import FederatedDataset, sample_cohort
 from repro_torch.optim import adam
+from repro_torch.utils.tree import tree_map
 
 
 def resolve_device(device=None) -> torch.device:
@@ -44,14 +46,23 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def evaluate(task, state, fed, batch: int = 256, max_batches: int = 8):
-    """Test metrics on the pooled sample-wise test set (paper §4.1),
-    scored with the shared client model (SFL family)."""
-    if state.client_global is None:
-        raise NotImplementedError(
-            "per-client evaluation (PSL family) is not ported yet")
-    cp, sp = state.client_global.params, state.server.params
+def evaluate(task, state, fed, batch: int = 256, max_batches: int = 8,
+             max_clients: int = 40):
+    """Test metrics matching the paper's protocol (§4.1).
+
+    SFL family (shared client model): the pooled sample-wise test set,
+    sample-weighted.  PSL family (per-client models, never aggregated):
+    each of the first ``max_clients`` clients that hold test data is
+    scored with ITS OWN model on its first ``t`` test samples (``t`` the
+    smallest test size among them), and the clients' means are averaged
+    unweighted.  Either way the host reads the device once.
+    """
+    sp = state.server.params
     device = state.server.step.device
+    if state.client_global is None:
+        return _evaluate_per_client(task, state.clients.params, sp, fed,
+                                    device, max_clients)
+    cp = state.client_global.params
     try:
         xs, ys = fed.test_arrays()
     except ValueError:
@@ -79,6 +90,36 @@ def evaluate(task, state, fed, batch: int = 256, max_batches: int = 8):
     per = host[len(ws):].reshape(len(ws), len(keys))
     return loss, {k: float(np.average(per[:, j], weights=ws))
                   for j, k in enumerate(keys)}
+
+
+def _evaluate_per_client(task, client_params, sp, fed, device,
+                         max_clients: int):
+    idxs = [i for i, c in enumerate(fed.clients) if len(c.x_test)]
+    idxs = idxs[:max_clients]
+    if not idxs:
+        warnings.warn("evaluate: no sampled client has test data; "
+                      "skipping per-client evaluation (NaN loss)",
+                      RuntimeWarning, stacklevel=3)
+        return float("nan"), {}
+    t = min(len(fed.clients[i].x_test) for i in idxs)
+    xs = torch.from_numpy(np.stack([fed.clients[i].x_test[:t]
+                                    for i in idxs])).to(device)
+    ys = torch.from_numpy(np.stack([fed.clients[i].y_test[:t]
+                                    for i in idxs])).to(device)
+    losses, mets = [], []
+    with torch.no_grad():
+        for j, i in enumerate(idxs):
+            out = task.predict(tree_map(lambda p: p[i], client_params), sp,
+                               xs[j])
+            losses.append(task.loss(out, ys[j]))
+            mets.append(task.metrics(out, ys[j]))
+    keys = sorted(mets[0])
+    # one device -> host transfer: the loss and each metric, averaged
+    # over the clients
+    host = torch.stack([torch.stack(losses).mean()]
+                       + [torch.stack([m[k] for m in mets]).mean()
+                          for k in keys]).cpu().numpy()
+    return float(host[0]), {k: float(host[1 + j]) for j, k in enumerate(keys)}
 
 
 class Engine:
@@ -111,8 +152,24 @@ class Engine:
         self.metric_key = metric_key or "accuracy"
         self.callbacks = tuple(callbacks)
         self.log = log
+        program = get_program(cfg.algo)
+        if (cfg.pad_cohorts and cfg.variable_attendance
+                and any(getattr(p, "mode", None) == "cycle"
+                        for p in program.phases)):
+            # the masked inner loop runs a static number of steps; a
+            # server batch above the smallest possible live pool would
+            # leave a sparse round with no valid step, and the server
+            # would silently not train that round
+            sb = cfg.cycle.server_batch or cfg.batch
+            if sb > cfg.batch * cfg.min_cohort:
+                raise ValueError(
+                    f"cycle.server_batch={sb} can exceed the smallest "
+                    f"possible live feature pool (min_cohort={cfg.min_cohort}"
+                    f" x batch={cfg.batch} = {cfg.min_cohort * cfg.batch} "
+                    "rows) under variable attendance; lower "
+                    "cycle.server_batch or raise min_cohort")
         self.algo: SLAlgorithm = build_algorithm(
-            get_program(cfg.algo), task, adam(cfg.lr_server),
+            program, task, adam(cfg.lr_server),
             adam(cfg.lr_client), cfg.cycle, plan_fn=plan_fn,
             device=self.device)
 
@@ -127,10 +184,17 @@ class Engine:
     def cohort_capacity(self) -> int:
         """C_max: the static cohort shape every round is padded to.
         Fixed attendance draws exactly ``round(attendance * N)`` clients,
-        so no slot is padded unless ``min_cohort`` lifts the capacity."""
+        so no slot is padded unless ``min_cohort`` lifts the capacity;
+        variable attendance pads to the ceil, to which the sampler clips
+        its Binomial draws."""
         cfg = self.cfg
         n = self.fed.n_clients
-        return min(max(cfg.min_cohort, round(cfg.attendance * n)), n)
+        if cfg.variable_attendance:
+            # tolerant ceil: 0.3 * 20 is 6.000000000000001 in binary
+            cap = math.ceil(cfg.attendance * n - 1e-9)
+        else:
+            cap = round(cfg.attendance * n)
+        return min(max(cfg.min_cohort, cap), n)
 
     @property
     def padded_capacity(self) -> int:
@@ -148,6 +212,7 @@ class Engine:
         cfg = self.cfg
         cohort = sample_cohort(self.fed.n_clients, cfg.attendance, rng,
                                min_cohort=cfg.min_cohort,
+                               variable=cfg.variable_attendance,
                                max_cohort=(self.cohort_capacity
                                            if cfg.pad_cohorts else None))
         pairs = [self.fed.clients[c].sample_batch(rng, cfg.batch)

@@ -1,15 +1,25 @@
-"""Declarative round programs: an SL algorithm as a composition of typed
-phases over one ``TrainState``.
+"""Declarative round programs: every SL algorithm as a composition of
+typed phases over one ``TrainState``.
 
-Port of the phases of ``repro/api/phases.py`` that the ``cyclesfl``
-program runs:
+Port of ``repro/api/phases.py`` without the mesh, pipeline and
+resilience hooks.  An algorithm is a :class:`RoundProgram`, an ordered
+tuple of phases drawn from
 
-    ExtractFeatures -> ServerUpdate(cycle) -> FeatureGradients(updated)
-    -> ClientUpdate -> Commit(average)
+    ExtractFeatures -> ServerUpdate -> FeatureGradients -> ClientUpdate
+    -> Commit
+
+so ``cyclepsl``/``cyclesfl``/``cyclesglr`` are ``psl``/``sflv1``/``sglr``
+with ``ServerUpdate`` swapped to the CycleSL inner loop and
+``FeatureGradients`` pointed at the updated server (Eq. 5).  The
+sequential algorithms (``ssl``, ``sflv2``, ``fedavg``) run as single
+fused phases behind the same interface.
 
 The JAX package traces the phases into one jitted round; here they run
-eagerly, in order, on the tensors' device.  A phase mode the port does
-not have yet raises ``NotImplementedError``.
+eagerly, in order, on the tensors' device.  Its ``vmap`` over cohort
+slots is a Python loop over slots whose results are stacked, so that a
+stacked entity takes one optimizer step (one fused-Adam launch a leaf,
+each slot corrected with its own step), and its ``scan`` along a chain
+is a Python loop that carries the entities.
 """
 from __future__ import annotations
 
@@ -18,13 +28,16 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.cyclesl import (CycleConfig, PlanFn, client_updates,
-                                      extract_features, feature_gradients,
-                                      server_inner_loop)
+from repro_torch.core.cyclesl import (CycleConfig, PlanFn, _slot,
+                                      _value_and_grad, client_update_one,
+                                      client_updates, extract_features,
+                                      feature_gradients, server_inner_loop)
 from repro_torch.core.feature_store import pool_store
 from repro_torch.core.protocol import (EntityState, broadcast_entity,
-                                       entity_mean, init_entity,
-                                       masked_entity_mean)
+                                       entity_mean, entity_step, init_entity,
+                                       masked_axis0_mean, masked_entity_mean,
+                                       put_entities, select_entities,
+                                       stack_entities, take_entities)
 from repro_torch.core.split import SplitTask
 from repro_torch.optim import Optimizer
 from repro_torch.utils.tree import tree_map
@@ -111,45 +124,99 @@ def feat_grad_metrics(fgrads, mask=None) -> dict:
     return {"feat_grad_norm_mean": mu, "feat_grad_norm_std": torch.sqrt(var)}
 
 
+def _joint_value_and_grad(task, cp, sp, x, y):
+    """(loss, d/d θ_C, d/d θ_S) of the end-to-end loss, both halves in
+    one backward; a leaf the loss does not use gets zeros, as under
+    jax.grad."""
+    loss, (gc, gs) = _value_and_grad(
+        lambda p: task.e2e_loss(p[0], p[1], x, y), (cp, sp))
+    return loss, gc, gs
+
+
+def _feature_grad(task, cp, sp, x, y):
+    """∇_f of the server loss at the features of ``x``, the server held
+    fixed: the ``feat_grad_norm`` metric of the sequential rounds."""
+    with torch.no_grad():
+        f = task.client_forward(cp, x)
+    _, g = _value_and_grad(lambda ff: task.server_loss(sp, ff, y), f)
+    return g
+
+
 # ----------------------------------------------------------------- phases
 @dataclass(frozen=True)
 class ExtractFeatures(Phase):
-    """Phase 1: broadcast the shared client model over the cohort slots
-    and extract the smashed data; snapshot θ_S^t."""
+    """Phase 1: select the cohort's client models (the per-client store's
+    rows, or the shared model broadcast over the slots) and extract the
+    smashed data; snapshot θ_S^t for the classic programs."""
 
     def __call__(self, ctx, v):
-        if v.state.clients is not None:
-            raise NotImplementedError(
-                "per-client programs (PSL family) are not ported yet")
-        v.cohort_clients = broadcast_entity(v.state.client_global,
-                                            v.ys.shape[0])
-        v.server_prev = v.state.server.params
+        state = v.state
+        v.cohort_clients = (
+            broadcast_entity(state.client_global, v.ys.shape[0])
+            if state.clients is None
+            else take_entities(state.clients, v.cohort))
+        v.server_prev = state.server.params
         v.feats = extract_features(ctx.task, v.cohort_clients.params, v.xs)
+
+
+def _pair_server_losses_and_grads(ctx, v):
+    """Per-pair server loss and gradient at θ_S^t over the cohort's
+    features: [C] losses and a [C, ...]-stacked gradient tree."""
+    sp = v.state.server.params
+    pairs = [_value_and_grad(
+        lambda p, c=c: ctx.task.server_loss(p, v.feats[c], _slot(v.ys, c)),
+        sp) for c in range(v.feats.shape[0])]
+    return (torch.stack([l for l, _ in pairs]),
+            stack_entities([g for _, g in pairs]))
 
 
 @dataclass(frozen=True)
 class ServerUpdate(Phase):
-    """Phase 2, ``cycle`` mode: pool the features into D_S^f and run the
-    CycleSL inner loop (E epochs of resampled minibatches, Eq. 3)."""
+    """Phase 2, the axis the zoo varies along:
+
+    ``cycle``        pool the features into D_S^f and run the CycleSL
+                     inner loop (E epochs of resampled minibatches, Eq. 3).
+    ``replica_avg``  PSL/SFL-V1: one server replica a pair steps on its
+                     pair's gradient, then the replicas are averaged.
+    ``mean_grad``    SGLR: one server stepped with the cohort-mean
+                     gradient.
+    """
     mode: str = "cycle"
 
     def __call__(self, ctx, v):
-        if self.mode != "cycle":
-            raise NotImplementedError(
-                f"ServerUpdate mode {self.mode!r} is not ported yet")
-        store = pool_store(v.feats, v.ys, mask=v.mask)
-        server, sloss = server_inner_loop(
-            ctx.task, v.state.server, ctx.opt_server, store, v.key,
-            ctx.cycle, batch=v.ys.shape[1], plan_fn=ctx.plan_fn)
-        v.metrics["server_loss"] = sloss
+        if self.mode == "cycle":
+            store = pool_store(v.feats, v.ys, mask=v.mask)
+            server, sloss = server_inner_loop(
+                ctx.task, v.state.server, ctx.opt_server, store, v.key,
+                ctx.cycle, batch=v.ys.shape[1], plan_fn=ctx.plan_fn)
+            v.metrics["server_loss"] = sloss
+        elif self.mode == "replica_avg":
+            losses, gs = _pair_server_losses_and_grads(ctx, v)
+            # C replicas with a [C] step take one stacked step
+            rep = entity_step(broadcast_entity(v.state.server, v.ys.shape[0]),
+                              gs, ctx.opt_server)
+            server = (entity_mean(rep) if v.mask is None
+                      else masked_entity_mean(rep, v.mask))
+            v.metrics["server_loss"] = masked_mean(losses, v.mask)
+        elif self.mode == "mean_grad":
+            losses, gs = _pair_server_losses_and_grads(ctx, v)
+            gmean = tree_map(lambda g: g.mean(0) if v.mask is None
+                             else masked_axis0_mean(g, v.mask), gs)
+            server = entity_step(v.state.server, gmean, ctx.opt_server)
+            v.metrics["server_loss"] = masked_mean(losses, v.mask)
+        else:
+            raise ValueError(f"unknown ServerUpdate mode {self.mode!r}")
         v.state = v.state._replace(server=server)
 
 
 @dataclass(frozen=True)
 class FeatureGradients(Phase):
     """Phase 3: B_i^g = ∇_{B_i^f} L(θ_S(B_i^f)) with θ_S frozen.
-    ``use_updated=True`` reads θ_S^{t+1} (Eq. 5); ``average`` overrides
-    ``CycleConfig.avg_client_grads`` when not None."""
+
+    ``use_updated=True`` reads θ_S^{t+1} (the cyclical part, Eq. 5);
+    ``False`` reads the θ_S^t snapshot (classic SL back-prop order).
+    ``average`` overrides ``CycleConfig.avg_client_grads`` when not None.
+    """
     use_updated: bool = True
     average: Optional[bool] = None
 
@@ -166,31 +233,155 @@ class FeatureGradients(Phase):
 
 @dataclass(frozen=True)
 class ClientUpdate(Phase):
-    """Phase 4: pull the feature gradients through each slot's VJP."""
+    """Phase 4: pull the feature gradients through each client's VJP.
+
+    ``chained=True`` runs the sequential-SL variant (``cyclessl``): ONE
+    client model carried along the cohort, each slot's update seeing the
+    previous one; a padded slot passes the carry through.  Both paths
+    share ``client_update_one``'s arithmetic and ``CycleConfig.grad_clip``.
+    """
     record_gnorm: bool = False
+    chained: bool = False
 
     def __call__(self, ctx, v):
-        v.cohort_clients, gnorms = client_updates(
-            ctx.task, v.cohort_clients, ctx.opt_client, v.xs, v.fgrads,
-            grad_clip=ctx.cycle.grad_clip, mask=v.mask)
+        clip = ctx.cycle.grad_clip
+        if self.chained:
+            entity, gnorms = v.state.client_global, []
+            for c in range(v.fgrads.shape[0]):
+                new, gn = client_update_one(ctx.task, entity, _slot(v.xs, c),
+                                            v.fgrads[c], ctx.opt_client, clip)
+                if v.mask is not None:
+                    new = select_entities(v.mask[c], new, entity)
+                    gn = torch.where(v.mask[c] > 0, gn, 0.0)
+                entity = new
+                gnorms.append(gn)
+            v.cohort_clients, gnorms = entity, torch.stack(gnorms)
+        else:
+            v.cohort_clients, gnorms = client_updates(
+                ctx.task, v.cohort_clients, ctx.opt_client, v.xs, v.fgrads,
+                grad_clip=clip, mask=v.mask)
         if self.record_gnorm:
             v.metrics["client_grad_norm_mean"] = masked_mean(gnorms, v.mask)
 
 
 @dataclass(frozen=True)
 class Commit(Phase):
-    """Phase 5, ``average`` mode: FedAvg the live cohort slots into the
-    shared θ_C."""
-    mode: str = "average"
+    """Phase 5: write the updated cohort back into the train state.
+
+    ``per_client``  scatter into the persistent [N, ...] client store
+                    (PSL family: clients are never aggregated); writes at
+                    the padded slots' sentinel id N are dropped.
+    ``average``     FedAvg the live slots into the shared θ_C (SFL family).
+    ``global``      replace the shared θ_C wholesale (sequential chain).
+    """
+    mode: str = "per_client"
 
     def __call__(self, ctx, v):
-        if self.mode != "average":
-            raise NotImplementedError(
-                f"Commit mode {self.mode!r} is not ported yet")
-        cc = v.cohort_clients
-        v.state = v.state._replace(
-            client_global=(entity_mean(cc) if v.mask is None
-                           else masked_entity_mean(cc, v.mask)))
+        state, cc = v.state, v.cohort_clients
+        if self.mode == "per_client":
+            v.state = state._replace(
+                clients=put_entities(state.clients, v.cohort, cc))
+        elif self.mode == "average":
+            v.state = state._replace(
+                client_global=(entity_mean(cc) if v.mask is None
+                               else masked_entity_mean(cc, v.mask)))
+        elif self.mode == "global":
+            v.state = state._replace(client_global=cc)
+        else:
+            raise ValueError(f"unknown Commit mode {self.mode!r}")
+
+
+# ----------------------------------------------- fused sequential rounds
+# ssl / sflv2 / fedavg interleave client and server updates along the
+# cohort, so they run as single fused phases.  None of them clips, as in
+# the JAX package.
+@dataclass(frozen=True)
+class SequentialChainRound(Phase):
+    """ssl: one shared client model passed client to client, one
+    end-to-end step of client and server a slot."""
+
+    def __call__(self, ctx, v):
+        task, opt_s, opt_c = ctx.task, ctx.opt_server, ctx.opt_client
+        server, client = v.state.server, v.state.client_global
+        losses, fgs = [], []
+        for c in range(v.ys.shape[0]):
+            x, y = _slot(v.xs, c), _slot(v.ys, c)
+            loss, gc, gs = _joint_value_and_grad(task, client.params,
+                                                 server.params, x, y)
+            fgs.append(_feature_grad(task, client.params, server.params,
+                                     x, y))
+            new_s = entity_step(server, gs, opt_s)
+            new_c = entity_step(client, gc, opt_c)
+            if v.mask is not None:
+                m = v.mask[c]
+                new_s = select_entities(m, new_s, server)
+                new_c = select_entities(m, new_c, client)
+                loss = torch.where(m > 0, loss, 0.0)
+            server, client = new_s, new_c
+            losses.append(loss)
+        v.metrics.update(server_loss=masked_mean(torch.stack(losses), v.mask),
+                         **feat_grad_metrics(torch.stack(fgs), mask=v.mask))
+        v.state = v.state._replace(server=server, client_global=client)
+
+
+@dataclass(frozen=True)
+class ServerSequentialRound(Phase):
+    """sflv2: one server model stepped slot after slot on the server
+    side; the client copies step once each and are FedAvg'd."""
+
+    def __call__(self, ctx, v):
+        task, opt_s, opt_c = ctx.task, ctx.opt_server, ctx.opt_client
+        cp = v.state.client_global.params     # every slot's θ_C
+        server, losses, gcs, fgs = v.state.server, [], [], []
+        for c in range(v.ys.shape[0]):
+            x, y = _slot(v.xs, c), _slot(v.ys, c)
+            loss, gc, gs = _joint_value_and_grad(task, cp, server.params,
+                                                 x, y)
+            fgs.append(_feature_grad(task, cp, server.params, x, y))
+            new_s = entity_step(server, gs, opt_s)
+            if v.mask is not None:
+                new_s = select_entities(v.mask[c], new_s, server)
+                loss = torch.where(v.mask[c] > 0, loss, 0.0)
+            server = new_s
+            losses.append(loss)
+            gcs.append(gc)
+        stepped = entity_step(
+            broadcast_entity(v.state.client_global, v.ys.shape[0]),
+            stack_entities(gcs), opt_c)
+        client_global = (entity_mean(stepped) if v.mask is None
+                         else masked_entity_mean(stepped, v.mask))
+        v.metrics.update(server_loss=masked_mean(torch.stack(losses), v.mask),
+                         **feat_grad_metrics(torch.stack(fgs), mask=v.mask))
+        v.state = v.state._replace(server=server, client_global=client_global)
+
+
+@dataclass(frozen=True)
+class LocalFedAvgRound(Phase):
+    """fedavg: each slot trains the FULL composed model locally; both
+    halves are averaged (no split traffic: the non-SL yardstick)."""
+
+    def __call__(self, ctx, v):
+        task, n = ctx.task, v.ys.shape[0]
+        cp, sp = v.state.client_global.params, v.state.server.params
+        outs = [_joint_value_and_grad(task, cp, sp, _slot(v.xs, c),
+                                      _slot(v.ys, c)) for c in range(n)]
+        servers = entity_step(broadcast_entity(v.state.server, n),
+                              stack_entities([gs for _, _, gs in outs]),
+                              ctx.opt_server)
+        clients = entity_step(broadcast_entity(v.state.client_global, n),
+                              stack_entities([gc for _, gc, _ in outs]),
+                              ctx.opt_client)
+        if v.mask is None:
+            server, client = entity_mean(servers), entity_mean(clients)
+        else:
+            server = masked_entity_mean(servers, v.mask)
+            client = masked_entity_mean(clients, v.mask)
+        zero = torch.zeros((), device=v.ys.device)
+        v.metrics.update(
+            server_loss=masked_mean(torch.stack([l for l, _, _ in outs]),
+                                    v.mask),
+            feat_grad_norm_mean=zero, feat_grad_norm_std=zero)
+        v.state = v.state._replace(server=server, client_global=client)
 
 
 # ---------------------------------------------------------------- program
@@ -200,6 +391,9 @@ class RoundProgram:
     name: str
     phases: tuple[Phase, ...]
     uses_global_client: bool
+
+    def describe(self) -> str:
+        return " -> ".join(type(p).__name__ for p in self.phases)
 
 
 def init_train_state(seed: int, n_clients: int, task: SplitTask,

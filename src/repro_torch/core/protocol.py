@@ -44,6 +44,13 @@ def entity_step(entity: EntityState, grads, opt: Optimizer) -> EntityState:
                        entity.step + 1)
 
 
+def stack_entities(entities: list[EntityState]) -> EntityState:
+    """Stack entities (or any trees of one structure, such as their
+    gradients) along a new leading cohort dim: contiguous [C, ...]
+    leaves, as the fused Adam kernel takes them."""
+    return tree_map(lambda *xs: torch.stack(xs), *entities)
+
+
 def entity_mean(stacked: EntityState) -> EntityState:
     """FedAvg over the leading cohort dim, dtype-preserving (the int32
     step stays int32: every member stepped once, so its mean is exact)."""

@@ -15,6 +15,24 @@ import json
 import os
 
 from repro_torch.api import Engine, ExperimentConfig
+from repro_torch.core.cyclesl import CycleConfig
+
+
+def run(algo_name: str, task_name: str = "image", rounds: int = 100,
+        n_clients: int = 100, attendance: float = 0.05, batch: int = 16,
+        lr_server: float = 1e-3, lr_client: float = 1e-3, alpha: float = 0.5,
+        server_epochs: int = 1, seed: int = 0, width: int = 16, cut: int = 2,
+        eval_every: int = 20, ckpt_dir: str | None = None, device=None,
+        log=print):
+    """Kwargs-style wrapper; new code constructs an ExperimentConfig and
+    an Engine directly.  ``device=None`` trains on the card."""
+    cfg = ExperimentConfig(
+        algo=algo_name, task=task_name, rounds=rounds, n_clients=n_clients,
+        attendance=attendance, batch=batch, lr_server=lr_server,
+        lr_client=lr_client, alpha=alpha, seed=seed, width=width, cut=cut,
+        eval_every=eval_every, ckpt_dir=ckpt_dir,
+        cycle=CycleConfig(server_epochs=server_epochs))
+    return Engine(cfg, device=device, log=log).run()
 
 
 def main(argv=None):

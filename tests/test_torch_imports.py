@@ -37,6 +37,7 @@ def test_port_imports_neither_jax_nor_the_reference():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["bad"] == []
     for mod in ("repro_torch.api.engine", "repro_torch.core.cyclesl",
+                "repro_torch.core.algorithms", "repro_torch.api.registry",
                 "repro_torch.kernels.gather_loss", "repro_torch.launch.train",
                 "repro_torch.utils.weights", "repro_torch.configs.registry",
                 "repro_torch.configs.olmoe_1b_7b",
