@@ -12,10 +12,11 @@ Phases, each of which ends the script with a non-zero exit on failure:
 2. build: every CUDA source under src/repro_torch/kernels/csrc, compiled
    with nvcc from this checkout (one process per source, in parallel);
 3. kernel checks: each kernel against its plain PyTorch version on the
-   card, at the shapes the main path, the olmoe and zamba2 rounds and
-   the mamba2 prefill give it and at edge cases, with its time, its
-   bound and a one-call PyTorch yardstick where one exists, and the
-   time of an empty kernel (the launch floor) by the same timers;
+   card, at the shapes the main path, the olmoe and zamba2 rounds, the
+   mamba2 prefill and the resnet9 and celeba workloads give it and at
+   edge cases, with its time, its bound and a one-call PyTorch
+   yardstick where one exists, and the time of an empty kernel (the
+   launch floor) by the same timers;
 4. main path: ``Engine.run()`` of cyclesfl on femnist_cnn at the paper's
    width 32 (cut 2), with the kernels' launch counters reset before and
    read after;
@@ -44,7 +45,16 @@ Phases, each of which ends the script with a non-zero exit on failure:
     under variable attendance (padded slots drawn), and the time of the
     per-client store's commit scatter;
 13. card against CPU for every program, as in 6, under variable
-    attendance with a padded slot drawn.
+    attendance with a padded slot drawn;
+14. the paper's other workloads: ``Engine.run()`` at the main path's
+    protocol (100 clients, cohort 5, batch 16) of cifar (resnet9 width
+    64) and charlm (the Shakespeare LSTM) with cyclesfl and sflv1, gaze
+    (the mlp under the mse loss) with cyclepsl and psl, resnet9 at each
+    of its six cuts, cifar with the host syncing every 5 rounds, and
+    celeba_cnn (width 32, 84 px) at cut 1 and at cut 4 with
+    ``fused_gather_loss``, each with exact launch counts from its
+    task's leaves and the Engine's ``round_time_s``;
+15. card against CPU for each of those tasks, as in 13.
 
 It then prints the ``kernels`` JSON line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -234,6 +244,12 @@ def kernel_checks(torch, dev):
     resample("feature_resample", torch.randint(0, 100, (81, 3), device=dev,
                                                generator=gen).to(torch.uint8),
              16)
+    # resnet9 at cut 1, width 64: NHWC [32, 32, 64] f32 rows of 256 KB;
+    # gaze's float32 [2] targets, rows of 8 bytes
+    resample("feature_resample", torch.relu(torch.randn(
+        80, 32, 32, 64, device=dev, generator=gen)), 16)
+    resample("feature_resample", torch.randn(80, 2, device=dev,
+                                             generator=gen), 16)
 
     # ---- fused_adam: the server's dense leaves and a client stack.  A
     # bfloat16 p' is held to one bf16 ulp of the plain version's, or 1e-6
@@ -269,6 +285,10 @@ def kernel_checks(torch, dev):
     adam((5, 3136, 2048), [4, 4, 4, 9, 0])
     adam((3136, 2048), 3, dtype=torch.bfloat16)
     adam((2048, 10), 7, wd=0.01)
+    # resnet9 at width 64: res2's [3, 3, 512, 512] convs (server) and the
+    # client stack's BatchNorm vectors [C, 128]
+    adam((3, 3, 512, 512), 3)
+    adam((5, 128), [0, 1, 2, 3, 4])
     # the olmoe round's client slots: bf16 leaves stacked [C, ...] with f32
     # moments and a step per slot; the embedding, and the gate projections
     # of the client's experts (2^29 elements, 2^31 bytes a moment)
@@ -334,6 +354,9 @@ def gather_loss_checks(torch, dev, gen):
 
     main = case(80, 2048, 10, 16)
     case(8192, 2048, 62, 2048)
+    # celeba_cnn at cut 4 (width 32, 84 px): K = 2 in a class tile of 16,
+    # D = 800 = 6 chunks of 128 and one of 32
+    case(80, 800, 2, 16)
     case(37, 33, 7, 19, dtype=torch.bfloat16, labels=torch.int32)
     case(80, 2048, 10, 16, dtype=torch.bfloat16)
     case(80, 2048, 10, 16, dtype=torch.bfloat16, w_dtype=torch.float32)
@@ -694,20 +717,27 @@ def read_counters():
     return out
 
 
-def drive(torch, label, cfg, expect):
+def drive(torch, label, cfg, expect, clock=True, **engine_kw):
     """Run ``Engine.run()`` on the card with the counters reset just
-    before and read just after; check finite metrics and the launches."""
+    before and read just after; check finite metrics and the launches.
+    ``expect`` is a dict of launches or a function of the Engine that
+    gives one; ``engine_kw`` (a ``task`` and its ``fed``) go to the
+    Engine.  With ``clock`` the host syncs after every round for the
+    rounds/s; without it only the Engine's own syncs run (its
+    ``collect_timing`` windows), and the metrics are read at the end."""
     from repro_torch.api import Engine
     eng_stamps = []
 
     class Clock:
         def on_round(self, engine, rnd, state, metrics):
-            torch.cuda.synchronize()
-            eng_stamps.append((time.perf_counter(),
-                               {k: float(v) for k, v in metrics.items()}))
+            if clock:
+                torch.cuda.synchronize()
+            eng_stamps.append((time.perf_counter(), dict(metrics)))
 
     eng = Engine(cfg, device="cuda", callbacks=[Clock()],
-                 log=lambda msg: print(f"{label}: {msg}"))
+                 log=lambda msg: print(f"{label}: {msg}"), **engine_kw)
+    if callable(expect):
+        expect = expect(eng)
     reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -715,13 +745,19 @@ def drive(torch, label, cfg, expect):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counters()
+    eng_stamps = [(t, {k: float(v) for k, v in m.items()})
+                  for t, m in eng_stamps]
     losses = [m["server_loss"] for _, m in eng_stamps]
     steady = [b[0] - a[0] for a, b in zip(eng_stamps, eng_stamps[1:])]
-    rps = len(steady) / sum(steady) if steady else float("nan")
+    rps = len(steady) / sum(steady) if clock and steady else float("nan")
     hist = res["history"][-1]
+    key = eng.metric_key
+    timing = ("" if "round_time_s" not in res else
+              f"; round_time_s {res['round_time_s']:.6f} (sync_every "
+              f"{cfg.sync_every})")
     print(f"{label}: {cfg.rounds} rounds in {wall:.3f}s; rounds 2..{cfg.rounds} "
-          f"at {rps:.2f} rounds/s; server_loss per round {losses}; "
-          f"test_loss={hist['test_loss']:.4f} accuracy={hist['accuracy']:.4f}; "
+          f"at {rps:.2f} rounds/s{timing}; server_loss per round {losses}; "
+          f"test_loss={hist['test_loss']:.4f} {key}={hist[key]:.4f}; "
           f"launches {launches} (expected {expect})")
     padded = 0
     if cfg.pad_cohorts:       # replay the sampler: padded slots drawn
@@ -731,7 +767,7 @@ def drive(torch, label, cfg, expect):
                      for _ in range(cfg.rounds))
         print(f"{label}: {padded} padded slots in {cfg.rounds} rounds")
     vals = [v for _, m in eng_stamps for v in m.values()]
-    vals += [hist["test_loss"], hist["train_loss"]]
+    vals += [hist["test_loss"], hist["train_loss"], hist[key]]
     if not all(math.isfinite(x) for x in vals):
         raise AssertionError(f"{label}: non-finite metrics {vals}")
     for k, n in expect.items():
@@ -739,6 +775,7 @@ def drive(torch, label, cfg, expect):
             raise AssertionError(f"{label}: {k} launched {launches[k]} times, "
                                  f"expected {n}")
     return {"rounds": cfg.rounds, "wall_s": wall, "rounds_per_s": rps,
+            "round_time_s": res.get("round_time_s"), "metric_key": key,
             "server_loss": losses, "history": res["history"],
             "launches": launches, "padded_slots": padded}
 
@@ -788,13 +825,15 @@ def profile_rounds(torch, cfg):
                           f"rounds + eval)", eng.run)
 
 
-def cpu_and_card(torch, cfg, plan_fn):
+def cpu_and_card(torch, cfg, plan_fn, **engine_kw):
     """``Engine.run()`` of ``cfg`` on the CPU (plain versions) and on the
     card (kernels) from one init drawn on the CPU: each side's per-round
-    metrics, final state, last evaluation and Engine."""
+    metrics, final state, last evaluation and Engine.  ``engine_kw``
+    (a ``task`` and its ``fed``) go to both Engines."""
     from repro_torch.api import Engine
     from repro_torch.utils.tree import tree_map
-    init = Engine(cfg, device="cpu", log=lambda msg: None).init_state()
+    init = Engine(cfg, device="cpu", log=lambda msg: None,
+                  **engine_kw).init_state()
     runs = {}
     for dev in ("cpu", "cuda"):
         rows, final = [], []
@@ -805,7 +844,7 @@ def cpu_and_card(torch, cfg, plan_fn):
                 final[:] = [state]
 
         eng = Engine(cfg, device=dev, callbacks=[Rec()], plan_fn=plan_fn,
-                     log=lambda msg: None)
+                     log=lambda msg: None, **engine_kw)
         res = eng.run(state=tree_map(lambda t: t.to(dev), init))
         runs[dev] = (rows, final[0], res["history"][-1], eng)
     return runs
@@ -1093,27 +1132,30 @@ def transformer_card_against_cpu(torch):
 VARIABLE_RERUN = ("psl", "cyclepsl", "cyclesglr", "ssl")
 
 
-def zoo_launches(algo, rounds):
+def zoo_launches(algo, rounds, Ls=2, Lc=4, fused=False):
     """Launches of ``rounds`` rounds of ``algo`` at the main path's
-    configuration (cut 2): L_s = 2 server and L_c = 4 client leaves, C = 5
-    slots, S = 5 server inner-loop steps (80 pooled rows / server batch
-    16).  The cycle programs run the inner loop (S server steps, each
-    gathering features and labels: 2 S feature_resample) and step the
-    client stack once (L_c), but cyclessl steps its one client along the
-    chain (C L_c).  psl, sflv1 and sglr step the server once (replicas
-    stacked, or on the mean gradient) and the client stack once, as
-    fedavg steps its server and client replicas; sflv2 steps its server
-    once a slot (C L_s) and the client copies once; ssl steps both once a
-    slot.  Padded slots step and are then deselected, so the counts do
-    not depend on attendance."""
-    Ls, Lc, C, S = 2, 4, 5, 5
+    protocol: L_s server and L_c client leaves (femnist cut 2: 2 and 4),
+    C = 5 slots, S = 5 server inner-loop steps (80 pooled rows / server
+    batch 16).  The cycle programs run the inner loop (S server steps,
+    each gathering features and labels: 2 S feature_resample, or with
+    ``fused`` one gather_loss a step instead) and step the client stack
+    once (L_c), but cyclessl steps its one client along the chain (C
+    L_c).  psl, sflv1 and sglr step the server once (replicas stacked,
+    or on the mean gradient) and the client stack once, as fedavg steps
+    its server and client replicas; sflv2 steps its server once a slot
+    (C L_s) and the client copies once; ssl steps both once a slot.
+    Padded slots step and are then deselected, so the counts do not
+    depend on attendance."""
+    C, S = 5, 5
     adam = {"cyclesfl": S * Ls + Lc, "cyclepsl": S * Ls + Lc,
             "cyclesglr": S * Ls + Lc, "cyclessl": S * Ls + C * Lc,
             "psl": Ls + Lc, "sflv1": Ls + Lc, "sglr": Ls + Lc,
             "fedavg": Ls + Lc, "sflv2": C * Ls + Lc, "ssl": C * (Ls + Lc)}
-    resample = 2 * S if algo.startswith("cycle") else 0
+    cycle = algo.startswith("cycle")
+    resample = 2 * S if cycle and not fused else 0
     return {"fused_adam": adam[algo] * rounds,
-            "feature_resample": resample * rounds, "gather_loss": 0}
+            "feature_resample": resample * rounds,
+            "gather_loss": (S if cycle and fused else 0) * rounds}
 
 
 def put_entities_time(torch):
@@ -1170,18 +1212,9 @@ def zoo_card_against_cpu(torch):
     gates them by the noise's sign, which differs by device, and the
     client gradients then differ by ~1e-3 relative (seed 1: 4.6e-3 in
     cyclesfl), a discontinuity of the task, not of either side.
-    Per-round metrics with the same keys to
-    rtol 1e-4 (``feat_grad_norm_std`` also within 1e-5 of
-    ``feat_grad_norm_mean``: SGLR's slots share one gradient, so the std
-    of their equal norms is float32 rounding of the mean); the test loss
-    to rtol 1e-4, the accuracy within one flipped test sample; int32
-    steps equal; weights, the per-client store included, within 1e-5
-    but for 0.1% of a leaf (one value in a smaller leaf, for such a
-    bias), each within the 2 * lr * steps that Adam's near-sign steps
-    can move a weight, with steps the most any entity took."""
+    Tolerances: ``compare_runs``."""
     from repro_torch.api import ExperimentConfig, algorithm_names
     from repro_torch.core.feature_store import masked_resample_plan
-    from repro_torch.utils.tree import tree_leaves
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -1195,53 +1228,217 @@ def zoo_card_against_cpu(torch):
                                width=8, cut=2, seed=4,
                                variable_attendance=True
                                ).with_cycle(server_epochs=2)
-        runs = cpu_and_card(torch, cfg, plan_fn)
-        (rows_c, sc, hc, eng), (rows_g, sg, hg, _) = runs["cpu"], runs["cuda"]
-        worst = 0.0
-        for rc, rg in zip(rows_c, rows_g):
-            if set(rc) != set(rg):
-                raise AssertionError(f"card-vs-cpu {algo}: metric keys "
-                                     f"{sorted(rc)} vs {sorted(rg)}")
-            for k in rc:
-                atol = (1e-5 * abs(rc["feat_grad_norm_mean"])
-                        if k == "feat_grad_norm_std" else 0.0)
-                worst = max(worst, max(abs(rg[k] - rc[k]) - atol, 0.0)
-                            / max(abs(rc[k]), 1e-12))
-        loss_rel = abs(hg["test_loss"] - hc["test_loss"]) / abs(hc["test_loss"])
+        out[algo] = compare_runs(torch, algo, cpu_and_card(torch, cfg,
+                                                           plan_fn))
+    return out
+
+
+def compare_runs(torch, label, runs, exempt=None):
+    """Hold the card's run to the CPU's (``cpu_and_card``): per-round
+    metrics with the same keys to rtol 1e-4 (``feat_grad_norm_std`` also
+    within 1e-5 of ``feat_grad_norm_mean``: SGLR's slots share one
+    gradient, so the std of their equal norms is float32 rounding of the
+    mean); the test loss to rtol 1e-4, the accuracy within one flipped
+    test sample (another metric to rtol 1e-4); int32 steps equal;
+    weights, a per-client store included, within 1e-5 but for 0.1% of a
+    leaf (one value in a smaller leaf), each within the 2 * lr * steps
+    that Adam's near-sign steps can move a weight, with steps the most
+    any entity took.  ``exempt(path)`` marks leaves held to that bound
+    alone (``bias_before_batchnorm``).  Raises on a miss."""
+    from repro_torch.utils.tree import tree_leaves, tree_leaves_with_path
+    (rows_c, sc, hc, eng), (rows_g, sg, hg, _) = runs["cpu"], runs["cuda"]
+    worst = 0.0
+    for rc, rg in zip(rows_c, rows_g):
+        if set(rc) != set(rg):
+            raise AssertionError(f"card-vs-cpu {label}: metric keys "
+                                 f"{sorted(rc)} vs {sorted(rg)}")
+        for k in rc:
+            atol = (1e-5 * abs(rc["feat_grad_norm_mean"])
+                    if k == "feat_grad_norm_std" else 0.0)
+            worst = max(worst, max(abs(rg[k] - rc[k]) - atol, 0.0)
+                        / max(abs(rc[k]), 1e-12))
+    loss_rel = abs(hg["test_loss"] - hc["test_loss"]) / abs(hc["test_loss"])
+    key = eng.metric_key
+    if key != "accuracy":
+        metric_ok = abs(hg[key] - hc[key]) <= 1e-4 * abs(hc[key])
+    else:
         if sc.clients is None:
             scored = len(eng.fed.test_arrays()[1])
         else:
             held = [c for c in eng.fed.clients if len(c.x_test)][:40]
             scored = min(len(c.x_test) for c in held) * len(held)
-        acc_ok = abs(hg["accuracy"] - hc["accuracy"]) <= 1.0 / scored + 1e-6
-        ints = [t for t in tree_leaves(sc) if t.dtype == torch.int32]
-        steps = max(int(t.max()) for t in ints)
-        w_max, over, steps_ok = 0.0, 0, True
-        for a, b in zip(tree_leaves(sc), tree_leaves(sg)):
-            d = (a.double() - b.cpu().double()).abs()
-            if a.dtype == torch.int32:
-                steps_ok &= bool((d == 0).all())
-                continue
-            w_max = max(w_max, float(d.max()))
-            n = int((d > 1e-5).sum())
-            over = max(over, n - max(1, int(1e-3 * d.numel())))
-        store = (None if sc.clients is None else max(
-            float((a.double() - b.cpu().double()).abs().max())
-            for a, b in zip(tree_leaves(sc.clients.params),
-                            tree_leaves(sg.clients.params))))
-        print(f"card-vs-cpu {algo}: worst metric rel diff {worst:.3e} (tol "
-              f"1e-4); test loss rel diff {loss_rel:.3e}, accuracy "
-              f"{hc['accuracy']:.4f} / {hg['accuracy']:.4f}; weights max abs "
-              f"diff {w_max:.3e} (bound {2 * 1e-3 * steps:.0e})"
-              + ("" if store is None else f", per-client store {store:.3e}")
-              + f"; leaves over their outlier allowance {max(over, 0)}; "
-              f"steps equal {steps_ok}")
-        if not (worst <= 1e-4 and loss_rel <= 1e-4 and acc_ok
-                and w_max <= 2 * 1e-3 * steps and over <= 0 and steps_ok):
-            raise AssertionError(f"card-vs-cpu {algo}: card and CPU disagree")
-        out[algo] = {"worst_metric_rel_diff": worst,
-                     "test_loss_rel_diff": loss_rel, "weights_max_abs": w_max,
-                     "store_max_abs": store, "steps": steps}
+        metric_ok = abs(hg[key] - hc[key]) <= 1.0 / scored + 1e-6
+    ints = [t for t in tree_leaves(sc) if t.dtype == torch.int32]
+    steps = max(int(t.max()) for t in ints)
+    w_max, over, steps_ok, exempted = 0.0, 0, True, 0
+    for (path, a), b in zip(tree_leaves_with_path(sc), tree_leaves(sg)):
+        d = (a.double() - b.cpu().double()).abs()
+        if a.dtype == torch.int32:
+            steps_ok &= bool((d == 0).all())
+            continue
+        w_max = max(w_max, float(d.max()))
+        if exempt is not None and exempt(path):
+            exempted += 1
+            continue
+        n = int((d > 1e-5).sum())
+        over = max(over, n - max(1, int(1e-3 * d.numel())))
+    store = (None if sc.clients is None else max(
+        float((a.double() - b.cpu().double()).abs().max())
+        for a, b in zip(tree_leaves(sc.clients.params),
+                        tree_leaves(sg.clients.params))))
+    print(f"card-vs-cpu {label}: worst metric rel diff {worst:.3e} (tol "
+          f"1e-4); test loss rel diff {loss_rel:.3e}, {key} "
+          f"{hc[key]:.4f} / {hg[key]:.4f}; weights max abs "
+          f"diff {w_max:.3e} (bound {2 * 1e-3 * steps:.0e})"
+          + ("" if store is None else f", per-client store {store:.3e}")
+          + f"; leaves over their outlier allowance {max(over, 0)}"
+          + (f" ({exempted} bias leaves before a BatchNorm held to the "
+             "bound alone)" if exempted else "")
+          + f"; steps equal {steps_ok}")
+    if not (worst <= 1e-4 and loss_rel <= 1e-4 and metric_ok
+            and w_max <= 2 * 1e-3 * steps and over <= 0 and steps_ok):
+        raise AssertionError(f"card-vs-cpu {label}: card and CPU disagree")
+    return {"worst_metric_rel_diff": worst, "test_loss_rel_diff": loss_rel,
+            "weights_max_abs": w_max, "store_max_abs": store, "steps": steps}
+
+
+# phase 14: the paper's other workloads at the main path's protocol,
+# each task with the two programs it runs, and ResNet9 at the six cuts of
+# the paper's Table 4, TABLE4_ROUNDS rounds each
+WORKLOADS = (("cifar", ("cyclesfl", "sflv1")), ("charlm", ("cyclesfl", "sflv1")),
+             ("gaze", ("cyclepsl", "psl")))
+TABLE4_ROUNDS = 3
+
+
+def leaf_counts(task):
+    """(server, client) leaves of a split task, read off its init trees."""
+    import torch
+    from repro_torch.utils.tree import tree_leaves
+    gen = torch.Generator().manual_seed(0)
+    return (len(tree_leaves(task.init_server(gen))),
+            len(tree_leaves(task.init_client(gen))))
+
+
+def task_launches(algo, rounds, fused=False):
+    """``zoo_launches`` for the Engine's own task (a function of the
+    Engine, for ``drive``)."""
+    def expect(eng):
+        ls, lc = leaf_counts(eng.task)
+        out = zoo_launches(algo, rounds, ls, lc, fused)
+        print(f"{eng.task.name}: {ls} server and {lc} client leaves; "
+              f"{algo} launches a round: "
+              + ", ".join(f"{k} {v // rounds}" for k, v in out.items()))
+        return out
+    return expect
+
+
+def celeba(cut, width, n_clients, seed=0):
+    """LEAF CelebA's CNN at 84 px, 2 classes, on the synthetic image task
+    with 16 samples a client (135 MB of images at 100 clients).  Neither
+    package registers it as a task, so the Engine takes the task and its
+    data."""
+    from repro_torch.core.split import make_stage_task
+    from repro_torch.data.federated import FederatedDataset
+    from repro_torch.data.synthetic import SyntheticImageTask
+    from repro_torch.models.cnn import celeba_cnn
+    x, y, _, idx = SyntheticImageTask(img=84, channels=3, n_classes=2,
+                                      samples_per_client=16,
+                                      n_clients=n_clients, seed=seed).build()
+    return {"task": make_stage_task(celeba_cnn(2, width, 84), cut, "xent"),
+            "fed": FederatedDataset.from_arrays(x, y, idx, seed=seed),
+            "metric_key": "accuracy"}
+
+
+def workloads(torch, rounds):
+    """Phase 14: ``Engine.run()`` of each of the paper's other workloads
+    at its model's full published width, at the main path's protocol (100
+    clients, cohort 5, batch 16, padded cohorts, ``collect_timing``),
+    with exact launch counts from the tasks' leaves: cifar (resnet9 width
+    64, cut 2) and charlm (the LSTM, cut 2) with cyclesfl and sflv1, gaze
+    (the mlp, mse, cut 1) with cyclepsl and psl, resnet9 at cuts 1-6,
+    cifar again with the host syncing every round or every 5 rounds, in
+    turns (1, 5, 5, 1), and celeba at cut 1 and cut 4 with
+    ``fused_gather_loss``."""
+    from repro_torch.api import ExperimentConfig, build_task
+    from repro_torch.core.split import make_stage_task
+    from repro_torch.models.cnn import resnet9
+
+    def cfg(**kw):       # charlm and gaze fix their own cut and width
+        return ExperimentConfig(**{**MAIN, "rounds": rounds,
+                                   "eval_every": rounds, "cut": 2,
+                                   "width": 64, "collect_timing": True,
+                                   **kw})
+
+    out = {}
+    for task, algos in WORKLOADS:
+        for algo in algos:
+            out[f"{task}/{algo}"] = drive(
+                torch, f"{task} {algo}", cfg(task=task, algo=algo),
+                task_launches(algo, rounds))
+    # one draw of the cifar data for the cut sweep and the sync runs
+    _, fed, _ = build_task("cifar", MAIN["n_clients"], 0.5, 0, 64, 2)
+    for cut in range(1, 7):
+        out[f"cifar/cut{cut}"] = drive(
+            torch, f"cifar cut{cut}",
+            cfg(task="cifar", cut=cut, rounds=TABLE4_ROUNDS,
+                eval_every=TABLE4_ROUNDS),
+            task_launches("cyclesfl", TABLE4_ROUNDS),
+            task=make_stage_task(resnet9(n_classes=20, width=64), cut),
+            fed=fed, metric_key="accuracy")
+    for turn, k in zip("aabb", (1, 5, 5, 1)):      # in turns: 1, 5, 5, 1
+        out[f"cifar/sync_every{k}{turn}"] = drive(
+            torch, f"cifar sync_every {k} ({turn})",
+            cfg(task="cifar", sync_every=k),
+            task_launches("cyclesfl", rounds), clock=False,
+            task=make_stage_task(resnet9(n_classes=20, width=64), 2),
+            fed=fed, metric_key="accuracy")
+    for cut, fused in ((1, False), (4, True)):
+        out[f"celeba/cut{cut}" + ("-fused" if fused else "")] = drive(
+            torch, f"celeba cut{cut}" + (" fused" if fused else ""),
+            cfg(cut=cut).with_cycle(fused_gather_loss=fused),
+            task_launches("cyclesfl", rounds, fused),
+            **celeba(cut, 32, MAIN["n_clients"]))
+    print("workloads rounds/s by the host clock (host-bound; compare within "
+          "this call only) and the Engine's round_time_s: " + ", ".join(
+              f"{k} {v['rounds_per_s']:.2f} / {v['round_time_s']:.6f}s"
+              for k, v in out.items()))
+    return out
+
+
+def workloads_card_against_cpu(torch):
+    """Phase 15: phase 13 for each new task, two rounds of 10 clients,
+    cohort 3, batch 8, server epochs 2, seed 4, TF32 off and cuDNN
+    deterministic: cifar (resnet9 width 8) and charlm with cyclesfl,
+    gaze with cyclepsl, celeba (width 8, 84 px) at cut 1 and cut 4
+    fused.  Tolerances: ``compare_runs``; under resnet9 and celeba the
+    conv biases in front of a BatchNorm are held to Adam's bound alone
+    (``bias_before_batchnorm``)."""
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.core.feature_store import masked_resample_plan
+    from repro_torch.models.cnn import bias_before_batchnorm
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+
+    def plan_fn(key, valid, epochs, sb):
+        return masked_resample_plan(key, valid.cpu(), epochs, sb)
+
+    small = dict(rounds=2, eval_every=2, n_clients=10, attendance=0.3,
+                 batch=8, seed=4)
+    cases = {"cifar": (dict(task="cifar", width=8), False, {}),
+             "charlm": (dict(task="charlm"), False, {}),
+             "gaze": (dict(task="gaze", algo="cyclepsl"), False, {}),
+             "celeba cut1": (dict(cut=1), False, celeba(1, 8, 10, seed=4)),
+             "celeba cut4 fused": (dict(cut=4), True,
+                                   celeba(4, 8, 10, seed=4))}
+    out = {}
+    for label, (kw, fused, engine_kw) in cases.items():
+        cfg = ExperimentConfig(**{**small, **kw}).with_cycle(
+            server_epochs=2, fused_gather_loss=fused)
+        bn = label.startswith(("cifar", "celeba"))
+        out[label] = compare_runs(
+            torch, label, cpu_and_card(torch, cfg, plan_fn, **engine_kw),
+            exempt=bias_before_batchnorm if bn else None)
     return out
 
 
@@ -1328,6 +1525,15 @@ def main(argv=None):
     parity.update({f"zoo/{k}": v for k, v in
                    zoo_card_against_cpu(torch).items()})
 
+    # 14-15. the paper's other workloads, card against CPU
+    t14 = time.perf_counter()
+    workload_runs = workloads(torch, r)
+    t15 = time.perf_counter()
+    parity.update({f"workloads/{k}": v for k, v in
+                   workloads_card_against_cpu(torch).items()})
+    phase_s = {"14": t15 - t14, "15": time.perf_counter() - t15}
+    print(f"phase 14 took {phase_s['14']:.1f}s, phase 15 {phase_s['15']:.1f}s")
+
     sources = {"feature_resample": "src/repro/kernels/feature_resample.py:24",
                "fused_adam": "src/repro/kernels/fused_adam.py:44",
                "gather_loss": "src/repro/kernels/gather_loss.py:47",
@@ -1355,7 +1561,8 @@ def main(argv=None):
                        "checks": CHECKS, "olmoe_round": olmoe,
                        "zamba2_round": zamba, "prefill": prefills,
                        "profile": profiles, "card_vs_cpu": parity,
-                       "launch_floor": floor, "zoo": zoo_runs}, f,
+                       "launch_floor": floor, "zoo": zoo_runs,
+                       "workloads": workload_runs, "phase_s": phase_s}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

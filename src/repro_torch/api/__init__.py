@@ -16,6 +16,7 @@ from repro_torch.api.phases import (ClientUpdate, Commit, ExtractFeatures,
                                     init_train_state)
 from repro_torch.api.registry import (PROGRAMS, algorithm_names, get_program,
                                       register_program)
+from repro_torch.api.tasks import TASKS, build_task, register_task, task_names
 
 __all__ = [
     "ExperimentConfig", "Engine", "evaluate",
@@ -23,4 +24,5 @@ __all__ = [
     "SLAlgorithm", "ExtractFeatures", "ServerUpdate", "FeatureGradients",
     "ClientUpdate", "Commit", "build_algorithm", "init_train_state",
     "PROGRAMS", "algorithm_names", "get_program", "register_program",
+    "TASKS", "build_task", "register_task", "task_names",
 ]

@@ -14,7 +14,7 @@ from dataclasses import asdict, dataclass, field, fields, replace
 from typing import Optional
 
 from repro_torch.api.registry import algorithm_names, get_program
-from repro_torch.api.tasks import NOT_PORTED, TASKS, task_names
+from repro_torch.api.tasks import TASKS, task_names
 from repro_torch.core.cyclesl import CycleConfig
 
 SCENARIO_DEFAULTS = {
@@ -57,10 +57,16 @@ class ExperimentConfig:
     pad_cohorts: bool = True
     # Binomial(N, attendance) cohort sizes, clipped to [min_cohort, C_max]
     variable_attendance: bool = False
+    # block on the round's metrics and report round_time_s
+    collect_timing: bool = False
+    # with collect_timing, sync the host only every sync_every rounds
+    # (plus the first round and the last); 1 syncs every round.  On the
+    # card k > 1 times the same as 1 for now: each round's cohort is
+    # copied from pageable host memory, and that copy waits for the
+    # queued rounds (no pinned prefetch of the next cohort yet)
+    sync_every: int = 1
     # ---- not ported yet: each must keep its default ----
     ckpt_dir: Optional[str] = None
-    collect_timing: bool = False
-    sync_every: int = 1
     mesh_shape: Optional[tuple] = None
     mesh_axes: tuple = ("data", "model")
     shard_cohort: bool = True
@@ -102,8 +108,7 @@ class ExperimentConfig:
         """Raise on a field whose feature the port lacks, then check the
         ported ones."""
         defaults = ExperimentConfig()
-        for name in ("ckpt_dir", "collect_timing", "sync_every",
-                     "mesh_shape", "mesh_axes",
+        for name in ("ckpt_dir", "mesh_shape", "mesh_axes",
                      "shard_cohort", "resume", "pipeline_depth",
                      "pipeline_staleness", "staleness_weighting",
                      "staleness_lambda", "scenario", "resilience", "serve"):
@@ -113,10 +118,11 @@ class ExperimentConfig:
                     f"(the port runs with {getattr(defaults, name)!r})")
         self.cycle.check_ported()
         get_program(self.algo)
-        if self.task in NOT_PORTED:
-            raise NotImplementedError(f"task {self.task!r} is not ported yet")
         if self.task not in TASKS:
             raise KeyError(f"unknown task {self.task!r}: {sorted(TASKS)}")
+        if self.sync_every < 1:
+            raise ValueError(f"sync_every={self.sync_every}: the host "
+                             "must sync at least every round (>= 1)")
         return self
 
     # ------------------------------------------------------------- flags
@@ -142,6 +148,9 @@ class ExperimentConfig:
         ap.add_argument("--width", type=int, default=16)
         ap.add_argument("--cut", type=int, default=2)
         ap.add_argument("--eval-every", type=int, default=20)
+        ap.add_argument("--sync-every", type=int, default=1,
+                        help="host-sync cadence under collect_timing: "
+                             "block on round metrics every k rounds")
         ap.add_argument("--no-pad-cohorts", action="store_true",
                         help="disable fixed-shape padded cohorts")
         ap.add_argument("--variable-attendance", action="store_true",
@@ -156,6 +165,7 @@ class ExperimentConfig:
             batch=args.batch, lr_server=args.lr_server,
             lr_client=args.lr_client, alpha=args.alpha, seed=args.seed,
             width=args.width, cut=args.cut, eval_every=args.eval_every,
+            sync_every=args.sync_every,
             pad_cohorts=not args.no_pad_cohorts,
             variable_attendance=args.variable_attendance,
             cycle=CycleConfig(server_epochs=args.server_epochs,

@@ -1,8 +1,9 @@
 """The driver loop: sample cohorts, run rounds, evaluate.
 
-Port of the single-device, sequential path of ``repro/api/engine.py``:
-no mesh, pipeline, scenario, resilience or checkpoint branches (their
-config fields must keep their defaults).
+Port of the single-device, sequential path of ``repro/api/engine.py``,
+with its timing windows (``collect_timing``, ``sync_every``): no mesh,
+pipeline, scenario, resilience or checkpoint branches (their config
+fields must keep their defaults).
 
     eng = Engine(ExperimentConfig(algo="cyclesfl", rounds=100))
     result = eng.run()           # {"history": [...], "grad_stability": ...}
@@ -236,6 +237,14 @@ class Engine:
             self.device)
         return put(cohort), put(xs), put(ys), put(mask)
 
+    def sync(self, metrics):
+        """Block until the round's work is done: the card's queue drains
+        (on the CPU every op has run; the loss is read all the same)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        else:
+            float(metrics["server_loss"])
+
     def _emit(self, hook: str, *args):
         for cb in self.callbacks:
             fn = getattr(cb, hook, None)
@@ -251,10 +260,32 @@ class Engine:
         tracker = GradStabilityTracker()
         history = []
         t0 = time.time()
+        # timing windows: the host syncs every sync_k rounds and at the
+        # last; the first round (first launches, cuBLAS/cuDNN set-up) is
+        # synced out of the first window and not timed
+        sync_k = max(1, cfg.sync_every)
+        round_time, timed_rounds = 0.0, 0
         for rnd in range(cfg.rounds):
             cohort, xs, ys, mask = self.sample_round(rng)
+            t_round = time.perf_counter()
             state, metrics = self.algo.round(state, cohort, xs, ys,
                                              self.round_key(rnd), mask)
+            if cfg.collect_timing:
+                if sync_k == 1:
+                    self.sync(metrics)
+                    if rnd > 0:
+                        round_time += time.perf_counter() - t_round
+                        timed_rounds += 1
+                elif rnd == 0:
+                    self.sync(metrics)
+                    t_mark, r_mark = time.perf_counter(), 1
+                elif rnd == cfg.rounds - 1 or (rnd + 1) % sync_k == 0:
+                    # one sync closes the window; its time is averaged
+                    # over the window's rounds
+                    self.sync(metrics)
+                    round_time += time.perf_counter() - t_mark
+                    timed_rounds += rnd + 1 - r_mark
+                    t_mark, r_mark = time.perf_counter(), rnd + 1
             tracker.update(metrics)
             self._emit("on_round", rnd, state, metrics)
             if (rnd + 1) % cfg.eval_every == 0 or rnd == cfg.rounds - 1:
@@ -267,5 +298,8 @@ class Engine:
                          f"{self.metric_key}="
                          f"{mets.get(self.metric_key, float('nan')):.4f}")
                 self._emit("on_eval", rnd, loss, mets)
-        return {"algo": self.algo.name, "task": cfg.task,
-                "history": history, "grad_stability": tracker.summary()}
+        result = {"algo": self.algo.name, "task": cfg.task,
+                  "history": history, "grad_stability": tracker.summary()}
+        if cfg.collect_timing:
+            result["round_time_s"] = round_time / max(1, timed_rounds)
+        return result

@@ -1,21 +1,37 @@
 """Task registry: name -> (SplitTask, FederatedDataset, metric key).
 
-Port of ``repro/api/tasks.py``.  Only ``image`` (the synthetic FEMNIST
-stand-in on ``femnist_cnn``) is ported; the JAX package's other tasks
-raise ``NotImplementedError``.
+Port of ``repro/api/tasks.py``: the synthetic stand-ins for the paper's
+four workloads (§4.1), built exactly as the reference builds them, so
+one config drives both packages on identical arrays.  New workloads
+register with ``register_task`` and are immediately reachable from
+``ExperimentConfig``.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 
-from repro_torch.core.split import make_stage_task
+from repro_torch.core.split import SplitTask, make_stage_task
 from repro_torch.data.federated import FederatedDataset
-from repro_torch.data.synthetic import SyntheticImageTask
-from repro_torch.models.cnn import femnist_cnn
+from repro_torch.data.synthetic import (SyntheticCharLMTask,
+                                        SyntheticImageTask,
+                                        SyntheticRegressionTask)
+from repro_torch.models.cnn import femnist_cnn, mlp, resnet9
+from repro_torch.models.lstm import shakespeare_lstm
 
-NOT_PORTED = ("charlm", "cifar", "gaze")
+TaskBuilder = Callable[..., tuple[SplitTask, FederatedDataset, str]]
+TASKS: dict[str, TaskBuilder] = {}
 
 
+def register_task(name: str):
+    def deco(fn: TaskBuilder) -> TaskBuilder:
+        TASKS[name] = fn
+        return fn
+    return deco
+
+
+@register_task("image")
 def _image(n_clients, alpha, seed, width, cut):
     gen = SyntheticImageTask(n_clients=n_clients, alpha=alpha, seed=seed)
     x, y, _, idx = gen.build()
@@ -28,14 +44,40 @@ def _image(n_clients, alpha, seed, width, cut):
     return task, FederatedDataset.from_arrays(x, y, idx, seed=seed), "accuracy"
 
 
-TASKS = {"image": _image}
+@register_task("cifar")
+def _cifar(n_clients, alpha, seed, width, cut):
+    gen = SyntheticImageTask(n_clients=n_clients, alpha=alpha, seed=seed,
+                             img=32, n_classes=20, samples_per_client=96)
+    x, y, _, idx = gen.build()
+    model = resnet9(n_classes=20, width=width)
+    task = make_stage_task(model, cut=cut, kind="xent")
+    return task, FederatedDataset.from_arrays(x, y, idx, seed=seed), "accuracy"
+
+
+@register_task("charlm")
+def _charlm(n_clients, alpha, seed, width, cut):
+    # the paper's Shakespeare cut: embedding and LSTM on the client,
+    # whatever cfg.cut says
+    gen = SyntheticCharLMTask(n_clients=n_clients, seed=seed)
+    x, y, _, idx = gen.build()
+    model = shakespeare_lstm(vocab=gen.vocab)
+    task = make_stage_task(model, cut=2, kind="xent")
+    return task, FederatedDataset.from_arrays(x, y, idx, seed=seed), "accuracy"
+
+
+@register_task("gaze")
+def _gaze(n_clients, alpha, seed, width, cut):
+    # float32 [N, 2] targets under the mse loss, always cut after the
+    # first layer
+    gen = SyntheticRegressionTask(n_clients=n_clients, seed=seed)
+    x, y, _, idx = gen.build()
+    model = mlp(gen.d_in, [128, 64], gen.d_out)
+    task = make_stage_task(model, cut=1, kind="mse")
+    return task, FederatedDataset.from_arrays(x, y, idx, seed=seed), "angular_deg"
 
 
 def build_task(name: str, n_clients: int, alpha: float, seed: int,
                width: int, cut: int):
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"task {name!r} is not ported yet; "
-                                  f"ported: {sorted(TASKS)}")
     if name not in TASKS:
         raise KeyError(f"unknown task {name!r}: {sorted(TASKS)}")
     return TASKS[name](n_clients, alpha, seed, width, cut)

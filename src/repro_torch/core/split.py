@@ -1,8 +1,9 @@
 """Split-model abstraction: θ_CS = θ_S ∘ θ_C with an explicit cut.
 
-Port of ``repro/core/split.py``: the StageModel zoo's tasks and the
-decoder-only transformer cut after ``cfg.cut_layers`` blocks, dense,
-MoE, SSM and hybrid (whisper's encoder-decoder task is not ported yet).
+Port of ``repro/core/split.py``: the StageModel zoo's tasks (xent or
+mse loss) and the decoder-only transformer cut after ``cfg.cut_layers``
+blocks, dense, MoE, SSM and hybrid (whisper's encoder-decoder task is
+not ported yet).
 """
 from __future__ import annotations
 
@@ -56,6 +57,18 @@ def xent_metrics(logits, y):
     return {"accuracy": torch.mean((pred == y).float())}
 
 
+def mse_loss(pred, y):
+    return torch.mean(torch.square(pred.float() - y))
+
+
+def mse_metrics(pred, y):
+    # angular-distance analog used by the paper's gaze task
+    p = pred / (torch.linalg.vector_norm(pred, dim=-1, keepdim=True) + 1e-8)
+    t = y / (torch.linalg.vector_norm(y, dim=-1, keepdim=True) + 1e-8)
+    cos = torch.clamp(torch.sum(p * t, dim=-1), -1, 1)
+    return {"angular_deg": torch.mean(torch.rad2deg(torch.arccos(cos)))}
+
+
 def make_stage_task(model: StageModel, cut: int, kind: str = "xent",
                     name: str | None = None) -> SplitTask:
     """Split a StageModel at stage index ``cut`` (paper's block-wise cut).
@@ -65,8 +78,8 @@ def make_stage_task(model: StageModel, cut: int, kind: str = "xent",
     """
     if not 0 < cut < model.n_stages:
         raise ValueError(f"cut {cut} out of range (1..{model.n_stages - 1})")
-    if kind != "xent":
-        raise NotImplementedError(f"loss kind {kind!r} is not ported yet")
+    loss, metrics = ((xent_loss, xent_metrics) if kind == "xent"
+                     else (mse_loss, mse_metrics))
 
     def init_client(gen):
         return model.init(gen)[:cut]
@@ -83,14 +96,15 @@ def make_stage_task(model: StageModel, cut: int, kind: str = "xent",
             x = model.stages[i][1](sp[i - cut], x)
         return x
 
+    # the fused gather + loss contract: the whole server half is the
+    # model's final flatten-matmul head (last cut) under xent
     server_head = None
-    if cut == model.n_stages - 1 and model.head_is_linear:
+    if kind == "xent" and cut == model.n_stages - 1 and model.head_is_linear:
         server_head = lambda sp: tree_leaves(sp[-1])[0]
 
     return SplitTask(name or f"{model.name}@cut{cut}",
                      init_client, init_server, client_forward,
-                     server_apply, xent_loss, xent_metrics,
-                     server_head=server_head)
+                     server_apply, loss, metrics, server_head=server_head)
 
 
 # -------------------------------------------------- Transformer builder

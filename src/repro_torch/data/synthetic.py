@@ -1,6 +1,7 @@
-"""The synthetic image task (offline stand-in for LEAF FEMNIST): a numpy
-copy of ``repro/data/synthetic.py``'s ``SyntheticImageTask``, so both
-packages build identical arrays from one seed.
+"""Synthetic tasks (offline stand-ins for LEAF FEMNIST, CIFAR-100,
+Shakespeare and OpenEDS2020 gaze): a numpy copy of
+``repro/data/synthetic.py``, draw for draw, so both packages build
+identical arrays from one seed.
 
 The image task draws class prototypes and *client-conditioned* styles:
 each sample is ``prototype[label] + client_style[client] + noise``, so a
@@ -77,3 +78,71 @@ class SyntheticImageTask:
             client_indices.append(np.arange(offs, offs + len(idx)))
             offs += len(idx)
         return x, y, o, client_indices
+
+
+@dataclass
+class SyntheticCharLMTask:
+    """Char-LM stand-in for Shakespeare: client-specific Markov chains."""
+
+    vocab: int = 80
+    seq_len: int = 20
+    n_clients: int = 50
+    samples_per_client: int = 128
+    heterogeneity: float = 0.7      # mix weight of the client's own chain
+    seed: int = 0
+
+    def build(self):
+        rng = np.random.default_rng(self.seed)
+        base = rng.dirichlet(np.ones(self.vocab) * 0.3, size=self.vocab)
+        xs, ys, client_indices = [], [], []
+        offs = 0
+        for ci in range(self.n_clients):
+            own = rng.dirichlet(np.ones(self.vocab) * 0.3, size=self.vocab)
+            trans = (self.heterogeneity * own
+                     + (1 - self.heterogeneity) * base)
+            seqs = np.empty((self.samples_per_client, self.seq_len + 1), np.int64)
+            state = rng.integers(0, self.vocab, self.samples_per_client)
+            seqs[:, 0] = state
+            for t in range(1, self.seq_len + 1):
+                cdf = np.cumsum(trans[state], axis=1)
+                u = rng.random((self.samples_per_client, 1))
+                state = (u > cdf).sum(axis=1).clip(0, self.vocab - 1)
+                seqs[:, t] = state
+            xs.append(seqs[:, :-1])
+            ys.append(seqs[:, -1])      # next-char prediction target
+            client_indices.append(np.arange(offs, offs + self.samples_per_client))
+            offs += self.samples_per_client
+        return (np.concatenate(xs), np.concatenate(ys),
+                np.repeat(np.arange(self.n_clients), self.samples_per_client),
+                client_indices)
+
+
+@dataclass
+class SyntheticRegressionTask:
+    """Gaze-estimation stand-in (OpenEDS2020): per-client bias regression."""
+
+    d_in: int = 64
+    d_out: int = 2                 # gaze direction (yaw, pitch)
+    n_clients: int = 40
+    samples_per_client: int = 96
+    client_bias: float = 0.4
+    noise: float = 0.1
+    seed: int = 0
+
+    def build(self):
+        rng = np.random.default_rng(self.seed)
+        w = rng.normal(size=(self.d_in, self.d_out)).astype(np.float32) * 0.3
+        xs, ys, client_indices = [], [], []
+        offs = 0
+        for ci in range(self.n_clients):
+            bias = rng.normal(size=(1, self.d_out)).astype(np.float32) * self.client_bias
+            x = rng.normal(size=(self.samples_per_client, self.d_in)).astype(np.float32)
+            y = np.tanh(x @ w) + bias + self.noise * rng.normal(
+                size=(self.samples_per_client, self.d_out)).astype(np.float32)
+            xs.append(x)
+            ys.append(y.astype(np.float32))
+            client_indices.append(np.arange(offs, offs + self.samples_per_client))
+            offs += self.samples_per_client
+        return (np.concatenate(xs), np.concatenate(ys),
+                np.repeat(np.arange(self.n_clients), self.samples_per_client),
+                client_indices)

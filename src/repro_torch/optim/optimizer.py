@@ -38,10 +38,15 @@ def apply_updates(params, updates):
     return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
 
 
-def _t_like(step: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
-    """t = step + 1 in float32, shaped to broadcast over ``leaf``."""
-    t = torch.as_tensor(step, device=leaf.device).float() + 1.0
-    return t.reshape(t.shape + (1,) * (leaf.dim() - t.dim()))
+def _rows_like(x, leaf: torch.Tensor):
+    """A scalar or [C] tensor (t, a scheduled lr) shaped to broadcast
+    over ``leaf``: from a [C] step each row of a [C, ...] leaf takes its
+    own value, as the JAX package's vmap over a stacked step gives.  A
+    Python float (a constant lr) passes as it is."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    x = x.to(leaf.device)
+    return x.reshape(x.shape + (1,) * (leaf.dim() - x.dim()))
 
 
 def sgd(lr: float | Callable[[Any], Any], momentum: float = 0.0) -> Optimizer:
@@ -56,9 +61,10 @@ def sgd(lr: float | Callable[[Any], Any], momentum: float = 0.0) -> Optimizer:
     def update(grads, state, params=None, step=0):
         lr_t = sched(step)
         if momentum == 0.0:
-            return tree_map(lambda g: -lr_t * g.float(), grads), state
+            return tree_map(lambda g: -_rows_like(lr_t, g) * g.float(),
+                            grads), state
         new_m = tree_map(lambda m, g: momentum * m + g.float(), state, grads)
-        return tree_map(lambda m: -lr_t * m, new_m), new_m
+        return tree_map(lambda m: -_rows_like(lr_t, m) * m, new_m), new_m
 
     return Optimizer(init, update)
 
@@ -94,12 +100,13 @@ def adam(lr: float | Callable[[Any], Any], b1: float = 0.9, b2: float = 0.999,
                      state["v"], grads)
 
         def one(mm, vv, p):
-            t = _t_like(step, mm)
+            t = _rows_like(torch.as_tensor(step).float() + 1.0, mm)
+            lr = _rows_like(lr_t, mm)
             mh = mm / (1 - torch.pow(b1, t))
             vh = vv / (1 - torch.pow(b2, t))
-            u = -lr_t * mh / (torch.sqrt(vh) + eps)
+            u = -lr * mh / (torch.sqrt(vh) + eps)
             if weight_decay and p is not None:
-                u = u - lr_t * weight_decay * p.float()
+                u = u - lr * weight_decay * p.float()
             return u
 
         if params is None:

@@ -25,6 +25,24 @@ def tree_leaves(tree: Any) -> list:
     return [tree]
 
 
+def tree_leaves_with_path(tree: Any, path: tuple = ()) -> list:
+    """(key path, leaf) pairs in ``tree_leaves`` order.  A key is a dict
+    key, a NamedTuple field name or a list/tuple index: the plain
+    values of JAX's ``DictKey``/``GetAttrKey``/``SequenceKey``."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_leaves_with_path(tree[k], path + (k,))]
+    if _is_namedtuple(tree):
+        return [pl for k, x in zip(tree._fields, tree)
+                for pl in tree_leaves_with_path(x, path + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, x in enumerate(tree)
+                for pl in tree_leaves_with_path(x, path + (i,))]
+    return [(path, tree)]
+
+
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """Apply ``fn`` leafwise over ``tree`` and trees of the same shape."""
     if tree is None:

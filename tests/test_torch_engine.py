@@ -114,9 +114,10 @@ def test_config_round_trips_from_reference_dict(jcfg):
 
 OUT_OF_SLICE = {
     "pipeline": dict(pipeline_depth=1), "mesh": dict(mesh_shape=(2, 1)),
-    "resume": dict(resume=True), "timing": dict(collect_timing=True),
-    "sync": dict(sync_every=2), "ckpt": dict(ckpt_dir="ckpt"),
-    "task": dict(task="cifar"), "scenario": dict(scenario={"kind": "diurnal"}),
+    "resume": dict(resume=True), "mesh-axes": dict(mesh_axes=("x", "y")),
+    "staleness": dict(staleness_weighting="inverse"),
+    "ckpt": dict(ckpt_dir="ckpt"), "serve": dict(serve={"slots": 4}),
+    "scenario": dict(scenario={"kind": "diurnal"}),
     "resilience": dict(resilience={"guard": True}),
     "shard-local": dict(cycle={"shard_local_resample": True}),
     "kernel-override": dict(cycle={"resample_use_kernel": True}),

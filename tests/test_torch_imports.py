@@ -50,7 +50,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.models.mamba2",
                 "repro_torch.models.attention", "repro_torch.models.moe",
                 "repro_torch.models.transformer", "repro_torch.core.split",
-                "repro_torch.launch.inputs", "repro_torch.launch.steps"):
+                "repro_torch.launch.inputs", "repro_torch.launch.steps",
+                "repro_torch.optim.schedule", "repro_torch.models.lstm",
+                "repro_torch.models.cnn", "repro_torch.data.synthetic",
+                "repro_torch.api.tasks"):
         assert mod in out["modules"]
 
 

@@ -12,7 +12,11 @@ rounding of their mean, ~1e-10, not a spread); state leaves within
 1e-5 but for at most 0.1% of a leaf's values (one value in a leaf of
 fewer than 1000), each within the 2 * lr * steps that Adam's near-sign
 steps can move a weight; int32 step counters equal; the final test loss
-rtol 1e-4 and the accuracy within one flipped test sample.
+rtol 1e-4 and the accuracy within one flipped test sample (another
+metric, gaze's ``angular_deg``, rtol 1e-4); the run's gradient-stability
+summary rtol 1e-4, its ``grad_norm_within_batch_std`` also within 1e-5
+of the mean norm (and ``grad_norm_std_over_rounds`` within
+``rounds_std_atol`` of it, 0 unless a caller gives it).
 
 Why one value a small leaf: a FedAvg of two slots whose Adam steps on a
 bias have opposite signs leaves that bias at float32 rounding noise
@@ -74,25 +78,42 @@ def drawn_cohorts(engine, rounds):
     return out
 
 
-def assert_state_close(j_state, t_state):
-    jl, tl = jax.tree.leaves(j_state), tree_leaves(t_state)
-    assert len(jl) == len(tl)
-    steps = max(int(np.max(np.asarray(a))) for a in jl
+def plain_path(path) -> tuple:
+    """A JAX key path as the plain keys of
+    ``repro_torch.utils.tree.tree_leaves_with_path``."""
+    return tuple(getattr(k, "key", getattr(k, "name", getattr(k, "idx", k)))
+                 for k in path)
+
+
+def assert_state_close(j_state, t_state, exempt=None):
+    """``exempt(path)``, over a leaf's plain key path, marks leaves held
+    to the 2 * lr * steps bound alone (see
+    ``repro_torch.models.cnn.bias_before_batchnorm``)."""
+    jp, tl = jax.tree_util.tree_leaves_with_path(j_state), tree_leaves(t_state)
+    assert len(jp) == len(tl)
+    steps = max(int(np.max(np.asarray(a))) for _, a in jp
                 if np.asarray(a).dtype == np.int32)
-    for a, b in zip(jl, tl):
+    for (path, a), b in zip(jp, tl):
         a = np.asarray(a)
         if a.dtype == np.int32:
             np.testing.assert_array_equal(b.numpy(), a)
             continue
         d = np.abs(a.astype(np.float64) - b.double().numpy())
         assert d.max() <= 2 * LR * steps + 1e-6, (d.max(), steps)
-        assert (d > 1e-5).sum() <= max(1, 1e-3 * d.size), (d > 1e-5).sum()
+        if exempt is None or not exempt(plain_path(path)):
+            assert (d > 1e-5).sum() <= max(1, 1e-3 * d.size), (d > 1e-5).sum()
 
 
-def check_program(algo, mode, seed):
+def check_program(algo, mode, seed, exempt=None, rounds_std_atol=0.0,
+                  **overrides):
     """Run ``algo`` through both Engines and hold the port to the
-    reference; returns the port's Engine and the two final states."""
-    jcfg = JConfig(algo=algo, seed=seed, **SMALL, **MODES[mode])
+    reference; returns the port's Engine and the two final states.
+    ``overrides`` replace config fields of ``SMALL`` (the task, say);
+    ``exempt`` goes to ``assert_state_close``; ``rounds_std_atol`` is
+    the atol of ``grad_norm_std_over_rounds``, a fraction of
+    ``grad_norm_mean``."""
+    jcfg = JConfig(algo=algo, seed=seed, **{**SMALL, **MODES[mode],
+                                            **overrides})
     jrec, trec = Recorder(), Recorder()
     jeng = JEngine(jcfg, callbacks=[jrec], log=lambda *a: None)
     state0 = jax.device_get(jeng.init_state())
@@ -112,19 +133,25 @@ def check_program(algo, mode, seed):
                     if k == "feat_grad_norm_std" else 0.0)
             np.testing.assert_allclose(t[k], j[k], rtol=1e-4, atol=atol,
                                        err_msg=f"round {r} {k}")
-    assert_state_close(jax.device_get(jrec.state), trec.state)
+    assert_state_close(jax.device_get(jrec.state), trec.state, exempt)
     jh, th = jres["history"][-1], tres["history"][-1]
     np.testing.assert_allclose(th["test_loss"], jh["test_loss"], rtol=1e-4)
-    if trec.state.clients is None:
-        scored = len(teng.fed.test_arrays()[1])
+    assert teng.metric_key == jeng.metric_key
+    if teng.metric_key == "accuracy":
+        if trec.state.clients is None:
+            scored = len(teng.fed.test_arrays()[1])
+        else:
+            held = [c for c in teng.fed.clients if len(c.x_test)][:40]
+            scored = min(len(c.x_test) for c in held) * len(held)
+        assert abs(th["accuracy"] - jh["accuracy"]) <= 1.0 / scored + 1e-6
     else:
-        held = [c for c in teng.fed.clients if len(c.x_test)][:40]
-        scored = min(len(c.x_test) for c in held) * len(held)
-    assert abs(th["accuracy"] - jh["accuracy"]) <= 1.0 / scored + 1e-6
+        np.testing.assert_allclose(th[teng.metric_key], jh[teng.metric_key],
+                                   rtol=1e-4)
     gs = jres["grad_stability"]
+    std_atol = {"grad_norm_within_batch_std": 1e-5,
+                "grad_norm_std_over_rounds": rounds_std_atol}
     for k, v in gs.items():
-        atol = (1e-5 * abs(gs["grad_norm_mean"])
-                if k == "grad_norm_within_batch_std" else 0.0)
+        atol = std_atol.get(k, 0.0) * abs(gs["grad_norm_mean"])
         np.testing.assert_allclose(tres["grad_stability"][k], v, rtol=1e-4,
                                    atol=atol, err_msg=k)
     draws = drawn_cohorts(teng, jcfg.rounds)
