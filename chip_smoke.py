@@ -54,7 +54,16 @@ Phases, each of which ends the script with a non-zero exit on failure:
     celeba_cnn (width 32, 84 px) at cut 1 and at cut 4 with
     ``fused_gather_loss``, each with exact launch counts from its
     task's leaves and the Engine's ``round_time_s``;
-15. card against CPU for each of those tasks, as in 13.
+15. card against CPU for each of those tasks, as in 13;
+16. serving at full width, bf16, random init: ``ServeRuntime`` (8
+    slots, prompt and generation budgets 64, prefill chunks of 4) under
+    ``run_closed_loop`` at concurrency 8, over 24 requests of
+    olmoe-1b-7b whole and 8 of zamba2-1.2b whole, with the schedule and
+    the exact ``topk_gating`` launches checked; gemma2-2b whole through
+    ``launch.serve.serve_decoder_only`` (batch 4, prompt 64, 32 steps);
+17. decode against ``Transformer.forward`` (teacher forcing) on the card
+    at full width for olmoe-1b-7b and zamba2-1.2b, and the runtime card
+    against CPU at the smoke configs of olmoe, zamba2 and gemma2.
 
 It then prints the ``kernels`` JSON line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -256,7 +265,7 @@ def kernel_checks(torch, dev):
     # near zero (the float32 sums differ in their last bit, which flips a
     # rounding now and then), and the float32 moments to 1e-6: an
     # absolute 2e-2 would pass an update (lr 1e-3) wrong altogether
-    def adam(shape, steps, dtype=torch.float32, main=False, wd=0.0):
+    def adam(shape, steps, dtype=torch.float32, library=False, wd=0.0):
         p = torch.randn(shape, device=dev, generator=gen).to(dtype)
         g = torch.randn(shape, device=dev, generator=gen).to(dtype)
         m = torch.randn(shape, device=dev, generator=gen) * 0.1
@@ -265,7 +274,7 @@ def kernel_checks(torch, dev):
         n = p.numel()
         nbytes = n * (3 * p.element_size() + 4 * 4) + 4 * step.numel()
         lib = None
-        if main:
+        if library:
             q = p.clone().requires_grad_(True)
             q.grad = g.clone()
             opt = torch.optim.Adam([q], lr=1e-3, fused=True,
@@ -279,7 +288,7 @@ def kernel_checks(torch, dev):
                      lambda: ref.fused_adam_ref(p, g, m, v, step, **kw),
                      1e-6, nbytes, 14 * n, library=lib, dtype=dtype, ulps=1)
 
-    rows["fused_adam"] = adam((3136, 2048), 3, main=True)
+    rows["fused_adam"] = adam((3136, 2048), 3, library=True)
     adam((2048, 10), 3)
     adam((5, 5, 5, 32, 64), [0, 1, 2, 3, 4])
     adam((5, 3136, 2048), [4, 4, 4, 9, 0])
@@ -287,14 +296,14 @@ def kernel_checks(torch, dev):
     adam((2048, 10), 7, wd=0.01)
     # resnet9 at width 64: res2's [3, 3, 512, 512] convs (server) and the
     # client stack's BatchNorm vectors [C, 128]
-    adam((3, 3, 512, 512), 3)
+    adam((3, 3, 512, 512), 3, library=True)
     adam((5, 128), [0, 1, 2, 3, 4])
     # the olmoe round's client slots: bf16 leaves stacked [C, ...] with f32
     # moments and a step per slot; the embedding, and the gate projections
     # of the client's experts (2^29 elements, 2^31 bytes a moment)
     mo = olmoe.moe
     adam((COHORT, olmoe.vocab_padded, olmoe.d_model), [0, 3],
-         dtype=torch.bfloat16)
+         dtype=torch.bfloat16, library=True)
     adam((COHORT, olmoe.cut_layers, mo.n_experts, olmoe.d_model,
           mo.d_ff_expert), [2, 0], dtype=torch.bfloat16)
 
@@ -391,7 +400,8 @@ def gather_loss_checks(torch, dev, gen):
 def gating_checks(torch, dev, gen):
     """``topk_gating`` against its plain version: ids exactly equal,
     weights within 1e-6, at olmoe's router group ([4096, 64] k 8, the
-    returned row), moonshot's (E 64, k 6) and grok-1's (E 8, k 2), and at
+    returned row) and its serving rows ([8, 64] a decode tick, [4, 64] a
+    prefill position), moonshot's (E 64, k 6) and grok-1's (E 8, k 2), and at
     the design's edges: integer (tied) logits, rows all equal, logits so
     spread that most probabilities underflow to +0 (then ids in index
     order), bf16, E not a multiple of a lane's 8 (60, 7, 4), E = 256 with
@@ -428,6 +438,10 @@ def gating_checks(torch, dev, gen):
         return row
 
     main = case(4096, 64, 8)
+    # the serving path's router rows: a decode tick over 8 slots, and a
+    # prefill chunk of 4 (olmoe, each layer, each position)
+    case(8, 64, 8)
+    case(4, 64, 8)
     case(4096, 8, 2)
     case(4096, 64, 8, "tied")
     case(4096, 64, 6)
@@ -1442,6 +1456,322 @@ def workloads_card_against_cpu(torch):
     return out
 
 
+# phases 16-17: the serving path.  The slot table and budgets of the
+# continuous runtime; SERVE_REQUESTS requests a model, at concurrency
+# `slots`; gemma2-2b through the batched driver
+SERVE = dict(slots=8, max_prompt_len=64, max_new_tokens=64, prefill_batch=4)
+SERVE_REQUESTS = {"olmoe-1b-7b": 24, "zamba2-1.2b": 8}
+BATCHED = dict(batch=4, prompt_len=64, steps=32)
+
+
+def serve_schedule(n, sc):
+    """Decode calls, prefill chunks and ticks of ``run_closed_loop`` over
+    ``n`` requests at concurrency ``sc.slots``, every request generating
+    ``sc.max_new_tokens`` with no deadline or fault: waves of ``slots``
+    requests, each admitted at its wave's first tick in ``slots /
+    prefill_batch`` chunks and decoded for ``max_new_tokens - 1`` ticks
+    (the prefill gives the first token); the tick after, it retires and
+    nothing decodes."""
+    assert n % sc.slots == 0 and sc.slots % sc.prefill_batch == 0
+    waves = n // sc.slots
+    return {"decode": waves * (sc.max_new_tokens - 1),
+            "prefill": waves * sc.slots // sc.prefill_batch,
+            "ticks": waves * sc.max_new_tokens}
+
+
+def free(torch):
+    """Return the memory of dropped objects to the card: the runtime's
+    step closures hold the runtime in a reference cycle, which only the
+    cyclic collector frees, and a peak read after must not count it."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+class Timed:
+    """A runtime step with CUDA events around each call (no sync): the
+    calls, and the device timeline's ms per call, which takes in the
+    host's dispatch whenever the device waits for it."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.events = torch, fn, []
+
+    def __call__(self, *args):
+        a = self.torch.cuda.Event(enable_timing=True)
+        b = self.torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = self.fn(*args)
+        b.record()
+        self.events.append((a, b))
+        return out
+
+    def ms(self):
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def serve_runtime(torch, label, cfg, n_requests, profile=False,
+                  dev="cuda"):
+    """Phase 16: ``run_closed_loop`` over ``make_prompts(n_requests, 64,
+    vocab, 1)`` at concurrency 8 through ``ServeRuntime(SERVE)`` on the
+    card, random init from seed 0, with the launch counters reset just
+    before and read just after.  Every batched decode call runs each MoE
+    layer's router once over its rows (``topk_gating``): the expected
+    launches are (decode calls + prefill chunks x max_prompt_len) x
+    layers, from ``serve_schedule``; no other kernel runs on the path."""
+    import numpy as np
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import (ServeConfig, ServeRuntime, make_prompts,
+                                   run_closed_loop)
+    from repro_torch.utils.tree import tree_leaves
+    sc = ServeConfig(**SERVE)
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rt = ServeRuntime(cfg, sc, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(rt.params))
+    table = sum(t.numel() * t.element_size() for t in tree_leaves(rt.state))
+    prompts = make_prompts(n_requests, sc.max_prompt_len, cfg.vocab, seed=1)
+    want = serve_schedule(n_requests, sc)
+    rows = want["decode"] + want["prefill"] * sc.max_prompt_len
+    expect = {k: 0 for k in counters()}
+    expect["topk_gating"] = rows * cfg.n_layers if cfg.moe else 0
+    rt._decode, rt._prefill = Timed(torch, rt._decode), Timed(torch,
+                                                             rt._prefill)
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    row = run_closed_loop(rt, prompts, concurrency=sc.slots)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counters().items() if "/" not in k}
+    peak = torch.cuda.max_memory_allocated()
+    dec, pre = rt._decode.ms(), rt._prefill.ms()
+    recs = rt.records()
+    with torch.no_grad():       # the slot table still decodes: finite logits
+        lg, _ = Transformer.decode_step(rt.params, cfg, rt.cur_tok[:, None],
+                                        rt.state, moe_group_size=1)
+    finite = bool(torch.isfinite(lg).all())
+    toks = [rt.results[r["rid"]].tokens for r in recs]
+    in_vocab = all(((t >= 0) & (t < cfg.vocab)).all() for t in toks)
+    tick_ms = float(np.median(dec[1:]))
+    pct = lambda d: " ".join(f"{k} {v:.4f}s" for k, v in d.items())
+    print(f"{label}: {cfg.name} L={cfg.n_layers} d={cfg.d_model} "
+          f"{cfg.dtype}, {n_params:,} params; slot table {table / 1e9:.3f} "
+          f"GB; init {init_s:.2f}s; {n_requests} requests at concurrency "
+          f"{sc.slots} in {wall:.3f}s: {row['throughput_tok_s']:.1f} "
+          f"tokens/s, {row['throughput_req_s']:.3f} requests/s; latency "
+          f"{pct(row['latency_s'])}; ttft {pct(row['ttft_s'])}; "
+          f"{row['ticks']} ticks, {len(dec)} decode calls at "
+          f"{tick_ms:.3f} ms (median; first {dec[0]:.3f} ms, mean "
+          f"{sum(dec) / len(dec):.3f} ms), {len(pre)} prefill chunks at "
+          f"{float(np.median(pre)):.3f} ms ({sc.max_prompt_len} positions "
+          f"each); peak memory {peak / 1e9:.2f} GB serving, "
+          f"{init_peak / 1e9:.2f} GB at init; launches {launches} "
+          f"(expected {expect}: ({want['decode']} + {want['prefill']} x "
+          f"{sc.max_prompt_len}) x {cfg.n_layers} layers); traces "
+          f"{rt.traces}; next logits finite {finite}")
+    if not (row["by_status"]["done"] == n_requests and finite and in_vocab
+            and all(len(t) == sc.max_new_tokens for t in toks)):
+        raise AssertionError(f"{label}: requests not all done with "
+                             f"{sc.max_new_tokens} tokens in the vocab, or "
+                             f"non-finite logits: {row['by_status']}")
+    sched = {"decode": len(dec), "prefill": len(pre), "ticks": row["ticks"]}
+    if sched != want or rt.traces != {"prefill": 1, "admit": 1,
+                                      "decode": 1}:
+        raise AssertionError(f"{label}: schedule {sched} (expected {want}), "
+                             f"traces {rt.traces}")
+    for k, n in expect.items():
+        if launches[k] != n:
+            raise AssertionError(f"{label}: {k} launched {launches[k]} "
+                                 f"times, expected {n}")
+    out = {"config": {"arch": cfg.name, "n_layers": cfg.n_layers,
+                      "requests": n_requests, **SERVE},
+           "params": n_params, "slot_table_bytes": table, "init_s": init_s,
+           "wall_s": wall, "row": row, "decode_ms": dec, "prefill_ms": pre,
+           "tick_ms_median": tick_ms, "peak_bytes": peak,
+           "init_peak_bytes": init_peak,
+           "launches": launches, "expected_launches": expect,
+           "traces": dict(rt.traces)}
+    if profile:                 # one more tick, on the final slot table
+        live = torch.ones(sc.slots, dtype=torch.bool, device=dev)
+        args = (rt.params, rt.state, rt.cur_tok, live, rt.counts,
+                rt.out_buf)
+        rt._decode.fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt._decode.fn(*args)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        out["profile"] = device_profile(torch, f"{label} decode tick",
+                                        lambda: rt._decode.fn(*args))
+        out["profile"]["host_enqueue_ms"] = host_ms
+        out["where_slot_ms"] = device_ms(
+            lambda: rt._where_slot(live, rt.state, rt.state))
+        print(f"{label}: one tick's host enqueue {host_ms:.3f} ms; the "
+              f"_where_slot select over the slot table "
+              f"{out['where_slot_ms']:.4f} ms device")
+    del rt
+    free(torch)
+    return out
+
+
+def serve_batched(torch, label, cfg, dev="cuda"):
+    """Phase 16: ``launch.serve.serve_decoder_only`` (``BATCHED``: batch
+    4, prompt 64, 32 steps) on the card from a random init; the batch is
+    one sequence a row, and no kernel runs on the dense decode."""
+    from repro_torch.launch.serve import serve_decoder_only
+    b, p, n = BATCHED["batch"], BATCHED["prompt_len"], BATCHED["steps"]
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    res = serve_decoder_only(cfg, b, p, n, device=dev)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counters().items() if "/" not in k}
+    peak = torch.cuda.max_memory_allocated()
+    toks = res["tokens"]
+    ms = res["decode_s_per_token"] * 1e3
+    print(f"{label}: {cfg.name} L={cfg.n_layers} d={cfg.d_model} head_dim "
+          f"{cfg.hd} window {cfg.attn.window} softcaps "
+          f"{cfg.attn.logit_softcap}/{cfg.attn.final_softcap} {cfg.dtype}; "
+          f"batch {b}, prompt {p}: prefill {res['prefill_s']:.3f}s "
+          f"({p / res['prefill_s']:.1f} steps/s), {n} decode steps at "
+          f"{ms:.3f} ms ({b * 1e3 / ms:.1f} tokens/s); {wall:.2f}s with "
+          f"init; peak memory {peak / 1e9:.2f} GB; launches {launches}")
+    if tuple(toks.shape) != (b, n) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"{label}: tokens {tuple(toks.shape)} out of "
+                             f"shape or vocab")
+    if any(launches.values()):
+        raise AssertionError(f"{label}: a kernel launched on the dense "
+                             f"decode: {launches}")
+    free(torch)
+    return {"prefill_s": res["prefill_s"], "decode_ms": ms, "wall_s": wall,
+            "peak_bytes": peak, "launches": launches, **BATCHED}
+
+
+def teacher_forcing(torch, arch, B=2, S=64, dev="cuda"):
+    """Phase 17, card against card at full width: the logits of decode
+    step t against ``Transformer.forward``'s at position t (bf16, random
+    init, tokens from numpy), the forward going through the
+    ``flash_attention`` and ``ssd_scan`` kernels (launches checked) and
+    the decode through the plain ring-cache product and recurrence.  MoE
+    capacity factor 8, so neither side drops a token.
+
+    Tolerance: two bf16 computations of one function differ by bf16's
+    own rounding, which has no fixed size at this depth; it is measured
+    here as the rms distance of the bf16 forward from a float32 forward
+    on the same weights (upcast; TF32 off).  The decode must lie within
+    3x that rms of the bf16 forward.  A wrong ring slot, position, conv
+    shift or carried state moves the logits by their own size."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.utils.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch)
+    if cfg.moe is not None:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    free(torch)
+    params = Transformer.init(torch.Generator(device=dev).manual_seed(0),
+                              cfg)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(B, S), dtype=np.int32)).to(dev)
+    with torch.no_grad():
+        reset_counters()
+        fwd, _ = Transformer.forward(params, cfg, toks)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        want = block_launches(cfg, 0, cfg.n_layers)
+        p32 = tree_map(lambda t: t.float(), params)
+        fwd32, _ = Transformer.forward(p32, cfg.with_(dtype="float32"), toks)
+        del p32
+        free(torch)
+        state = Transformer.init_decode_state(cfg, B, S, device=dev)
+        outs = []
+        for t in range(S):
+            lg, state = Transformer.decode_step(params, cfg,
+                                                toks[:, t:t + 1], state)
+            outs.append(lg[:, 0])
+        dec = torch.stack(outs, 1)
+    rms = lambda x: float(x.double().square().mean().sqrt())
+    err, noise, scale = rms(dec - fwd), rms(fwd - fwd32), rms(fwd)
+    top1 = float((dec.argmax(-1) == fwd.argmax(-1)).double().mean())
+    print(f"teacher forcing {arch} (full width, bf16, B={B} S={S}): rms "
+          f"|decode - forward| {err:.4e}, bf16 yardstick rms |forward - "
+          f"f32 forward| {noise:.4e} (tol 3x: {3 * noise:.4e}), logits rms "
+          f"{scale:.4e}, max abs diff {float((dec - fwd).abs().max()):.4e}; "
+          f"argmax agreement {top1:.4f}; forward launches {launches} "
+          f"(expected {want})")
+    for k, n in want.items():
+        if launches[k] != n:
+            raise AssertionError(f"teacher forcing {arch}: {k} launched "
+                                 f"{launches[k]} times, expected {n}")
+    if not (math.isfinite(err) and err <= 3 * noise):
+        raise AssertionError(f"teacher forcing {arch}: decode and forward "
+                             f"disagree ({err} > 3 x {noise})")
+    del params, state
+    free(torch)
+    return {"rms_err": err, "rms_bf16_noise": noise, "rms_logits": scale,
+            "argmax_agreement": top1, "launches": launches}
+
+
+def serve_card_against_cpu(torch, dev="cuda"):
+    """Phase 17, card against CPU: the smoke configs of olmoe-1b-7b,
+    zamba2-1.2b and gemma2-2b in float32 (TF32 off) through
+    ``ServeRuntime`` on both, with one init drawn on the CPU, one prompt
+    set and a clock that stands still: generated tokens, ``records()``
+    and ``stats()`` equal, and one more decode from each final slot
+    table: logits and the slot table within 1e-4."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.serve import (ServeConfig, ServeRuntime, make_prompts,
+                                   run_closed_loop)
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sc = ServeConfig(slots=4, max_prompt_len=8, max_new_tokens=6,
+                     prefill_batch=2)
+    out = {}
+    for arch in ("olmoe-1b-7b", "zamba2-1.2b", "gemma2-2b"):
+        cfg = smoke_config(arch)
+        params = Transformer.init(torch.Generator().manual_seed(0), cfg)
+        prompts = make_prompts(10, sc.max_prompt_len, cfg.vocab, seed=5)
+        runs = {}
+        for side, d in (("cpu", "cpu"), ("card", dev)):
+            rt = ServeRuntime(cfg, sc, params=tree_map(lambda t: t.to(d),
+                                                       params),
+                              clock=lambda: 0.0, device=d)
+            row = run_closed_loop(rt, prompts, concurrency=3)
+            with torch.no_grad():
+                lg, _ = Transformer.decode_step(
+                    rt.params, cfg, rt.cur_tok[:, None], rt.state,
+                    moe_group_size=1)
+            runs[side] = (row, rt.records(), rt.stats(),
+                         [rt.results[r].tokens.tolist()
+                          for r in sorted(rt.results)],
+                         lg.cpu(), [t.cpu() for t in tree_leaves(rt.state)])
+        (rc, recc, stc, tc, lc, sc_), (rg, recg, stg, tg, lgc, sg) = \
+            runs["cpu"], runs["card"]
+        d_logits = float((lc - lgc).abs().max())
+        d_state = max(float((a.double() - b.double()).abs().max())
+                      for a, b in zip(sc_, sg))
+        same = rc == rg and recc == recg and stc == stg and tc == tg
+        print(f"serve card-vs-cpu {arch} (smoke, f32): tokens, records, "
+              f"stats and the loop's row equal {same} ({len(tc)} requests, "
+              f"{sum(map(len, tc))} tokens); next logits max abs diff "
+              f"{d_logits:.3e}, slot table {d_state:.3e} (tol 1e-4)")
+        if not (same and d_logits <= 1e-4 and d_state <= 1e-4):
+            raise AssertionError(f"serve card-vs-cpu {arch}: card and CPU "
+                                 f"disagree")
+        out[arch] = {"logits_max_abs": d_logits, "state_max_abs": d_state,
+                     "tokens": sum(map(len, tc))}
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=10,
@@ -1531,8 +1861,27 @@ def main(argv=None):
     t15 = time.perf_counter()
     parity.update({f"workloads/{k}": v for k, v in
                    workloads_card_against_cpu(torch).items()})
-    phase_s = {"14": t15 - t14, "15": time.perf_counter() - t15}
-    print(f"phase 14 took {phase_s['14']:.1f}s, phase 15 {phase_s['15']:.1f}s")
+    t16 = time.perf_counter()
+    phase_s = {"14": t15 - t14, "15": t16 - t15}
+
+    # 16-17. serving: the continuous runtime at olmoe-1b-7b and
+    # zamba2-1.2b whole, the batched driver at gemma2-2b whole; decode
+    # against forward on the card, and the runtime card against CPU
+    serving = {arch: serve_runtime(torch, f"serve {arch.split('-')[0]}",
+                                   get_config(arch), n,
+                                   profile=args.profile and arch.startswith(
+                                       "olmoe"))
+               for arch, n in SERVE_REQUESTS.items()}
+    serving["gemma2-2b"] = serve_batched(torch, "serve gemma2 batched",
+                                         get_config("gemma2-2b"))
+    t17 = time.perf_counter()
+    parity.update({f"teacher_forcing/{a}": teacher_forcing(torch, a)
+                   for a in ("olmoe-1b-7b", "zamba2-1.2b")})
+    parity.update({f"serve/{k}": v for k, v in
+                   serve_card_against_cpu(torch).items()})
+    phase_s.update({"16": t17 - t16, "17": time.perf_counter() - t17})
+    print("phases took " + ", ".join(f"{k}: {v:.1f}s"
+                                     for k, v in phase_s.items()))
 
     sources = {"feature_resample": "src/repro/kernels/feature_resample.py:24",
                "fused_adam": "src/repro/kernels/fused_adam.py:44",
@@ -1562,7 +1911,8 @@ def main(argv=None):
                        "zamba2_round": zamba, "prefill": prefills,
                        "profile": profiles, "card_vs_cpu": parity,
                        "launch_floor": floor, "zoo": zoo_runs,
-                       "workloads": workload_runs, "phase_s": phase_s}, f,
+                       "workloads": workload_runs, "serving": serving,
+                       "phase_s": phase_s}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@
 output unchanged, so one dict drives both packages.  Every field the
 JAX package has is kept with its default; a field whose feature the port
 does not have yet must keep that default, or ``validate`` raises
-``NotImplementedError``.  The nested scenario, resilience and serve
-configs stay plain dicts here, for the same reason.
+``NotImplementedError``.  The nested scenario and resilience configs
+stay plain dicts here, for the same reason; ``serve`` is the port's
+``ServeConfig``, which ``repro_torch.launch.serve --continuous`` reads.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from typing import Optional
 from repro_torch.api.registry import algorithm_names, get_program
 from repro_torch.api.tasks import TASKS, task_names
 from repro_torch.core.cyclesl import CycleConfig
+from repro_torch.serve.config import ServeConfig
 
 SCENARIO_DEFAULTS = {
     "kind": "none", "dropout": 0.0, "straggler": 0.0, "staleness_bound": 1,
@@ -28,10 +30,6 @@ RESILIENCE_DEFAULTS = {
     "spike_factor": 4.0, "spike_warmup": 5,
     "faults": {"nan_rate": 0.0, "nan_slots": 1, "error_rate": 0.0,
                "ckpt_rate": 0.0, "persist": 0, "seed": None}}
-SERVE_DEFAULTS = {
-    "slots": 8, "max_prompt_len": 16, "max_new_tokens": 16,
-    "prefill_batch": 4, "deadline_s": 60.0, "max_retries": 2,
-    "backoff_base_s": 0.0}
 
 
 @dataclass(frozen=True)
@@ -79,7 +77,9 @@ class ExperimentConfig:
     resilience: dict = field(
         default_factory=lambda: {**RESILIENCE_DEFAULTS,
                                  "faults": dict(RESILIENCE_DEFAULTS["faults"])})
-    serve: dict = field(default_factory=lambda: dict(SERVE_DEFAULTS))
+    # ---- continuous-batching serve runtime (repro_torch.serve); training
+    # ignores it
+    serve: ServeConfig = field(default_factory=ServeConfig)
     cycle: CycleConfig = field(default_factory=CycleConfig)
 
     # ---------------------------------------------------------- builders
@@ -94,6 +94,10 @@ class ExperimentConfig:
             cycle = dict(cycle)
             cycle.pop("batch_constraint", None)   # pre-mesh JSONs
             cycle = CycleConfig(**cycle)
+        # configs from before the serve field lack it: default knobs
+        serve = d.pop("serve", {})
+        if not isinstance(serve, ServeConfig):
+            serve = ServeConfig.from_dict(serve)
         if d.get("mesh_shape") is not None:
             d["mesh_shape"] = tuple(int(s) for s in d["mesh_shape"])
         if d.get("mesh_axes") is not None:
@@ -102,7 +106,7 @@ class ExperimentConfig:
         unknown = set(d) - known
         if unknown:
             raise KeyError(f"unknown ExperimentConfig fields: {sorted(unknown)}")
-        return cls(cycle=cycle, **d)
+        return cls(cycle=cycle, serve=serve, **d)
 
     def validate(self) -> "ExperimentConfig":
         """Raise on a field whose feature the port lacks, then check the
@@ -111,12 +115,13 @@ class ExperimentConfig:
         for name in ("ckpt_dir", "mesh_shape", "mesh_axes",
                      "shard_cohort", "resume", "pipeline_depth",
                      "pipeline_staleness", "staleness_weighting",
-                     "staleness_lambda", "scenario", "resilience", "serve"):
+                     "staleness_lambda", "scenario", "resilience"):
             if getattr(self, name) != getattr(defaults, name):
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r}: not ported yet "
                     f"(the port runs with {getattr(defaults, name)!r})")
         self.cycle.check_ported()
+        self.serve.validate()
         get_program(self.algo)
         if self.task not in TASKS:
             raise KeyError(f"unknown task {self.task!r}: {sorted(TASKS)}")
@@ -155,6 +160,7 @@ class ExperimentConfig:
                         help="disable fixed-shape padded cohorts")
         ap.add_argument("--variable-attendance", action="store_true",
                         help="Binomial(N, attendance) cohort sizes per round")
+        ServeConfig.add_arguments(ap)
         return ap
 
     @classmethod
@@ -168,6 +174,7 @@ class ExperimentConfig:
             sync_every=args.sync_every,
             pad_cohorts=not args.no_pad_cohorts,
             variable_attendance=args.variable_attendance,
+            serve=ServeConfig.from_flags(args),
             cycle=CycleConfig(server_epochs=args.server_epochs,
                               server_batch=args.server_batch,
                               grad_clip=args.grad_clip,

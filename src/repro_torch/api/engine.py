@@ -34,17 +34,8 @@ from repro_torch.core.drift import GradStabilityTracker
 from repro_torch.core.split import SplitTask
 from repro_torch.data.federated import FederatedDataset, sample_cohort
 from repro_torch.optim import adam
+from repro_torch.utils.device import resolve_device  # noqa: F401
 from repro_torch.utils.tree import tree_map
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card.  A CUDA device with no card present
-    raises: the port never drops to the CPU on its own."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run the port on the CPU")
-    return dev
 
 
 def evaluate(task, state, fed, batch: int = 256, max_batches: int = 8,

@@ -57,6 +57,12 @@ def prefill_specs(cfg: ArchConfig, shape: InputShape):
     return out
 
 
+def decode_token_spec(cfg: ArchConfig, shape: InputShape):
+    """The decode step's token input [B, 1]."""
+    _no_audio(cfg)
+    return Spec((shape.global_batch, 1), torch.int32)
+
+
 def _draw(rng, cfg: ArchConfig, specs: dict, labels_shape=None):
     """Tokens uniform over the vocab (one position longer when next-token
     labels are wanted), patch embeddings standard normal in float32."""

@@ -1,14 +1,16 @@
-"""Step-function builders: the CycleSL round and the prefill step.
+"""Step-function builders: the CycleSL round, prefill and decode.
 
-Port of ``repro/launch/steps.py`` without mesh or shardings.  For an
-(arch x input shape) the builders return a :class:`StepBundle`:
+Port of ``repro/launch/steps.py`` without mesh or shardings (the
+decode state's placement, ``decode_state_shardings``, waits for the
+multi-GPU port).  For an (arch x input shape) the builders return a
+:class:`StepBundle`:
 
   train   — one full CycleSL round (paper Algorithm 1) over a cohort of
             clients: the paper's technique IS the train step;
   prefill — composed-model forward, next-token logits of the last
-            position.
+            position;
+  decode  — one token against a KV cache / SSM state (serving).
 
-Decode (one token against a KV cache) comes with the port of the serving path.
 The step runs on the card unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.api.engine import resolve_device
@@ -107,9 +110,47 @@ def build_prefill_step(cfg: ArchConfig, shape: InputShape, *, device=None
     return StepBundle("prefill", prefill, init_state, make_batch, dev)
 
 
+# ------------------------------------------------------------ decode step
+def build_decode_step(cfg: ArchConfig, shape: InputShape,
+                      long_context: bool = False, *, device=None
+                      ) -> StepBundle:
+    """``fn(params, token, state) -> (logits [B, 1, vocab] float32,
+    state')``: one ``Transformer.decode_step`` at a context of
+    ``shape.seq_len`` (no gradient).  ``init_state(seed)`` gives
+    (params, state) with an empty cache; ``make_batch(seed)`` gives
+    (token,) [B, 1] int32 from numpy."""
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder decode step is not ported yet "
+            f"(ROADMAP.md queue 1 item 5)")
+    spec = inputs_lib.decode_token_spec(cfg, shape)
+    dev = resolve_device(device)
+
+    def init_state(seed: int):
+        params = Transformer.init(
+            torch.Generator(device=dev).manual_seed(seed), cfg)
+        return params, Transformer.init_decode_state(
+            cfg, spec.shape[0], shape.seq_len, long_context, device=dev)
+
+    def make_batch(seed: int):
+        tok = np.random.default_rng(seed).integers(
+            0, cfg.vocab, size=spec.shape, dtype=np.int32)
+        return (torch.from_numpy(tok).to(dev),)
+
+    def decode(params, token, state):
+        with torch.no_grad():
+            return Transformer.decode_step(params, cfg, token, state,
+                                           long_context=long_context)
+
+    return StepBundle("decode", decode, init_state, make_batch, dev)
+
+
 def build_step(cfg: ArchConfig, shape: InputShape,
                cycle: CycleConfig = CycleConfig(), *,
-               cohort: Optional[int] = None, device=None) -> StepBundle:
+               cohort: Optional[int] = None,
+               long_context: Optional[bool] = None,
+               device=None) -> StepBundle:
+    lc = shape.name == "long_500k" if long_context is None else long_context
     if shape.kind == "train":
         if cohort is None:
             raise ValueError("a train step needs the cohort size")
@@ -117,6 +158,4 @@ def build_step(cfg: ArchConfig, shape: InputShape,
                                 device=device)
     if shape.kind == "prefill":
         return build_prefill_step(cfg, shape, device=device)
-    raise NotImplementedError(
-        f"the {shape.kind} step is not ported yet: it comes with the port of "
-        f"the serving path (KVCache, decode_step)")
+    return build_decode_step(cfg, shape, long_context=lc, device=device)

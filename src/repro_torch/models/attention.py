@@ -1,16 +1,21 @@
-"""Grouped-query attention with RoPE, logit softcap and sliding windows.
+"""Grouped-query attention with RoPE, logit softcap, sliding windows and
+a ring-buffer KV cache for decode.
 
-Port of the full-sequence half of ``repro/models/attention.py``; all
-shapes are batch-first: x [B, S, D], heads [B, S, H, Dh].  Full-sequence
-attention goes through ``kernels.ops.flash_attention``: the CUDA kernel
-on the card, and on the CPU its plain version, which is ``sdpa`` (or
-``sdpa_qchunked`` above ``kernels.ref.QCHUNK_THRESHOLD`` query rows).  The
-decode half (``KVCache``, ``attend_decode``) comes with the port of
-the serving path.
+Port of ``repro/models/attention.py``; all shapes are batch-first: x
+[B, S, D], heads [B, S, H, Dh].  Full-sequence attention goes through
+``kernels.ops.flash_attention``: the CUDA kernel on the card, and on the
+CPU its plain version, which is ``sdpa`` (or ``sdpa_qchunked`` above
+``kernels.ref.QCHUNK_THRESHOLD`` query rows).  One-token decode is a
+masked product over the ring cache in plain torch (``sdpa``), as the
+JAX package computes it outside any Pallas kernel.  Its position is one
+per row: where the JAX package ``vmap``s a scalar position over the
+serving runtime's slots, ``attend_decode`` takes ``pos`` as a [B]
+tensor (a scalar broadcasts), so rows at different positions advance in
+one call.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -18,6 +23,7 @@ from repro_torch.configs.base import ArchConfig, AttnConfig
 from repro_torch.kernels import ops
 # the plain attention lives beside the kernel as its plain version;
 # these names are its counterparts of the JAX package's attention.py
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.kernels.ref import mask_bias as _mask_bias  # noqa: F401
 from repro_torch.kernels.ref import sdpa, sdpa_qchunked  # noqa: F401
 from repro_torch.models import module
@@ -76,6 +82,68 @@ def attend_full(params, cfg: ArchConfig, x, positions, window: Optional[int]):
     out = ops.flash_attention(q, k, v, causal=True, window=window,
                               softcap=a.logit_softcap)
     return _merge_heads(out) @ params["wo"], (k, v)
+
+
+class KVCache(NamedTuple):
+    """Fixed-capacity ring buffer per layer stack.
+
+    k, v: [L, B, C, Hkv, Dh] where C = capacity (window or full seq).
+    idx:  int32, scalar or one per row [B]: tokens written so far (the
+    global position of the next one).
+    """
+    k: torch.Tensor
+    v: torch.Tensor
+    idx: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.k.shape[2]
+
+
+def kv_cache_init(cfg: ArchConfig, n_layers: int, batch: int, capacity: int,
+                  dtype, device=None):
+    shape = (n_layers, batch, capacity, cfg.n_kv_heads, cfg.hd)
+    return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros((), dtype=torch.int32, device=device))
+
+
+def attend_decode(params, cfg: ArchConfig, x, layer_k, layer_v, pos,
+                  window: Optional[int]):
+    """One-token decode against a ring-buffer cache slice.
+
+    x: [B, 1, D]; layer_k/v: [B, C, Hkv, Dh]; pos: int32 scalar or [B],
+    the global position of each row's new token.  Row b writes its key
+    and value to ring slot ``pos[b] % C`` and attends to the slots that
+    hold positions in ``(pos[b] - window, pos[b]]``.  Returns (out
+    [B, 1, D], new_k, new_v); the inputs are left as they were.
+    """
+    a: AttnConfig = cfg.attn
+    hd = cfg.hd
+    B, C = x.shape[0], layer_k.shape[1]
+    q = _split_heads(x @ params["wq"], cfg.n_heads, hd)
+    k = _split_heads(x @ params["wk"], cfg.n_kv_heads, hd)
+    v = _split_heads(x @ params["wv"], cfg.n_kv_heads, hd)
+    if "q_norm" in params:
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
+    posb = torch.broadcast_to(pos, (B,))
+    if a.rope:
+        q = apply_rope(q, posb[:, None], a.rope_theta)
+        k = apply_rope(k, posb[:, None], a.rope_theta)
+    rows = torch.arange(B, device=x.device)
+    slot = (posb % C).long()
+    layer_k = layer_k.index_put((rows, slot), k[:, 0])
+    layer_v = layer_v.index_put((rows, slot), v[:, 0])
+    # slot s holds the largest position p <= pos with p % C == s
+    slots = torch.arange(C, dtype=torch.int32, device=x.device)
+    k_pos = posb[:, None] - ((posb[:, None] - slots) % C)      # [B, C]
+    valid = k_pos >= 0
+    if window is not None:
+        valid &= (posb[:, None] - k_pos) < window
+    bias = torch.where(valid, 0.0, NEG_INF)[:, None, :]         # [B, 1, C]
+    out = sdpa(q, layer_k, layer_v, bias, a.logit_softcap)
+    return _merge_heads(out) @ params["wo"], layer_k, layer_v
 
 
 def layer_window(cfg: ArchConfig, layer_idx_is_local: bool,

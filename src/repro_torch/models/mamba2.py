@@ -6,14 +6,17 @@ causal conv, gating) shared by the pure-SSM (mamba2-2.7b) and hybrid
 (zamba2) archs.  The scan goes through ``kernels.ops.ssd_scan``: the
 CUDA kernel on the card and, on the CPU, its plain version
 ``ssd_chunked`` (the JAX package's chunked oracle, kept in
-``kernels.ref`` beside the kernel).  The decode half (``MambaState``,
-``ssd_decode_step``, ``mamba_decode``) comes with the port of the
-serving path.
+``kernels.ref`` beside the kernel).  Decode (``mamba_decode``) is one
+step of the recurrence in float32 (``ssd_decode_step``) with the causal
+conv's last ``d_conv - 1`` inputs carried in ``MambaState``; no kernel
+runs there.
 
 Layout: x [B, L, H, P] (heads x head_dim), B/C [B, L, G, N] (groups x
 state), dt [B, L, H], A [H] negative reals.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -95,3 +98,61 @@ def mamba_forward(params, cfg: ArchConfig, x):
     y = y.reshape(Bsz, L, d_inner)
     y = rmsnorm(params["gate_norm"], y) * F.silu(z)
     return y @ params["w_out"], h
+
+
+def ssd_decode_step(h, x, dt, A, Bm, Cm):
+    """Single-token SSD update in float32.  h [B, H, N, P]; x [B, H, P];
+    dt [B, H]; B/C [B, G, N].  Returns (y [B, H, P] in x's dtype, h')."""
+    rep = x.shape[1] // Bm.shape[1]
+    Bf = torch.repeat_interleave(Bm.float(), rep, dim=1)          # [B, H, N]
+    Cf = torch.repeat_interleave(Cm.float(), rep, dim=1)
+    dtf = dt.float()
+    dA = torch.exp(dtf * A.float())                               # [B, H]
+    dBx = torch.einsum("bh,bhn,bhp->bhnp", dtf, Bf, x.float())
+    h = dA[:, :, None, None] * h + dBx
+    y = torch.einsum("bhn,bhnp->bhp", Cf, h)
+    return y.to(x.dtype), h
+
+
+class MambaState(NamedTuple):
+    """Decode-time recurrent state for a stack of mamba blocks.
+    h: [L, B, H, N, P] float32; conv: [L, B, d_conv - 1, conv_ch]."""
+    h: torch.Tensor
+    conv: torch.Tensor
+
+
+def mamba_decode(params, cfg: ArchConfig, x, h, conv_state):
+    """One-token decode.  x [B, 1, d]; h [B, H, N, P]; conv_state
+    [B, d_conv - 1, conv_ch].  Returns (y [B, 1, d], h', conv_state')."""
+    s = cfg.ssm
+    zxbcdt = x[:, 0] @ params["w_in"]                       # [B, d_in_proj]
+    z, xbc, dt, d_inner, H, gN = _split_in_proj(cfg, zxbcdt)
+    # the conv over [conv_state; xbc], then shift the window by one
+    full = torch.cat([conv_state, xbc[:, None, :]], dim=1)        # [B, K, C]
+    y_conv = F.silu(torch.einsum("bkc,kc->bc", full, params["conv_w"])
+                    + params["conv_b"])
+    conv_state = full[:, 1:]
+    xs, Bm, Cm = torch.split(y_conv, [d_inner, gN, gN], dim=-1)
+    Bsz = x.shape[0]
+    xs = xs.reshape(Bsz, H, s.head_dim)
+    Bm = Bm.reshape(Bsz, s.n_groups, s.d_state)
+    Cm = Cm.reshape(Bsz, s.n_groups, s.d_state)
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    A = -torch.exp(params["a_log"])
+    y, h = ssd_decode_step(h, xs, dt, A, Bm, Cm)
+    y = y + xs * params["D"][:, None].to(xs.dtype)
+    y = y.reshape(Bsz, d_inner)
+    y = rmsnorm(params["gate_norm"], y) * F.silu(z)
+    return (y @ params["w_out"])[:, None, :], h, conv_state
+
+
+def mamba_state_init(cfg: ArchConfig, n_blocks: int, batch: int, dtype,
+                     device=None):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    H = d_inner // s.head_dim
+    return MambaState(
+        h=torch.zeros((n_blocks, batch, H, s.d_state, s.head_dim),
+                      dtype=torch.float32, device=device),
+        conv=torch.zeros((n_blocks, batch, s.d_conv - 1, _conv_channels(cfg)),
+                         dtype=dtype, device=device))

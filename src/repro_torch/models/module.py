@@ -48,6 +48,13 @@ def stacked_init(init_fn: Callable[[torch.Generator], object],
                  gen: torch.Generator, n: int):
     """``n`` draws of ``init_fn`` stacked along a new leading dim (the
     JAX package vmaps the init over split keys; here the draws come one
-    after another from one generator)."""
-    draws = [init_fn(gen) for _ in range(n)]
-    return tree_map(lambda *xs: torch.stack(xs), *draws)
+    after another from one generator).  Each draw is copied into its row
+    as it is made, so the stack takes one draw's memory on top of its
+    own, not its own twice."""
+    first = init_fn(gen)
+    out = tree_map(lambda x: x.new_empty((n,) + tuple(x.shape)), first)
+    for i in range(n):
+        draw = first if i == 0 else init_fn(gen)
+        tree_map(lambda o, x: o[i].copy_(x), out, draw)
+        first = None
+    return out

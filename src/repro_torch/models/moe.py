@@ -45,60 +45,72 @@ def router_probs(params, x2d):
     return torch.softmax(logits, dim=-1), logits
 
 
-def _dispatch_group(params, mcfg: MoEConfig, x2):
-    """Sort-based dispatch + combine for ONE token group.  x2 [S, d]."""
-    S, d = x2.shape
+def _dispatch_groups(params, mcfg: MoEConfig, xg):
+    """Sort-based dispatch + combine for G token groups at once, each
+    with its own capacity.  xg [G, S, d] -> (y [G, S, d], aux [G],
+    z [G], ce [G, E]).  The router's top-k is one launch over all G * S
+    rows, and the experts are one batched product over all groups."""
+    G, S, d = xg.shape
     E, k = mcfg.n_experts, mcfg.top_k
     C = max(1, int(S * k / E * mcfg.capacity_factor))
-    dev = x2.device
+    n, dev = S * k, xg.device
 
-    probs, logits = router_probs(params, x2)                     # [S, E]
-    top_p, top_e = ops.topk_gating(logits, k)                    # [S, k]
+    probs, logits = router_probs(params, xg.reshape(G * S, d))    # [G*S, E]
+    top_p, top_e = ops.topk_gating(logits, k)                    # [G*S, k]
 
-    # ---- flatten assignments and sort by expert (stable) ----
-    flat_e = top_e.reshape(-1).long()                            # [S*k]
-    flat_w = top_p.reshape(-1)
-    order = torch.argsort(flat_e, stable=True)
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(S * k, device=dev)
-    se, sw = flat_e[order], flat_w[order]
+    # ---- flatten assignments and sort by expert (stable), per group ----
+    flat_e = top_e.reshape(G, n).long()
+    flat_w = top_p.reshape(G, n)
+    order = torch.argsort(flat_e, dim=1, stable=True)            # [G, n]
+    ar = torch.arange(n, device=dev)
+    inv = torch.empty_like(order).scatter_(1, order, ar.expand(G, n))
+    se, sw = flat_e.gather(1, order), flat_w.gather(1, order)
     # rank within expert segment
-    starts = torch.searchsorted(se, torch.arange(E, device=dev))
-    rank = torch.arange(S * k, device=dev) - starts[se]
+    starts = torch.searchsorted(
+        se, torch.arange(E, device=dev).expand(G, E).contiguous())
+    rank = ar - starts.gather(1, se)
     keep = rank < C
-    slot = se * C + torch.clamp(rank, max=C - 1)                  # [S*k]
+    base = (torch.arange(G, device=dev) * (E * C))[:, None]
+    slot = (base + se * C + torch.clamp(rank, max=C - 1)).reshape(-1)
+    # row g * n + j: token j // k of group g, then the group's sort
+    src = ((torch.arange(G, device=dev) * S)[:, None] + order // k).reshape(-1)
 
-    # ---- gather tokens into the expert buffer [E*C, d] ----
-    # x2[st] with st = flat_t[order]: token t's k copies, then the sort
-    rows = x2.unsqueeze(1).expand(S, k, d).reshape(S * k, d)[order]
-    rows = rows * keep[:, None].to(x2.dtype)
-    buf = torch.zeros((E * C, d), dtype=x2.dtype, device=dev)
-    buf = buf.index_add(0, slot, rows).reshape(E, C, d)
+    # ---- gather tokens into the expert buffer [G*E*C, d] ----
+    rows = xg.reshape(G * S, d)[src] * keep.reshape(-1, 1).to(xg.dtype)
+    buf = torch.zeros((G * E * C, d), dtype=xg.dtype, device=dev)
+    buf = buf.index_add(0, slot, rows)
+    # expert-major for the products: [E, G*C, d] (a view when G is 1)
+    buf = buf.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
 
-    # ---- per-expert SwiGLU: batched matmuls [E,C,d] x [E,d,f] ----
+    # ---- per-expert SwiGLU: batched matmuls [E,G*C,d] x [E,d,f] ----
     g = F.silu(torch.bmm(buf, params["w_gate"]))
     u = torch.bmm(buf, params["w_up"])
-    yb = torch.bmm(g * u, params["w_down"]).reshape(E * C, d)
+    yb = torch.bmm(g * u, params["w_down"])
+    yb = yb.reshape(E, G, C, d).transpose(0, 1).reshape(G * E * C, d)
 
     # ---- combine back to tokens ----
-    contrib = yb[slot] * (sw * keep.float()).to(x2.dtype)[:, None]
-    y = contrib[inv].reshape(S, k, d).sum(dim=1)
+    contrib = yb[slot] * (sw * keep.float()).reshape(-1, 1).to(xg.dtype)
+    flat_inv = ((torch.arange(G, device=dev) * n)[:, None] + inv).reshape(-1)
+    y = contrib[flat_inv].reshape(G, S, k, d).sum(dim=2)
 
     # ---- router losses (per group; averaged by the caller) ----
-    me = torch.mean(probs, dim=0)                                 # [E]
-    one_hot = F.one_hot(top_e.long(), E).float()                  # [S,k,E]
-    ce = torch.mean(torch.sum(one_hot, dim=1), dim=0) / k
-    aux = E * torch.sum(me * ce)
-    z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    probs, logits = probs.reshape(G, S, E), logits.reshape(G, S, E)
+    me = torch.mean(probs, dim=1)                                 # [G, E]
+    one_hot = F.one_hot(top_e.long(), E).float().reshape(G, S, k, E)
+    ce = torch.mean(torch.sum(one_hot, dim=2), dim=1) / k         # [G, E]
+    aux = E * torch.sum(me * ce, dim=-1)
+    z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)), dim=1)
     return y, aux, z, ce
 
 
-def moe_apply(params, mcfg: MoEConfig, x):
+def moe_apply(params, mcfg: MoEConfig, x, group_size=None):
     """Apply the MoE block.  x: [..., d] -> (y, metrics).
 
-    Tokens are dispatched in GROUPS of ``mcfg.group_size`` (per-group
-    capacity); the last group is zero-padded, and its pad tokens are
-    routed like any token, as in the JAX package.  metrics =
+    Tokens are dispatched in GROUPS of ``group_size`` (default
+    ``mcfg.group_size``; per-group capacity); the last group is
+    zero-padded, and its pad tokens are routed like any token, as in the
+    JAX package.  ``group_size=1`` routes every token alone, which is
+    what the JAX serving runtime's ``vmap`` over slots does.  metrics =
     {'aux_loss', 'z_loss', 'load'}; the caller adds
     ``aux_weight * aux_loss + router_z_weight * z_loss`` to its loss.
     """
@@ -106,13 +118,11 @@ def moe_apply(params, mcfg: MoEConfig, x):
     d = x.shape[-1]
     x2 = x.reshape(-1, d)
     T = x2.shape[0]
-    gs = min(mcfg.group_size, T)
+    gs = min(mcfg.group_size if group_size is None else group_size, T)
     n_pad = (-T) % gs
     if n_pad:
         x2 = F.pad(x2, (0, 0, 0, n_pad))
-    outs = [_dispatch_group(params, mcfg, xg) for xg in x2.split(gs)]
-    y = torch.cat([o[0] for o in outs])[:T]
-    metrics = {"aux_loss": torch.stack([o[1] for o in outs]).mean(),
-               "z_loss": torch.stack([o[2] for o in outs]).mean(),
-               "load": torch.stack([o[3] for o in outs]).mean(0)}
-    return y.reshape(orig_shape), metrics
+    y, aux, z, ce = _dispatch_groups(params, mcfg, x2.reshape(-1, gs, d))
+    metrics = {"aux_loss": aux.mean(), "z_loss": z.mean(),
+               "load": ce.mean(0)}
+    return y.reshape(-1, d)[:T].reshape(orig_shape), metrics

@@ -17,7 +17,12 @@ listed mamba block.  The split-learning
 cut is a leading-dim slice of the stacked block params, so client and
 server halves run the same code (``core.split``).
 
-The decode methods are not ported yet and raise ``NotImplementedError``.
+Serving (``init_decode_state``, ``decode_step``) steps one token through
+the same blocks against a ring-buffer KV cache (attention blocks) and
+the carried SSM state (mamba blocks), in plain torch but for the MoE
+router's ``topk_gating``.  The decode position is one per row, a scalar
+or [B] ``state["pos"]``, so the serving runtime advances slots at
+different positions in one call.
 """
 from __future__ import annotations
 
@@ -320,15 +325,113 @@ class Transformer:
 
     # -------------- serving -----------------
     @staticmethod
+    def cache_capacity(cfg: ArchConfig, seq_len: int, long_context: bool):
+        if long_context:
+            w = cfg.long_context_window
+            if cfg.attn.pattern in ("local", "local_global") and cfg.attn.window:
+                w = max(w, cfg.attn.window)
+            return min(seq_len, w)
+        return seq_len
+
+    @staticmethod
     def init_decode_state(cfg: ArchConfig, batch: int, seq_len: int,
-                          long_context: bool = False):
-        raise NotImplementedError(
-            "decode state (KVCache) is not ported yet: it comes with the "
-            "port of the serving path")
+                          long_context: bool = False, device=None):
+        """KV caches / SSM state for decode at a given context, on
+        ``device``; ``pos`` (and the cache's ``idx``) is a scalar, which
+        the caller may replace by one per row."""
+        dtype = cfg.torch_dtype
+        kind = block_kind(cfg)
+        state = {}
+        if kind in ("mamba", "hybrid"):
+            state["mamba"] = mamba_lib.mamba_state_init(
+                cfg, cfg.n_layers, batch, dtype, device)
+        if kind != "mamba":
+            n = (len(cfg.ssm.shared_attn_positions) if kind == "hybrid"
+                 else cfg.n_layers)
+            cap = Transformer.cache_capacity(cfg, seq_len, long_context)
+            state["kv"] = attn_lib.kv_cache_init(cfg, n, batch, cap, dtype,
+                                                 device)
+        state["pos"] = torch.zeros((), dtype=torch.int32, device=device)
+        return state
 
     @staticmethod
     def decode_step(params, cfg: ArchConfig, token, state,
-                    long_context: bool = False):
-        raise NotImplementedError(
-            "decode_step is not ported yet: it comes with the port of the "
-            "serving path")
+                    long_context: bool = False, moe_group_size=None):
+        """One-token decode.  token [B, 1] -> (logits [B, 1, V], state').
+
+        ``moe_group_size`` is the MoE dispatch group (default the
+        config's): ``launch.serve`` routes the batch as one group, as the
+        JAX package does, and the serving runtime passes 1, the group its
+        ``vmap`` over slots gives each slot.  ``state`` is left as it
+        was."""
+        x = Transformer.embed_inputs(params, cfg, token)
+        kind = block_kind(cfg)
+        if kind in ("mamba", "hybrid"):
+            return Transformer._ssm_decode(params, cfg, x, state,
+                                           long_context)
+        pos, kv = state["pos"], state["kv"]
+        ks, vs = [], []
+        for li in range(cfg.n_layers):
+            bp = tree_map(lambda a: a[li], params["blocks"])
+            window = attn_lib.layer_window(cfg, _is_local(cfg, li),
+                                           long_context)
+            h = rmsnorm(bp["norm_attn"], x, cfg.norm_eps)
+            a, nk, nv = attn_lib.attend_decode(bp["attn"], cfg, h, kv.k[li],
+                                               kv.v[li], pos, window)
+            ks.append(nk)
+            vs.append(nv)
+            if cfg.sandwich_norm:
+                a = rmsnorm(bp["post_attn"], a, cfg.norm_eps)
+            x = x + a
+            h = rmsnorm(bp["norm_ffn"], x, cfg.norm_eps)
+            if "moe" in bp:
+                f, _ = moe_lib.moe_apply(bp["moe"], cfg.moe, h,
+                                         group_size=moe_group_size)
+                if "shared_ffn" in bp:
+                    f = f + ffn_lib.swiglu(bp["shared_ffn"], h)
+            else:
+                f = ffn_lib.swiglu(bp["ffn"], h)
+                if cfg.sandwich_norm:
+                    f = rmsnorm(bp["post_ffn"], f, cfg.norm_eps)
+            x = x + f
+        state = dict(state, kv=attn_lib.KVCache(
+            torch.stack(ks), torch.stack(vs), kv.idx + 1), pos=pos + 1)
+        return Transformer.head(params, cfg, x), state
+
+    @staticmethod
+    def _ssm_decode(params, cfg: ArchConfig, x, state, long_context):
+        """The mamba stack, and for the hybrid family the shared attention
+        block after each listed block, each application with its own
+        cache (``kv.k[i]`` for the i-th position)."""
+        pos, ms = state["pos"], state["mamba"]
+        kv = state.get("kv")
+        positions = (list(cfg.ssm.shared_attn_positions)
+                     if kv is not None else [])
+        window = attn_lib.layer_window(cfg, False, long_context)
+        hs, cvs, ks, vs = [], [], [], []
+        for li in range(cfg.n_layers):
+            bp = tree_map(lambda a: a[li], params["blocks"])
+            hn = rmsnorm(bp["norm"], x[:, 0], cfg.norm_eps)[:, None]
+            y, h2, cv2 = mamba_lib.mamba_decode(bp["mamba"], cfg, hn,
+                                                ms.h[li], ms.conv[li])
+            x = x + y
+            hs.append(h2)
+            cvs.append(cv2)
+            if li in positions:
+                app = positions.index(li)
+                bp = params["shared_attn"]
+                h = rmsnorm(bp["norm_attn"], x, cfg.norm_eps)
+                a, nk, nv = attn_lib.attend_decode(
+                    bp["attn"], cfg, h, kv.k[app], kv.v[app], pos, window)
+                ks.append(nk)
+                vs.append(nv)
+                x = x + a
+                h = rmsnorm(bp["norm_ffn"], x, cfg.norm_eps)
+                x = x + ffn_lib.swiglu(bp["ffn"], h)
+        state = dict(state, mamba=mamba_lib.MambaState(torch.stack(hs),
+                                                       torch.stack(cvs)),
+                     pos=pos + 1)
+        if kv is not None:
+            state["kv"] = attn_lib.KVCache(torch.stack(ks), torch.stack(vs),
+                                           kv.idx + 1)
+        return Transformer.head(params, cfg, x), state

@@ -116,7 +116,9 @@ OUT_OF_SLICE = {
     "pipeline": dict(pipeline_depth=1), "mesh": dict(mesh_shape=(2, 1)),
     "resume": dict(resume=True), "mesh-axes": dict(mesh_axes=("x", "y")),
     "staleness": dict(staleness_weighting="inverse"),
-    "ckpt": dict(ckpt_dir="ckpt"), "serve": dict(serve={"slots": 4}),
+    # the serve knobs are ported; serving on a mesh is not
+    "ckpt": dict(ckpt_dir="ckpt"),
+    "serve": dict(serve={"slots": 4}, mesh_shape=(2, 1)),
     "scenario": dict(scenario={"kind": "diurnal"}),
     "resilience": dict(resilience={"guard": True}),
     "shard-local": dict(cycle={"shard_local_resample": True}),

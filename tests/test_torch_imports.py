@@ -53,7 +53,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.launch.inputs", "repro_torch.launch.steps",
                 "repro_torch.optim.schedule", "repro_torch.models.lstm",
                 "repro_torch.models.cnn", "repro_torch.data.synthetic",
-                "repro_torch.api.tasks"):
+                "repro_torch.api.tasks", "repro_torch.serve",
+                "repro_torch.serve.config", "repro_torch.serve.runtime",
+                "repro_torch.serve.loadgen", "repro_torch.launch.serve",
+                "repro_torch.utils.device"):
         assert mod in out["modules"]
 
 

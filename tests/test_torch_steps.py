@@ -183,8 +183,12 @@ def test_build_step_dispatch_and_unported_kinds():
     assert build_step(cfg, PREFILL, device="cpu").name == "prefill"
     with pytest.raises(ValueError):
         build_step(cfg, SHAPE, device="cpu")
-    with pytest.raises(NotImplementedError, match="serving"):
-        build_step(cfg, INPUT_SHAPES["decode_32k"], device="cpu")
+    # the decode step is ported; its encoder-decoder branch is not
+    assert build_step(cfg, INPUT_SHAPES["decode_32k"],
+                      device="cpu").name == "decode"
+    with pytest.raises(NotImplementedError, match="encoder-decoder"):
+        build_step(cfg.with_(family="audio"), INPUT_SHAPES["decode_32k"],
+                   device="cpu")
     with pytest.raises(ValueError):
         build_train_step(cfg, SHAPE, cohort=3, device="cpu")
     with pytest.raises(NotImplementedError, match="encoder-decoder"):
