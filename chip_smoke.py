@@ -63,7 +63,24 @@ Phases, each of which ends the script with a non-zero exit on failure:
     ``launch.serve.serve_decoder_only`` (batch 4, prompt 64, 32 steps);
 17. decode against ``Transformer.forward`` (teacher forcing) on the card
     at full width for olmoe-1b-7b and zamba2-1.2b, and the runtime card
-    against CPU at the smoke configs of olmoe, zamba2 and gemma2.
+    against CPU at the smoke configs of olmoe, zamba2 and gemma2;
+18. checkpoints and resume at the main path's width (cyclesfl,
+    femnist_cnn width 32, 10 rounds, a checkpoint every 2): the unbroken
+    run twice, 4 rounds then a resumed Engine, a torn checkpoint the
+    restore falls back past, the SIGKILL harness
+    (``repro_torch.resilience.harness``) in processes of its own, and
+    ``save_checkpoint``/``load_checkpoint`` ms per step;
+19. the resilience runtime on the main path (24 rounds) under the
+    reference bench's six configs: guard off and on in turns with their
+    round_time_s, each faulted config's summary against the faults the
+    deterministic stream fires, with launch counts and recovery ms per
+    faulted round; a quarantined NaN slot through gather_loss at cut 3;
+    card against CPU for nan_quarantine and nan_rollback, as in 13;
+20. ``run_population`` at 100,000 clients (cohort 32, batch 8, mlp
+    width 32, 12 rounds) under no churn, dropout, stragglers and diurnal
+    churn: rounds/s, the sampler's ms, clients materialized and
+    telemetry equal to a CPU run's; then, under the profiler, the
+    guard's launches a round and a population round's busy share.
 
 It then prints the ``kernels`` JSON line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -854,7 +871,9 @@ def cpu_and_card(torch, cfg, plan_fn, **engine_kw):
 
         class Rec:
             def on_round(self, engine, rnd, state, metrics):
-                rows.append({k: float(v) for k, v in metrics.items()})
+                # scalar metrics (not the guard's health vectors)
+                rows.append({k: float(v) for k, v in metrics.items()
+                             if v.numel() == 1})
                 final[:] = [state]
 
         eng = Engine(cfg, device=dev, callbacks=[Rec()], plan_fn=plan_fn,
@@ -1772,6 +1791,592 @@ def serve_card_against_cpu(torch, dev="cuda"):
     return out
 
 
+# phases 18-20: the Engine's fault and population paths at the main
+# path's width.  Checkpoints go under build/ in the checkout (listed in
+# .gitignore) and are removed after.
+CKPT_ROOT = os.path.join(ROOT, "build", "chip_smoke_ckpt")
+PHASE18_ROUNDS, PHASE19_ROUNDS, PHASE20_ROUNDS = 10, 24, 12
+
+
+def _sync(torch, dev):
+    if str(dev).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def run_engine(torch, cfg, dev="cuda", state=None, **engine_kw):
+    """``Engine.run()`` on ``dev`` with the launch counters reset just
+    before and read just after: the result, the last committed state,
+    each round's scalar metrics and the host clock after each round (the
+    Engine syncs every round under ``collect_timing``; without it the
+    callback syncs), the launches and the Engine."""
+    from repro_torch.api import Engine
+    stamps, rows, final = [], [], []
+
+    class Rec:
+        def on_round(self, engine, rnd, st, metrics):
+            _sync(torch, dev)
+            stamps.append(time.perf_counter())
+            rows.append({k: v for k, v in metrics.items() if v.numel() == 1})
+            final[:] = [st]
+
+    eng = Engine(cfg, device=dev, callbacks=[Rec()], log=lambda msg: None,
+                 **engine_kw)
+    reset_counters()
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    res = eng.run(state=state)
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    rows = [{k: float(v) for k, v in r.items()} for r in rows]
+    return {"res": res, "state": final[0] if final else None, "rows": rows,
+            "stamps": [t0] + stamps, "wall_s": wall, "launches": launches,
+            "engine": eng}
+
+
+def state_diff(torch, a, b) -> float:
+    """Largest |a - b| over two states' leaves (0.0: bit-equal)."""
+    from repro_torch.utils.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    assert len(la) == len(lb)
+    worst = 0.0
+    for x, y in zip(la, lb):
+        x, y = x.detach().cpu(), y.detach().cpu()
+        if not torch.equal(x, y):
+            d = float((x.double() - y.double()).abs().max())
+            worst = max(worst, d if d == d else float("inf"))   # NaN
+    return worst
+
+
+def strip_elapsed(history):
+    return [{k: v for k, v in r.items() if k != "elapsed_s"} for r in history]
+
+
+def harness_crash_resume(torch, dev="cuda", rounds=6):
+    """The port's SIGKILL harness: an unbroken run, then a run SIGKILLed
+    once its step_3 exists, resumed; each a process of its own on
+    ``dev``.  Returns the unbroken and resumed results and the step the
+    kill left."""
+    import shutil
+    import signal
+    from repro_torch.checkpoint import latest_step
+    base = os.path.join(CKPT_ROOT, "harness")
+    shutil.rmtree(base, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+
+    def cmd(ck, *extra):
+        return [sys.executable, "-m", "repro_torch.resilience.harness",
+                "--device", dev, "--ckpt-dir", os.path.join(base, ck),
+                "--rounds", str(rounds), *extra]
+
+    golden = os.path.join(base, "golden.json")
+    subprocess.run(cmd("golden", "--out", golden), env=env, cwd=ROOT,
+                   check=True, timeout=240, stdout=subprocess.DEVNULL)
+    ck = os.path.join(base, "killed")
+    proc = subprocess.Popen(cmd("killed", "--sleep-per-round", "0.5"),
+                            env=env, cwd=ROOT, stdout=subprocess.DEVNULL)
+    try:
+        deadline = time.time() + 240
+        while (latest_step(ck) or 0) < 3:
+            if proc.poll() is not None:
+                raise AssertionError("harness exited before its step_3")
+            if time.time() > deadline:
+                raise AssertionError("harness never wrote step_3")
+            time.sleep(0.05)
+        os.kill(proc.pid, signal.SIGKILL)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+    killed_at = latest_step(ck)
+    out = os.path.join(base, "resumed.json")
+    subprocess.run(cmd("killed", "--resume", "--out", out), env=env,
+                   cwd=ROOT, check=True, timeout=240,
+                   stdout=subprocess.DEVNULL)
+    with open(golden) as f, open(out) as g:
+        return json.load(f), json.load(g), killed_at
+
+
+def checkpoint_resume(torch, dev="cuda"):
+    """Phase 18: crash-safe checkpoints and resume at the main path's
+    width.  cyclesfl on femnist_cnn width 32 (100 clients, cohort 5,
+    batch 16, cut 2), ``PHASE18_ROUNDS`` rounds, eval and checkpoint
+    every 2: the unbroken run twice (are two card runs bit-equal?), then
+    4 rounds, stop, and a fresh Engine resumed to the end.  The resumed
+    state is held to bit-equality when the two unbroken runs are
+    bit-equal, else to twice their spread; its cohorts and telemetry,
+    numpy draws, equal always.  Then a torn checkpoint (the fault stream
+    tears step 4, leaves step 2): resume falls back to step 2 and ends
+    as the unbroken run does.  Then the SIGKILL harness on the card.
+    Last, ``save_checkpoint`` and ``load_checkpoint`` ms per step on the
+    width-32 state."""
+    import shutil
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.checkpoint import (load_checkpoint, save_checkpoint,
+                                        valid_steps)
+    from repro_torch.resilience import (FaultConfig, FaultStream,
+                                        ResilienceConfig)
+    from repro_torch.utils.tree import tree_leaves
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    R = PHASE18_ROUNDS
+    base = dict(rounds=R, eval_every=2, cut=2, **MAIN)
+    ck = lambda name: os.path.join(CKPT_ROOT, name)
+    u = [run_engine(torch, ExperimentConfig(
+        ckpt_dir=ck(f"unbroken{i}"), **base), dev) for i in (0, 1)]
+    spread = state_diff(torch, u[0]["state"], u[1]["state"])
+    exact = spread == 0.0
+    hist0 = strip_elapsed(u[0]["res"]["history"])
+    tel0 = u[0]["res"]["telemetry"]["per_round"]
+    print(f"ckpt: two unbroken card runs {'bit-equal' if exact else 'differ'}"
+          f" (max |state diff| {spread:.3e})")
+
+    def resumed(label, name, partial_kw, resume_kw, want_from):
+        part = run_engine(torch, ExperimentConfig(
+            **{**base, "rounds": 4, "ckpt_dir": ck(name), **partial_kw}),
+            dev)
+        steps = valid_steps(ck(name), warn=False)
+        run = run_engine(torch, ExperimentConfig(
+            **{**base, "ckpt_dir": ck(name), "resume": True, **resume_kw}),
+            dev)
+        res = run["res"]
+        d = state_diff(torch, run["state"], u[0]["state"])
+        held = d == 0.0 if exact else d <= 2 * spread
+        tel = res["telemetry"]["per_round"]
+        hist = strip_elapsed(res["history"])
+        want_hist = [h for h in hist0 if h["round"] > want_from]
+        hist_ok = (hist == want_hist if exact else
+                   [h["round"] for h in hist] == [h["round"] for h in
+                                                  want_hist])
+        print(f"{label}: valid steps after the partial run {steps}; resumed "
+              f"from round {res.get('resumed_from_round')} (expected "
+              f"{want_from}); max |state diff| to unbroken {d:.3e} "
+              f"({'bit-equality' if exact else 'twice the spread'} held: "
+              f"{held}); telemetry equal {tel == tel0[want_from:]}; "
+              f"history equal {hist_ok}")
+        if not (res.get("resumed_from_round") == want_from and held
+                and tel == tel0[want_from:] and hist_ok):
+            raise AssertionError(f"{label}: the resumed run is not the "
+                                 "unbroken one")
+        return {"valid_steps": steps, "resumed_from": want_from,
+                "max_abs_diff": d, "partial_wall_s": part["wall_s"],
+                "resumed_wall_s": run["wall_s"]}
+
+    out = {"unbroken_bit_equal": exact, "unbroken_spread": spread,
+           "resume": resumed("ckpt resume", "partial", {}, {}, 4)}
+    torn = FaultConfig(ckpt_rate=0.5, seed=1)
+    stream = FaultStream(torn, 0)
+    assert stream.ckpt_corrupt(4) and not stream.ckpt_corrupt(2)
+    faults = {"resilience": ResilienceConfig(faults=torn)}
+    out["torn"] = resumed("ckpt torn", "torn", faults, faults, 2)
+    golden, res, killed_at = harness_crash_resume(torch, dev)
+    g = {h["round"]: h for h in strip_elapsed(golden["history"])}
+    got = strip_elapsed(res["history"])
+    same = all(h == g[h["round"]] for h in got) if exact else all(
+        abs(h["test_loss"] - g[h["round"]]["test_loss"])
+        <= 1e-4 * abs(g[h["round"]]["test_loss"]) for h in got)
+    print(f"ckpt harness: SIGKILLed with step_{killed_at} written, resumed "
+          f"from round {res['resumed_from_round']}, {len(got)} evaluations "
+          f"after it {'equal to' if same else 'NOT equal to'} the unbroken "
+          "harness run's")
+    if not (got and same and res["resumed_from_round"] == killed_at >= 3):
+        raise AssertionError("ckpt harness: the resumed run is not the "
+                             "unbroken one")
+    out["harness"] = {"killed_at": killed_at, "rows": len(got)}
+    state = u[0]["state"]
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(state))
+    d = ck("timing")
+    save_ms, load_ms = [], []
+    for step in range(1, 6):
+        _sync(torch, dev)
+        t = time.perf_counter()
+        save_checkpoint(d, step, state)
+        save_ms.append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        back, _ = load_checkpoint(d, state, step=step)
+        _sync(torch, dev)
+        load_ms.append((time.perf_counter() - t) * 1e3)
+        assert state_diff(torch, back, state) == 0.0
+    print(f"ckpt timing: state {nbytes} bytes in {len(tree_leaves(state))} "
+          f"leaves; save_checkpoint ms per step {save_ms}; load_checkpoint "
+          f"ms per step {load_ms} (fsynced tmp dir + rename + CRC-32; "
+          "the load includes the copy to the card)")
+    out["timing"] = {"state_bytes": nbytes, "save_ms": save_ms,
+                     "load_ms": load_ms}
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    return out
+
+
+def resilience_configs():
+    """The reference bench's six configs
+    (benchmarks/bench_resilience.py:52-66)."""
+    from repro_torch.resilience import FaultConfig, ResilienceConfig
+    return {
+        "guard_off": ResilienceConfig(),
+        "guard_on": ResilienceConfig(guard=True),
+        "nan_quarantine": ResilienceConfig(
+            guard=True, on_nonfinite="quarantine",
+            faults=FaultConfig(nan_rate=0.3, persist=10)),
+        "nan_retry": ResilienceConfig(
+            guard=True, on_nonfinite="retry",
+            faults=FaultConfig(nan_rate=0.3)),
+        "nan_rollback": ResilienceConfig(
+            guard=True, on_nonfinite="rollback",
+            faults=FaultConfig(nan_rate=0.3)),
+        "dispatch_error": ResilienceConfig(
+            faults=FaultConfig(error_rate=0.3)),
+    }
+
+
+def expected_faults(rcfg, seed, rounds, live):
+    """What the deterministic stream fires over ``rounds`` rounds of
+    ``live`` clients: the faulted rounds, the faults by kind, and the
+    extra round dispatches recovery makes (a NaN round runs twice; a
+    dispatch error raises before its round runs)."""
+    from repro_torch.resilience import FaultInjectedError, FaultStream
+    stream = FaultStream(rcfg.faults, seed)
+    faulted, nan, err = 0, 0, 0
+    for r in range(rounds):
+        fired = bool(stream.nan_slots_for(r, 0, live).size)
+        n_err, att = 0, 0
+        while True:
+            try:
+                stream.check_dispatch(r, att)
+                break
+            except FaultInjectedError:
+                n_err, att = n_err + 1, att + 1
+        if n_err > rcfg.max_retries:
+            raise AssertionError(f"round {r}: the stream exhausts the "
+                                 "retry budget")
+        faulted += fired or n_err > 0
+        nan += fired
+        err += n_err
+    return {"faulted_rounds": faulted,
+            "faults": {"nonfinite": nan, "spike": 0, "error": err},
+            "extra_dispatches": nan}
+
+
+def resilience(torch, dev="cuda", rounds=PHASE19_ROUNDS):
+    """Phase 19: the main path at width 32 (cut 2, ``collect_timing``)
+    under the reference bench's six resilience configs, guard_off and
+    guard_on in turns (off, on, on, off, off, on): their histories
+    equal (bit for bit when the first two guard_off runs are), each
+    one's round_time_s.  Each faulted config: its summary holds exactly the faults the stream
+    fires, every one recovered; feature_resample and fused_adam launch
+    their per-round count times the rounds the dispatch ran (a NaN round
+    runs twice), and each faulted round's extra time over the run's
+    median clean round.  Then nan_quarantine at cut 3 with
+    ``fused_gather_loss``, a poisoned slot through gather_loss."""
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.utils.tree import tree_leaves
+    per_round = {"feature_resample": 2 * 5, "fused_adam": 2 * 5 + 4}
+    cfgs = resilience_configs()
+    base = dict(rounds=rounds, eval_every=rounds, cut=2,
+                collect_timing=True, **MAIN)
+    runs, out = {}, {}
+    for name in ("guard_off", "guard_on", "guard_on", "guard_off",
+                 "guard_off", "guard_on", "nan_quarantine", "nan_retry", "nan_rollback",
+                 "dispatch_error"):
+        run = run_engine(torch, ExperimentConfig(
+            resilience=cfgs[name], **base), dev)
+        runs.setdefault(name, []).append(run)
+    off, on = runs["guard_off"], runs["guard_on"]
+    spread = state_diff(torch, off[0]["state"], off[1]["state"])
+    exact = spread == 0.0
+    hists = [strip_elapsed(r["res"]["history"]) for r in off + on]
+    d_on = max(state_diff(torch, r["state"], off[0]["state"]) for r in on)
+    same = (all(h == hists[0] for h in hists) and d_on == 0.0) if exact \
+        else d_on <= 2 * spread
+    rt = {k: [r["res"]["round_time_s"] for r in v] for k, v in runs.items()}
+    # the median host-clock round of each run (rounds 2 on): the steady
+    # state, without the first rounds' allocations
+    med = {k: [sorted(b - a for a, b in zip(r["stamps"][1:],
+                                             r["stamps"][2:]))[rounds // 2]
+               for r in runs[k]] for k in ("guard_off", "guard_on")}
+    held = ("DIFFER" if not same else "bit-equal" if exact
+            else "within twice the guard_off spread")
+    print(f"resilience: guard_on vs guard_off histories and states {held} "
+          f"(guard_off runs bit-equal: {exact}); round_time_s guard_off "
+          f"{rt['guard_off']}, guard_on {rt['guard_on']}; median round s "
+          f"guard_off {med['guard_off']}, guard_on {med['guard_on']}")
+    if not same:
+        raise AssertionError("resilience: the guard changed the run")
+    for k in ("feature_resample", "fused_adam"):
+        for r in off + on:
+            if r["launches"][k] != per_round[k] * rounds:
+                raise AssertionError(f"resilience: {k} launched "
+                                     f"{r['launches'][k]}")
+    out["guard"] = {"round_time_s": {"guard_off": rt["guard_off"],
+                                     "guard_on": rt["guard_on"]},
+                    "median_round_s": med, "bit_equal": exact}
+    for name in ("nan_quarantine", "nan_retry", "nan_rollback",
+                 "dispatch_error"):
+        run = runs[name][0]
+        tel = run["res"]["resilience"]
+        want = expected_faults(cfgs[name], 0, rounds, 5)
+        got = {"faulted_rounds": tel["faulted_rounds"],
+               "faults": tel["faults"]}
+        # the policy's action took every fault: a quarantine, a retry,
+        # a rollback (round 0's empty ring escalates to a retry), a retry
+        # of each dispatch error
+        acted = {"nan_quarantine": tel["quarantine_events"],
+                 "nan_retry": tel["retries"],
+                 "nan_rollback": tel["rollbacks"] + tel["retries"],
+                 "dispatch_error": tel["retries"]}[name]
+        faults = sum(want["faults"].values())
+        n_dispatch = rounds + want["extra_dispatches"]
+        launches_ok = all(run["launches"][k] == per_round[k] * n_dispatch
+                          for k in per_round)
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in tree_leaves(run["state"])
+                     if t.is_floating_point())
+        steps = [b - a for a, b in zip(run["stamps"][1:], run["stamps"][2:])]
+        bad = {row["round"] for row in tel["per_round"]}
+        clean = sorted(s for i, s in enumerate(steps, 1) if i not in bad)
+        med = clean[len(clean) // 2]
+        extra_ms = [(steps[r - 1] - med) * 1e3 for r in sorted(bad) if r > 0]
+        print(f"resilience {name}: faulted rounds {tel['faulted_rounds']}, "
+              f"faults {tel['faults']} (the stream fires "
+              f"{want['faulted_rounds']} rounds, {want['faults']}); "
+              f"quarantined clients {tel['quarantined_clients']}, retries "
+              f"{tel['retries']}, rollbacks {tel['rollbacks']}; launches "
+              f"{ {k: run['launches'][k] for k in per_round} } for "
+              f"{n_dispatch} round dispatches; round_time_s "
+              f"{run['res']['round_time_s']:.6f}; recovery ms per faulted "
+              f"round over the median clean round ({med * 1e3:.3f} ms) "
+              f"{[round(x, 3) for x in extra_ms]}; state finite {finite}")
+        if not (got == {k: want[k] for k in got} and launches_ok and finite
+                and acted == faults and want["faulted_rounds"] > 0):
+            raise AssertionError(f"resilience {name}: not the stream's "
+                                 "faults, all recovered")
+        out[name] = {"summary": {k: v for k, v in tel.items()
+                                 if k != "per_round"},
+                     "round_time_s": run["res"]["round_time_s"],
+                     "recovery_ms_per_faulted_round": extra_ms,
+                     "median_clean_round_ms": med * 1e3,
+                     "launches": run["launches"]}
+    fused = run_engine(torch, ExperimentConfig(
+        **{**base, "cut": 3}, resilience=cfgs["nan_quarantine"]
+    ).with_cycle(fused_gather_loss=True), dev)
+    tel = fused["res"]["resilience"]
+    want = expected_faults(cfgs["nan_quarantine"], 0, rounds, 5)
+    n_dispatch = rounds + want["extra_dispatches"]
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in tree_leaves(fused["state"]) if t.is_floating_point())
+    print(f"resilience nan_quarantine cut3 fused: {tel['quarantine_events']} "
+          f"quarantines, clients {tel['quarantined_clients']}; gather_loss "
+          f"launched {fused['launches']['gather_loss']} (expected "
+          f"{5 * n_dispatch}); state finite {finite}")
+    if not (finite and tel["quarantine_events"] == want["faulted_rounds"]
+            and fused["launches"]["gather_loss"] == 5 * n_dispatch):
+        raise AssertionError("resilience cut3 fused: a poisoned slot broke "
+                             "the gather_loss path")
+    out["nan_quarantine_cut3_fused"] = {
+        "summary": {k: v for k, v in tel.items() if k != "per_round"},
+        "launches": fused["launches"]}
+    return out
+
+
+def resilience_card_against_cpu(torch):
+    """Phase 19, last part: nan_quarantine and nan_rollback on phase 13's
+    configuration (2 rounds at width 8, 10 clients, variable attendance,
+    batch 8, cut 2, server epochs 2, seed 4) on the CPU and on the card
+    from one init and one plan, with the fault stream seeded 0, which
+    poisons round 1 alone: a quarantine there, and a rollback to round
+    0's snapshot.  Two rounds for phase 13's reason: later rounds of a
+    cohort of two carry biases at float32 noise whose sign the devices
+    round differently (a 6-round run drifts to 8e-4 of a metric on the
+    H100, the task's discontinuity, not either side's).  Summaries and
+    quarantined clients equal; the run held to ``compare_runs``."""
+    from dataclasses import replace
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.core.feature_store import masked_resample_plan
+
+    def plan_fn(key, valid, epochs, sb):
+        return masked_resample_plan(key, valid.cpu(), epochs, sb)
+
+    cfgs = resilience_configs()
+    out = {}
+    for name in ("nan_quarantine", "nan_rollback"):
+        rc = cfgs[name]
+        cfg = ExperimentConfig(
+            rounds=2, eval_every=2, n_clients=10, attendance=0.3, batch=8,
+            width=8, cut=2, seed=4, variable_attendance=True,
+            resilience=replace(rc, faults=replace(rc.faults, seed=0))
+        ).with_cycle(server_epochs=2)
+        runs = cpu_and_card(torch, cfg, plan_fn)
+        sc = runs["cpu"][3].recovery.summary()
+        sg = runs["cuda"][3].recovery.summary()
+        print(f"card-vs-cpu resilience {name}: summaries equal {sc == sg} "
+              f"(faulted rounds {[r['round'] for r in sc['per_round']]}, "
+              f"quarantined {sc['quarantined_clients']}, rollbacks "
+              f"{sc['rollbacks']})")
+        acted = sc["quarantine_events"] if name == "nan_quarantine" \
+            else sc["rollbacks"]
+        if sc != sg or not acted:
+            raise AssertionError(f"card-vs-cpu resilience {name}: the "
+                                 "recovery differs")
+        out[name] = compare_runs(torch, f"resilience {name}", runs)
+    return out
+
+
+# phase 20: the reference bench's population scenarios
+# (benchmarks/bench_population.py:50-56, the async one needs pipelining)
+# and diurnal churn at its defaults (weighted O(N) cohort draws)
+POPULATION = dict(n_clients=100_000, cohort=32, batch=8, width=32)
+
+
+def population_scenarios():
+    from repro_torch.scenario import ScenarioConfig
+    return {"no_churn": ScenarioConfig(),
+            "dropout": ScenarioConfig(kind="uniform", dropout=0.15),
+            "straggler": ScenarioConfig(kind="pareto-straggler",
+                                        straggler=1.0, staleness_bound=1),
+            "diurnal_churn": ScenarioConfig(kind="diurnal-churn")}
+
+
+def population(torch, dev="cuda", rounds=PHASE20_ROUNDS):
+    """Phase 20: ``run_population`` at 100,000 clients, cohort 32, batch
+    8, mlp width 32 (cut 1), ``rounds`` rounds under each scenario, with
+    the counters reset before and read after: rounds/s by the Engine's
+    round_time_s, steady ms, clients materialized; feature_resample and
+    fused_adam per round (32 server steps of the pooled 256 rows, 2
+    gathers and 1 step each, plus 1 client step) times the rounds; the
+    telemetry equal to a CPU run's exactly; and the sampler's own ms a
+    round (``Engine.sample_round`` alone on a fresh fleet: the cohort
+    draw, the clients' first materialization, the copy to ``dev``)."""
+    import numpy as np
+    from repro_torch.api import Engine
+    from repro_torch.scenario.population import (PopulationSpec,
+                                                 build_population,
+                                                 population_config,
+                                                 run_population)
+    spec = PopulationSpec(n_clients=POPULATION["n_clients"])
+    kw = dict(cohort=POPULATION["cohort"], rounds=rounds,
+              batch=POPULATION["batch"], width=POPULATION["width"])
+    steps = POPULATION["cohort"]      # pooled cohort * batch rows / batch
+    want = {"feature_resample": 2 * steps * rounds,
+            "fused_adam": (steps + 1) * rounds}
+    out = {}
+    for name, sc in population_scenarios().items():
+        reset_counters()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        res = run_population(spec, sc, device=dev, **kw)
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        cpu = run_population(spec, sc, device="cpu", **kw)
+        task, fed, _ = build_population(spec, width=POPULATION["width"])
+        eng = Engine(population_config(spec, sc, cohort=kw["cohort"],
+                                       rounds=rounds, batch=kw["batch"]),
+                     device=dev, task=task, fed=fed, log=lambda msg: None)
+        rng = np.random.default_rng(eng.cfg.seed + 1)
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            eng.sample_round(rng)
+        _sync(torch, dev)
+        sample_ms = (time.perf_counter() - t0) * 1e3 / rounds
+        tel, pop = res["telemetry"], res["population"]
+        rt = res["round_time_s"]
+        print(f"population {name}: {rounds} rounds in {wall:.3f}s; "
+              f"{1.0 / rt:.2f} rounds/s, steady {rt * 1e3:.3f} ms a round, "
+              f"of which the sampler alone {sample_ms:.3f} ms; "
+              f"clients materialized {pop['clients_materialized']}; live "
+              f"cohort mean {tel['live_cohort_mean']}, dropped "
+              f"{tel['dropped_total']} (hazard {tel['drop_hazard_total']}, "
+              f"deadline {tel['drop_deadline_total']}), max drawn lag "
+              f"{tel['max_drawn_lag']}; telemetry equal to the CPU run's "
+              f"{tel == cpu['telemetry']}; accuracy "
+              f"{res['history'][-1]['accuracy']:.4f} (CPU "
+              f"{cpu['history'][-1]['accuracy']:.4f}); launches "
+              f"{ {k: launches[k] for k in want} } (expected {want})")
+        if not (tel == cpu["telemetry"]
+                and pop["clients_materialized"]
+                == cpu["population"]["clients_materialized"]
+                and all(launches[k] == n for k, n in want.items())
+                and math.isfinite(res["history"][-1]["test_loss"])):
+            raise AssertionError(f"population {name}: the card's run is not "
+                                 "the CPU's")
+        out[name] = {"rounds_per_s": 1.0 / rt, "steady_ms": rt * 1e3,
+                     "sampler_ms": sample_ms, "wall_s": wall,
+                     "clients_materialized": pop["clients_materialized"],
+                     "telemetry": {k: v for k, v in tel.items()
+                                   if k != "per_round"},
+                     "accuracy": res["history"][-1]["accuracy"],
+                     "launches": launches}
+    return out
+
+
+def kernel_profile(torch, run, dev="cuda"):
+    """``run()`` under the profiler: device launches (kernels and copies),
+    device busy ms, wall ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        run()
+        _sync(torch, dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in dev_rows),
+            sum(e.self_device_time_total for e in dev_rows) / 1e3, wall)
+
+
+def fault_path_profiles(torch, dev="cuda"):
+    """The profiled part of phases 19-20, run last (a profiler session
+    slows later launches of its process): the guard's device launches a
+    round, ``health_vector`` on a main path round's state, loss,
+    features and feature gradients, with its eager ms taken before any
+    profile; and one warm population round (no churn): its launches and
+    the card's busy share.  Also checks that the guard's whole-tree
+    max-abs pass sees a NaN and an Inf on the card."""
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.resilience import health_vector, tree_all_finite
+    from repro_torch.scenario.population import PopulationSpec, run_population
+    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.api import Engine
+    eng = Engine(ExperimentConfig(rounds=1, eval_every=1, cut=2, **MAIN),
+                 device=dev, log=lambda msg: None)
+    state = eng.init_state()
+    feats = torch.randn(5, 16, 7, 7, 64, device=dev)
+    fgrads = torch.randn_like(feats)
+    mask = torch.ones(5, device=dev)
+    loss, ema = torch.tensor(2.0, device=dev), torch.tensor(1.5, device=dev)
+    call = lambda: health_vector(state, loss, feats, fgrads, mask, ema,
+                                 0.1, 4.0)
+    call()
+    _sync(torch, dev)
+    bad_nan = [torch.ones(3, device=dev), torch.tensor([1.0, float("nan")],
+                                                       device=dev)]
+    bad_inf = [torch.tensor([float("inf")], device=dev)]
+    if bool(tree_all_finite(bad_nan)) or bool(tree_all_finite(bad_inf)) \
+            or not bool(tree_all_finite(state)):
+        raise AssertionError("guard: the max-abs pass missed a NaN or Inf")
+    eager = eager_ms(call)
+    launches, busy, _ = kernel_profile(torch, call, dev)
+    print(f"guard: health_vector takes {launches} device launches a round "
+          f"(the state's {len(tree_leaves(state))} leaves in one max-abs "
+          f"pass) and {eager:.4f} ms eager a call, {busy:.4f} ms of device "
+          "time")
+    spec = PopulationSpec(n_clients=POPULATION["n_clients"])
+    kw = dict(cohort=POPULATION["cohort"], rounds=1, batch=POPULATION["batch"],
+              width=POPULATION["width"], device=dev)
+    run = lambda: run_population(spec, population_scenarios()["no_churn"],
+                                 **kw)
+    run()
+    n, busy_p, wall = kernel_profile(torch, run, dev)
+    print(f"profile population round (no churn, 1 round + eval, warm): "
+          f"{n} device launches, device busy {busy_p:.3f} ms of "
+          f"{wall:.3f} ms wall ({busy_p / wall:.1%})")
+    return {"guard": {"launches": launches, "eager_ms": eager,
+                      "device_ms": busy},
+            "population_round": {"launches": n, "device_busy_ms": busy_p,
+                                 "wall_ms": wall}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=10,
@@ -1879,7 +2484,22 @@ def main(argv=None):
                    for a in ("olmoe-1b-7b", "zamba2-1.2b")})
     parity.update({f"serve/{k}": v for k, v in
                    serve_card_against_cpu(torch).items()})
-    phase_s.update({"16": t17 - t16, "17": time.perf_counter() - t17})
+    t18 = time.perf_counter()
+    phase_s.update({"16": t17 - t16, "17": t18 - t17})
+
+    # 18-20. the Engine's fault and population paths: checkpoints and
+    # resume, the resilience runtime (card against CPU too), population
+    # scenarios; the guard's launches last (a profiler session)
+    fault_paths = {"checkpoint": checkpoint_resume(torch)}
+    t19 = time.perf_counter()
+    fault_paths["resilience"] = resilience(torch)
+    parity.update({f"resilience/{k}": v for k, v in
+                   resilience_card_against_cpu(torch).items()})
+    t20 = time.perf_counter()
+    fault_paths["population"] = population(torch)
+    t21 = time.perf_counter()
+    fault_paths["profiles"] = fault_path_profiles(torch)
+    phase_s.update({"18": t19 - t18, "19": t20 - t19, "20": t21 - t20})
     print("phases took " + ", ".join(f"{k}: {v:.1f}s"
                                      for k, v in phase_s.items()))
 
@@ -1912,7 +2532,7 @@ def main(argv=None):
                        "profile": profiles, "card_vs_cpu": parity,
                        "launch_floor": floor, "zoo": zoo_runs,
                        "workloads": workload_runs, "serving": serving,
-                       "phase_s": phase_s}, f,
+                       "fault_paths": fault_paths, "phase_s": phase_s}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

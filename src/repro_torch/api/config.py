@@ -2,11 +2,13 @@
 
 ``ExperimentConfig.from_dict`` accepts the JAX package's ``to_dict()``
 output unchanged, so one dict drives both packages.  Every field the
-JAX package has is kept with its default; a field whose feature the port
-does not have yet must keep that default, or ``validate`` raises
-``NotImplementedError``.  The nested scenario and resilience configs
-stay plain dicts here, for the same reason; ``serve`` is the port's
-``ServeConfig``, which ``repro_torch.launch.serve --continuous`` reads.
+JAX package has is kept with its default; the mesh and pipeline knobs,
+whose features the port does not have yet, must keep theirs, or
+``validate`` raises ``NotImplementedError`` naming the ROADMAP item that
+ports them.  ``scenario`` and ``resilience`` are the port's
+``ScenarioConfig`` and ``ResilienceConfig`` (their dict forms load too);
+``serve`` is the port's ``ServeConfig``, which
+``repro_torch.launch.serve --continuous`` reads.
 """
 from __future__ import annotations
 
@@ -17,19 +19,15 @@ from typing import Optional
 from repro_torch.api.registry import algorithm_names, get_program
 from repro_torch.api.tasks import TASKS, task_names
 from repro_torch.core.cyclesl import CycleConfig
+from repro_torch.resilience.config import ResilienceConfig
+from repro_torch.scenario.profiles import ScenarioConfig
 from repro_torch.serve.config import ServeConfig
 
-SCENARIO_DEFAULTS = {
-    "kind": "none", "dropout": 0.0, "straggler": 0.0, "staleness_bound": 1,
-    "compute_spread": 1.0, "bandwidth_spread": 0.75, "pareto_shape": 1.5,
-    "period": 48, "amplitude": 0.8, "seed": None}
-RESILIENCE_DEFAULTS = {
-    "guard": False, "on_nonfinite": "quarantine", "on_spike": "ignore",
-    "on_error": "retry", "max_retries": 3, "backoff_base_s": 0.0,
-    "ring_size": 2, "snapshot_every": 1, "ema_alpha": 0.1,
-    "spike_factor": 4.0, "spike_warmup": 5,
-    "faults": {"nan_rate": 0.0, "nan_slots": 1, "error_rate": 0.0,
-               "ckpt_rate": 0.0, "persist": 0, "seed": None}}
+# knobs whose features are not ported yet, each with the ROADMAP item
+# (queue 1) that ports it
+NOT_PORTED = {"mesh_shape": 9, "mesh_axes": 9, "shard_cohort": 9,
+              "pipeline_depth": 6, "pipeline_staleness": 6,
+              "staleness_weighting": 6, "staleness_lambda": 6}
 
 
 @dataclass(frozen=True)
@@ -63,20 +61,25 @@ class ExperimentConfig:
     # copied from pageable host memory, and that copy waits for the
     # queued rounds (no pinned prefetch of the next cohort yet)
     sync_every: int = 1
-    # ---- not ported yet: each must keep its default ----
+    # checkpoint after every evaluation (step = rounds done); with
+    # resume, run() restores the newest valid checkpoint under ckpt_dir
+    # and continues at its round, the cohort stream replayed
     ckpt_dir: Optional[str] = None
+    resume: bool = False
+    # ---- not ported yet (NOT_PORTED): each must keep its default ----
     mesh_shape: Optional[tuple] = None
     mesh_axes: tuple = ("data", "model")
     shard_cohort: bool = True
-    resume: bool = False
     pipeline_depth: int = 0
     pipeline_staleness: str = "sync"
     staleness_weighting: str = "none"
     staleness_lambda: float = 0.5
-    scenario: dict = field(default_factory=lambda: dict(SCENARIO_DEFAULTS))
-    resilience: dict = field(
-        default_factory=lambda: {**RESILIENCE_DEFAULTS,
-                                 "faults": dict(RESILIENCE_DEFAULTS["faults"])})
+    # client-population scenario; kind='none' builds no stream and the
+    # Engine runs its scenario-free path
+    scenario: ScenarioConfig = field(default_factory=ScenarioConfig)
+    # health guards, recovery policies, fault injection; the null config
+    # builds no guard phase and no controller
+    resilience: ResilienceConfig = field(default_factory=ResilienceConfig)
     # ---- continuous-batching serve runtime (repro_torch.serve); training
     # ignores it
     serve: ServeConfig = field(default_factory=ServeConfig)
@@ -94,7 +97,14 @@ class ExperimentConfig:
             cycle = dict(cycle)
             cycle.pop("batch_constraint", None)   # pre-mesh JSONs
             cycle = CycleConfig(**cycle)
-        # configs from before the serve field lack it: default knobs
+        # configs from before these fields lack them: the null scenario,
+        # the null resilience config, the default serve knobs
+        scenario = d.pop("scenario", {})
+        if not isinstance(scenario, ScenarioConfig):
+            scenario = ScenarioConfig.from_dict(scenario)
+        resilience = d.pop("resilience", {})
+        if not isinstance(resilience, ResilienceConfig):
+            resilience = ResilienceConfig.from_dict(resilience)
         serve = d.pop("serve", {})
         if not isinstance(serve, ServeConfig):
             serve = ServeConfig.from_dict(serve)
@@ -106,20 +116,19 @@ class ExperimentConfig:
         unknown = set(d) - known
         if unknown:
             raise KeyError(f"unknown ExperimentConfig fields: {sorted(unknown)}")
-        return cls(cycle=cycle, serve=serve, **d)
+        return cls(cycle=cycle, scenario=scenario, resilience=resilience,
+                   serve=serve, **d)
 
     def validate(self) -> "ExperimentConfig":
         """Raise on a field whose feature the port lacks, then check the
         ported ones."""
         defaults = ExperimentConfig()
-        for name in ("ckpt_dir", "mesh_shape", "mesh_axes",
-                     "shard_cohort", "resume", "pipeline_depth",
-                     "pipeline_staleness", "staleness_weighting",
-                     "staleness_lambda", "scenario", "resilience"):
+        for name, item in NOT_PORTED.items():
             if getattr(self, name) != getattr(defaults, name):
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r}: not ported yet "
-                    f"(the port runs with {getattr(defaults, name)!r})")
+                    f"(ROADMAP item {item}; the port runs with "
+                    f"{getattr(defaults, name)!r})")
         self.cycle.check_ported()
         self.serve.validate()
         get_program(self.algo)
@@ -128,6 +137,21 @@ class ExperimentConfig:
         if self.sync_every < 1:
             raise ValueError(f"sync_every={self.sync_every}: the host "
                              "must sync at least every round (>= 1)")
+        self.scenario.validate()
+        if self.scenario.churns and not self.pad_cohorts:
+            # churn zeroes slots in the attendance mask; without padded
+            # cohorts there is no mask to zero
+            raise ValueError(
+                f"scenario kind={self.scenario.kind!r} with dropout/"
+                "straggler churn requires pad_cohorts=True (mid-round "
+                "drops ride the attendance mask)")
+        self.resilience.validate()
+        if self.resilience.quarantines and not self.pad_cohorts:
+            # quarantine zeroes blamed slots in the attendance mask, the
+            # same machinery as scenario churn
+            raise ValueError(
+                "resilience quarantine policy requires pad_cohorts=True "
+                "(slot quarantine rides the attendance mask)")
         return self
 
     # ------------------------------------------------------------- flags
@@ -153,6 +177,11 @@ class ExperimentConfig:
         ap.add_argument("--width", type=int, default=16)
         ap.add_argument("--cut", type=int, default=2)
         ap.add_argument("--eval-every", type=int, default=20)
+        ap.add_argument("--ckpt-dir", default=None,
+                        help="checkpoint after every evaluation here")
+        ap.add_argument("--resume", action="store_true",
+                        help="resume from the latest checkpoint in "
+                             "--ckpt-dir")
         ap.add_argument("--sync-every", type=int, default=1,
                         help="host-sync cadence under collect_timing: "
                              "block on round metrics every k rounds")
@@ -160,6 +189,8 @@ class ExperimentConfig:
                         help="disable fixed-shape padded cohorts")
         ap.add_argument("--variable-attendance", action="store_true",
                         help="Binomial(N, attendance) cohort sizes per round")
+        ScenarioConfig.add_arguments(ap)
+        ResilienceConfig.add_arguments(ap)
         ServeConfig.add_arguments(ap)
         return ap
 
@@ -171,9 +202,12 @@ class ExperimentConfig:
             batch=args.batch, lr_server=args.lr_server,
             lr_client=args.lr_client, alpha=args.alpha, seed=args.seed,
             width=args.width, cut=args.cut, eval_every=args.eval_every,
+            ckpt_dir=args.ckpt_dir, resume=args.resume,
             sync_every=args.sync_every,
             pad_cohorts=not args.no_pad_cohorts,
             variable_attendance=args.variable_attendance,
+            scenario=ScenarioConfig.from_flags(args),
+            resilience=ResilienceConfig.from_flags(args),
             serve=ServeConfig.from_flags(args),
             cycle=CycleConfig(server_epochs=args.server_epochs,
                               server_batch=args.server_batch,

@@ -1,9 +1,11 @@
-"""The driver loop: sample cohorts, run rounds, evaluate.
+"""The driver loop: sample cohorts, run rounds, evaluate, checkpoint.
 
-Port of the single-device, sequential path of ``repro/api/engine.py``,
-with its timing windows (``collect_timing``, ``sync_every``): no mesh,
-pipeline, scenario, resilience or checkpoint branches (their config
-fields must keep their defaults).
+Port of the single-device, sequential path of ``repro/api/engine.py``:
+its timing windows (``collect_timing``, ``sync_every``), crash-safe
+checkpoints and resume (``ckpt_dir``, ``resume``), the client-population
+scenario (``scenario``) and the fault-tolerant runtime (``resilience``).
+No mesh or pipeline branches (their config fields must keep their
+defaults).
 
     eng = Engine(ExperimentConfig(algo="cyclesfl", rounds=100))
     result = eng.run()           # {"history": [...], "grad_stability": ...}
@@ -11,9 +13,12 @@ fields must keep their defaults).
 The Engine runs on the card unless the caller passes ``device="cpu"``;
 with no card it raises.  Cohort draws come from numpy's
 ``default_rng(seed + 1)``, exactly as in the JAX package, so both
-packages train on the same cohorts and batches.  Callbacks are objects
-with ``on_round(engine, rnd, state, metrics)`` and/or
-``on_eval(engine, rnd, loss, mets)``.
+packages train on the same cohorts and batches; scenario and fault
+streams are numpy fold-ins of (seed, salt, round), equal in both.
+``cfg.resume`` restores the newest valid checkpoint under ``ckpt_dir``
+and continues at its round with the eval/ckpt cadence and the sampling
+stream aligned.  Callbacks are objects with ``on_round(engine, rnd,
+state, metrics)`` and/or ``on_eval(engine, rnd, loss, mets)``.
 """
 from __future__ import annotations
 
@@ -29,11 +34,19 @@ from repro_torch.api.config import ExperimentConfig
 from repro_torch.api.phases import SLAlgorithm, TrainState, build_algorithm
 from repro_torch.api.registry import get_program
 from repro_torch.api.tasks import build_task
+from repro_torch.checkpoint import (latest_step, load_checkpoint,
+                                    load_metadata, save_checkpoint)
 from repro_torch.core.cyclesl import PlanFn
 from repro_torch.core.drift import GradStabilityTracker
 from repro_torch.core.split import SplitTask
 from repro_torch.data.federated import FederatedDataset, sample_cohort
 from repro_torch.optim import adam
+from repro_torch.resilience import (HEALTH_EMA, HEALTH_NONFINITE,
+                                    HEALTH_SPIKE, FaultInjectedError,
+                                    RecoveryController,
+                                    ResilienceExhaustedError,
+                                    build_fault_stream)
+from repro_torch.scenario.profiles import build_profile_stream
 from repro_torch.utils.device import resolve_device  # noqa: F401
 from repro_torch.utils.tree import tree_map
 
@@ -144,26 +157,51 @@ class Engine:
         self.metric_key = metric_key or "accuracy"
         self.callbacks = tuple(callbacks)
         self.log = log
+        # ---- fault-tolerant runtime: the deterministic fault stream and
+        # the (per-run) recovery controller.  The null ResilienceConfig
+        # builds neither and changes nothing downstream.
+        self.faults = build_fault_stream(cfg.resilience.faults, cfg.seed)
+        self.recovery: Optional[RecoveryController] = None
+        self._ema = None                  # loss-EMA carry (device scalar)
+        self._ckpt_corruptions = 0
+        # ---- client-population scenario: the profile stream feeding
+        # per-round attendance weights + drop/lag events.  None for the
+        # null scenario (kind='none'): every scenario branch below is
+        # then skipped and the run is the scenario-free one.
+        self.scenario = build_profile_stream(cfg.scenario, fed.n_clients,
+                                             cfg.seed)
+        # resume-replay ledger window: draws for rounds below the cutoff
+        # rebuild the quarantine set the ORIGINAL run's sampler saw at
+        # that round (from the persisted event history) instead of the
+        # final restored set; see restore()
+        self._ledger_cutoff = 0
+        self._sample_clock = 0            # rounds drawn so far (scenario
+                                          # streams fold this in, resume
+                                          # fast-forwards it)
+        self._telemetry: list[dict] = []  # one row per sampled round
         program = get_program(cfg.algo)
-        if (cfg.pad_cohorts and cfg.variable_attendance
+        churns = self.scenario is not None and self.scenario.churns
+        if (cfg.pad_cohorts and (cfg.variable_attendance or churns)
                 and any(getattr(p, "mode", None) == "cycle"
                         for p in program.phases)):
             # the masked inner loop runs a static number of steps; a
             # server batch above the smallest possible live pool would
-            # leave a sparse round with no valid step, and the server
-            # would silently not train that round
+            # leave a sparse or churn-thinned round with no valid step,
+            # and the server would silently not train that round
             sb = cfg.cycle.server_batch or cfg.batch
             if sb > cfg.batch * cfg.min_cohort:
                 raise ValueError(
                     f"cycle.server_batch={sb} can exceed the smallest "
                     f"possible live feature pool (min_cohort={cfg.min_cohort}"
                     f" x batch={cfg.batch} = {cfg.min_cohort * cfg.batch} "
-                    "rows) under variable attendance; lower "
-                    "cycle.server_batch or raise min_cohort")
+                    "rows) under variable attendance or scenario churn, "
+                    "which would leave the server inner loop with zero "
+                    "valid steps in sparse rounds; lower cycle.server_batch "
+                    "or raise min_cohort")
         self.algo: SLAlgorithm = build_algorithm(
             program, task, adam(cfg.lr_server),
             adam(cfg.lr_client), cfg.cycle, plan_fn=plan_fn,
-            device=self.device)
+            device=self.device, resilience=cfg.resilience)
 
     # ------------------------------------------------------------ state
     def init_state(self) -> TrainState:
@@ -193,6 +231,52 @@ class Engine:
         """The shape rounds are padded to: without a mesh, the capacity."""
         return self.cohort_capacity
 
+    def _sample_cohort_ids(self, rng: np.random.Generator) -> np.ndarray:
+        """Draw one round's live cohort, advancing the sample clock.
+
+        Called exactly once per round by both :meth:`sample_round` and
+        :meth:`_replay_sampling`, so the clock (which time-varying
+        scenario streams fold into their attendance weights) stays
+        aligned across resume replays.  The null scenario contributes
+        ``weights=None``: ``rng.choice`` then takes the exact draw path
+        of the scenario-free Engine (it takes another path when ``p=``
+        is given).
+        """
+        cfg = self.cfg
+        rnd = self._sample_clock
+        self._sample_clock = rnd + 1
+        weights = (self.scenario.weights(rnd)
+                   if self.scenario is not None else None)
+        if self.recovery is not None:
+            # quarantined clients draw weight 0 from here on; with no
+            # quarantines this passes through (None stays None)
+            ctl = self.recovery
+            if rnd < self._ledger_cutoff:
+                # resume replay: this draw happened BEFORE some of the
+                # restored ledger's events; weight it with the set as of
+                # its original draw time
+                saved = ctl.quarantined
+                ctl.quarantined = ctl.quarantined_as_of(rnd)
+                weights = ctl.sampling_weights(weights)
+                ctl.quarantined = saved
+            else:
+                weights = ctl.sampling_weights(weights)
+        return sample_cohort(self.fed.n_clients, cfg.attendance, rng,
+                             min_cohort=cfg.min_cohort,
+                             variable=cfg.variable_attendance,
+                             max_cohort=(self.cohort_capacity
+                                         if cfg.pad_cohorts else None),
+                             weights=weights)
+
+    def _replay_sampling(self, rng: np.random.Generator, rounds: int):
+        """Consume exactly the RNG draws ``rounds`` rounds of
+        :meth:`sample_round` would make (cohort ids plus each member's
+        batch indices) without building any array, so round ``n`` of a
+        resumed run draws the cohort an unbroken run would."""
+        for _ in range(rounds):
+            for c in self._sample_cohort_ids(rng):
+                self.fed.clients[c].sample_indices(rng, self.cfg.batch)
+
     def sample_round(self, rng: np.random.Generator):
         """Cohort ids, per-client (x, y) batches and the attendance mask
         for one round, as tensors on the Engine's device.
@@ -200,32 +284,50 @@ class Engine:
         With ``cfg.pad_cohorts`` the cohort is padded to
         :attr:`padded_capacity`: padded slots carry the sentinel id N,
         zeroed batches and a 0 in the mask.  ``mask`` is None otherwise.
+
+        Scenario churn rides the same mask: a mid-round dropout (hazard
+        draw, or a straggler whose drawn lag exceeds its staleness bound)
+        zeroes its LIVE slot, so its features never enter a valid server
+        minibatch and its commit is skipped.  The client's batch is
+        still drawn first, keeping the rng stream that of a no-churn
+        round.  Each call appends one telemetry row.
         """
         cfg = self.cfg
-        cohort = sample_cohort(self.fed.n_clients, cfg.attendance, rng,
-                               min_cohort=cfg.min_cohort,
-                               variable=cfg.variable_attendance,
-                               max_cohort=(self.cohort_capacity
-                                           if cfg.pad_cohorts else None))
+        cohort = self._sample_cohort_ids(rng)
+        rnd = self._sample_clock - 1       # the round that draw was for
+        live = len(cohort)
         pairs = [self.fed.clients[c].sample_batch(rng, cfg.batch)
                  for c in cohort]
         xs = np.stack([p[0] for p in pairs])
         ys = np.stack([p[1] for p in pairs])
-        mask = None
-        if cfg.pad_cohorts:
-            live, cap = len(cohort), self.padded_capacity
-            pad = cap - live
-            mask = np.ones(cap, np.float32)
-            if pad:
-                cohort = np.concatenate(
-                    [cohort, np.full(pad, self.fed.n_clients, cohort.dtype)])
-                xs = np.concatenate([xs, np.zeros((pad,) + xs.shape[1:],
-                                                  xs.dtype)])
-                ys = np.concatenate([ys, np.zeros((pad,) + ys.shape[1:],
-                                                  ys.dtype)])
-                mask[-pad:] = 0.0
+        row = {"round": rnd, "cohort": live, "live": live, "dropped": 0,
+               "drop_hazard": 0, "drop_deadline": 0, "lag_drawn_max": 0,
+               "realized_lag": 0}
+        self._telemetry.append(row)
         put = lambda a: None if a is None else torch.from_numpy(a).to(
             self.device)
+        if not cfg.pad_cohorts:
+            return put(cohort), put(xs), put(ys), None
+        cap = self.padded_capacity
+        pad = cap - live
+        mask = np.ones(cap, np.float32)
+        if pad:
+            cohort = np.concatenate(
+                [cohort, np.full(pad, self.fed.n_clients, cohort.dtype)])
+            xs = np.concatenate([xs, np.zeros((pad,) + xs.shape[1:],
+                                              xs.dtype)])
+            ys = np.concatenate([ys, np.zeros((pad,) + ys.shape[1:],
+                                              ys.dtype)])
+            mask[-pad:] = 0.0
+        if self.scenario is not None and self.scenario.churns:
+            ev = self.scenario.events(rnd, cohort[:live],
+                                      min_live=cfg.min_cohort)
+            mask[:live] *= ev.keep
+            kept = int(ev.keep.sum())
+            row.update(live=kept, dropped=live - kept,
+                       drop_hazard=ev.hazard_drops,
+                       drop_deadline=ev.deadline_drops,
+                       lag_drawn_max=int(ev.lag.max()) if live else 0)
         return put(cohort), put(xs), put(ys), put(mask)
 
     def sync(self, metrics):
@@ -242,10 +344,205 @@ class Engine:
             if fn is not None:
                 fn(self, *args)
 
+    # ----------------------------------------------------------- resume
+    def restore(self, rng: np.random.Generator
+                ) -> tuple[Optional[TrainState], int]:
+        """Load the newest valid checkpoint under ``cfg.ckpt_dir`` and
+        return ``(state, start_round)``; ``(None, 0)`` when there is
+        nothing to resume.
+
+        The checkpoint step is the 1-based round it was saved after, so
+        the run continues at exactly that round index and the eval/ckpt
+        cadence stays aligned.  The sampling stream is replayed through
+        the skipped rounds, so round ``start_round`` draws the cohort an
+        unbroken run would have drawn.
+        """
+        cfg = self.cfg
+        step = latest_step(cfg.ckpt_dir) if cfg.ckpt_dir else None
+        if step is None:
+            return None, 0
+        # the fresh state is the template: structure, dtypes, device
+        state, _ = load_checkpoint(cfg.ckpt_dir, self.init_state(),
+                                   step=step)
+        if self.recovery is not None:
+            # restore the recovery carry BEFORE replaying the sampling
+            # stream: the replay rebuilds each round's quarantine set
+            # from the persisted event history, so the replayed draws
+            # consume exactly the variates the original run's did.
+            # Checkpoints without the key keep the fresh controller.
+            meta = load_metadata(cfg.ckpt_dir, step).get("resilience")
+            if meta:
+                self.recovery.restore_state(meta)
+                if "ema" in meta:
+                    self._ema = torch.tensor(meta["ema"],
+                                             dtype=torch.float32,
+                                             device=self.device)
+            # the sequential loop draws each round's cohort after the
+            # recovery of the rounds before it (the JAX package's
+            # pipelined runs draw ring_depth rounds ahead; not ported)
+            self._ledger_cutoff = step
+        self._replay_sampling(rng, step)
+        self.log(f"[{self.algo.name}] resumed from {cfg.ckpt_dir} at "
+                 f"round {step}")
+        return state, step
+
+    def _save(self, step: int, state: TrainState):
+        """Checkpoint ``state`` as ``step`` with the run's metadata; the
+        fault stream may then tear the write."""
+        cfg = self.cfg
+        meta = {"algo": self.algo.name}
+        if self.recovery is not None:
+            # persist the recovery carry a resumed run must not forget:
+            # the quarantine ledger (+ replayable event history) and the
+            # spike-EMA scalar (fp32 -> python float -> fp32 is exact)
+            meta["resilience"] = {**self.recovery.export_state(),
+                                  "ema": float(self._ema)}
+        save_checkpoint(cfg.ckpt_dir, step, state, metadata=meta)
+        if self.faults is not None and self.faults.ckpt_corrupt(step):
+            # tear the just-written step: restore must fall back past it
+            # to the newest valid one
+            self.faults.corrupt_checkpoint(cfg.ckpt_dir, step)
+            self._ckpt_corruptions += 1
+            self.log(f"[resilience] injected torn checkpoint at step {step}")
+
+    # ------------------------------------------------------- resilience
+    def _round_call(self, state, inputs, key):
+        """One round; with the guard on it takes the EMA carry."""
+        cohort, xs, ys, mask = inputs
+        if self.cfg.resilience.guard:
+            return self.algo.round(state, cohort, xs, ys, key, mask,
+                                   self._ema)
+        return self.algo.round(state, cohort, xs, ys, key, mask)
+
+    def _inject_nan(self, inputs, rnd: int, attempt: int):
+        """Fault hook: poison the drawn cohort's input batches with NaN
+        per the deterministic stream (no-op without one).  The batch is
+        copied first: the clean inputs feed the recovery attempts."""
+        if self.faults is None or inputs is None:
+            return inputs
+        cohort, xs, ys, mask = inputs
+        if not xs.is_floating_point():
+            return inputs
+        live = int((cohort < self.fed.n_clients).sum())
+        slots = self.faults.nan_slots_for(rnd, attempt, live)
+        if slots.size == 0:
+            return inputs
+        xs = xs.clone()
+        xs[torch.from_numpy(slots).to(xs.device)] = float("nan")
+        self.log(f"[resilience] round {rnd} attempt {attempt}: injected "
+                 f"NaN features in slots {slots.tolist()}")
+        return (cohort, xs, ys, mask)
+
+    def _verdict(self, metrics) -> Optional[str]:
+        """Host-read the packed health vector: the ONE sync the guard
+        costs per round.  Returns the fault kind or None (healthy)."""
+        if not self.cfg.resilience.guard:
+            return None
+        h = metrics["health"].cpu().numpy()
+        if h[HEALTH_NONFINITE] > 0:
+            return "nonfinite"
+        if h[HEALTH_SPIKE] > 0 and self.recovery.spike_armed():
+            return "spike"
+        return None
+
+    def _recover_round(self, state, inputs, inj0, rnd: int):
+        """Drive round ``rnd`` to an accepted ``(state, metrics)`` under
+        the recovery policy.
+
+        ``inputs`` are the CLEAN sampled round inputs; ``inj0`` the
+        attempt-0 fault-injected view of them (the same objects when no
+        fault fired).  Returns ``(state, metrics, attempts, healthy)``;
+        raises :class:`ResilienceExhaustedError` past ``max_retries``.
+        """
+        ctl, rcfg = self.recovery, self.cfg.resilience
+        key = self.round_key(rnd)
+        cur_state, cur_inputs, cur_inj = state, inputs, inj0
+        kinds: list[str] = []
+        actions: list[str] = []
+        attempt = 0
+        while True:
+            try:
+                if self.faults is not None:
+                    self.faults.check_dispatch(rnd, attempt, "round")
+                new_state, metrics = self._round_call(cur_state, cur_inj,
+                                                      key)
+                kind = self._verdict(metrics)
+            except FaultInjectedError as e:
+                self.log(f"[resilience] {e}")
+                kind, new_state, metrics = "error", None, None
+            if kind is None:
+                break                      # healthy: accept
+            kinds.append(kind)
+            if len(kinds) > rcfg.max_retries:
+                ctl.record_round(rnd, len(kinds), kinds, actions,
+                                 len(ctl.quarantined))
+                raise ResilienceExhaustedError(rnd, len(kinds), kinds)
+            # resolve the configured action, escalating past the ones
+            # that cannot apply (no blamable slot, empty snapshot ring)
+            action = ctl.action_for(kind, attempt)
+            applied = None
+            while applied is None:
+                if action == "ignore" and new_state is not None:
+                    applied = "ignore"
+                elif action == "quarantine":
+                    mask = cur_inputs[3]
+                    sb = (metrics.get("health_slot_bad")
+                          if metrics is not None else None)
+                    nm = (ctl.quarantine(cur_inputs[0].cpu().numpy(),
+                                         mask.cpu().numpy(),
+                                         sb.cpu().numpy(), rnd=rnd)
+                          if mask is not None and sb is not None else None)
+                    if nm is not None:
+                        placed = torch.from_numpy(nm).to(self.device)
+                        cur_inputs = cur_inputs[:3] + (placed,)
+                        cur_inj = cur_inj[:3] + (placed,)
+                        applied = "quarantine"
+                elif action == "retry":
+                    applied = "retry"
+                elif action == "rollback":
+                    tgt = ctl.rollback()
+                    if tgt is not None:
+                        _, cur_state, self._ema = tgt
+                        applied = "rollback"
+                if applied is None:
+                    nxt = ctl.escalate(action) if action else None
+                    if nxt is None:
+                        applied = "retry"  # last resort
+                    else:
+                        action = nxt
+            actions.append(applied)
+            if applied == "ignore":
+                self.log(f"[resilience] round {rnd}: {kind} ignored "
+                         "by policy")
+                break
+            self.log(f"[resilience] round {rnd}: {kind} -> {applied} "
+                     f"(attempt {len(kinds)}/{rcfg.max_retries})")
+            ctl.backoff(len(kinds))
+            attempt += 1
+            cur_inj = self._inject_nan(cur_inputs, rnd, attempt)
+        healthy = kind is None
+        ctl.record_round(rnd, len(kinds), kinds, actions,
+                         len(ctl.quarantined))
+        return new_state, metrics, len(kinds), healthy
+
     # -------------------------------------------------------------- run
     def run(self, state: Optional[TrainState] = None) -> dict:
         cfg = self.cfg
         rng = np.random.default_rng(cfg.seed + 1)
+        if cfg.resilience.active:
+            # fresh controller per run: empty quarantine ledger, empty
+            # snapshot ring, EMA at the unarmed sentinel.  Built BEFORE
+            # any sampling so resume replays see the same (empty) ledger
+            # the original run started with.
+            self.recovery = RecoveryController(
+                cfg.resilience, self.fed.n_clients,
+                min_live=cfg.min_cohort, log=self.log)
+            self._ema = torch.zeros((), dtype=torch.float32,
+                                    device=self.device)
+            self._ckpt_corruptions = 0
+        start_round = 0
+        if state is None and cfg.resume:
+            state, start_round = self.restore(rng)
         if state is None:
             state = self.init_state()
         tracker = GradStabilityTracker()
@@ -253,24 +550,39 @@ class Engine:
         t0 = time.time()
         # timing windows: the host syncs every sync_k rounds and at the
         # last; the first round (first launches, cuBLAS/cuDNN set-up) is
-        # synced out of the first window and not timed
-        sync_k = max(1, cfg.sync_every)
+        # synced out of the first window and not timed.  The guard reads
+        # its health verdict every round by design, so it pins sync_k 1.
+        sync_k = 1 if cfg.resilience.guard else max(1, cfg.sync_every)
         round_time, timed_rounds = 0.0, 0
-        for rnd in range(cfg.rounds):
-            cohort, xs, ys, mask = self.sample_round(rng)
+        t_tel = len(self._telemetry)     # rows this run appends start here
+        for rnd in range(start_round, cfg.rounds):
+            inputs = self.sample_round(rng)
             t_round = time.perf_counter()
-            state, metrics = self.algo.round(state, cohort, xs, ys,
-                                             self.round_key(rnd), mask)
+            healthy = True
+            if self.recovery is None:
+                state, metrics = self._round_call(state, inputs,
+                                                  self.round_key(rnd))
+            else:
+                inj = self._inject_nan(inputs, rnd, 0)
+                state, metrics, _, healthy = self._recover_round(
+                    state, inputs, inj, rnd)
+            if self.recovery is not None and cfg.resilience.guard:
+                # thread the EMA carry forward and snapshot last-good
+                # states; both stay on the device (no extra host sync)
+                self._ema = metrics["health"][HEALTH_EMA]
+                if healthy:
+                    self.recovery.note_accept(rnd, state, self._ema)
             if cfg.collect_timing:
                 if sync_k == 1:
                     self.sync(metrics)
-                    if rnd > 0:
+                    if rnd > start_round:
                         round_time += time.perf_counter() - t_round
                         timed_rounds += 1
-                elif rnd == 0:
+                elif rnd == start_round:
                     self.sync(metrics)
-                    t_mark, r_mark = time.perf_counter(), 1
-                elif rnd == cfg.rounds - 1 or (rnd + 1) % sync_k == 0:
+                    t_mark, r_mark = time.perf_counter(), rnd + 1
+                elif (rnd == cfg.rounds - 1
+                      or (rnd + 1 - start_round) % sync_k == 0):
                     # one sync closes the window; its time is averaged
                     # over the window's rounds
                     self.sync(metrics)
@@ -288,9 +600,29 @@ class Engine:
                          f"test_loss={loss:.4f} "
                          f"{self.metric_key}="
                          f"{mets.get(self.metric_key, float('nan')):.4f}")
+                if cfg.ckpt_dir:
+                    self._save(rnd + 1, state)
                 self._emit("on_eval", rnd, loss, mets)
         result = {"algo": self.algo.name, "task": cfg.task,
                   "history": history, "grad_stability": tracker.summary()}
+        tel = self._telemetry[t_tel:]
+        if tel:
+            result["telemetry"] = {
+                "per_round": tel,
+                "live_cohort_mean": float(np.mean([r["live"] for r in tel])),
+                "dropped_total": int(sum(r["dropped"] for r in tel)),
+                "drop_hazard_total": int(sum(r["drop_hazard"] for r in tel)),
+                "drop_deadline_total": int(sum(r["drop_deadline"]
+                                               for r in tel)),
+                "max_realized_lag": max(r["realized_lag"] for r in tel),
+                "max_drawn_lag": max(r["lag_drawn_max"] for r in tel),
+            }
+        if self.recovery is not None:
+            summary = self.recovery.summary()
+            summary["ckpt_corruptions"] = self._ckpt_corruptions
+            result["resilience"] = summary
+        if start_round:
+            result["resumed_from_round"] = start_round
         if cfg.collect_timing:
             result["round_time_s"] = round_time / max(1, timed_rounds)
         return result

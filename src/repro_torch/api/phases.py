@@ -1,8 +1,8 @@
 """Declarative round programs: every SL algorithm as a composition of
 typed phases over one ``TrainState``.
 
-Port of ``repro/api/phases.py`` without the mesh, pipeline and
-resilience hooks.  An algorithm is a :class:`RoundProgram`, an ordered
+Port of ``repro/api/phases.py`` without the mesh and pipeline hooks.
+An algorithm is a :class:`RoundProgram`, an ordered
 tuple of phases drawn from
 
     ExtractFeatures -> ServerUpdate -> FeatureGradients -> ClientUpdate
@@ -19,7 +19,10 @@ eagerly, in order, on the tensors' device.  Its ``vmap`` over cohort
 slots is a Python loop over slots whose results are stacked, so that a
 stacked entity takes one optimizer step (one fused-Adam launch a leaf,
 each slot corrected with its own step), and its ``scan`` along a chain
-is a Python loop that carries the entities.
+is a Python loop that carries the entities.  With
+``ResilienceConfig.guard`` on, a trailing :class:`HealthGuard` phase
+folds the health verdict into the round's metrics; with it off the round
+runs the same ops as it always did.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from repro_torch.core.protocol import (EntityState, broadcast_entity,
                                        stack_entities, take_entities)
 from repro_torch.core.split import SplitTask
 from repro_torch.optim import Optimizer
+from repro_torch.resilience.guards import health_vector
 from repro_torch.utils.tree import tree_map
 
 
@@ -55,7 +59,9 @@ class TrainState(NamedTuple):
 @dataclass(frozen=True)
 class SLAlgorithm:
     """What the drivers call: ``init(seed, n_clients)`` and
-    ``round(state, cohort, xs, ys, key, mask=None)``."""
+    ``round(state, cohort, xs, ys, key, mask=None)``; with the health
+    guard on, the round takes the loss-EMA carry as a trailing ``ema``
+    argument."""
     name: str
     init: Callable[..., TrainState]
     round: Callable[..., tuple[TrainState, dict]]
@@ -92,6 +98,7 @@ class RoundVars:
     server_prev: Any = None           # θ_S^t params, pre-ServerUpdate
     feats: Any = None                 # [C, b, ...] smashed data
     fgrads: Any = None                # [C, b, ...] feature gradients
+    ema: Any = None                   # loss-EMA carry (HealthGuard only)
     metrics: dict = field(default_factory=dict)
 
 
@@ -291,6 +298,33 @@ class Commit(Phase):
             raise ValueError(f"unknown Commit mode {self.mode!r}")
 
 
+@dataclass(frozen=True)
+class HealthGuard(Phase):
+    """Trailing phase: fold the health verdict into the round's metrics.
+
+    Appended by :func:`build_algorithm` only when
+    ``ResilienceConfig.guard`` is on, so the guard-free round runs
+    exactly the ops it always did.  It reads what the round already
+    holds — the committed state, the round loss, the cohort's features
+    and feature gradients, the loss-EMA carry (``v.ema``, a device
+    scalar the Engine threads round to round) — and reads nothing back
+    to the host; the Engine pays one host read of ``metrics['health']``.
+    See :mod:`repro_torch.resilience.guards` for the vector layout.
+    """
+    alpha: float = 0.1
+    spike_factor: float = 4.0
+
+    def __call__(self, ctx, v):
+        loss = v.metrics.get("server_loss")
+        if loss is None:
+            loss = torch.zeros((), device=v.state.server.step.device)
+        health, slot_bad = health_vector(
+            v.state, loss, v.feats, v.fgrads, v.mask, v.ema,
+            self.alpha, self.spike_factor)
+        v.metrics["health"] = health
+        v.metrics["health_slot_bad"] = slot_bad
+
+
 # ----------------------------------------------- fused sequential rounds
 # ssl / sflv2 / fedavg interleave client and server updates along the
 # cohort, so they run as single fused phases.  None of them clips, as in
@@ -414,21 +448,30 @@ def build_algorithm(program: RoundProgram, task: SplitTask,
                     opt_server: Optimizer, opt_client: Optimizer,
                     cycle: CycleConfig = CycleConfig(),
                     plan_fn: Optional[PlanFn] = None,
-                    device="cpu") -> SLAlgorithm:
-    """Bind a RoundProgram to a task and optimizers."""
+                    device="cpu", resilience: Any = None) -> SLAlgorithm:
+    """Bind a RoundProgram to a task and optimizers.
+
+    ``resilience`` (a ``ResilienceConfig`` with ``guard=True``) appends
+    the :class:`HealthGuard` phase; the round's trailing ``ema`` is then
+    the loss-EMA carry.  ``None`` or guard off: the guard-free round.
+    """
     ctx = PhaseContext(task, opt_server, opt_client, cycle.check_ported(),
                        plan_fn)
+    guard = (HealthGuard(resilience.ema_alpha, resilience.spike_factor)
+             if resilience is not None and resilience.guard else None)
 
     def init(seed: int, n_clients: int) -> TrainState:
         return init_train_state(seed, n_clients, task, opt_server,
                                 opt_client, program.uses_global_client,
                                 device)
 
-    def round_fn(state, cohort, xs, ys, key, mask=None):
+    def round_fn(state, cohort, xs, ys, key, mask=None, ema=None):
         v = RoundVars(state=state, cohort=cohort, xs=xs, ys=ys, key=key,
-                      mask=mask)
+                      mask=mask, ema=ema)
         for phase in program.phases:
             phase(ctx, v)
+        if guard is not None:
+            guard(ctx, v)
         return v.state, v.metrics
 
     return SLAlgorithm(program.name, init, round_fn,

@@ -2,7 +2,10 @@
 
 Thin front end over ``repro_torch.api.Engine``.  It runs on the card
 (``--device cuda``, the default) and raises where there is none; pass
-``--device cpu`` to run on the CPU.
+``--device cpu`` to run on the CPU.  The flags are
+``ExperimentConfig.add_arguments``'s, the checkpoint (``--ckpt-dir``,
+``--resume``), scenario (``--scenario*``) and resilience (``--guard``,
+``--on-*``, ``--faults``) flags included.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train \

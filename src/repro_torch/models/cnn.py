@@ -29,12 +29,24 @@ def conv_init(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int,
             "b": torch.zeros((cout,), dtype=dtype)}
 
 
+def _same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's SAME padding of one spatial dim: ceil(size / stride)
+    outputs, the total pad split with the smaller half before."""
+    total = max((math.ceil(size / stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
 def conv2d(params, x, stride: int = 1, padding: str = "SAME"):
-    """NHWC input, HWIO weights -> NHWC output."""
+    """NHWC input, HWIO weights -> NHWC output.  torch's ``"same"`` takes
+    stride 1 only, so a strided SAME convolution pads explicitly."""
+    xc = x.permute(0, 3, 1, 2)
+    w = params["w"].permute(3, 2, 0, 1)
+    pad = padding.lower()
     if padding == "SAME" and stride != 1:
-        raise NotImplementedError("SAME padding is ported for stride 1 only")
-    y = F.conv2d(x.permute(0, 3, 1, 2), params["w"].permute(3, 2, 0, 1),
-                 params["b"], stride=stride, padding=padding.lower())
+        (t, b), (l, r) = (_same_pads(x.shape[1], w.shape[2], stride),
+                          _same_pads(x.shape[2], w.shape[3], stride))
+        xc, pad = F.pad(xc, (l, r, t, b)), 0
+    y = F.conv2d(xc, w, params["b"], stride=stride, padding=pad)
     return y.permute(0, 2, 3, 1)
 
 

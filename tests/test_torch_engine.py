@@ -95,7 +95,8 @@ def test_engine_trains_with_its_own_plan():
     losses, one eval, and the shape of the reference's result."""
     cfg = ExperimentConfig(rounds=2, eval_every=2, **SMALL)
     res = Engine(cfg, device="cpu", log=lambda *a: None).run()
-    assert set(res) == {"algo", "task", "history", "grad_stability"}
+    assert set(res) == {"algo", "task", "history", "grad_stability",
+                        "telemetry"}
     h = res["history"][-1]
     assert h["round"] == 2 and np.isfinite(h["train_loss"])
     assert 0.0 <= h["accuracy"] <= 1.0
@@ -114,13 +115,16 @@ def test_config_round_trips_from_reference_dict(jcfg):
 
 OUT_OF_SLICE = {
     "pipeline": dict(pipeline_depth=1), "mesh": dict(mesh_shape=(2, 1)),
-    "resume": dict(resume=True), "mesh-axes": dict(mesh_axes=("x", "y")),
+    "mesh-axes": dict(mesh_axes=("x", "y")),
     "staleness": dict(staleness_weighting="inverse"),
-    # the serve knobs are ported; serving on a mesh is not
-    "ckpt": dict(ckpt_dir="ckpt"),
+    # the serve, checkpoint, scenario and resilience knobs are ported;
+    # their mesh and pipelined branches are not
+    "resume": dict(resume=True, ckpt_dir="ckpt", pipeline_depth=1),
+    "ckpt": dict(ckpt_dir="ckpt", mesh_shape=(2, 1)),
     "serve": dict(serve={"slots": 4}, mesh_shape=(2, 1)),
-    "scenario": dict(scenario={"kind": "diurnal"}),
-    "resilience": dict(resilience={"guard": True}),
+    "scenario": dict(scenario={"kind": "diurnal-churn"},
+                     pipeline_staleness="async"),
+    "resilience": dict(resilience={"guard": True}, pipeline_depth=1),
     "shard-local": dict(cycle={"shard_local_resample": True}),
     "kernel-override": dict(cycle={"resample_use_kernel": True}),
 }
@@ -134,6 +138,26 @@ def test_out_of_slice_knobs_raise(kw):
         d[k] = {**d[k], **v} if isinstance(v, dict) else v
     with pytest.raises(NotImplementedError):
         Engine(ExperimentConfig.from_dict(d), device="cpu")
+
+
+PORTED = {"resume": dict(resume=True, ckpt_dir="ckpt"),
+          "ckpt": dict(ckpt_dir="ckpt"),
+          "scenario": dict(scenario={"kind": "diurnal-churn"}),
+          "resilience": dict(resilience={"guard": True})}
+
+
+@pytest.mark.parametrize("kw", list(PORTED.values()), ids=list(PORTED))
+def test_ported_knobs_are_accepted(kw):
+    """The reference's dict form of each knob this port has loads and
+    validates; the Engine builds with it."""
+    d = JConfig().to_dict()
+    for k, v in kw.items():
+        d[k] = {**d[k], **v} if isinstance(d[k], dict) else v
+    cfg = ExperimentConfig.from_dict(d).validate()
+    assert cfg.to_dict() == JConfig.from_dict(d).to_dict()
+    Engine(cfg, device="cpu", log=lambda *a: None)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
+        ExperimentConfig.from_dict({**d, "pipeline_depth": 1}).validate()
 
 
 def test_engine_and_cli_refuse_the_cpu_unless_asked():

@@ -56,7 +56,14 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.api.tasks", "repro_torch.serve",
                 "repro_torch.serve.config", "repro_torch.serve.runtime",
                 "repro_torch.serve.loadgen", "repro_torch.launch.serve",
-                "repro_torch.utils.device"):
+                "repro_torch.utils.device", "repro_torch.checkpoint.io",
+                "repro_torch.scenario.profiles",
+                "repro_torch.scenario.population",
+                "repro_torch.resilience.config",
+                "repro_torch.resilience.faults",
+                "repro_torch.resilience.guards",
+                "repro_torch.resilience.policy",
+                "repro_torch.resilience.harness"):
         assert mod in out["modules"]
 
 

@@ -241,3 +241,22 @@ def test_leaf_paths_match_jax_and_pick_the_conv_biases_before_a_norm(name):
         assert picked and [p[:-1] for p in picked] == [p[:-1] for p in convs]
     else:
         assert picked == []
+
+
+@pytest.mark.parametrize("stride", [1, 2, 3])
+@pytest.mark.parametrize("size", [(7, 7), (8, 6), (5, 9)],
+                         ids=["odd", "even", "mixed"])
+def test_strided_same_conv_matches_reference(stride, size):
+    """SAME convolution at every stride, odd and even sizes and kernels:
+    XLA's padding rule (ceil(H / s) outputs, the smaller half of the pad
+    before) against ``repro.models.cnn.conv2d``, rtol 1e-5."""
+    rng = np.random.default_rng(stride)
+    x = rng.normal(size=(2, *size, 3)).astype(np.float32)
+    for k in (3, 2, 4):
+        p = {"w": rng.normal(size=(k, k, 3, 4)).astype(np.float32),
+             "b": rng.normal(size=4).astype(np.float32)}
+        want = np.asarray(jcnn.conv2d({n: jnp.asarray(v) for n, v in p.items()},
+                                      jnp.asarray(x), stride=stride))
+        got = cnn.conv2d(to_torch(p), torch.from_numpy(x), stride=stride)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
