@@ -12,9 +12,9 @@ Phases, each of which ends the script with a non-zero exit on failure:
 2. build: every CUDA source under src/repro_torch/kernels/csrc, compiled
    with nvcc from this checkout (one process per source, in parallel);
 3. kernel checks: each kernel against its plain PyTorch version on the
-   card, at the shapes the main path, the olmoe and zamba2 rounds, the
-   mamba2 prefill and the resnet9 and celeba workloads give it and at
-   edge cases, with its time, its bound and a one-call PyTorch
+   card, at the shapes the main path, the olmoe, zamba2 and whisper
+   rounds, the mamba2 prefill, whisper's decode and the resnet9 and
+   celeba workloads give it and at edge cases, with its time, its bound and a one-call PyTorch
    yardstick where one exists, and the time of an empty kernel (the
    launch floor) by the same timers;
 4. main path: ``Engine.run()`` of cyclesfl on femnist_cnn at the paper's
@@ -77,10 +77,23 @@ Phases, each of which ends the script with a non-zero exit on failure:
     faulted round; a quarantined NaN slot through gather_loss at cut 3;
     card against CPU for nan_quarantine and nan_rollback, as in 13;
 20. ``run_population`` at 100,000 clients (cohort 32, batch 8, mlp
-    width 32, 12 rounds) under no churn, dropout, stragglers and diurnal
-    churn: rounds/s, the sampler's ms, clients materialized and
-    telemetry equal to a CPU run's; then, under the profiler, the
-    guard's launches a round and a population round's busy share.
+    width 32, 12 rounds) under no churn, dropout, stragglers (also
+    pipelined async at depth 1, max realized lag 1) and diurnal churn:
+    rounds/s, the sampler's ms, clients materialized and telemetry equal
+    to a CPU run's; then, under the profiler, the guard's launches a
+    round and a population round's busy share;
+21. whisper-base whole (6 + 6 blocks, d 512, bf16, random init):
+    ``build_train_step`` (cohort 2, batch 2 a client, 1500 frames, 448
+    text positions, 3 rounds) with exact flash_attention,
+    feature_resample and fused_adam launches, the prefill (batch 2), the
+    decode step (batch 8 over a context of 448) and
+    ``launch.serve.serve_whisper`` (batch 4, 32 steps);
+22. whisper card against CPU (the smoke config, as in 9) and teacher
+    forcing at full width (16 decode steps against the forward);
+23. the pipelined rounds on the main path: sync against sequential and
+    async on the side stream against one stream, bit for bit; rounds/s
+    of sequential, sync and async in turns; pipelined resume; NaN-faulted
+    pipelined runs recovered.
 
 It then prints the ``kernels`` JSON line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -110,6 +123,8 @@ MAIN = dict(n_clients=100, attendance=0.05, batch=16, width=32)
 # zamba2-1.2b whole
 COHORT, BATCH, SEQ, ROUNDS = 2, 2, 2048, 3
 OLMOE_DEPTH = 4
+# whisper-base's inputs: 1500 encoder frames, 448 decoder positions
+WHISPER_FRAMES, WHISPER_TEXT = 1500, 448
 # ssd_scan in float32 is held to this share of max|plain| (the f32 sums
 # of the kernel's 64-row tiles and the plain version's chunks differ by
 # about 1e-6 of it); a dropped diagonal term or a missing carry moves
@@ -264,6 +279,16 @@ def kernel_checks(torch, dev):
     resample("feature_resample", torch.randint(
         0, olmoe.vocab, (pool, SEQ), device=dev, generator=gen,
         dtype=torch.int32), BATCH)
+    # the whisper round's server step: the pooled bf16 encoder states
+    # [C * b, 1500, 512] (1.5 MB rows) and the int32 decoder tokens and
+    # labels [C * b, 448], server batch b
+    whisper = get_config("whisper-base")
+    resample("feature_resample", torch.randn(
+        pool, WHISPER_FRAMES, whisper.d_model, device=dev, generator=gen
+    ).bfloat16(), BATCH)
+    resample("feature_resample", torch.randint(
+        0, whisper.vocab, (pool, WHISPER_TEXT), device=dev, generator=gen,
+        dtype=torch.int32), BATCH)
     # rows too short or misaligned for wide vectors: the 2- and 1-byte paths
     resample("feature_resample", torch.randn(38, 13, device=dev,
                                              generator=gen).bfloat16()[1:], 16)
@@ -323,6 +348,12 @@ def kernel_checks(torch, dev):
          dtype=torch.bfloat16, library=True)
     adam((COHORT, olmoe.cut_layers, mo.n_experts, olmoe.d_model,
           mo.d_ff_expert), [2, 0], dtype=torch.bfloat16)
+    # the whisper round: the decoder's bf16 embedding (server) and the
+    # encoder's stacked ffn input projections of the client slots
+    adam((whisper.vocab_padded, whisper.d_model), 3, dtype=torch.bfloat16,
+         library=True)
+    adam((COHORT, whisper.enc_layers, whisper.d_model, whisper.d_ff), [2, 0],
+         dtype=torch.bfloat16)
 
     rows["gather_loss"] = gather_loss_checks(torch, dev, gen)
     rows["flash_attention"] = flash_checks(torch, dev, gen)
@@ -502,7 +533,11 @@ def flash_checks(torch, dev, gen):
     of 100 that starts inside a key tile, softcap 50, no causal mask, and
     q, k, v as strided slices of one fused [B, S, 3, H, D] tensor;
     gemma2's D = 256 and phi3-mini's [2, 2048, 32, 96] causal (the
-    CUDA-core design in bf16 too).  Each case runs in float32 too (the
+    CUDA-core design in bf16 too); whisper-base's encoder [2, 1500, 8,
+    64] non-causal (a ragged last key tile of 92), its cross-attention
+    (448 queries over 1500 keys), its causal decoder [2, 448] and its
+    decode cross-attention (one query a row, batch 8), with SDPA's time,
+    and its smoke config's heads of 32.  Each case runs in float32 too (the
     CUDA-core design), where 2e-5 would catch a key dropped, doubled or
     off by one at a mask's edge.  Before the checks it prints how far
     the plain bf16 output moves when the last key tile is dropped and
@@ -543,7 +578,7 @@ def flash_checks(torch, dev, gen):
                                  "not catch a dropped tile or diagonal")
 
     def attention(B, Sq, Sk, H, Hkv, D, dtype, causal=True, window=None,
-                  cap=None, main=False, fused=False):
+                  cap=None, main=False, fused=False, library=False):
         q, k, v = qkv(B, Sq, Sk, H, Hkv, D, dtype, fused)
         kw = dict(causal=causal, window=window, softcap=cap)
         # the (query, key) pairs this mask keeps: the work the call does
@@ -557,7 +592,7 @@ def flash_checks(torch, dev, gen):
         pairs = int(keep.sum())
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         lib = None
-        if main:
+        if main or library:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                          is_causal=causal)
@@ -588,6 +623,24 @@ def flash_checks(torch, dev, gen):
     for dtype in (torch.bfloat16, torch.float32):
         attention(BATCH, SEQ, SEQ, phi3.n_heads, phi3.n_kv_heads, phi3.hd,
                   dtype, main=True)
+    # whisper-base (8 heads of 64): the encoder's self-attention over 1500
+    # frames (11 key tiles of 128 and a ragged 92), the decoder's
+    # cross-attention (448 queries, 1500 keys), its causal self-attention
+    # and the decode's cross-attention (one query a row, batch 8)
+    whisper = get_config("whisper-base")
+    H, D = whisper.n_heads, whisper.hd
+    for dtype in (torch.bfloat16, torch.float32):
+        attention(2, WHISPER_FRAMES, WHISPER_FRAMES, H, H, D, dtype,
+                  causal=False, library=True)
+        attention(2, WHISPER_TEXT, WHISPER_FRAMES, H, H, D, dtype,
+                  causal=False, library=True)
+        attention(2, WHISPER_TEXT, WHISPER_TEXT, H, H, D, dtype,
+                  library=True)
+        attention(8, 1, WHISPER_FRAMES, H, H, D, dtype, causal=False,
+                  library=True)
+        # whisper-base's smoke config (4 heads of 32, on the CUDA cores)
+        attention(2, 60, 60, 4, 4, 32, dtype, causal=False)
+        attention(2, 16, 60, 4, 4, 32, dtype, causal=False)
     for dtype in (torch.bfloat16, torch.float32):
         attention(1, 2048, 2048, 8, 4, 256, dtype, window=1024, cap=50.0)
         for D in (64, 128):
@@ -1086,7 +1139,11 @@ def prefill(torch, label, cfg):
     return {"ms": ms, "launches": launches, "shape": list(logits.shape)}
 
 
-def transformer_card_against_cpu(torch):
+TRANSFORMER_PARITY = (("olmoe-1b-7b", 2), ("gemma2-2b", 4),
+                      ("mamba2-2.7b", 2), ("zamba2-1.2b", 4))
+
+
+def transformer_card_against_cpu(torch, archs=TRANSFORMER_PARITY):
     """Two rounds of the transformer round on the CPU (plain versions)
     and on the card (kernels), float32 with TF32 off, from one init
     drawn on the CPU and with one plan, for olmoe-1b-7b, gemma2-2b,
@@ -1114,8 +1171,7 @@ def transformer_card_against_cpu(torch):
         return resample_plan(key, C * 2, epochs, sb), None
 
     out = {}
-    for arch, depth in (("olmoe-1b-7b", 2), ("gemma2-2b", 4),
-                        ("mamba2-2.7b", 2), ("zamba2-1.2b", 4)):
+    for arch, depth in archs:
         cfg = smoke_config(arch).with_(n_layers=depth)
         init = build_train_step(cfg, shape, cohort=C, device="cpu"
                                 ).init_state(0)
@@ -2220,18 +2276,23 @@ def resilience_card_against_cpu(torch):
 
 
 # phase 20: the reference bench's population scenarios
-# (benchmarks/bench_population.py:50-56, the async one needs pipelining)
-# and diurnal churn at its defaults (weighted O(N) cohort draws)
+# (benchmarks/bench_population.py:50-56, straggler_async with its
+# pipelined async schedule at depth 1) and diurnal churn at its defaults
+# (weighted O(N) cohort draws)
 POPULATION = dict(n_clients=100_000, cohort=32, batch=8, width=32)
 
 
 def population_scenarios():
+    """name -> (scenario, ExperimentConfig overrides)."""
     from repro_torch.scenario import ScenarioConfig
-    return {"no_churn": ScenarioConfig(),
-            "dropout": ScenarioConfig(kind="uniform", dropout=0.15),
-            "straggler": ScenarioConfig(kind="pareto-straggler",
-                                        straggler=1.0, staleness_bound=1),
-            "diurnal_churn": ScenarioConfig(kind="diurnal-churn")}
+    straggler = ScenarioConfig(kind="pareto-straggler", straggler=1.0,
+                               staleness_bound=1)
+    return {"no_churn": (ScenarioConfig(), {}),
+            "dropout": (ScenarioConfig(kind="uniform", dropout=0.15), {}),
+            "straggler": (straggler, {}),
+            "straggler_async": (straggler, dict(pipeline_depth=1,
+                                                pipeline_staleness="async")),
+            "diurnal_churn": (ScenarioConfig(kind="diurnal-churn"), {})}
 
 
 def population(torch, dev="cuda", rounds=PHASE20_ROUNDS):
@@ -2243,7 +2304,10 @@ def population(torch, dev="cuda", rounds=PHASE20_ROUNDS):
     gathers and 1 step each, plus 1 client step) times the rounds; the
     telemetry equal to a CPU run's exactly; and the sampler's own ms a
     round (``Engine.sample_round`` alone on a fresh fleet: the cohort
-    draw, the clients' first materialization, the copy to ``dev``)."""
+    draw, the clients' first materialization, the copy to ``dev``).
+    straggler_async runs the pipelined async schedule at depth 1 (its
+    extracts on the side stream): the same launches, and a maximum
+    realized lag of 1."""
     import numpy as np
     from repro_torch.api import Engine
     from repro_torch.scenario.population import (PopulationSpec,
@@ -2257,18 +2321,19 @@ def population(torch, dev="cuda", rounds=PHASE20_ROUNDS):
     want = {"feature_resample": 2 * steps * rounds,
             "fused_adam": (steps + 1) * rounds}
     out = {}
-    for name, sc in population_scenarios().items():
+    for name, (sc, over) in population_scenarios().items():
         reset_counters()
         _sync(torch, dev)
         t0 = time.perf_counter()
-        res = run_population(spec, sc, device=dev, **kw)
+        res = run_population(spec, sc, device=dev, **kw, **over)
         _sync(torch, dev)
         wall = time.perf_counter() - t0
         launches = read_counters()
-        cpu = run_population(spec, sc, device="cpu", **kw)
+        cpu = run_population(spec, sc, device="cpu", **kw, **over)
         task, fed, _ = build_population(spec, width=POPULATION["width"])
         eng = Engine(population_config(spec, sc, cohort=kw["cohort"],
-                                       rounds=rounds, batch=kw["batch"]),
+                                       rounds=rounds, batch=kw["batch"],
+                                       **over),
                      device=dev, task=task, fed=fed, log=lambda msg: None)
         rng = np.random.default_rng(eng.cfg.seed + 1)
         t0 = time.perf_counter()
@@ -2285,7 +2350,8 @@ def population(torch, dev="cuda", rounds=PHASE20_ROUNDS):
               f"cohort mean {tel['live_cohort_mean']}, dropped "
               f"{tel['dropped_total']} (hazard {tel['drop_hazard_total']}, "
               f"deadline {tel['drop_deadline_total']}), max drawn lag "
-              f"{tel['max_drawn_lag']}; telemetry equal to the CPU run's "
+              f"{tel['max_drawn_lag']}, max realized lag "
+              f"{tel['max_realized_lag']}; telemetry equal to the CPU run's "
               f"{tel == cpu['telemetry']}; accuracy "
               f"{res['history'][-1]['accuracy']:.4f} (CPU "
               f"{cpu['history'][-1]['accuracy']:.4f}); launches "
@@ -2294,6 +2360,7 @@ def population(torch, dev="cuda", rounds=PHASE20_ROUNDS):
                 and pop["clients_materialized"]
                 == cpu["population"]["clients_materialized"]
                 and all(launches[k] == n for k, n in want.items())
+                and tel["max_realized_lag"] <= over.get("pipeline_depth", 0)
                 and math.isfinite(res["history"][-1]["test_loss"])):
             raise AssertionError(f"population {name}: the card's run is not "
                                  "the CPU's")
@@ -2304,6 +2371,434 @@ def population(torch, dev="cuda", rounds=PHASE20_ROUNDS):
                                    if k != "per_round"},
                      "accuracy": res["history"][-1]["accuracy"],
                      "launches": launches}
+    return out
+
+
+# phases 21-22: whisper-base whole, the encoder-decoder family; the
+# decode step at batch 8 over a context of 448, serve_whisper at batch 4
+WHISPER_DECODE = dict(batch=8, steps=32)
+WHISPER_SERVE = dict(batch=4, steps=32)
+
+
+def whisper_forward_launches(cfg, encode=True, decode=True):
+    """flash_attention launches of one forward: the encoder launches once
+    a block (self-attention), the decoder twice a block (causal
+    self-attention and cross-attention).  A decode step launches the
+    cross-attention alone, ``cfg.n_layers`` (its self-attention is the
+    plain ring-cache product).  Every whisper-base launch is bf16 at
+    head_dim 64, on the tensor cores."""
+    return (cfg.enc_layers if encode else 0) + (2 * cfg.n_layers if decode
+                                                 else 0)
+
+
+def whisper_round(torch, rounds=ROUNDS, profile=False):
+    """Phase 21: ``build_train_step`` for whisper-base whole (6 encoder
+    blocks on each client, 6 decoder blocks on the server), cohort 2,
+    batch 2 a client, 1500 frames and 448 text positions, bf16, random
+    init on the card, ``rounds`` CycleSL rounds with the launch counters
+    reset before and read after.
+
+    Expected launches per round: the encoder runs C times in the extract
+    and C times in the client VJPs (6 flash_attention each); the decoder
+    once in each of the steps = C * b / server batch server steps and C
+    times in the feature gradients (12 each: self and cross a block);
+    feature_resample gathers the encoder states, the tokens and the
+    labels once a server step (3 a step); fused_adam steps every server
+    leaf once a server step and every stacked client leaf once."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.core.cyclesl import CycleConfig
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.utils.tree import tree_leaves
+    cfg = get_config("whisper-base")
+    C, b = COHORT, BATCH
+    shape = InputShape("whisper round", WHISPER_TEXT, C * b, "train")
+    cycle = CycleConfig(server_epochs=1, server_batch=b)
+    bundle = build_train_step(cfg, shape, cycle, cohort=C, device="cuda")
+    free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    server, clients = bundle.init_state(0)
+    n_server = sum(t.numel() for t in tree_leaves(server.params))
+    n_client = sum(t.numel() for t in tree_leaves(clients.params)) // C
+    steps = C * b // cycle.server_batch
+    enc = whisper_forward_launches(cfg, decode=False)
+    dec = whisper_forward_launches(cfg, encode=False)
+    per_round = 2 * C * enc + (steps + C) * dec
+    expect = {"flash_attention": per_round * rounds,
+              "flash_attention/wgmma": per_round * rounds,
+              "flash_attention/simt": 0,
+              "feature_resample": 3 * steps * rounds, "gather_loss": 0,
+              "topk_gating": 0, "ssd_scan": 0,
+              "fused_adam": (len(tree_leaves(server.params)) * steps
+                             + len(tree_leaves(clients.params))) * rounds}
+    batches = [bundle.make_batch(r) for r in range(rounds)]
+    torch.cuda.synchronize()
+    reset_counters()
+    stamps, metrics = [time.perf_counter()], []
+    for r in range(rounds):
+        server, clients, m = bundle.fn(server, clients, *batches[r], r)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    rps = (rounds - 1) / (stamps[-1] - stamps[1])
+    tokens = C * b * WHISPER_TEXT
+    print(f"whisper round: {cfg.name} enc {cfg.enc_layers} + dec "
+          f"{cfg.n_layers} blocks d={cfg.d_model}, params {n_client:,} a "
+          f"client, {n_server:,} the server; C={C} b={b} frames "
+          f"{WHISPER_FRAMES} text {WHISPER_TEXT} {cfg.dtype}")
+    for r, m in enumerate(metrics):
+        print(f"whisper round {r + 1}: {stamps[r + 1] - stamps[r]:.3f}s "
+              + " ".join(f"{k}={v:.6g}" for k, v in m.items()))
+    print(f"whisper round: rounds 2..{rounds} at {rps:.3f} rounds/s, "
+          f"{rps * tokens:.1f} text tokens/s ({rps * C * b * WHISPER_FRAMES:.1f}"
+          f" frames/s); peak memory {peak / 1e9:.2f} GB; launches {launches} "
+          f"(expected {expect}; a round: encoder {enc} x {2 * C}, decoder "
+          f"{dec} x {steps + C})")
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        raise AssertionError(f"whisper round: non-finite metrics {metrics}")
+    for k, n in expect.items():
+        if launches[k] != n:
+            raise AssertionError(f"whisper round: {k} launched {launches[k]} "
+                                 f"times, expected {n}")
+    prof = None
+    if profile:                 # one more round, after the counted ones
+        prof = device_profile(torch, "whisper round", lambda: bundle.fn(
+            server, clients, *batches[0], 0))
+    del server, clients, batches
+    free(torch)
+    return {"profile": prof, "config": {
+                "arch": cfg.name, "cohort": C, "batch": b, "frames":
+                WHISPER_FRAMES, "text": WHISPER_TEXT, "server_steps": steps,
+                "dtype": cfg.dtype},
+            "params_client": n_client, "params_server": n_server,
+            "round_s": [b - a for a, b in zip(stamps, stamps[1:])],
+            "rounds_per_s": rps, "tokens_per_s": rps * tokens,
+            "peak_bytes": peak, "metrics": metrics, "launches": launches,
+            "expected_launches": expect}
+
+
+def whisper_prefill(torch):
+    """Phase 21: ``build_prefill_step`` for whisper-base, batch 2, 1500
+    frames, 448 tokens: one encode and one decoder forward (18
+    flash_attention launches)."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.steps import build_prefill_step
+    cfg = get_config("whisper-base")
+    bundle = build_prefill_step(cfg, InputShape("whisper prefill",
+                                                WHISPER_TEXT, BATCH,
+                                                "prefill"), device="cuda")
+    (params,), (batch,) = bundle.init_state(0), bundle.make_batch(0)
+    bundle.fn(params, batch)                       # warm
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    logits = bundle.fn(params, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counters()
+    want = whisper_forward_launches(cfg)
+    ok = bool(torch.isfinite(logits.float()).all())
+    print(f"whisper prefill: B={BATCH} frames {WHISPER_FRAMES} text "
+          f"{WHISPER_TEXT}: last-token logits {list(logits.shape)} "
+          f"finite={ok} in {ms:.2f} ms; launches {launches} (expected "
+          f"flash_attention {want}, all wgmma)")
+    if not ok or tuple(logits.shape) != (BATCH, cfg.vocab):
+        raise AssertionError("whisper prefill: logits not finite or of the "
+                             "wrong shape")
+    if (launches["flash_attention"], launches["flash_attention/wgmma"]) != (
+            want, want):
+        raise AssertionError(f"whisper prefill: flash_attention launched "
+                             f"{launches['flash_attention']}, expected {want}")
+    del params, batch
+    free(torch)
+    return {"ms": ms, "launches": launches}
+
+
+def whisper_decode(torch):
+    """Phase 21: ``build_decode_step`` for whisper-base at batch 8 over a
+    context of 448 and 1500 encoded frames: ``steps`` greedy steps timed
+    between CUDA events on the device timeline, each launching the
+    cross-attention's flash_attention once a decoder block (Sq = 1)."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.steps import build_decode_step
+    cfg = get_config("whisper-base")
+    B, n = WHISPER_DECODE["batch"], WHISPER_DECODE["steps"]
+    bundle = build_decode_step(cfg, InputShape("whisper decode", WHISPER_TEXT,
+                                               B, "decode"), device="cuda")
+    params, state = bundle.init_state(0)
+    (tok,) = bundle.make_batch(0)
+    lg, _ = bundle.fn(params, tok, state)          # warm
+    torch.cuda.synchronize()
+    reset_counters()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        lg, state = bundle.fn(params, tok, state)
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / n
+    launches = read_counters()
+    want = cfg.n_layers * n
+    ok = bool(torch.isfinite(lg).all()) and int(state["pos"]) == n
+    print(f"whisper decode: B={B} context {WHISPER_TEXT} frames "
+          f"{WHISPER_FRAMES}: {n} steps at {ms:.3f} ms a token "
+          f"({B * 1e3 / ms:.1f} tokens/s); finite={ok}; launches {launches} "
+          f"(expected flash_attention {want}, all wgmma)")
+    if not ok:
+        raise AssertionError("whisper decode: non-finite logits or a wrong "
+                             "position")
+    if (launches["flash_attention"], launches["flash_attention/wgmma"]) != (
+            want, want):
+        raise AssertionError(f"whisper decode: flash_attention launched "
+                             f"{launches['flash_attention']}, expected {want}")
+    del params, state
+    free(torch)
+    return {"ms_per_token": ms, "launches": launches, **WHISPER_DECODE}
+
+
+def whisper_serve(torch, dev="cuda"):
+    """Phase 21: ``launch.serve.serve_whisper`` for whisper-base whole
+    (batch 4, 32 greedy steps over 60 encoded frames, random init):
+    6 flash_attention launches to encode, then 6 a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_whisper
+    cfg = get_config("whisper-base")
+    b, n = WHISPER_SERVE["batch"], WHISPER_SERVE["steps"]
+    free(torch)
+    reset_counters()
+    t0 = time.perf_counter()
+    res = serve_whisper(cfg, b, n, device=dev)
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    want = cfg.enc_layers + n * cfg.n_layers
+    toks = res["tokens"]
+    ms = res["decode_s_per_token"] * 1e3
+    print(f"serve whisper: batch {b}, {n} steps at {ms:.3f} ms a token "
+          f"({b * 1e3 / ms:.1f} tokens/s), {wall:.2f}s with init; launches "
+          f"{launches} (expected flash_attention {want})")
+    if tuple(toks.shape) != (b, n) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab)).all()):
+        raise AssertionError(f"serve whisper: tokens {tuple(toks.shape)} out "
+                             f"of shape or vocab")
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"serve whisper: flash_attention launched "
+                             f"{launches['flash_attention']}, expected {want}")
+    return {"decode_ms": ms, "wall_s": wall, "launches": launches,
+            **WHISPER_SERVE}
+
+
+def whisper_teacher_forcing(torch, B=2, S=16, dev="cuda"):
+    """Phase 22, card against card at full width: the logits of ``S``
+    ``EncDec.decode_step`` calls against ``EncDec.forward``'s on the same
+    tokens and 1500 frames (bf16, random init), within phase 17's
+    yardstick: 3x the rms of the bf16 forward against a float32 forward
+    on the same weights (TF32 off).  The decode's self-attention is the
+    plain ring-cache product and its cross-attention the kernel at Sq =
+    1; a wrong ring slot, position or encoder state moves the logits by
+    their own size."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.encdec import EncDec
+    from repro_torch.utils.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("whisper-base")
+    free(torch)
+    params = EncDec.init(torch.Generator(device=dev).manual_seed(0), cfg)
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(B, S),
+                                         dtype=np.int32)).to(dev)
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, WHISPER_FRAMES, cfg.enc_d_model)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        reset_counters()
+        fwd = EncDec.forward(params, cfg, frames.to(cfg.torch_dtype), toks)
+        torch.cuda.synchronize()
+        launches = read_counters()
+        p32 = tree_map(lambda t: t.float(), params)
+        fwd32 = EncDec.forward(p32, cfg.with_(dtype="float32"), frames, toks)
+        del p32
+        state = EncDec.init_decode_state(params, cfg,
+                                         frames.to(cfg.torch_dtype), S)
+        outs = []
+        for t in range(S):
+            lg, state = EncDec.decode_step(params, cfg, toks[:, t:t + 1],
+                                           state)
+            outs.append(lg[:, 0])
+        dec = torch.stack(outs, 1)
+    rms = lambda x: float(x.double().square().mean().sqrt())
+    err, noise, scale = rms(dec - fwd), rms(fwd - fwd32), rms(fwd)
+    top1 = float((dec.argmax(-1) == fwd.argmax(-1)).double().mean())
+    want = whisper_forward_launches(cfg)
+    print(f"teacher forcing whisper-base (full width, bf16, B={B} S={S}, "
+          f"{WHISPER_FRAMES} frames): rms |decode - forward| {err:.4e}, bf16 "
+          f"yardstick rms |forward - f32 forward| {noise:.4e} (tol 3x: "
+          f"{3 * noise:.4e}), logits rms {scale:.4e}, max abs diff "
+          f"{float((dec - fwd).abs().max()):.4e}; argmax agreement "
+          f"{top1:.4f}; forward launches {launches} (expected "
+          f"flash_attention {want})")
+    if launches["flash_attention/wgmma"] != want:
+        raise AssertionError(f"teacher forcing whisper: flash_attention "
+                             f"launched {launches}, expected {want}")
+    if not (math.isfinite(err) and err <= 3 * noise):
+        raise AssertionError(f"teacher forcing whisper: decode and forward "
+                             f"disagree ({err} > 3 x {noise})")
+    del params, state
+    free(torch)
+    return {"rms_err": err, "rms_bf16_noise": noise, "rms_logits": scale,
+            "argmax_agreement": top1, "launches": launches}
+
+
+def whisper(torch, profile=False):
+    """Phases 21-22: the whisper round, prefill, decode and serve on the
+    card, then the round card against CPU at the smoke config (phase 9's
+    tolerances) and teacher forcing at full width."""
+    out = {"round": whisper_round(torch, profile=profile),
+           "prefill": whisper_prefill(torch), "decode": whisper_decode(torch),
+           "serve": whisper_serve(torch)}
+    parity = transformer_card_against_cpu(torch, (("whisper-base", 2),))
+    parity["teacher_forcing"] = whisper_teacher_forcing(torch)
+    return out, parity
+
+
+# phase 23: the pipelined rounds on the main path
+PIPE_MODES = {"seq": {}, "sync1": dict(pipeline_depth=1),
+              "async1": dict(pipeline_depth=1, pipeline_staleness="async"),
+              "async2": dict(pipeline_depth=2, pipeline_staleness="async")}
+
+
+def pipelined(torch, dev="cuda", rounds=PHASE18_ROUNDS):
+    """Phase 23: the main path (cyclesfl, femnist width 32, cohort 5,
+    ``rounds`` rounds, ``collect_timing``) sequential and pipelined.
+    Timed in turns inside this phase (seq, sync1, async1, async1, sync1,
+    seq; the host clock varies between calls): rounds/s by the Engine's
+    round_time_s.  Sync at depth 1 equals the sequential run bit for
+    bit.  Async at depths 1 and 2 with its extracts on the side stream
+    equals the same schedule on one stream bit for bit, and its maximum
+    realized lag is the depth.  A sync pipelined run stopped after 4
+    rounds and resumed equals the unbroken one bit for bit; an async one
+    re-primes its ring (lags restart at 0) within the bound.  A NaN-
+    faulted async run (nan_retry) and a sync one (nan_quarantine) hold
+    exactly their stream's faults, every one recovered, with
+    feature_resample and fused_adam at their per-round count times the
+    tails that ran (the femnist extract launches no kernel)."""
+    import shutil
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.utils.tree import tree_leaves
+    per_round = {"feature_resample": 2 * 5, "fused_adam": 2 * 5 + 4}
+    base = dict(rounds=rounds, eval_every=rounds, cut=2, collect_timing=True,
+                **MAIN)
+    runs = {}
+    for name in ("seq", "sync1", "async1", "async1", "sync1", "seq"):
+        runs.setdefault(name, []).append(run_engine(
+            torch, ExperimentConfig(**base, **PIPE_MODES[name]), dev))
+    for depth in (1, 2):
+        for side in (True, False):
+            runs.setdefault(f"async{depth}/{'side' if side else 'one'}",
+                            []).append(run_engine(
+                torch, ExperimentConfig(**base,
+                                        **PIPE_MODES[f"async{depth}"]),
+                dev, side_stream=side))
+    out = {"round_time_s": {k: [r["res"]["round_time_s"] for r in runs[k]]
+                            for k in ("seq", "sync1", "async1")}}
+    rps = {k: [1.0 / t for t in v] for k, v in out["round_time_s"].items()}
+    lags = {k: runs[f"{k}/side"][0]["res"]["pipeline"]["realized_lags"]
+            for k in ("async1", "async2")}
+    checks = {}
+
+    def same(a, b):
+        return (state_diff(torch, a["state"], b["state"]) == 0.0
+                and a["rows"] == b["rows"])
+    seq_spread = state_diff(torch, runs["seq"][0]["state"],
+                            runs["seq"][1]["state"])
+    checks["sync1 == seq"] = all(same(r, runs["seq"][0])
+                                 for r in runs["sync1"])
+    for depth in (1, 2):
+        side, one = runs[f"async{depth}/side"][0], runs[f"async{depth}/one"][0]
+        pipe = side["res"]["pipeline"]
+        checks[f"async{depth} side == one stream"] = same(side, one)
+        checks[f"async{depth} on the side stream"] = (
+            pipe["side_stream"] and not one["res"]["pipeline"]["side_stream"])
+        checks[f"async{depth} max lag == {depth}"] = (
+            pipe["max_theta_s_lag_rounds"] == depth
+            == side["res"]["telemetry"]["max_realized_lag"])
+    for name, rs in runs.items():
+        for r in rs:
+            checks.setdefault("launches", True)
+            checks["launches"] &= all(
+                r["launches"][k] == n * rounds for k, n in per_round.items())
+    print(f"pipeline: rounds/s in turns seq {rps['seq']}, sync1 "
+          f"{rps['sync1']}, async1 (side stream) {rps['async1']}; the two "
+          f"sequential runs bit-equal {seq_spread == 0.0}; realized lags "
+          f"async1 {lags['async1']}, async2 {lags['async2']}")
+    # resume: sync bit-equal to the unbroken run, async re-primed
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    ck = lambda name: os.path.join(CKPT_ROOT, name)
+    for mode in ("sync1", "async1"):
+        kw = dict(base, eval_every=2, **PIPE_MODES[mode])
+        full = run_engine(torch, ExperimentConfig(ckpt_dir=ck(mode + "u"),
+                                                  **kw), dev)
+        run_engine(torch, ExperimentConfig(**{**kw, "rounds": 4,
+                                              "ckpt_dir": ck(mode)}), dev)
+        res = run_engine(torch, ExperimentConfig(ckpt_dir=ck(mode),
+                                                 resume=True, **kw), dev)
+        lags = res["res"]["pipeline"]["realized_lags"]
+        hist = strip_elapsed(res["res"]["history"])
+        want = [h for h in strip_elapsed(full["res"]["history"])
+                if h["round"] > 4]
+        if mode == "sync1":
+            ok = (res["res"].get("resumed_from_round") == 4
+                  and state_diff(torch, res["state"], full["state"]) == 0.0
+                  and hist == want)
+        else:
+            ok = (res["res"].get("resumed_from_round") == 4
+                  and lags[:2] == [0, 1] and max(lags) <= 1)
+        checks[f"{mode} resume"] = ok
+        print(f"pipeline {mode} resume: resumed from "
+              f"{res['res'].get('resumed_from_round')}, realized lags {lags}, "
+              f"max |state diff| to unbroken "
+              f"{state_diff(torch, res['state'], full['state']):.3e}; "
+              f"held {ok}")
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    # faults: each of the stream's faults recovered
+    cfgs = resilience_configs()
+    for name, mode in (("nan_retry", "async1"), ("nan_quarantine", "sync1")):
+        run = run_engine(torch, ExperimentConfig(
+            resilience=cfgs[name], **base, **PIPE_MODES[mode]), dev)
+        tel = run["res"]["resilience"]
+        want = expected_faults(cfgs[name], 0, rounds, 5)
+        acted = (tel["retries"] if name == "nan_retry"
+                 else tel["quarantine_events"])
+        tails = rounds + want["extra_dispatches"]
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in tree_leaves(run["state"])
+                     if t.is_floating_point())
+        ok = ({"faulted_rounds": tel["faulted_rounds"],
+               "faults": tel["faults"]}
+              == {k: want[k] for k in ("faulted_rounds", "faults")}
+              and acted == sum(want["faults"].values()) and finite
+              and want["faulted_rounds"] > 0
+              and all(run["launches"][k] == n * tails
+                      for k, n in per_round.items())
+              and run["res"]["pipeline"]["max_theta_s_lag_rounds"] <= 1)
+        checks[f"{mode} {name}"] = ok
+        print(f"pipeline {mode} {name}: faulted rounds "
+              f"{tel['faulted_rounds']}, faults {tel['faults']} (the stream "
+              f"fires {want['faulted_rounds']} rounds, {want['faults']}); "
+              f"retries {tel['retries']}, quarantines "
+              f"{tel['quarantine_events']}; realized lags "
+              f"{run['res']['pipeline']['realized_lags']}; launches "
+              f"{ {k: run['launches'][k] for k in per_round} } for {tails} "
+              f"tails; state finite {finite}; held {ok}")
+        out[f"{mode}/{name}"] = {k: v for k, v in tel.items()
+                                 if k != "per_round"}
+    print(f"pipeline checks: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(
+            f"pipeline: {[k for k, v in checks.items() if not v]}")
+    out.update(rounds_per_s=rps, checks=checks, realized_lags=lags)
     return out
 
 
@@ -2364,7 +2859,7 @@ def fault_path_profiles(torch, dev="cuda"):
     spec = PopulationSpec(n_clients=POPULATION["n_clients"])
     kw = dict(cohort=POPULATION["cohort"], rounds=1, batch=POPULATION["batch"],
               width=POPULATION["width"], device=dev)
-    run = lambda: run_population(spec, population_scenarios()["no_churn"],
+    run = lambda: run_population(spec, population_scenarios()["no_churn"][0],
                                  **kw)
     run()
     n, busy_p, wall = kernel_profile(torch, run, dev)
@@ -2499,7 +2994,19 @@ def main(argv=None):
     fault_paths["population"] = population(torch)
     t21 = time.perf_counter()
     fault_paths["profiles"] = fault_path_profiles(torch)
-    phase_s.update({"18": t19 - t18, "19": t20 - t19, "20": t21 - t20})
+    t21b = time.perf_counter()
+
+    # 21-22. whisper-base whole: round, prefill, decode, serve; card
+    # against CPU and teacher forcing
+    whisper_runs, whisper_parity = whisper(torch, profile=args.profile)
+    parity.update({f"whisper/{k}": v for k, v in whisper_parity.items()})
+    t22 = time.perf_counter()
+
+    # 23. the pipelined rounds on the main path
+    fault_paths["pipeline"] = pipelined(torch)
+    t23 = time.perf_counter()
+    phase_s.update({"18": t19 - t18, "19": t20 - t19, "20": t21 - t20,
+                    "21-22": t22 - t21b, "23": t23 - t22})
     print("phases took " + ", ".join(f"{k}: {v:.1f}s"
                                      for k, v in phase_s.items()))
 
@@ -2532,7 +3039,8 @@ def main(argv=None):
                        "profile": profiles, "card_vs_cpu": parity,
                        "launch_floor": floor, "zoo": zoo_runs,
                        "workloads": workload_runs, "serving": serving,
-                       "fault_paths": fault_paths, "phase_s": phase_s}, f,
+                       "fault_paths": fault_paths, "whisper": whisper_runs,
+                       "phase_s": phase_s}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

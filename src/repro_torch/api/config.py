@@ -2,10 +2,9 @@
 
 ``ExperimentConfig.from_dict`` accepts the JAX package's ``to_dict()``
 output unchanged, so one dict drives both packages.  Every field the
-JAX package has is kept with its default; the mesh and pipeline knobs,
-whose features the port does not have yet, must keep theirs, or
-``validate`` raises ``NotImplementedError`` naming the ROADMAP item that
-ports them.  ``scenario`` and ``resilience`` are the port's
+JAX package has is kept with its default; the mesh knobs, whose
+feature the port does not have yet, must keep theirs, or ``validate``
+raises ``NotImplementedError`` naming the ROADMAP item that ports them.  ``scenario`` and ``resilience`` are the port's
 ``ScenarioConfig`` and ``ResilienceConfig`` (their dict forms load too);
 ``serve`` is the port's ``ServeConfig``, which
 ``repro_torch.launch.serve --continuous`` reads.
@@ -25,9 +24,7 @@ from repro_torch.serve.config import ServeConfig
 
 # knobs whose features are not ported yet, each with the ROADMAP item
 # (queue 1) that ports it
-NOT_PORTED = {"mesh_shape": 9, "mesh_axes": 9, "shard_cohort": 9,
-              "pipeline_depth": 6, "pipeline_staleness": 6,
-              "staleness_weighting": 6, "staleness_lambda": 6}
+NOT_PORTED = {"mesh_shape": 9, "mesh_axes": 9, "shard_cohort": 9}
 
 
 @dataclass(frozen=True)
@@ -70,8 +67,21 @@ class ExperimentConfig:
     mesh_shape: Optional[tuple] = None
     mesh_axes: tuple = ("data", "model")
     shard_cohort: bool = True
+    # ---- pipelined rounds ----
+    # 0 = sequential rounds; L >= 1 keeps a ring of in-flight extracted
+    # cohorts: the extract of cohort k + L (async) or k + 1 (sync) runs
+    # around the tail of cohort k
     pipeline_depth: int = 0
+    # 'sync'  extract(k + 1) reads the post-Commit state of round k: the
+    #         sequential run, bit for bit, at any depth;
+    # 'async' extract(k + L) reads the pre-tail state of round k, so the
+    #         client params and the θ_S^t snapshot are stale by at most
+    #         L rounds; on the card it runs on a side stream beside the
+    #         tail of round k
     pipeline_staleness: str = "sync"
+    # scale a stale cohort's server and feature gradients by its
+    # realized lag: 'none', 'inverse' 1 / (1 + lag), 'exp'
+    # exp(-staleness_lambda * lag)
     staleness_weighting: str = "none"
     staleness_lambda: float = 0.5
     # client-population scenario; kind='none' builds no stream and the
@@ -137,6 +147,21 @@ class ExperimentConfig:
         if self.sync_every < 1:
             raise ValueError(f"sync_every={self.sync_every}: the host "
                              "must sync at least every round (>= 1)")
+        if self.pipeline_depth < 0:
+            raise ValueError(
+                f"pipeline_depth={self.pipeline_depth}: expected 0 "
+                "(sequential) or a positive staleness window L")
+        if self.pipeline_staleness not in ("sync", "async"):
+            raise ValueError(
+                f"pipeline_staleness={self.pipeline_staleness!r}: expected "
+                "'sync' or 'async'")
+        if self.staleness_weighting not in ("none", "inverse", "exp"):
+            raise ValueError(
+                f"staleness_weighting={self.staleness_weighting!r}: "
+                "expected 'none', 'inverse' or 'exp'")
+        if self.staleness_lambda < 0:
+            raise ValueError(
+                f"staleness_lambda={self.staleness_lambda} must be >= 0")
         self.scenario.validate()
         if self.scenario.churns and not self.pad_cohorts:
             # churn zeroes slots in the attendance mask; without padded
@@ -189,6 +214,21 @@ class ExperimentConfig:
                         help="disable fixed-shape padded cohorts")
         ap.add_argument("--variable-attendance", action="store_true",
                         help="Binomial(N, attendance) cohort sizes per round")
+        ap.add_argument("--pipeline-depth", type=int, default=0,
+                        help="L >= 1 keeps an L-deep ring of in-flight "
+                             "cohort extractions (0 = sequential)")
+        ap.add_argument("--pipeline-staleness", default="sync",
+                        choices=("sync", "async"),
+                        help="sync = barrier mode (bit for bit the "
+                             "sequential Engine); async = bounded-stale "
+                             "extraction (lag <= depth) beside the tail")
+        ap.add_argument("--staleness-weighting", default="none",
+                        choices=("none", "inverse", "exp"),
+                        help="scale stale cohorts' server/feature "
+                             "gradients by realized lag: 1/(1+lag) or "
+                             "exp(-lambda*lag)")
+        ap.add_argument("--staleness-lambda", type=float, default=0.5,
+                        help="decay rate for --staleness-weighting exp")
         ScenarioConfig.add_arguments(ap)
         ResilienceConfig.add_arguments(ap)
         ServeConfig.add_arguments(ap)
@@ -206,6 +246,10 @@ class ExperimentConfig:
             sync_every=args.sync_every,
             pad_cohorts=not args.no_pad_cohorts,
             variable_attendance=args.variable_attendance,
+            pipeline_depth=args.pipeline_depth,
+            pipeline_staleness=args.pipeline_staleness,
+            staleness_weighting=args.staleness_weighting,
+            staleness_lambda=args.staleness_lambda,
             scenario=ScenarioConfig.from_flags(args),
             resilience=ResilienceConfig.from_flags(args),
             serve=ServeConfig.from_flags(args),

@@ -1,11 +1,14 @@
 """The driver loop: sample cohorts, run rounds, evaluate, checkpoint.
 
-Port of the single-device, sequential path of ``repro/api/engine.py``:
-its timing windows (``collect_timing``, ``sync_every``), crash-safe
-checkpoints and resume (``ckpt_dir``, ``resume``), the client-population
-scenario (``scenario``) and the fault-tolerant runtime (``resilience``).
-No mesh or pipeline branches (their config fields must keep their
-defaults).
+Port of the single-device path of ``repro/api/engine.py``: its timing
+windows (``collect_timing``, ``sync_every``), crash-safe checkpoints and
+resume (``ckpt_dir``, ``resume``), the client-population scenario
+(``scenario``), the fault-tolerant runtime (``resilience``) and the
+pipelined rounds (``pipeline_depth``, ``pipeline_staleness``): a ring
+of in-flight extracted cohorts, whose async extracts run on a side CUDA
+stream beside the tail of the round before (the stand-in for JAX's
+asynchronous dispatch).  No mesh branches (its config fields must keep
+their defaults).
 
     eng = Engine(ExperimentConfig(algo="cyclesfl", rounds=100))
     result = eng.run()           # {"history": [...], "grad_stability": ...}
@@ -31,13 +34,16 @@ import numpy as np
 import torch
 
 from repro_torch.api.config import ExperimentConfig
-from repro_torch.api.phases import SLAlgorithm, TrainState, build_algorithm
+from repro_torch.api.phases import (PipelinedAlgorithm, SLAlgorithm,
+                                    TrainState, build_algorithm,
+                                    build_pipelined_algorithm)
 from repro_torch.api.registry import get_program
 from repro_torch.api.tasks import build_task
 from repro_torch.checkpoint import (latest_step, load_checkpoint,
                                     load_metadata, save_checkpoint)
 from repro_torch.core.cyclesl import PlanFn
 from repro_torch.core.drift import GradStabilityTracker
+from repro_torch.core.feature_store import StaleFeatureRing
 from repro_torch.core.split import SplitTask
 from repro_torch.data.federated import FederatedDataset, sample_cohort
 from repro_torch.optim import adam
@@ -48,7 +54,7 @@ from repro_torch.resilience import (HEALTH_EMA, HEALTH_NONFINITE,
                                     build_fault_stream)
 from repro_torch.scenario.profiles import build_profile_stream
 from repro_torch.utils.device import resolve_device  # noqa: F401
-from repro_torch.utils.tree import tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 
 def evaluate(task, state, fed, batch: int = 256, max_batches: int = 8,
@@ -132,7 +138,9 @@ class Engine:
 
     ``plan_fn`` replaces the server's resample plan (see
     ``repro_torch.core.cyclesl.PlanFn``); its ``key`` is
-    :meth:`round_key` of the round.
+    :meth:`round_key` of the round.  ``side_stream`` (async pipelining
+    on the card only) runs each prefetched extract on a second CUDA
+    stream; False keeps the whole schedule on one stream.
     """
 
     def __init__(self, cfg: ExperimentConfig, *, device=None,
@@ -141,6 +149,7 @@ class Engine:
                  metric_key: Optional[str] = None,
                  callbacks: Sequence = (),
                  plan_fn: Optional[PlanFn] = None,
+                 side_stream: bool = True,
                  log=print):
         self.device = resolve_device(device)
         cfg.validate()
@@ -175,10 +184,16 @@ class Engine:
         # that round (from the persisted event history) instead of the
         # final restored set; see restore()
         self._ledger_cutoff = 0
+        self._ledger_offset = 0
         self._sample_clock = 0            # rounds drawn so far (scenario
                                           # streams fold this in, resume
                                           # fast-forwards it)
         self._telemetry: list[dict] = []  # one row per sampled round
+        # the θ staleness the schedule can realize: async pipelining at
+        # depth L carries snapshots up to L rounds old; everything else
+        # delivers fresh params
+        self._sched_lag = (cfg.pipeline_depth
+                           if cfg.pipeline_staleness == "async" else 0)
         program = get_program(cfg.algo)
         churns = self.scenario is not None and self.scenario.churns
         if (cfg.pad_cohorts and (cfg.variable_attendance or churns)
@@ -198,10 +213,38 @@ class Engine:
                     "which would leave the server inner loop with zero "
                     "valid steps in sparse rounds; lower cycle.server_batch "
                     "or raise min_cohort")
+        opt_s, opt_c = adam(cfg.lr_server), adam(cfg.lr_client)
         self.algo: SLAlgorithm = build_algorithm(
-            program, task, adam(cfg.lr_server),
-            adam(cfg.lr_client), cfg.cycle, plan_fn=plan_fn,
+            program, task, opt_s, opt_c, cfg.cycle, plan_fn=plan_fn,
             device=self.device, resilience=cfg.resilience)
+        # ---- pipelined rounds: the (extract, tail) pair, so cohort k+1's
+        # feature extraction can be in flight while cohort k's server
+        # phase runs.  None for the fused sequential programs (nothing to
+        # overlap): the run loop then runs whole rounds.
+        self.pipeline: Optional[PipelinedAlgorithm] = None
+        self.pipeline_stats: dict = {}
+        if cfg.pipeline_depth > 0:
+            self.pipeline = build_pipelined_algorithm(
+                program, task, opt_s, opt_c, cfg.cycle, plan_fn=plan_fn,
+                device=self.device, resilience=cfg.resilience,
+                staleness_weighting=cfg.staleness_weighting,
+                staleness_lambda=cfg.staleness_lambda)
+        if self.pipeline is None:
+            # whole rounds deliver fresh params whatever depth says
+            self._sched_lag = 0
+        self._side = (torch.cuda.Stream(self.device)
+                      if side_stream and self._sched_lag
+                      and self.device.type == "cuda" else None)
+
+    @property
+    def ring_depth(self) -> int:
+        """In-flight extract stages the run loop keeps: the staleness
+        window L in async mode, one stage in sync mode (at any depth: the
+        sync extract(k+1) waits for Commit(k), so a deeper ring could
+        never fill), 0 unpipelined."""
+        if self.pipeline is None:
+            return 0
+        return self._sched_lag if self._sched_lag else 1
 
     # ------------------------------------------------------------ state
     def init_state(self) -> TrainState:
@@ -254,9 +297,11 @@ class Engine:
             if rnd < self._ledger_cutoff:
                 # resume replay: this draw happened BEFORE some of the
                 # restored ledger's events; weight it with the set as of
-                # its original draw time
+                # its original draw time (pipelined runs draw ring_depth
+                # rounds ahead of recovery, hence the offset)
                 saved = ctl.quarantined
-                ctl.quarantined = ctl.quarantined_as_of(rnd)
+                ctl.quarantined = ctl.quarantined_as_of(
+                    rnd - self._ledger_offset)
                 weights = ctl.sampling_weights(weights)
                 ctl.quarantined = saved
             else:
@@ -377,10 +422,12 @@ class Engine:
                     self._ema = torch.tensor(meta["ema"],
                                              dtype=torch.float32,
                                              device=self.device)
-            # the sequential loop draws each round's cohort after the
-            # recovery of the rounds before it (the JAX package's
-            # pipelined runs draw ring_depth rounds ahead; not ported)
-            self._ledger_cutoff = step
+            # pipelined runs draw round r's cohort ring_depth loop
+            # iterations early (before the recovery of rounds r-L..r-1),
+            # so their draws trail the ledger by ring_depth rounds,
+            # including the priming draws for rounds step..step+L-1
+            self._ledger_offset = self.ring_depth
+            self._ledger_cutoff = step + self._ledger_offset
         self._replay_sampling(rng, step)
         self.log(f"[{self.algo.name}] resumed from {cfg.ckpt_dir} at "
                  f"round {step}")
@@ -404,6 +451,50 @@ class Engine:
             self.faults.corrupt_checkpoint(cfg.ckpt_dir, step)
             self._ckpt_corruptions += 1
             self.log(f"[resilience] injected torn checkpoint at step {step}")
+
+    # --------------------------------------------------------- pipeline
+    def _extract(self, state, inputs):
+        """The ExtractFeatures head for one cohort, on the current
+        stream."""
+        cohort, xs, ys, mask = inputs
+        return self.pipeline.extract(state, cohort, xs, ys, mask)
+
+    def _prefetch(self, state, inputs):
+        """``(stage, ready)``: the extract of a prefetched cohort.  In
+        async mode on the card it runs on the side stream, after the work
+        queued so far (the pre-tail state and the cohort's copies) and
+        beside the tail that follows; ``ready`` is the event the tail of
+        its own round waits on.  The side stream's reads are recorded on
+        the state's and inputs' memory, and the consumer's stream on the
+        stage's, so the caching allocator hands neither to other work
+        while the other stream may still use it.  Otherwise ``(stage,
+        None)`` on the current stream."""
+        if self._side is None:
+            return self._extract(state, inputs), None
+        main = torch.cuda.current_stream(self.device)
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            stage = self._extract(state, inputs)
+            ready = torch.cuda.Event()
+            ready.record(self._side)
+        for t in tree_leaves((state, inputs)):
+            t.record_stream(self._side)
+        for t in tree_leaves(stage):
+            t.record_stream(main)
+        return stage, ready
+
+    def _tail(self, state, inputs, stage, key, lag: int = 0, ready=None):
+        """The ServerUpdate..Commit tail consuming ``stage`` (after its
+        extract's ``ready`` event, when it ran on the side stream)."""
+        if ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(ready)
+        cohort, xs, ys, mask = inputs
+        kw = {}
+        if self.cfg.staleness_weighting != "none":
+            kw["lag"] = lag
+        ema = self._ema if self.cfg.resilience.guard else None
+        return self.pipeline.tail(state, cohort, xs, ys, key, stage, mask,
+                                  ema, **kw)
 
     # ------------------------------------------------------- resilience
     def _round_call(self, state, inputs, key):
@@ -445,27 +536,45 @@ class Engine:
             return "spike"
         return None
 
-    def _recover_round(self, state, inputs, inj0, rnd: int):
+    def _recover_round(self, state, inputs, inj0, rnd: int, stage=None,
+                       pipelined: bool = False, lag: int = 0, ready=None):
         """Drive round ``rnd`` to an accepted ``(state, metrics)`` under
         the recovery policy.
 
         ``inputs`` are the CLEAN sampled round inputs; ``inj0`` the
         attempt-0 fault-injected view of them (the same objects when no
-        fault fired).  Returns ``(state, metrics, attempts, healthy)``;
-        raises :class:`ResilienceExhaustedError` past ``max_retries``.
+        fault fired).  ``stage`` is the already extracted stage of
+        ``inj0`` on the pipelined path (``ready`` its event); recovery
+        attempts extract again from the current candidate state, because
+        the pooled store bakes the attendance mask in at extract time.
+        Returns ``(state, metrics, attempts, healthy)``; raises
+        :class:`ResilienceExhaustedError` past ``max_retries``.
         """
         ctl, rcfg = self.recovery, self.cfg.resilience
         key = self.round_key(rnd)
-        cur_state, cur_inputs, cur_inj = state, inputs, inj0
+        cur_state, cur_inputs, cur_inj, cur_stage = state, inputs, inj0, stage
         kinds: list[str] = []
         actions: list[str] = []
         attempt = 0
         while True:
+            site = ("extract" if pipelined and cur_stage is None
+                    else ("tail" if pipelined else "round"))
             try:
                 if self.faults is not None:
-                    self.faults.check_dispatch(rnd, attempt, "round")
-                new_state, metrics = self._round_call(cur_state, cur_inj,
-                                                      key)
+                    self.faults.check_dispatch(rnd, attempt, site)
+                if pipelined:
+                    # a new extract reads the CURRENT candidate state, so
+                    # its realized lag (and staleness weight) resets to 0
+                    st, att_lag, att_ready = cur_stage, lag, ready
+                    if st is None:
+                        st, att_lag, att_ready = (
+                            self._extract(cur_state, cur_inj), 0, None)
+                    new_state, metrics = self._tail(cur_state, cur_inj, st,
+                                                    key, lag=att_lag,
+                                                    ready=att_ready)
+                else:
+                    new_state, metrics = self._round_call(cur_state,
+                                                          cur_inj, key)
                 kind = self._verdict(metrics)
             except FaultInjectedError as e:
                 self.log(f"[resilience] {e}")
@@ -519,6 +628,7 @@ class Engine:
                      f"(attempt {len(kinds)}/{rcfg.max_retries})")
             ctl.backoff(len(kinds))
             attempt += 1
+            cur_stage = None               # stale: mask or state may differ
             cur_inj = self._inject_nan(cur_inputs, rnd, attempt)
         healthy = kind is None
         ctl.record_round(rnd, len(kinds), kinds, actions,
@@ -555,23 +665,89 @@ class Engine:
         sync_k = 1 if cfg.resilience.guard else max(1, cfg.sync_every)
         round_time, timed_rounds = 0.0, 0
         t_tel = len(self._telemetry)     # rows this run appends start here
+        # ---- pipeline prime: sample the first ring_depth cohorts IN ROUND
+        # ORDER (the cohort stream stays the sequential one) and extract
+        # them from the initial state, consumed at lags 0..L-1.  On resume
+        # the restored state primes the ring, as the unbroken run's first
+        # rounds are primed from the initial state.
+        pipelined = self.pipeline is not None
+        ring_depth = self.ring_depth
+        ring = StaleFeatureRing(ring_depth) if pipelined else None
+        max_lag, cur_lag = 0, 0
+        if pipelined:
+            for i in range(min(ring_depth, cfg.rounds - start_round)):
+                p_inputs = self.sample_round(rng)
+                # attempt-0 fault injection comes BEFORE the priming
+                # extract, so a poisoned delivery flows into its features
+                p_inj = self._inject_nan(p_inputs, start_round + i, 0)
+                ring.push(start_round + i, start_round,
+                          self._extract(state, p_inj), p_inputs, p_inj)
         for rnd in range(start_round, cfg.rounds):
-            inputs = self.sample_round(rng)
-            t_round = time.perf_counter()
             healthy = True
-            if self.recovery is None:
-                state, metrics = self._round_call(state, inputs,
-                                                  self.round_key(rnd))
+            if pipelined:
+                # round k's stage leaves the ring before the k+L slot is
+                # pushed, so at most L stages are in flight and every
+                # consumed lag is <= L
+                entry = ring.pop(rnd)
+                inputs, inj_inputs = entry.inputs, entry.inj_inputs
+                cur_lag = rnd - entry.src_round
+                max_lag = max(max_lag, cur_lag)
+                nxt = (self.sample_round(rng)
+                       if rnd + ring_depth < cfg.rounds else None)
+                nxt_inj = (self._inject_nan(nxt, rnd + ring_depth, 0)
+                           if nxt is not None else None)
+                t_round = time.perf_counter()
+                if nxt is not None and cfg.pipeline_staleness == "async":
+                    # extract(k+L) from the PRE-tail state: it shares no
+                    # dependency with tail(k)'s outputs, so on the card it
+                    # runs on the side stream beside the tail.  Clients
+                    # and the θ_S^t snapshot are stale by exactly L rounds
+                    # once the ring is warm
+                    stage, ready = self._prefetch(state, nxt_inj)
+                    ring.push(rnd + ring_depth, rnd, stage, nxt, nxt_inj,
+                              ready)
+                if self.recovery is None:
+                    state, metrics = self._tail(
+                        state, inj_inputs, entry.stage, self.round_key(rnd),
+                        lag=cur_lag, ready=entry.ready)
+                else:
+                    state, metrics, attempts, healthy = self._recover_round(
+                        state, inputs, inj_inputs, rnd, stage=entry.stage,
+                        pipelined=True, lag=cur_lag, ready=entry.ready)
+                    if attempts and len(ring):
+                        # every in-flight prefetch read a pre-round state
+                        # that recovery discarded: extract the whole ring
+                        # again from the accepted state (the rewound
+                        # stages are fresh, their lags restart from 0)
+                        ring.rewind(lambda inj: self._extract(state, inj),
+                                    src_round=rnd + 1)
+                if nxt is not None and cfg.pipeline_staleness != "async":
+                    # sync barrier: extract(k+1) reads the post-Commit
+                    # state, the sequential schedule bit for bit
+                    ring.push(rnd + 1, rnd + 1, self._extract(state, nxt_inj),
+                              nxt, nxt_inj)
             else:
-                inj = self._inject_nan(inputs, rnd, 0)
-                state, metrics, _, healthy = self._recover_round(
-                    state, inputs, inj, rnd)
+                inputs = self.sample_round(rng)
+                t_round = time.perf_counter()
+                if self.recovery is None:
+                    state, metrics = self._round_call(state, inputs,
+                                                      self.round_key(rnd))
+                else:
+                    inj = self._inject_nan(inputs, rnd, 0)
+                    state, metrics, _, healthy = self._recover_round(
+                        state, inputs, inj, rnd)
             if self.recovery is not None and cfg.resilience.guard:
                 # thread the EMA carry forward and snapshot last-good
                 # states; both stay on the device (no extra host sync)
                 self._ema = metrics["health"][HEALTH_EMA]
                 if healthy:
                     self.recovery.note_accept(rnd, state, self._ema)
+            # telemetry rows are appended at sample time (for pipelined
+            # runs ring_depth rounds AHEAD of the tail); the θ staleness a
+            # round actually saw is known only here, once its tail ran
+            ti = t_tel + (rnd - start_round)
+            if ti < len(self._telemetry):
+                self._telemetry[ti]["realized_lag"] = cur_lag
             if cfg.collect_timing:
                 if sync_k == 1:
                     self.sync(metrics)
@@ -625,4 +801,17 @@ class Engine:
             result["resumed_from_round"] = start_round
         if cfg.collect_timing:
             result["round_time_s"] = round_time / max(1, timed_rounds)
+        if cfg.pipeline_depth > 0:
+            self.pipeline_stats = {
+                "active": pipelined if cfg.rounds > start_round else False,
+                "mode": cfg.pipeline_staleness,
+                "depth": cfg.pipeline_depth,
+                "ring_depth": ring_depth,
+                "side_stream": self._side is not None,
+                "staleness_weighting": cfg.staleness_weighting,
+                "max_theta_s_lag_rounds": max_lag if pipelined else 0,
+                "realized_lags": (list(ring.realized_lags)
+                                  if ring is not None else []),
+            }
+            result["pipeline"] = self.pipeline_stats
         return result

@@ -1,8 +1,8 @@
 """Declarative round programs: every SL algorithm as a composition of
 typed phases over one ``TrainState``.
 
-Port of ``repro/api/phases.py`` without the mesh and pipeline hooks.
-An algorithm is a :class:`RoundProgram`, an ordered
+Port of ``repro/api/phases.py`` without the mesh hooks.  An algorithm
+is a :class:`RoundProgram`, an ordered
 tuple of phases drawn from
 
     ExtractFeatures -> ServerUpdate -> FeatureGradients -> ClientUpdate
@@ -23,6 +23,12 @@ is a Python loop that carries the entities.  With
 ``ResilienceConfig.guard`` on, a trailing :class:`HealthGuard` phase
 folds the health verdict into the round's metrics; with it off the round
 runs the same ops as it always did.
+
+:func:`build_pipelined_algorithm` splits a program at its
+ExtractFeatures head into two calls, ``extract`` and ``tail``, whose
+composition is the round: the Engine's pipelined schedule runs the
+extract of cohort k + L before (async) or after (sync) the tail of
+cohort k.
 """
 from __future__ import annotations
 
@@ -97,8 +103,14 @@ class RoundVars:
     cohort_clients: Optional[EntityState] = None
     server_prev: Any = None           # θ_S^t params, pre-ServerUpdate
     feats: Any = None                 # [C, b, ...] smashed data
+    store: Any = None                 # pooled D_S^f of a pipelined extract
+                                      # (None = pool inline)
     fgrads: Any = None                # [C, b, ...] feature gradients
     ema: Any = None                   # loss-EMA carry (HealthGuard only)
+    stale_w: Any = None               # staleness weight w(lag), a scalar
+                                      # tensor (None = unweighted); it
+                                      # scales the server and feature
+                                      # gradients
     metrics: dict = field(default_factory=dict)
 
 
@@ -192,13 +204,19 @@ class ServerUpdate(Phase):
 
     def __call__(self, ctx, v):
         if self.mode == "cycle":
-            store = pool_store(v.feats, v.ys, mask=v.mask)
+            # a pipelined extract hands the finished pool over in v.store;
+            # both paths build it with the same pool_store
+            store = (v.store if v.store is not None
+                     else pool_store(v.feats, v.ys, mask=v.mask))
             server, sloss = server_inner_loop(
                 ctx.task, v.state.server, ctx.opt_server, store, v.key,
-                ctx.cycle, batch=v.ys.shape[1], plan_fn=ctx.plan_fn)
+                ctx.cycle, batch=v.ys.shape[1], plan_fn=ctx.plan_fn,
+                grad_scale=v.stale_w)
             v.metrics["server_loss"] = sloss
         elif self.mode == "replica_avg":
             losses, gs = _pair_server_losses_and_grads(ctx, v)
+            if v.stale_w is not None:
+                gs = tree_map(lambda g: g * v.stale_w, gs)
             # C replicas with a [C] step take one stacked step
             rep = entity_step(broadcast_entity(v.state.server, v.ys.shape[0]),
                               gs, ctx.opt_server)
@@ -209,6 +227,8 @@ class ServerUpdate(Phase):
             losses, gs = _pair_server_losses_and_grads(ctx, v)
             gmean = tree_map(lambda g: g.mean(0) if v.mask is None
                              else masked_axis0_mean(g, v.mask), gs)
+            if v.stale_w is not None:
+                gmean = tree_map(lambda g: g * v.stale_w, gmean)
             server = entity_step(v.state.server, gmean, ctx.opt_server)
             v.metrics["server_loss"] = masked_mean(losses, v.mask)
         else:
@@ -235,6 +255,8 @@ class FeatureGradients(Phase):
         ccfg = replace(ctx.cycle, avg_client_grads=avg)
         v.fgrads = feature_gradients(ctx.task, params, v.feats, v.ys, ccfg,
                                      mask=v.mask)
+        if v.stale_w is not None:
+            v.fgrads = v.fgrads * v.stale_w.to(v.fgrads.dtype)
         v.metrics.update(feat_grad_metrics(v.fgrads, mask=v.mask))
 
 
@@ -476,3 +498,131 @@ def build_algorithm(program: RoundProgram, task: SplitTask,
 
     return SLAlgorithm(program.name, init, round_fn,
                        program.uses_global_client)
+
+
+# ------------------------------------------------------ pipelined rounds
+class PipelineStage(NamedTuple):
+    """Everything the extract call hands to the in-flight tail.
+
+    One stage per in-flight cohort: the selected client entities, the
+    θ_S^t snapshot (read by non-cycle ``FeatureGradients``), the smashed
+    data, and for cycle programs the already pooled D_S^f, so the tail's
+    server phase starts on the handoff without pooling again.
+
+    ``clients`` is the [C, ...] gathered stack for per-client programs,
+    but the single shared θ_C entity for global-client programs: the
+    tail broadcasts it, as the sequential round's ExtractFeatures does.
+    ``feats`` is None for cycle programs: the pooled store holds the same
+    values and the tail rebuilds the [C, b, ...] view by a reshape.
+    """
+    clients: Any                      # [C, ...] stack, or shared θ_C entity
+    server_prev: Any                  # θ_S^t params snapshot
+    feats: Any                        # [C, b, ...] smashed data, or None
+    store: Any                        # pooled FeatureStore (cycle) or None
+
+
+@dataclass(frozen=True)
+class PipelinedAlgorithm:
+    """A RoundProgram as two calls.
+
+    ``extract(state, cohort, xs, ys[, mask]) -> PipelineStage`` runs the
+    ExtractFeatures head; ``tail(state, cohort, xs, ys, key, stage[,
+    mask][, ema][, lag=]) -> (state, metrics)`` runs the ServerUpdate ..
+    Commit remainder (and the HealthGuard when it is on).  Their
+    composition is the round; calling ``extract`` for cohort k + 1
+    before ``tail`` of cohort k is the software pipeline.
+    """
+    name: str
+    init: Callable[..., TrainState]
+    extract: Callable[..., PipelineStage]
+    tail: Callable[..., tuple[TrainState, dict]]
+    uses_global_client: bool
+
+
+def split_program(program: RoundProgram
+                  ) -> Optional[tuple[Phase, tuple[Phase, ...]]]:
+    """(head, tail) when the program starts with ExtractFeatures; None
+    for the fused sequential programs (ssl, sflv2 and fedavg interleave
+    client and server updates inside one phase: there is nothing to
+    overlap, and the Engine runs their whole rounds)."""
+    if program.phases and isinstance(program.phases[0], ExtractFeatures):
+        return program.phases[0], program.phases[1:]
+    return None
+
+
+def build_pipelined_algorithm(program: RoundProgram, task: SplitTask,
+                              opt_server: Optimizer, opt_client: Optimizer,
+                              cycle: CycleConfig = CycleConfig(),
+                              plan_fn: Optional[PlanFn] = None,
+                              device="cpu", resilience: Any = None,
+                              staleness_weighting: str = "none",
+                              staleness_lambda: float = 0.5
+                              ) -> Optional[PipelinedAlgorithm]:
+    """Split a RoundProgram into the (extract, tail) pair.
+
+    The phases are the same objects the whole round runs; the split only
+    moves the call boundary to the ExtractFeatures/ServerUpdate seam
+    (plus the pooling of D_S^f, which rides the extract side), so
+    ``tail(state, ..., extract(state, ...))`` is the round, bit for bit.
+    Returns None when the program has no ExtractFeatures head.
+
+    ``staleness_weighting`` != 'none' scales the cohort's server and
+    feature gradients by w(lag): ``1 / (1 + lag)`` ('inverse') or
+    ``exp(-staleness_lambda * lag)`` ('exp'), computed in float32 on the
+    device from the tail's ``lag``; w(0) is exactly 1.
+    """
+    split = split_program(program)
+    if split is None:
+        return None
+    head, tail_phases = split
+    ctx = PhaseContext(task, opt_server, opt_client, cycle.check_ported(),
+                       plan_fn)
+    pools = any(getattr(p, "mode", None) == "cycle" for p in tail_phases)
+    guard = (HealthGuard(resilience.ema_alpha, resilience.spike_factor)
+             if resilience is not None and resilience.guard else None)
+
+    def init(seed: int, n_clients: int) -> TrainState:
+        return init_train_state(seed, n_clients, task, opt_server,
+                                opt_client, program.uses_global_client,
+                                device)
+
+    def extract(state, cohort, xs, ys, mask=None) -> PipelineStage:
+        v = RoundVars(state=state, cohort=cohort, xs=xs, ys=ys, key=None,
+                      mask=mask)
+        head(ctx, v)
+        store = pool_store(v.feats, ys, mask=mask) if pools else None
+        clients = (state.client_global if program.uses_global_client
+                   else v.cohort_clients)
+        return PipelineStage(clients, v.server_prev,
+                             None if pools else v.feats, store)
+
+    def tail(state, cohort, xs, ys, key, stage, mask=None, ema=None,
+             lag=None):
+        stale_w = None
+        if staleness_weighting != "none":
+            lg = torch.tensor(float(lag or 0), dtype=torch.float32,
+                              device=ys.device)
+            stale_w = (1.0 / (1.0 + lg) if staleness_weighting == "inverse"
+                       else torch.exp(-staleness_lambda * lg))
+        cohort_clients = stage.clients
+        if program.uses_global_client:
+            cohort_clients = broadcast_entity(stage.clients, ys.shape[0])
+        feats = stage.feats
+        if feats is None:                 # rebuild the [C, b, ...] view
+            pooled = stage.store.features
+            feats = pooled.reshape(tuple(ys.shape[:2])
+                                   + tuple(pooled.shape[1:]))
+        v = RoundVars(state=state, cohort=cohort, xs=xs, ys=ys, key=key,
+                      mask=mask, ema=ema, cohort_clients=cohort_clients,
+                      server_prev=stage.server_prev, feats=feats,
+                      store=stage.store, stale_w=stale_w)
+        for phase in tail_phases:
+            phase(ctx, v)
+        if guard is not None:
+            guard(ctx, v)
+        if stale_w is not None:
+            v.metrics["stale_weight"] = stale_w
+        return v.state, v.metrics
+
+    return PipelinedAlgorithm(program.name, init, extract, tail,
+                              program.uses_global_client)

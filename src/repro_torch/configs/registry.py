@@ -1,9 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> ArchConfig (full or smoke).
 
-The same ten names as ``repro/configs/registry.py``.  The port runs the
-dense, MoE, VLM, SSM and hybrid decoder families; whisper-base (the
-encoder-decoder family) raises ``NotImplementedError`` naming the port
-that brings it.
+The same ten names as ``repro/configs/registry.py``: the dense, MoE,
+VLM, SSM and hybrid decoder families and whisper-base, the
+encoder-decoder family.
 """
 from __future__ import annotations
 
@@ -21,12 +20,7 @@ _ARCH_MODULES = {
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "zamba2-1.2b": "repro_torch.configs.zamba2_1p2b",
     "phi3-mini-3.8b": "repro_torch.configs.phi3_mini_3p8b",
-    "whisper-base": None,
-}
-
-# archs whose family the port does not run yet -> the port that brings it
-_LATER = {
-    "whisper-base": "the port of the encoder-decoder family (encdec.py)",
+    "whisper-base": "repro_torch.configs.whisper_base",
 }
 
 
@@ -37,9 +31,6 @@ def list_archs() -> list[str]:
 def _module(arch: str):
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; choose from {list_archs()}")
-    if _ARCH_MODULES[arch] is None:
-        raise NotImplementedError(
-            f"{arch} is not ported yet: it comes with {_LATER[arch]}")
     return importlib.import_module(_ARCH_MODULES[arch])
 
 

@@ -1,6 +1,6 @@
 """CycleSL round — paper Algorithm 1.
 
-Port of ``repro/core/cyclesl.py`` without the mesh and pipeline hooks.
+Port of ``repro/core/cyclesl.py`` without the mesh hooks.
 
   1. clients extract features        B_i^f = θ_C_i(B_i^x)
   2. server pools a feature dataset  D_S^f = ⨄ B_i^f           (Eq. 3)
@@ -99,8 +99,8 @@ def _value_and_grad(loss_fn, params):
 
 def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
                       store: FeatureStore, key: int, ccfg: CycleConfig,
-                      batch: int, plan_fn: Optional[PlanFn] = None
-                      ) -> tuple[EntityState, torch.Tensor]:
+                      batch: int, plan_fn: Optional[PlanFn] = None,
+                      grad_scale=None) -> tuple[EntityState, torch.Tensor]:
     """E epochs of minibatch training on the resampled feature dataset.
 
     With a row-validity mask on the store (padded cohort) the loop runs
@@ -113,7 +113,9 @@ def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
     ``key`` is the round's integer key; ``plan_fn`` replaces the port's
     own plan (see ``PlanFn``).  ``ccfg.fused_gather_loss`` fuses gather
     and head loss through ``kernels.ops.fused_gather_loss_mean`` when the
-    task exposes a linear server head.
+    task exposes a linear server head.  ``grad_scale`` (a scalar tensor,
+    or None) multiplies every clipped gradient before the optimizer
+    step: the staleness-weighting hook of pipelined rounds.
     """
     device = store.features.device
     sb = min(ccfg.server_batch or batch, store.size)
@@ -146,6 +148,8 @@ def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
             loss_fn = lambda p: task.server_loss(p, f, y)
         loss, grads = _value_and_grad(loss_fn, entity.params)
         grads = _maybe_clip(grads, ccfg.grad_clip)
+        if grad_scale is not None:
+            grads = tree_map(lambda g: g * grad_scale, grads)
         return entity_step(entity, grads, opt_s), loss
 
     if step_ok is None:

@@ -1,6 +1,8 @@
 """The server-side global feature dataset + resampler (paper Eq. 3).
 
-Port of the single-device half of ``repro/core/feature_store.py``.
+Port of the single-device half of ``repro/core/feature_store.py``, and
+its ``StaleFeatureRing`` of in-flight extracted stages (pipelined
+rounds).
 
 ``D_S^f = ⨄_i B_i^f``: client feature batches are pooled and the server
 resamples shuffled minibatches that are no longer client-bound.
@@ -15,7 +17,7 @@ needed.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -114,3 +116,79 @@ def pool_store(feats, ys, mask=None) -> FeatureStore:
     """The pooled D_S^f handoff for one cohort: the features are data to
     the server, so they are detached from any client graph."""
     return FeatureStore.pool(feats.detach(), ys, mask=mask)
+
+
+class RingEntry(NamedTuple):
+    """One in-flight cohort awaiting its tail: the round it will be
+    consumed at, the round whose pre-tail state its extract read
+    (``src_round``; consumption round - src_round = realized θ_S lag),
+    the extracted :class:`~repro_torch.api.phases.PipelineStage`, the
+    host-side cohort inputs (clean and fault-injected) the tail and any
+    recovery re-extract need, and ``ready``: a CUDA event the consumer
+    waits on when the extract ran on a side stream (None otherwise)."""
+    round: int
+    src_round: int
+    stage: Any
+    inputs: Any
+    inj_inputs: Any
+    ready: Any = None
+
+
+class StaleFeatureRing:
+    """Bounded buffer of in-flight extracted stages: the structure that
+    delivers a round-k extract into the round-k+L pool.
+
+    The Engine pushes ``extract(k+L)`` (dispatched against round k's
+    pre-tail state) and pops entry ``k`` just before ``tail(k)``, so at
+    most ``depth`` stages are ever in flight and the realized snapshot
+    lag of any consumed entry is bounded by ``depth`` by construction
+    (``push`` asserts the bound; ``pop`` asserts FIFO order and records
+    the realized lag).  ``rewind`` is the recovery hook: after a retried
+    or rolled-back round every buffered stage was extracted from a
+    discarded state, so each is re-extracted from the accepted one.
+    """
+
+    def __init__(self, depth: int):
+        if depth < 1:
+            raise ValueError(f"ring depth must be >= 1, got {depth}")
+        self.depth = depth
+        self._entries: list[RingEntry] = []
+        self.realized_lags: list[int] = []
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def push(self, round: int, src_round: int, stage, inputs, inj_inputs,
+             ready=None):
+        assert len(self._entries) < self.depth, \
+            f"ring overflow: {len(self._entries)} stages in flight " \
+            f"(depth {self.depth})"
+        assert round - src_round <= self.depth, \
+            f"stage for round {round} extracted at {src_round} would " \
+            f"exceed the lag bound {self.depth}"
+        if self._entries:
+            assert round == self._entries[-1].round + 1, "non-contiguous push"
+        self._entries.append(
+            RingEntry(round, src_round, stage, inputs, inj_inputs, ready))
+
+    def pop(self, round: int) -> RingEntry:
+        assert self._entries and self._entries[0].round == round, \
+            f"expected round {round} at ring head, have " \
+            f"{[e.round for e in self._entries]}"
+        entry = self._entries.pop(0)
+        self.realized_lags.append(entry.round - entry.src_round)
+        return entry
+
+    def rewind(self, extract_fn, src_round: int):
+        """Re-extract every buffered stage from the accepted state
+        (recovery rewound the run past the states they were read from).
+        ``extract_fn(inj_inputs)`` must read the accepted state, on the
+        consumer's stream (the new stages need no event)."""
+        self._entries = [
+            e._replace(stage=extract_fn(e.inj_inputs), src_round=src_round,
+                       ready=None)
+            for e in self._entries]
+
+    @property
+    def max_realized_lag(self) -> int:
+        return max(self.realized_lags, default=0)

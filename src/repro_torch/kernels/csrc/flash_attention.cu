@@ -56,8 +56,9 @@
 // warpgroup does not overlap its softmax with its next product: that is
 // the next step.
 //
-// simt (float32, and bf16 at head_dim 96 and 256): the products on the
-// CUDA cores in float32, at head_dim 64, 96, 128 and 256.  One block of
+// simt (float32, and bf16 at head_dim 32, 96 and 256): the products on
+// the CUDA cores in float32, at head_dim 32 (whisper's smoke config),
+// 64, 96, 128 and 256.  One block of
 // 256 threads owns 64 query rows and walks 64-row key tiles: thread
 // (rg, cg) = (tid / 16, tid % 16) owns rows 4rg..4rg+3, score columns
 // cg + 16j and output dims cg + 16j; the 16 threads of a row group
@@ -295,6 +296,7 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 template <typename T>
 cudaError_t dispatch(const Params& p, int B, int D, cudaStream_t stream) {
   switch (D) {
+    case 32: return launch<T, 32>(p, B, stream);
     case 64: return launch<T, 64>(p, B, stream);
     case 96: return launch<T, 96>(p, B, stream);
     case 128: return launch<T, 128>(p, B, stream);

@@ -4,7 +4,7 @@ Port of ``repro/kernels/flash_attention.py``.  On CUDA tensors the
 wrapper launches one of the two hand-written kernels in
 ``csrc/flash_attention.cu``, as ``design`` routes the call: bf16 at
 head_dim 64 and 128 on the tensor cores (``wgmma``), float32, and bf16
-at 96 and 256, on the CUDA cores (``simt``, float32 products).  On CPU
+at 32, 96 and 256, on the CUDA cores (``simt``, float32 products).  On CPU
 tensors it runs the plain version, ``ref.flash_attention_ref``.
 ``ops.flash_attention`` is the differentiable entry point.
 """
@@ -24,7 +24,7 @@ _ARGTYPES = ([c_void_p] * 4 + [c_int] * 6 + [c_int64] * 9
              + [c_int, c_int, c_double, c_int, c_int, c_void_p])
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _DESIGNS = {"simt": 0, "wgmma": 1}
-HEAD_DIMS = (64, 96, 128, 256)
+HEAD_DIMS = (32, 64, 96, 128, 256)
 WGMMA_HEAD_DIMS = (64, 128)
 
 
@@ -32,8 +32,9 @@ def design(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel a CUDA call takes: ``"wgmma"`` (bf16 products on the
     tensor cores) for bf16 at head_dim 64 and 128; ``"simt"`` (float32
     products on the CUDA cores) for float32, whose checks hold the
-    kernel to full float32 products, for bf16 at 96 (phi3-mini), which
-    the tensor-core kernel's 64-column swizzle blocks do not divide, and
+    kernel to full float32 products, for bf16 at 32 (whisper-base's smoke
+    config) and 96 (phi3-mini), which the tensor-core kernel's 64-column
+    swizzle blocks do not divide, and
     for bf16 at 256, whose 128-row K and V tiles would not fit two
     stages of shared memory.  Raises for a dtype or head_dim that has no
     kernel."""

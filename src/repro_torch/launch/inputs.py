@@ -5,9 +5,12 @@ pairs where the JAX package has ``ShapeDtypeStruct``s; the batch makers
 draw numpy arrays from ``np.random.default_rng(seed)``, so both packages
 can be fed one batch.
 
-Modality stub: vlm feeds ``patch_embeds`` [B, n_patch_tokens, d],
-precomputed patch embeddings (vision encoder + projector stubbed).  The
-audio (whisper) inputs come with the port of the encoder-decoder family.
+Modality stubs:
+  * vlm   — ``patch_embeds`` [B, n_patch_tokens, d] precomputed patch
+            embeddings (vision encoder + projector stubbed);
+  * audio — ``frames`` [B, 1500, d] precomputed conv/mel frame
+            embeddings (whisper's front end stubbed), with the decoder's
+            ``tokens`` and ``labels`` at most 448 positions long.
 """
 from __future__ import annotations
 
@@ -19,26 +22,29 @@ import torch
 from repro_torch.configs.base import ArchConfig, InputShape
 
 
+WHISPER_FRAMES = 1500
+WHISPER_TEXT_CAP = 448      # whisper decoder positional horizon
+
+
 class Spec(NamedTuple):
     shape: tuple
     dtype: torch.dtype
 
 
-def _no_audio(cfg: ArchConfig):
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: audio inputs are not ported yet: they come with "
-            f"the port of the encoder-decoder family")
-
-
 def train_batch_specs(cfg: ArchConfig, shape: InputShape, cohort: int):
     """(xs, ys) cohort-stacked batch specs [C, b, ...] for the CycleSL
     train step."""
-    _no_audio(cfg)
     if shape.global_batch % cohort:
         raise ValueError(f"global batch {shape.global_batch} does not split "
                          f"into a cohort of {cohort}")
     b = shape.global_batch // cohort
+    if cfg.family == "audio":
+        s = min(shape.seq_len, WHISPER_TEXT_CAP)
+        xs = {"frames": Spec((cohort, b, WHISPER_FRAMES, cfg.enc_d_model),
+                             cfg.torch_dtype)}
+        ys = {"tokens": Spec((cohort, b, s), torch.int32),
+              "labels": Spec((cohort, b, s), torch.int32)}
+        return xs, ys
     xs = {"tokens": Spec((cohort, b, shape.seq_len), torch.int32)}
     if cfg.family == "vlm":
         xs["patch_embeds"] = Spec((cohort, b, cfg.n_patch_tokens, cfg.d_model),
@@ -48,8 +54,12 @@ def train_batch_specs(cfg: ArchConfig, shape: InputShape, cohort: int):
 
 
 def prefill_specs(cfg: ArchConfig, shape: InputShape):
-    _no_audio(cfg)
     B = shape.global_batch
+    if cfg.family == "audio":
+        s = min(shape.seq_len, WHISPER_TEXT_CAP)
+        return {"frames": Spec((B, WHISPER_FRAMES, cfg.enc_d_model),
+                               cfg.torch_dtype),
+                "tokens": Spec((B, s), torch.int32)}
     out = {"tokens": Spec((B, shape.seq_len), torch.int32)}
     if cfg.family == "vlm":
         out["patch_embeds"] = Spec((B, cfg.n_patch_tokens, cfg.d_model),
@@ -59,22 +69,24 @@ def prefill_specs(cfg: ArchConfig, shape: InputShape):
 
 def decode_token_spec(cfg: ArchConfig, shape: InputShape):
     """The decode step's token input [B, 1]."""
-    _no_audio(cfg)
     return Spec((shape.global_batch, 1), torch.int32)
 
 
-def _draw(rng, cfg: ArchConfig, specs: dict, labels_shape=None):
+def _draw(rng, cfg: ArchConfig, specs: dict, labels: bool = False):
     """Tokens uniform over the vocab (one position longer when next-token
-    labels are wanted), patch embeddings standard normal in float32."""
+    labels are wanted), patch embeddings and audio frames standard
+    normal in float32.  Returns the drawn dict, and with ``labels`` the
+    next tokens too."""
     tok_shape = specs["tokens"].shape
-    n = tok_shape[-1] + (labels_shape is not None)
+    n = tok_shape[-1] + labels
     stream = rng.integers(0, cfg.vocab, size=tok_shape[:-1] + (n,),
                           dtype=np.int32)
     out = {"tokens": stream[..., :tok_shape[-1]]}
-    if "patch_embeds" in specs:
-        out["patch_embeds"] = rng.standard_normal(
-            specs["patch_embeds"].shape).astype(np.float32)
-    if labels_shape is None:
+    for name in ("patch_embeds", "frames"):
+        if name in specs:
+            out[name] = rng.standard_normal(specs[name].shape).astype(
+                np.float32)
+    if not labels:
         return out
     return out, stream[..., 1:]
 
@@ -82,9 +94,15 @@ def _draw(rng, cfg: ArchConfig, specs: dict, labels_shape=None):
 def make_train_batch(cfg: ArchConfig, shape: InputShape, cohort: int,
                      seed: int):
     """Numpy (xs, ys) of ``train_batch_specs``: ys are the next tokens of
-    xs["tokens"]."""
+    xs["tokens"].  For audio, xs is ``{"frames"}`` and ys the decoder's
+    ``{"tokens", "labels"}``, labels the next tokens."""
     xs, ys = train_batch_specs(cfg, shape, cohort)
-    return _draw(np.random.default_rng(seed), cfg, xs, ys.shape)
+    if cfg.family == "audio":
+        drawn, labels = _draw(np.random.default_rng(seed), cfg,
+                              {**xs, "tokens": ys["tokens"]}, labels=True)
+        return ({"frames": drawn["frames"]},
+                {"tokens": drawn["tokens"], "labels": labels})
+    return _draw(np.random.default_rng(seed), cfg, xs, labels=True)
 
 
 def make_prefill_batch(cfg: ArchConfig, shape: InputShape, seed: int):
@@ -94,7 +112,7 @@ def make_prefill_batch(cfg: ArchConfig, shape: InputShape, seed: int):
 
 def to_device(batch, cfg: ArchConfig, device):
     """A numpy batch tree -> tensors on ``device``: token ids int32,
-    patch embeddings in the model's dtype."""
+    patch embeddings and frames in the model's dtype."""
     def one(a):
         t = torch.from_numpy(np.ascontiguousarray(a))
         if t.is_floating_point():

@@ -4,18 +4,20 @@ Port of ``repro/launch/serve.py``.  It runs on the card (``--device
 cuda``, the default) and raises where there is none; ``--device cpu``
 runs it on the CPU, with a smoke-sized arch by default (``--full`` for
 the published widths).  It prefills a prompt batch, then steps the
-KV/SSM cache token by token.  The prompt is drawn from numpy
+KV/SSM cache token by token; for whisper (``serve_whisper``) it encodes
+60 frames once and decodes from token 0.  The prompt is drawn from numpy
 (``default_rng(1)``) and the weights from a ``torch.Generator`` seeded
 with ``seed``, where the JAX package draws both from its PRNG: the two
 packages serve other prompts and weights from the same seeds.
 
-``--continuous`` switches to the production path: the fixed-slot
-continuous-batching runtime in :mod:`repro_torch.serve` (static slot
-table, deadlines, retry/backoff) driven by the closed-loop load
-generator.
+``--continuous`` switches decoder-only archs to the production path:
+the fixed-slot continuous-batching runtime in :mod:`repro_torch.serve`
+(static slot table, deadlines, retry/backoff) driven by the closed-loop
+load generator.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b --steps 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base --steps 16
   PYTHONPATH=src python -m repro_torch.launch.serve --continuous --concurrency 8
 """
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config, list_archs, smoke_config
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import Transformer
 from repro_torch.serve import (ServeConfig, ServeRuntime, make_prompts,
                                run_closed_loop)
@@ -95,10 +98,45 @@ def serve_decoder_only(cfg, batch: int, prompt_len: int, steps: int,
             "batch": batch}
 
 
-def serve_whisper(cfg, batch: int, steps: int, seed: int = 0):
-    raise NotImplementedError(
-        "serve_whisper: the encoder-decoder family (models/encdec.py) is "
-        "not ported yet (ROADMAP.md queue 1 item 5)")
+def serve_whisper(cfg, batch: int, steps: int, seed: int = 0, *,
+                  device=None, params=None, frames=None):
+    """Encode 60 frames once, then decode ``steps`` greedy tokens from
+    token 0.  The weights are drawn from ``seed`` and the frames (normal
+    times 0.1) from ``default_rng(1)``, unless ``params`` and ``frames``
+    [batch, T, d] are given (a parity test passes the JAX package's)."""
+    if batch < 1:
+        raise ValueError(f"batch={batch} must be >= 1")
+    if steps < 0:
+        raise ValueError(f"steps={steps} must be >= 0")
+    dev = resolve_device(device)
+    if params is None:
+        params = EncDec.init(torch.Generator(device=dev).manual_seed(seed),
+                             cfg)
+    if frames is None:
+        frames = torch.from_numpy((np.random.default_rng(1).standard_normal(
+            (batch, 60, cfg.enc_d_model)) * 0.1).astype(np.float32))
+    frames = frames.to(device=dev, dtype=cfg.torch_dtype)
+    logits = None
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    outs = []
+    with torch.no_grad():
+        state = EncDec.init_decode_state(params, cfg, frames,
+                                         seq_len=steps + 1)
+        _sync(dev)
+        t0 = time.time()
+        for _ in range(steps):
+            logits, state = EncDec.decode_step(params, cfg, tok, state)
+            tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+            outs.append(tok)
+        _sync(dev)
+        dt = time.time() - t0
+    if logits is not None:
+        assert bool(torch.isfinite(logits).all()), \
+            "non-finite logits in serve loop"
+    return {"tokens": (torch.cat(outs, dim=1) if outs else
+                       torch.zeros((batch, 0), dtype=torch.int32, device=dev)),
+            "decode_s_per_token": dt / steps if steps else 0.0,
+            "batch": batch}
 
 
 def serve_continuous(cfg, serve_cfg, concurrency: int, n_requests: int,
@@ -134,6 +172,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cfg = get_config(args.arch) if args.full else smoke_config(args.arch)
     if args.continuous:
+        if cfg.family == "audio":
+            ap.error("--continuous serves decoder-only archs")
         row = serve_continuous(cfg, ServeConfig.from_flags(args),
                                args.concurrency, args.requests,
                                device=args.device)
@@ -141,8 +181,11 @@ def main(argv=None):
         for k, v in row.items():
             print(f"  {k}: {v}")
         return row
-    res = serve_decoder_only(cfg, args.batch, args.prompt_len, args.steps,
-                             device=args.device)
+    if cfg.family == "audio":
+        res = serve_whisper(cfg, args.batch, args.steps, device=args.device)
+    else:
+        res = serve_decoder_only(cfg, args.batch, args.prompt_len,
+                                 args.steps, device=args.device)
     toks = res.pop("tokens")
     print(f"arch={cfg.name} generated {toks.shape[1]} tokens x{toks.shape[0]} seqs")
     print({k: (round(v, 5) if isinstance(v, float) else v)

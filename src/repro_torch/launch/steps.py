@@ -2,11 +2,13 @@
 
 Port of ``repro/launch/steps.py`` without mesh or shardings (the
 decode state's placement, ``decode_state_shardings``, waits for the
-multi-GPU port).  For an (arch x input shape) the builders return a
-:class:`StepBundle`:
+multi-GPU port).  For an (arch x input shape), decoder-only or whisper's
+encoder-decoder, the builders return a :class:`StepBundle`:
 
   train   — one full CycleSL round (paper Algorithm 1) over a cohort of
-            clients: the paper's technique IS the train step;
+            clients: the paper's technique IS the train step (and
+            ``build_pipelined_train_steps``: the same round as an
+            extract and a tail call);
   prefill — composed-model forward, next-token logits of the last
             position;
   decode  — one token against a KV cache / SSM state (serving).
@@ -23,10 +25,13 @@ import torch
 
 from repro_torch.api.engine import resolve_device
 from repro_torch.configs.base import ArchConfig, InputShape
-from repro_torch.core.cyclesl import CycleConfig, PlanFn, cyclesl_round
+from repro_torch.core.cyclesl import (CycleConfig, PlanFn, cyclesl_extract,
+                                      cyclesl_round, cyclesl_tail)
 from repro_torch.core.protocol import broadcast_entity, init_entity
-from repro_torch.core.split import make_transformer_task
+from repro_torch.core.split import (SplitTask, make_transformer_task,
+                                   xent_loss)
 from repro_torch.launch import inputs as inputs_lib
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import adam
 
@@ -43,24 +48,62 @@ class StepBundle:
     device: torch.device
 
 
-# ------------------------------------------------------------- train step
-def build_train_step(cfg: ArchConfig, shape: InputShape,
-                     cycle: CycleConfig = CycleConfig(), *, cohort: int,
-                     device=None, plan_fn: Optional[PlanFn] = None
-                     ) -> StepBundle:
-    """``fn(server, clients, xs, ys, key) -> (server', clients',
-    metrics)``: one ``cyclesl_round`` of the transformer split task with
-    ``adam(3e-4)`` on both sides, as the JAX package's train step.
+# ------------------------------------------------------------ whisper task
+@dataclass(frozen=True)
+class WhisperTask(SplitTask):
+    """The encoder-decoder split: the encoder is the client, the decoder
+    the server.  The decoder's tokens ride in the label tree, so the
+    server's entry point is ``server_loss(θ_S, enc_out, {"tokens",
+    "labels"})``, given here directly (the JAX package patches it onto a
+    frozen ``SplitTask``); ``server_apply`` is not defined."""
 
-    ``init_state(seed)`` gives (server, clients): the server entity and
-    ``cohort`` copies of one client entity, stacked.  ``make_batch(seed)``
-    gives (xs, ys): ``{"tokens": [C, b, S]}`` and next-token labels
-    [C, b, S], b = global_batch / cohort.  ``plan_fn`` replaces the
-    round's resample plan (see ``core.cyclesl.PlanFn``)."""
+    cfg: Optional[ArchConfig] = None
+
+    def server_loss(self, sp, features, y):
+        logits = EncDec.decode_train(sp, self.cfg, y["tokens"], features)
+        return xent_loss(logits, y["labels"])
+
+
+def make_whisper_task(cfg: ArchConfig) -> SplitTask:
+    """Whisper SplitTask: encoder = client, decoder = server.  Each side
+    draws the whole model from its own generator and keeps its half."""
+
+    def server_apply(sp, features):
+        raise NotImplementedError("the whisper server consumes (enc_out, "
+                                  "tokens): call server_loss")
+
+    return WhisperTask(
+        f"{cfg.name}@encdec",
+        init_client=lambda gen: EncDec.init(gen, cfg)["encoder"],
+        init_server=lambda gen: EncDec.init(gen, cfg)["decoder"],
+        client_forward=lambda cp, batch: EncDec.encode(cp, cfg,
+                                                       batch["frames"]),
+        server_apply=server_apply, loss=lambda out, y: out,
+        metrics=lambda out, y: {}, cfg=cfg)
+
+
+# ------------------------------------------------------------- train step
+@dataclass
+class _TrainSubstrate:
+    """What the whole and the pipelined train-step builders share (one
+    source, so they cannot drift): the task, the optimizers, the checked
+    cycle config, the device, and the state and batch makers."""
+    task: SplitTask
+    opt_s: object
+    opt_c: object
+    cycle: CycleConfig
+    device: torch.device
+    init_state: Callable[[int], tuple]
+    make_batch: Callable[[int], tuple]
+
+
+def _train_substrate(cfg: ArchConfig, shape: InputShape, cycle: CycleConfig,
+                     cohort: int, device) -> _TrainSubstrate:
     inputs_lib.train_batch_specs(cfg, shape, cohort)  # validates cfg, split
     dev = resolve_device(device)
     cycle = cycle.check_ported()
-    task = make_transformer_task(cfg)
+    task = (make_whisper_task(cfg) if cfg.family == "audio"
+            else make_transformer_task(cfg))
     opt_s, opt_c = adam(3e-4), adam(3e-4)
 
     def init_state(seed: int):
@@ -76,11 +119,61 @@ def build_train_step(cfg: ArchConfig, shape: InputShape,
         return (inputs_lib.to_device(xs, cfg, dev),
                 inputs_lib.to_device(ys, cfg, dev))
 
-    def train_step(server, clients, xs, ys, key: int):
-        return cyclesl_round(task, server, clients, opt_s, opt_c, xs, ys,
-                             key, cycle, plan_fn=plan_fn)
+    return _TrainSubstrate(task, opt_s, opt_c, cycle, dev, init_state,
+                           make_batch)
 
-    return StepBundle("train", train_step, init_state, make_batch, dev)
+
+def build_train_step(cfg: ArchConfig, shape: InputShape,
+                     cycle: CycleConfig = CycleConfig(), *, cohort: int,
+                     device=None, plan_fn: Optional[PlanFn] = None
+                     ) -> StepBundle:
+    """``fn(server, clients, xs, ys, key) -> (server', clients',
+    metrics)``: one ``cyclesl_round`` of the arch's split task (the
+    transformer cut, or whisper's encoder/decoder) with ``adam(3e-4)``
+    on both sides, as the JAX package's train step.
+
+    ``init_state(seed)`` gives (server, clients): the server entity and
+    ``cohort`` copies of one client entity, stacked.  ``make_batch(seed)``
+    gives (xs, ys): ``{"tokens": [C, b, S]}`` and next-token labels
+    [C, b, S], b = global_batch / cohort; for audio ``{"frames": [C, b,
+    1500, d]}`` and ``{"tokens", "labels"}`` [C, b, min(S, 448)].
+    ``plan_fn`` replaces the round's resample plan (see
+    ``core.cyclesl.PlanFn``)."""
+    sub = _train_substrate(cfg, shape, cycle, cohort, device)
+
+    def train_step(server, clients, xs, ys, key: int):
+        return cyclesl_round(sub.task, server, clients, sub.opt_s, sub.opt_c,
+                             xs, ys, key, sub.cycle, plan_fn=plan_fn)
+
+    return StepBundle("train", train_step, sub.init_state, sub.make_batch,
+                      sub.device)
+
+
+def build_pipelined_train_steps(cfg: ArchConfig, shape: InputShape,
+                                cycle: CycleConfig = CycleConfig(), *,
+                                cohort: int, device=None,
+                                plan_fn: Optional[PlanFn] = None
+                                ) -> tuple[StepBundle, StepBundle]:
+    """The CycleSL round as two calls, the launcher-side mirror of the
+    Engine's pipelined schedule: ``train_extract(clients, xs, ys) ->
+    (feats, store)`` and ``train_tail(server, clients, xs, ys, key,
+    feats, store) -> (server', clients', metrics)``, which compose to
+    :func:`build_train_step`'s round exactly.  Both bundles share
+    ``init_state`` and ``make_batch``."""
+    sub = _train_substrate(cfg, shape, cycle, cohort, device)
+
+    def extract_step(clients, xs, ys):
+        return cyclesl_extract(sub.task, clients, xs, ys)
+
+    def tail_step(server, clients, xs, ys, key: int, feats, store):
+        return cyclesl_tail(sub.task, server, clients, sub.opt_s, sub.opt_c,
+                            xs, ys, key, sub.cycle, feats, store,
+                            plan_fn=plan_fn)
+
+    return (StepBundle("train_extract", extract_step, sub.init_state,
+                       sub.make_batch, sub.device),
+            StepBundle("train_tail", tail_step, sub.init_state,
+                       sub.make_batch, sub.device))
 
 
 # ----------------------------------------------------------- prefill step
@@ -89,13 +182,15 @@ def build_prefill_step(cfg: ArchConfig, shape: InputShape, *, device=None
     """``fn(params, batch) -> logits [B, vocab] bfloat16`` of the last
     position, from the full model's forward (no gradient).
     ``init_state(seed)`` gives (params,), ``make_batch(seed)`` gives
-    (batch,) with ``batch["tokens"]`` [B, S]."""
+    (batch,) with ``batch["tokens"]`` [B, S] (and for audio
+    ``batch["frames"]`` [B, 1500, d])."""
     inputs_lib.prefill_specs(cfg, shape)             # validates cfg
     dev = resolve_device(device)
+    model = EncDec if cfg.family == "audio" else Transformer
 
     def init_state(seed: int):
-        return (Transformer.init(torch.Generator(device=dev).manual_seed(seed),
-                                 cfg),)
+        return (model.init(torch.Generator(device=dev).manual_seed(seed),
+                           cfg),)
 
     def make_batch(seed: int):
         return (inputs_lib.to_device(
@@ -103,8 +198,12 @@ def build_prefill_step(cfg: ArchConfig, shape: InputShape, *, device=None
 
     def prefill(params, batch):
         with torch.no_grad():
-            logits, _ = Transformer.forward(
-                params, cfg, batch["tokens"], batch.get("patch_embeds"))
+            if cfg.family == "audio":
+                logits = EncDec.forward(params, cfg, batch["frames"],
+                                        batch["tokens"])
+            else:
+                logits, _ = Transformer.forward(
+                    params, cfg, batch["tokens"], batch.get("patch_embeds"))
         return logits[:, -1].to(torch.bfloat16)
 
     return StepBundle("prefill", prefill, init_state, make_batch, dev)
@@ -115,22 +214,29 @@ def build_decode_step(cfg: ArchConfig, shape: InputShape,
                       long_context: bool = False, *, device=None
                       ) -> StepBundle:
     """``fn(params, token, state) -> (logits [B, 1, vocab] float32,
-    state')``: one ``Transformer.decode_step`` at a context of
-    ``shape.seq_len`` (no gradient).  ``init_state(seed)`` gives
-    (params, state) with an empty cache; ``make_batch(seed)`` gives
-    (token,) [B, 1] int32 from numpy."""
-    if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder decode step is not ported yet "
-            f"(ROADMAP.md queue 1 item 5)")
+    state')``: one ``decode_step`` at a context of ``shape.seq_len`` (no
+    gradient).  ``init_state(seed)`` gives (params, state) with an empty
+    cache; for audio the state also holds the encoder's states of
+    ``WHISPER_FRAMES`` frames drawn from numpy under ``seed``.
+    ``make_batch(seed)`` gives (token,) [B, 1] int32 from numpy."""
     spec = inputs_lib.decode_token_spec(cfg, shape)
     dev = resolve_device(device)
+    audio = cfg.family == "audio"
+    model = EncDec if audio else Transformer
 
     def init_state(seed: int):
-        params = Transformer.init(
-            torch.Generator(device=dev).manual_seed(seed), cfg)
-        return params, Transformer.init_decode_state(
-            cfg, spec.shape[0], shape.seq_len, long_context, device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                            cfg)
+        if not audio:
+            return params, Transformer.init_decode_state(
+                cfg, spec.shape[0], shape.seq_len, long_context, device=dev)
+        frames = np.random.default_rng(seed).standard_normal(
+            (spec.shape[0], inputs_lib.WHISPER_FRAMES, cfg.enc_d_model))
+        frames = torch.from_numpy(frames.astype(np.float32)).to(
+            device=dev, dtype=cfg.torch_dtype)
+        with torch.no_grad():
+            return params, EncDec.init_decode_state(
+                params, cfg, frames, shape.seq_len, long_context)
 
     def make_batch(seed: int):
         tok = np.random.default_rng(seed).integers(
@@ -139,8 +245,8 @@ def build_decode_step(cfg: ArchConfig, shape: InputShape,
 
     def decode(params, token, state):
         with torch.no_grad():
-            return Transformer.decode_step(params, cfg, token, state,
-                                           long_context=long_context)
+            return model.decode_step(params, cfg, token, state,
+                                     long_context=long_context)
 
     return StepBundle("decode", decode, init_state, make_batch, dev)
 

@@ -1,7 +1,8 @@
-"""Dense feed-forward block: SwiGLU.  Port of ``repro/models/ffn.py``
-(the GeLU MLP comes with the port of the encoder-decoder family)."""
+"""Dense feed-forward blocks: SwiGLU (default) and the GeLU MLP
+(whisper).  Port of ``repro/models/ffn.py``."""
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 from repro_torch.models import module
@@ -18,3 +19,18 @@ def swiglu_init(gen, d: int, f: int, dtype):
 def swiglu(params, x):
     g = F.silu(x @ params["w_gate"])
     return (g * (x @ params["w_up"])) @ params["w_down"]
+
+
+def gelu_mlp_init(gen, d: int, f: int, dtype):
+    return {
+        "w_in": module.dense_init(gen, d, f, dtype),
+        "b_in": torch.zeros((f,), dtype=dtype, device=gen.device),
+        "w_out": module.dense_init(gen, f, d, dtype),
+        "b_out": torch.zeros((d,), dtype=dtype, device=gen.device),
+    }
+
+
+def gelu_mlp(params, x):
+    # jax.nn.gelu defaults to the tanh approximation; F.gelu to erf
+    h = F.gelu(x @ params["w_in"] + params["b_in"], approximate="tanh")
+    return h @ params["w_out"] + params["b_out"]

@@ -1,4 +1,4 @@
-"""Primitive layers: norms, embedding, rotary tables, softcap.
+"""Primitive layers: norms, linear, embedding, rotary tables, softcap.
 
 Port of ``repro/models/layers.py`` with the same casts: norms and rotary
 math run in float32 and return the input's dtype.
@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models import module
 
 
 # ---------------------------------------------------------------- norms
@@ -22,7 +24,43 @@ def rmsnorm(params, x, eps: float = 1e-5):
     return y.to(dt) * params["scale"].to(dt)
 
 
+def layernorm_init(d: int, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    """Normalize and apply the affine in float32, cast once at the end
+    (a bf16 input is neither normalized nor scaled in bf16)."""
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float() + params["bias"].float()).to(dt)
+
+
+# --------------------------------------------------------------- linear
+def linear_init(gen, d_in: int, d_out: int, dtype=torch.float32,
+                bias: bool = False):
+    p = {"w": module.dense_init(gen, d_in, d_out, dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return p
+
+
+def linear(params, x):
+    y = x @ params["w"]
+    if "b" in params:
+        y = y + params["b"]
+    return y
+
+
 # ------------------------------------------------------------ embedding
+def embedding_init(gen, vocab: int, d: int, dtype=torch.float32):
+    return {"table": module.embed_init(gen, vocab, d, dtype)}
+
+
 def embedding(params, ids):
     """Row lookup ``table[ids]`` (its backward sums rows in a fixed
     order, so card runs repeat bit for bit)."""

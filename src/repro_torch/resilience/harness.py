@@ -14,9 +14,8 @@ human) can:
 done when it fires, so the kill always lands between a committed round
 and the next checkpoint, never inside the atomic write's rename).
 
-It runs on the card unless ``--device cpu`` is given.  The reference's
-``--pipeline-*`` flags are accepted and raise: pipelined rounds are not
-ported yet (ROADMAP item 6).
+It runs on the card unless ``--device cpu`` is given; ``--pipeline-depth``
+and ``--pipeline-staleness`` run the pipelined schedule.
 
 Usage::
 
@@ -83,11 +82,12 @@ def parser() -> argparse.ArgumentParser:
                     help="fault-injection spec (see "
                          "repro_torch.resilience.faults)")
     ap.add_argument("--pipeline-depth", type=int, default=0,
-                    help="not ported: any value but 0 raises (ROADMAP "
-                         "item 6)")
+                    help="run the pipelined (extract, tail) schedule "
+                         "with this ring depth (0 = sequential)")
     ap.add_argument("--pipeline-staleness", default="sync",
                     choices=("sync", "async"),
-                    help="not ported: 'async' raises (ROADMAP item 6)")
+                    help="sync = barrier mode (bit for bit the sequential "
+                         "run); async = bounded-stale extraction")
     ap.add_argument("--sleep-per-round", type=float, default=0.0,
                     help="host sleep after each round (widens the "
                          "SIGKILL window for the crash test)")

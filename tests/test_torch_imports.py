@@ -63,7 +63,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.resilience.faults",
                 "repro_torch.resilience.guards",
                 "repro_torch.resilience.policy",
-                "repro_torch.resilience.harness"):
+                "repro_torch.resilience.harness",
+                "repro_torch.models.encdec",
+                "repro_torch.configs.whisper_base"):
         assert mod in out["modules"]
 
 

@@ -357,10 +357,21 @@ def test_sigkill_resume_keeps_bans(tmp_path):
 
 
 def test_harness_rejects_the_pipelined_flags(tmp_path):
+    """The pipelined flags are ported: they reach the Engine's config and
+    build the pipelined schedule; the harness rejects only a staleness
+    mode the reference does not have."""
     from repro_torch.resilience import harness
-    for flags in (["--pipeline-depth", "1"],
-                  ["--pipeline-staleness", "async"]):
+    for flags, depth, mode in ((["--pipeline-depth", "1"], 1, "sync"),
+                               (["--pipeline-depth", "2",
+                                 "--pipeline-staleness", "async"], 2,
+                                "async")):
         args = harness.parser().parse_args(
             ["--ckpt-dir", str(tmp_path), "--device", "cpu", *flags])
-        with pytest.raises(NotImplementedError, match="item 6"):
-            harness.build_engine(args)
+        eng = harness.build_engine(args)
+        assert (eng.cfg.pipeline_depth, eng.cfg.pipeline_staleness) == (
+            depth, mode)
+        assert eng.pipeline is not None
+        assert eng.ring_depth == (depth if mode == "async" else 1)
+    with pytest.raises(SystemExit):
+        harness.parser().parse_args(["--ckpt-dir", str(tmp_path),
+                                     "--pipeline-staleness", "eager"])

@@ -4,8 +4,10 @@
 ``launch.steps.build_step`` for a decode shape (held against the JAX
 package's ``decode_step`` with the weights carried across, float32,
 rtol 1e-4 / atol 1e-5), the ``serve`` field of ``ExperimentConfig``
-against the JAX package's dict, and the doors that stay shut: whisper
-(the encoder-decoder family), a mesh, and the card where there is none.
+against the JAX package's dict, whisper's ``serve_whisper`` and the
+audio branch of ``main`` against the JAX package's, and the doors that
+stay shut: the continuous runtime for audio, a mesh, and the card where
+there is none.
 """
 import os
 import subprocess
@@ -126,14 +128,32 @@ def test_serve_flags_reach_the_config():
 
 
 def test_whisper_and_audio_decode_raise():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        serve_mod.serve_whisper(smoke_config("gemma2-2b"), batch=2, steps=1)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        serve_mod.main(["--arch", "whisper-base", "--device", "cpu"])
-    audio = smoke_config("gemma2-2b").with_(family="audio")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        build_step(audio, InputShape("decode_32", 32, 2, "decode"),
-                   device="cpu")
+    """The audio doors now open: ``serve_whisper`` with the JAX package's
+    weights and frames gives its tokens, ``main --arch whisper-base``
+    serves the smoke config, and the audio decode step builds.  The
+    continuous runtime still refuses audio, as in the JAX package."""
+    from repro.configs import smoke_config as jsmoke
+    from repro.launch.serve import serve_whisper as j_serve_whisper
+    from repro.models.encdec import EncDec as JE
+    jcfg = jsmoke("whisper-base")
+    want = j_serve_whisper(jcfg, batch=2, steps=3)
+    frames = jax.random.normal(jax.random.PRNGKey(1),
+                               (2, 60, jcfg.enc_d_model), jnp.float32) * 0.1
+    got = serve_mod.serve_whisper(
+        smoke_config("whisper-base"), batch=2, steps=3, device="cpu",
+        params=to_torch(jax.device_get(JE.init(jax.random.PRNGKey(0), jcfg))),
+        frames=torch.from_numpy(np.asarray(frames)))
+    np.testing.assert_array_equal(got["tokens"].numpy(),
+                                  np.asarray(want["tokens"]))
+    res = serve_mod.main(["--arch", "whisper-base", "--device", "cpu",
+                          "--batch", "2", "--steps", "3"])
+    assert res["batch"] == 2 and res["decode_s_per_token"] > 0.0
+    with pytest.raises(SystemExit):
+        serve_mod.main(["--arch", "whisper-base", "--device", "cpu",
+                        "--continuous"])
+    audio = smoke_config("whisper-base")
+    assert build_step(audio, InputShape("decode_32", 32, 2, "decode"),
+                      device="cpu").name == "decode"
     with pytest.raises(ValueError, match="decoder-only"):
         ServeRuntime(audio, ServeConfig(), device="cpu")
 

@@ -183,16 +183,18 @@ def test_build_step_dispatch_and_unported_kinds():
     assert build_step(cfg, PREFILL, device="cpu").name == "prefill"
     with pytest.raises(ValueError):
         build_step(cfg, SHAPE, device="cpu")
-    # the decode step is ported; its encoder-decoder branch is not
+    # the decode step is ported, its encoder-decoder branch too
     assert build_step(cfg, INPUT_SHAPES["decode_32k"],
                       device="cpu").name == "decode"
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        build_step(cfg.with_(family="audio"), INPUT_SHAPES["decode_32k"],
-                   device="cpu")
+    whisper = smoke_config("whisper-base")
+    for shape, name in ((INPUT_SHAPES["decode_32k"], "decode"),
+                        (PREFILL, "prefill"), (SHAPE, "train")):
+        assert build_step(whisper, shape, cohort=C,
+                          device="cpu").name == name
     with pytest.raises(ValueError):
         build_train_step(cfg, SHAPE, cohort=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        build_prefill_step(cfg.with_(family="audio"), PREFILL, device="cpu")
+    with pytest.raises(ValueError):
+        build_train_step(whisper, SHAPE, cohort=3, device="cpu")
 
 
 def test_step_builders_run_on_the_card_unless_asked():

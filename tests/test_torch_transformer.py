@@ -38,7 +38,7 @@ from repro_torch.utils.weights import to_torch
 ARCHS = ["olmoe-1b-7b", "gemma2-2b"]
 PORTED = ["moonshot-v1-16b-a3b", "grok-1-314b", "pixtral-12b", "gemma2-2b",
           "glm4-9b", "mamba2-2.7b", "olmoe-1b-7b", "zamba2-1.2b",
-          "phi3-mini-3.8b"]
+          "phi3-mini-3.8b", "whisper-base"]
 B, S = 2, 40
 RNG = np.random.default_rng(21)
 
@@ -78,13 +78,13 @@ def test_configs_match_reference(arch, size):
 
 
 def test_registry_names_and_later_families():
+    """Every family loads, the encoder-decoder one (whisper-base) too."""
     assert list_archs() == j_list()
-    with pytest.raises(NotImplementedError,
-                       match="not ported yet.*encoder-decoder"):
-        get_config("whisper-base")
-    with pytest.raises(NotImplementedError,
-                       match="not ported yet.*encoder-decoder"):
-        smoke_config("whisper-base")
+    for arch in list_archs():
+        assert get_config(arch).name == arch
+    assert dataclasses.asdict(smoke_config("whisper-base")) == \
+        dataclasses.asdict(j_smoke("whisper-base"))
+    assert get_config("whisper-base").family == "audio"
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
