@@ -93,13 +93,21 @@ Phases, each of which ends the script with a non-zero exit on failure:
 23. the pipelined rounds on the main path: sync against sequential and
     async on the side stream against one stream, bit for bit; rounds/s
     of sequential, sync and async in turns; pipelined resume; NaN-faulted
-    pipelined runs recovered.
+    pipelined runs recovered;
+24. the round on a device mesh over NCCL, in a process of its own: a
+    (1, 1) mesh on the main path (cut 2, and cut 3 fused) and the ten
+    programs at phase 13's protocol, gather-everything and shard-local
+    resample, each bit for bit the unsharded port with exact launches
+    and its collectives' census a round; rounds/s of the mesh against
+    unsharded in turns; with two cards or more, the ten programs on
+    min(cards, 4) ranks within 1e-5 of one rank.
 
 It then prints the ``kernels`` JSON line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -1322,8 +1330,10 @@ def zoo_card_against_cpu(torch):
     return out
 
 
-def compare_runs(torch, label, runs, exempt=None):
-    """Hold the card's run to the CPU's (``cpu_and_card``): per-round
+def compare_runs(torch, label, runs, exempt=None, what="card-vs-cpu"):
+    """Hold the card's run to the CPU's (``cpu_and_card``; ``what`` names
+    the two sides in what it prints, when ``runs`` holds two others in
+    their places): per-round
     metrics with the same keys to rtol 1e-4 (``feat_grad_norm_std`` also
     within 1e-5 of ``feat_grad_norm_mean``: SGLR's slots share one
     gradient, so the std of their equal norms is float32 rounding of the
@@ -1339,7 +1349,7 @@ def compare_runs(torch, label, runs, exempt=None):
     worst = 0.0
     for rc, rg in zip(rows_c, rows_g):
         if set(rc) != set(rg):
-            raise AssertionError(f"card-vs-cpu {label}: metric keys "
+            raise AssertionError(f"{what} {label}: metric keys "
                                  f"{sorted(rc)} vs {sorted(rg)}")
         for k in rc:
             atol = (1e-5 * abs(rc["feat_grad_norm_mean"])
@@ -1375,7 +1385,7 @@ def compare_runs(torch, label, runs, exempt=None):
         float((a.double() - b.cpu().double()).abs().max())
         for a, b in zip(tree_leaves(sc.clients.params),
                         tree_leaves(sg.clients.params))))
-    print(f"card-vs-cpu {label}: worst metric rel diff {worst:.3e} (tol "
+    print(f"{what} {label}: worst metric rel diff {worst:.3e} (tol "
           f"1e-4); test loss rel diff {loss_rel:.3e}, {key} "
           f"{hc[key]:.4f} / {hg[key]:.4f}; weights max abs "
           f"diff {w_max:.3e} (bound {2 * 1e-3 * steps:.0e})"
@@ -1386,7 +1396,7 @@ def compare_runs(torch, label, runs, exempt=None):
           + f"; steps equal {steps_ok}")
     if not (worst <= 1e-4 and loss_rel <= 1e-4 and metric_ok
             and w_max <= 2 * 1e-3 * steps and over <= 0 and steps_ok):
-        raise AssertionError(f"card-vs-cpu {label}: card and CPU disagree")
+        raise AssertionError(f"{what} {label}: the two runs disagree")
     return {"worst_metric_rel_diff": worst, "test_loss_rel_diff": loss_rel,
             "weights_max_abs": w_max, "store_max_abs": store, "steps": steps}
 
@@ -1861,22 +1871,27 @@ def _sync(torch, dev):
 
 def run_engine(torch, cfg, dev="cuda", state=None, **engine_kw):
     """``Engine.run()`` on ``dev`` with the launch counters reset just
-    before and read just after: the result, the last committed state,
-    each round's scalar metrics and the host clock after each round (the
-    Engine syncs every round under ``collect_timing``; without it the
-    callback syncs), the launches and the Engine."""
+    before and read just after: the result, the last committed state
+    (whole, on a mesh), each round's scalar metrics and the host clock
+    after each round (the Engine syncs every round under
+    ``collect_timing``; without it the callback syncs), on a mesh the
+    census of each round's collectives, the launches and the Engine."""
     from repro_torch.api import Engine
-    stamps, rows, final = [], [], []
+    stamps, rows, final, census = [], [], [], []
 
     class Rec:
         def on_round(self, engine, rnd, st, metrics):
             _sync(torch, dev)
             stamps.append(time.perf_counter())
             rows.append({k: v for k, v in metrics.items() if v.numel() == 1})
-            final[:] = [st]
+            final[:] = [engine.whole_state(st)]
+            if engine.mesh is not None:
+                census.append(engine.mesh.comm.take_census())
 
     eng = Engine(cfg, device=dev, callbacks=[Rec()], log=lambda msg: None,
                  **engine_kw)
+    if eng.mesh is not None:
+        eng.mesh.comm.take_census()
     reset_counters()
     _sync(torch, dev)
     t0 = time.perf_counter()
@@ -1887,7 +1902,7 @@ def run_engine(torch, cfg, dev="cuda", state=None, **engine_kw):
     rows = [{k: float(v) for k, v in r.items()} for r in rows]
     return {"res": res, "state": final[0] if final else None, "rows": rows,
             "stamps": [t0] + stamps, "wall_s": wall, "launches": launches,
-            "engine": eng}
+            "census": census, "engine": eng}
 
 
 def state_diff(torch, a, b) -> float:
@@ -2802,6 +2817,377 @@ def pipelined(torch, dev="cuda", rounds=PHASE18_ROUNDS):
     return out
 
 
+# phase 24: the round on a device mesh over NCCL, in a process of its
+# own (``python3 chip_smoke.py --mesh-phase OUT``)
+MESH_ROUNDS = 10
+# world N's main path at full width is held to the unsharded port as the
+# card is held to the CPU (``compare_runs``, over phase 13's 2 rounds):
+# the ranks' sums run in another order, and at width 32 that flips some
+# of Adam's near-sign steps and ReLU gates (phase 13's docstring), so it
+# moves weights by up to 2 * lr a step, more than 1e-5.  Over
+# MESH_ROUNDS those moves compound; there only the exact checks hold
+MESH_CHECK_ROUNDS = 2
+PHASE13 = dict(rounds=2, eval_every=2, n_clients=10, attendance=0.3,
+               batch=8, width=8, cut=2, seed=4, variable_attendance=True)
+
+
+def _same(torch, a, b) -> bool:
+    return state_diff(torch, a["state"], b["state"]) == 0.0 \
+        and a["rows"] == b["rows"]
+
+
+def _run_diff(torch, state, rows, want) -> float:
+    """Largest |difference| of a run's state and metric rows to ``want``
+    (a dict with "state" and "rows")."""
+    d = state_diff(torch, state, want["state"])
+    for ra, rb in zip(rows, want["rows"]):
+        d = max([d] + [abs(ra[k] - rb[k]) for k in ra])
+    return d
+
+
+def _metric_rel_diff(rows, want_rows) -> float:
+    """Worst relative difference of per-round metrics, the std of the
+    feature-gradient norms measured against their mean (as phase 9's
+    card-vs-CPU check measures it)."""
+    def scale(rw, k):
+        return max(abs(rw[k]), 1e-12, rw["feat_grad_norm_mean"]
+                   if k == "feat_grad_norm_std" else 0.0)
+    return max(abs(r[k] - rw[k]) / scale(rw, k)
+               for r, rw in zip(rows, want_rows) for k in rw)
+
+
+def _census_line(census) -> str:
+    return ", ".join(f"{k} {v['calls']}x {v['bytes']}B"
+                     for k, v in sorted(census.items()))
+
+
+def _digest(torch, state, rows) -> str:
+    """sha256 of a run's state (every leaf's bytes) and metric rows: two
+    runs with one digest are bit for bit the same."""
+    import hashlib
+    from repro_torch.utils.tree import tree_leaves
+    h = hashlib.sha256()
+    for t in tree_leaves(state):
+        t = t.detach().cpu().contiguous()
+        h.update(str((t.dtype, tuple(t.shape))).encode())
+        h.update(t.reshape(-1).view(torch.uint8).numpy().tobytes())
+    h.update(repr(rows).encode())
+    return h.hexdigest()
+
+
+def mesh_world_runs(mesh, algos, rounds, profile=False):
+    """The ten programs at phase 13's protocol on an (N, 1) mesh of the
+    spawned ranks (rank ``mesh.comm.rank`` on its card), the
+    gather-everything route and, for the cycle programs, the shard-local
+    one: {algo: {route: (state, rows)}} on the CPU.  The main path (cut
+    2) for ``MESH_CHECK_ROUNDS`` rounds on each route ("main short"),
+    then for ``rounds`` rounds each route twice in turns ("main"; its
+    ``round_time_s`` under "rounds/s", its census a round under
+    "census"): for each, under "digests" each run's :func:`_digest` and,
+    on rank 0 under "runs", the first run of each route, (state, rows,
+    last evaluation) with the state on the CPU.  With ``profile``, one warm run of each route under the
+    profiler on every rank (rank 0's report under "profile")."""
+    import torch
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.utils.tree import tree_map
+    n = mesh.comm.size
+    out = {"rounds/s": {}, "census": {}}
+    timed = ExperimentConfig(rounds=rounds, eval_every=rounds, cut=2,
+                             collect_timing=True, mesh_shape=(n, 1), **MAIN)
+    short = dataclasses.replace(timed, rounds=MESH_CHECK_ROUNDS,
+                                eval_every=MESH_CHECK_ROUNDS)
+    for label, cfg, routes in (("main short", short, (False, True)),
+                               ("main", timed, (False, True, True, False))):
+        rec = out[label] = {"digests": {}, "runs": {}}
+        for local in routes:
+            key = "local" if local else "gather"
+            r = run_engine(torch, cfg.with_cycle(shard_local_resample=local),
+                           mesh.device)
+            rec["digests"].setdefault(key, []).append(
+                _digest(torch, r["state"], r["rows"]))
+            if mesh.comm.rank == 0 and key not in rec["runs"]:
+                rec["runs"][key] = (tree_map(lambda t: t.cpu(), r["state"]),
+                                    r["rows"], r["res"]["history"][-1])
+            if cfg is timed:
+                out["rounds/s"].setdefault(key, []).append(
+                    1.0 / r["res"]["round_time_s"])
+                out["census"][key] = r["census"][-1]
+    if profile:
+        rep = mesh_profile(torch, {
+            f"world {n} {key}": dataclasses.replace(
+                timed, collect_timing=False).with_cycle(
+                    shard_local_resample=key == "local")
+            for key in ("gather", "local")}, mesh.device,
+            quiet=mesh.comm.rank != 0)
+        if mesh.comm.rank == 0:
+            out["profile"] = rep
+    for algo in algos:
+        out[algo] = {}
+        for local in ((False, True) if algo.startswith("cycle")
+                      else (False,)):
+            cfg = ExperimentConfig(algo=algo, mesh_shape=(n, 1), **PHASE13
+                                   ).with_cycle(server_epochs=2,
+                                                shard_local_resample=local)
+            r = run_engine(torch, cfg, mesh.device)
+            out[algo]["local" if local else "gather"] = (
+                tree_map(lambda t: t.cpu(), r["state"]), r["rows"])
+    return out
+
+
+def mesh_profile(torch, cfgs, dev="cuda", quiet=False):
+    """One warm ``Engine.run()`` of each config under the profiler: wall
+    ms, device launches and busy ms, aten ops on the host, and the host
+    ms of the c10d calls (``c10d::*``) with their count; printed unless
+    ``quiet``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.api import Engine
+    out = {}
+    for name, cfg in cfgs.items():
+        eng = Engine(cfg, device=dev, log=lambda msg: None)
+        eng.run()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _sync(torch, dev)
+            t0 = time.perf_counter()
+            eng.run()
+            _sync(torch, dev)
+            wall = (time.perf_counter() - t0) * 1e3
+        ev = prof.key_averages()
+        devs = [e for e in ev if e.device_type == DeviceType.CUDA]
+        c10d = [e for e in ev if e.key.startswith("c10d::")]
+        out[name] = {
+            "wall_ms": wall, "launches": sum(e.count for e in devs),
+            "busy_ms": sum(e.self_device_time_total for e in devs) / 1e3,
+            "aten_ops": sum(e.count for e in ev
+                            if e.key.startswith("aten::")),
+            "c10d_calls": sum(e.count for e in c10d),
+            "c10d_host_ms": sum(e.cpu_time_total for e in c10d) / 1e3}
+        if quiet:
+            continue
+        print(f"profile mesh {name} ({cfg.rounds} rounds + eval, warm): "
+              + ", ".join(f"{k} {v:.3f}" if isinstance(v, float)
+                          else f"{k} {v}" for k, v in out[name].items()))
+    return out
+
+
+def mesh_phase(torch, rounds=MESH_ROUNDS, dev="cuda", profile=False):
+    """Phase 24: the monolithic round on a mesh whose ``model`` axis is 1,
+    over NCCL.  World 1 (this process, one card): the main path (femnist
+    width 32, 100 clients, cohort 5, batch 16) at cut 2 and at cut 3
+    fused, ``rounds`` rounds, gather-everything and shard-local, each bit
+    for bit the unsharded port on the card (state and metrics) with
+    exact feature_resample, gather_loss and fused_adam launches and its
+    census a round; rounds/s of mesh (1, 1) against unsharded in turns;
+    then the ten programs at phase 13's protocol, bit for bit.  World
+    min(cards, 4) when there are two cards or more: the ten programs in
+    spawned ranks, within 1e-5 of world 1, shard-local bit for bit
+    gather-everything, the same on every rank.  With ``profile``, last,
+    one warm run of each of those three configs under the profiler."""
+    from repro_torch.api import ExperimentConfig, algorithm_names
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.meshcheck import spawn_ranks
+    from repro_torch.utils.tree import tree_map
+    checks, out = {}, {"census": {}}
+    mesh = make_local_mesh(dev)           # the world of 1, over NCCL
+    print(f"mesh: world 1 over {torch.distributed.get_backend()} on "
+          f"{torch.cuda.get_device_name(0)}")
+    try:
+        variants = {
+            "cut2": (ExperimentConfig(rounds=rounds, eval_every=rounds,
+                                      cut=2, **MAIN),
+                     {"feature_resample": 2 * 5 * rounds,
+                      "fused_adam": (2 * 5 + 4) * rounds, "gather_loss": 0}),
+            "cut3 fused": (ExperimentConfig(
+                rounds=rounds, eval_every=rounds, cut=3, **MAIN).with_cycle(
+                    fused_gather_loss=True),
+                {"feature_resample": 0, "fused_adam": (1 * 5 + 5) * rounds,
+                 "gather_loss": 5 * rounds})}
+        for name, (cfg, expect) in variants.items():
+            base = run_engine(torch, cfg, dev)
+            if name == "cut2":        # world N's main path is held to it
+                short = run_engine(torch, dataclasses.replace(
+                    cfg, rounds=MESH_CHECK_ROUNDS,
+                    eval_every=MESH_CHECK_ROUNDS), dev)
+                main_base = {lab: {"state": tree_map(lambda t: t.cpu(),
+                                                     r["state"]),
+                                   "rows": r["rows"], "engine": r["engine"],
+                                   "last": r["res"]["history"][-1]}
+                             for lab, r in (("main", base),
+                                            ("main short", short))}
+            for local in (False, True):
+                route = "shard-local" if local else "gather-everything"
+                run = run_engine(torch, dataclasses.replace(
+                    cfg, mesh_shape=(1, 1)).with_cycle(
+                        shard_local_resample=local), dev)
+                same = _same(torch, run, base)
+                launched = {k: run["launches"][k] for k in expect}
+                checks[f"{name} {route} == unsharded"] = same
+                checks[f"{name} {route} launches"] = launched == expect
+                out["census"][f"{name} {route}"] = run["census"]
+                steady = all(c == run["census"][0] for c in run["census"])
+                print(f"mesh (1, 1) {name} {route}: bit-equal to the "
+                      f"unsharded port {same}; launches {launched} "
+                      f"(expected {expect}); census a round "
+                      f"{_census_line(run['census'][0])} (every round the "
+                      f"same: {steady})")
+        # rounds/s in turns (host-bound: compare inside this phase only)
+        timed = dataclasses.replace(variants["cut2"][0], collect_timing=True)
+        turns = {"unsharded": timed,
+                 "mesh": dataclasses.replace(timed, mesh_shape=(1, 1)),
+                 "mesh local": dataclasses.replace(
+                     timed, mesh_shape=(1, 1)).with_cycle(
+                         shard_local_resample=True)}
+        rps = {}
+        for name in ("unsharded", "mesh", "mesh local", "mesh local",
+                     "mesh", "unsharded"):
+            t = run_engine(torch, turns[name], dev)["res"]["round_time_s"]
+            rps.setdefault(name, []).append(1.0 / t)
+        out["rounds_per_s"] = rps
+        print("mesh: rounds/s in turns (cut 2, round_time_s) "
+              + ", ".join(f"{k} {v}" for k, v in rps.items()))
+        # the ten programs at phase 13's protocol
+        world1 = {}
+        for algo in algorithm_names():
+            cfg = ExperimentConfig(algo=algo, **PHASE13).with_cycle(
+                server_epochs=2)
+            base = run_engine(torch, cfg, dev)
+            world1[algo] = {}
+            for local in ((False, True) if algo.startswith("cycle")
+                          else (False,)):
+                run = run_engine(torch, dataclasses.replace(
+                    cfg, mesh_shape=(1, 1)).with_cycle(
+                        shard_local_resample=local), dev)
+                key = "local" if local else "gather"
+                world1[algo][key] = run
+                same = _same(torch, run, base)
+                checks[f"zoo {algo} {key} == unsharded"] = same
+                checks[f"zoo {algo} {key} launches"] = (
+                    run["launches"] == base["launches"])
+            print(f"mesh (1, 1) {algo}: bit-equal to unsharded "
+                  + ", ".join(f"{k} {_same(torch, r, base)}"
+                              for k, r in world1[algo].items())
+                  + f"; launches {base['launches']['fused_adam']} fused_adam, "
+                  f"{base['launches']['feature_resample']} feature_resample")
+        if profile:
+            out["profile"] = mesh_profile(torch, {
+                k: dataclasses.replace(c, collect_timing=False)
+                for k, c in turns.items()}, dev)
+    finally:
+        mesh.close()
+    n = min(torch.cuda.device_count(), 4)
+    out["world_n"] = n
+    if n < 2:
+        print(f"mesh: the world of N ranks needs two cards or more; this "
+              f"machine has {torch.cuda.device_count()}, so phase 24 ran "
+              "world 1 only")
+    else:
+        per_rank = spawn_ranks(n, mesh_world_runs, (algorithm_names(),
+                                                    rounds, profile),
+                               device=dev)
+        rps_n = per_rank[0].pop("rounds/s")
+        census_n = per_rank[0].pop("census")
+        if profile:
+            out["profile"].update(per_rank[0].pop("profile"))
+        main_n = {lab: [r.pop(lab) for r in per_rank]
+                  for lab in ("main short", "main")}
+        for r in per_rank[1:]:
+            r.pop("rounds/s"), r.pop("census")
+        out["world_n_rounds_per_s"] = rps_n
+        out["census"][f"world {n}"] = census_n
+        print(f"mesh: world {n} main path (cut 2, capacity "
+              f"{-(-5 // n) * n}), rank 0's rounds/s in turns "
+              + ", ".join(f"{k} {v}" for k, v in rps_n.items()))
+        for k, c in census_n.items():
+            print(f"mesh: world {n} {k} census a round {_census_line(c)}")
+        # the main path at full width, held to the unsharded port (its
+        # capacity 5: the slots the mesh adds are dead, as padded slots)
+        out["world_n_main"] = {}
+        for lab, ranks in main_n.items():
+            rec = {"diff": {}, "metric_rel_diff": {}}
+            want = main_base[lab]
+            for key, (st, rows, last) in ranks[0]["runs"].items():
+                rec["diff"][key] = _run_diff(torch, st, rows, want)
+                rec["metric_rel_diff"][key] = _metric_rel_diff(
+                    rows, want["rows"])
+                if lab != "main short":
+                    continue
+                try:
+                    rec[f"compare {key}"] = compare_runs(
+                        torch, f"world {n} {key} against unsharded "
+                        f"({MESH_CHECK_ROUNDS} rounds)",
+                        {"cpu": (want["rows"], want["state"], want["last"],
+                                 want["engine"]),
+                         "cuda": (rows, st, last, None)}, what="mesh")
+                    held = True
+                except AssertionError:
+                    held = False
+                checks[f"world {n} {lab} {key} held to unsharded"] = held
+            runs = ranks[0]["runs"]
+            rec["local == gather"] = (
+                state_diff(torch, runs["local"][0], runs["gather"][0]) == 0.0
+                and runs["local"][1] == runs["gather"][1])
+            rec["repeat"] = all(len(set(v)) == 1
+                                for v in ranks[0]["digests"].values())
+            rec["same on every rank"] = all(
+                r["digests"] == ranks[0]["digests"] for r in ranks[1:])
+            for k in ("local == gather", "repeat", "same on every rank"):
+                checks[f"world {n} {lab} {k}"] = rec[k]
+            out["world_n_main"][lab] = rec
+            print(f"mesh: world {n} {lab} path against the unsharded port "
+                  f"(capacity 5, "
+                  f"{MESH_CHECK_ROUNDS if lab == 'main short' else rounds} "
+                  "rounds): max |diff| of state and metrics "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in rec["diff"].items())
+                  + "; worst metric rel diff " + ", ".join(
+                      f"{k} {v:.3e}" for k, v in
+                      rec["metric_rel_diff"].items())
+                  + f"; shard-local bit for bit gather-everything "
+                  f"{rec['local == gather']}; each route's runs bit for bit "
+                  f"{rec['repeat']}; every rank the same "
+                  f"{rec['same on every rank']}")
+        worst = 0.0
+        for algo, routes in per_rank[0].items():
+            want = world1[algo]["gather"]
+            for key, (st, rows) in routes.items():
+                d = _run_diff(torch, st, rows, want)
+                worst = max(worst, d)
+                checks[f"world {n} {algo} {key} within 1e-5"] = d <= 1e-5
+                checks[f"world {n} {algo} {key} same on every rank"] = all(
+                    state_diff(torch, st, o[algo][key][0]) == 0.0
+                    and o[algo][key][1] == rows for o in per_rank[1:])
+            if "local" in routes:
+                checks[f"world {n} {algo} local == gather"] = (
+                    state_diff(torch, routes["local"][0],
+                               routes["gather"][0]) == 0.0
+                    and routes["local"][1] == routes["gather"][1])
+        out["world_n_worst_diff"] = worst
+        print(f"mesh: world {n} over {'NCCL' if dev == 'cuda' else 'gloo'}, "
+              f"ten programs: worst diff to world 1 {worst:.3e} (tol 1e-5)")
+    bad = [k for k, v in checks.items() if not v]
+    print(f"mesh checks: {len(checks) - len(bad)} of {len(checks)} held"
+          + (f"; failed {bad}" if bad else ""))
+    if bad:
+        raise AssertionError(f"mesh: {bad}")
+    out["checks"] = checks
+    return out
+
+
+def run_mesh_phase(out_path, profile=False):
+    """The entry of ``--mesh-phase``: phase 24 alone, its report written
+    to ``out_path``."""
+    import torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    _build.build_all()
+    res = mesh_phase(torch, profile=profile)
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1)
+    return 0
+
+
 def kernel_profile(torch, run, dev="cuda"):
     """``run()`` under the profiler: device launches (kernels and copies),
     device busy ms, wall ms."""
@@ -2880,8 +3266,14 @@ def main(argv=None):
     ap.add_argument("--out", default=None, help="write the full report here")
     ap.add_argument("--profile", action="store_true",
                     help="also profile the main path, its fused variant, "
-                         "psl and ssl, and one olmoe and one zamba2 round")
+                         "psl and ssl, one olmoe and one zamba2 round, and "
+                         "the main path unsharded and on a (1, 1) mesh")
+    ap.add_argument("--mesh-phase", default=None, metavar="OUT",
+                    help="run phase 24 alone (the process main() starts "
+                         "for it) and write its report to OUT")
     args = ap.parse_args(argv)
+    if args.mesh_phase:
+        return run_mesh_phase(args.mesh_phase, args.profile)
 
     import torch
     if not torch.cuda.is_available():
@@ -3005,8 +3397,23 @@ def main(argv=None):
     # 23. the pipelined rounds on the main path
     fault_paths["pipeline"] = pipelined(torch)
     t23 = time.perf_counter()
+
+    # 24. the round on a device mesh, in a process of its own (it starts
+    # a process group; a world of N spawns N ranks)
+    mesh_out = os.path.join(ROOT, "build", "chip_smoke_mesh.json")
+    os.makedirs(os.path.dirname(mesh_out), exist_ok=True)
+    torch.cuda.empty_cache()          # the card's memory to the new process
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--mesh-phase", mesh_out]
+                          + (["--profile"] if args.profile else []),
+                          timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 24 (mesh) exited {proc.returncode}")
+    with open(mesh_out) as f:
+        mesh_runs = json.load(f)
+    t24 = time.perf_counter()
     phase_s.update({"18": t19 - t18, "19": t20 - t19, "20": t21 - t20,
-                    "21-22": t22 - t21b, "23": t23 - t22})
+                    "21-22": t22 - t21b, "23": t23 - t22, "24": t24 - t23})
     print("phases took " + ", ".join(f"{k}: {v:.1f}s"
                                      for k, v in phase_s.items()))
 
@@ -3040,7 +3447,7 @@ def main(argv=None):
                        "launch_floor": floor, "zoo": zoo_runs,
                        "workloads": workload_runs, "serving": serving,
                        "fault_paths": fault_paths, "whisper": whisper_runs,
-                       "phase_s": phase_s}, f,
+                       "mesh": mesh_runs, "phase_s": phase_s}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

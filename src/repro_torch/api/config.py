@@ -2,12 +2,15 @@
 
 ``ExperimentConfig.from_dict`` accepts the JAX package's ``to_dict()``
 output unchanged, so one dict drives both packages.  Every field the
-JAX package has is kept with its default; the mesh knobs, whose
-feature the port does not have yet, must keep theirs, or ``validate``
-raises ``NotImplementedError`` naming the ROADMAP item that ports them.  ``scenario`` and ``resilience`` are the port's
-``ScenarioConfig`` and ``ResilienceConfig`` (their dict forms load too);
-``serve`` is the port's ``ServeConfig``, which
-``repro_torch.launch.serve --continuous`` reads.
+JAX package has is kept with its default.  The mesh knobs run the round
+on a ``torch.distributed`` mesh whose ``model`` axis is 1; ``validate``
+raises ``NotImplementedError``, naming ROADMAP item 9b, for a ``model``
+axis above 1 and for a mesh with the pipelined rounds, resilience,
+checkpoints, a scenario or a serve config.  ``scenario`` and
+``resilience`` are the port's ``ScenarioConfig`` and
+``ResilienceConfig`` (their dict forms load too); ``serve`` is the
+port's ``ServeConfig``, which ``repro_torch.launch.serve --continuous``
+reads.
 """
 from __future__ import annotations
 
@@ -22,9 +25,15 @@ from repro_torch.resilience.config import ResilienceConfig
 from repro_torch.scenario.profiles import ScenarioConfig
 from repro_torch.serve.config import ServeConfig
 
-# knobs whose features are not ported yet, each with the ROADMAP item
-# (queue 1) that ports it
-NOT_PORTED = {"mesh_shape": 9, "mesh_axes": 9, "shard_cohort": 9}
+# what a mesh does not combine with yet (ROADMAP queue 1, item 9b): the
+# field, and whether a config sets it
+MESH_9B = {
+    "pipeline_depth": lambda c: c.pipeline_depth > 0,
+    "resilience": lambda c: c.resilience != ResilienceConfig(),
+    "ckpt_dir": lambda c: c.ckpt_dir is not None,
+    "scenario": lambda c: c.scenario.kind != "none",
+    "serve": lambda c: c.serve != ServeConfig(),
+}
 
 
 @dataclass(frozen=True)
@@ -63,7 +72,9 @@ class ExperimentConfig:
     # and continues at its round, the cohort stream replayed
     ckpt_dir: Optional[str] = None
     resume: bool = False
-    # ---- not ported yet (NOT_PORTED): each must keep its default ----
+    # ---- the device mesh: one rank a card over torch.distributed; the
+    # cohort's slots split over the batch axes ('pod', 'data'); with
+    # shard_cohort off every rank runs the whole round
     mesh_shape: Optional[tuple] = None
     mesh_axes: tuple = ("data", "model")
     shard_cohort: bool = True
@@ -130,15 +141,22 @@ class ExperimentConfig:
                    serve=serve, **d)
 
     def validate(self) -> "ExperimentConfig":
-        """Raise on a field whose feature the port lacks, then check the
-        ported ones."""
-        defaults = ExperimentConfig()
-        for name, item in NOT_PORTED.items():
-            if getattr(self, name) != getattr(defaults, name):
+        """Raise on a combination the port lacks, then check the fields."""
+        if self.mesh_shape is not None:
+            if len(self.mesh_shape) != len(self.mesh_axes):
+                raise ValueError(f"mesh_shape {self.mesh_shape} and "
+                                 f"mesh_axes {self.mesh_axes} must have "
+                                 "equal length")
+            sizes = dict(zip(self.mesh_axes, self.mesh_shape))
+            if sizes.get("model", 1) > 1:
                 raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r}: not ported yet "
-                    f"(ROADMAP item {item}; the port runs with "
-                    f"{getattr(defaults, name)!r})")
+                    f"mesh {sizes}: a 'model' axis > 1 (FSDP/TP weights "
+                    "through DTensor) is not ported yet (ROADMAP item 9b)")
+            for name, used in MESH_9B.items():
+                if used(self):
+                    raise NotImplementedError(
+                        f"mesh_shape with {name}={getattr(self, name)!r}: "
+                        "not ported yet (ROADMAP item 9b)")
         self.cycle.check_ported()
         self.serve.validate()
         get_program(self.algo)
@@ -231,6 +249,13 @@ class ExperimentConfig:
                         help="decay rate for --staleness-weighting exp")
         ScenarioConfig.add_arguments(ap)
         ResilienceConfig.add_arguments(ap)
+        ap.add_argument("--mesh-shape", default=None,
+                        help="device mesh, e.g. 4,1: one rank a card, "
+                             "launched by torchrun --nproc-per-node 4")
+        ap.add_argument("--mesh-axes", default="data,model",
+                        help="the mesh's axis names")
+        ap.add_argument("--no-shard-cohort", action="store_true",
+                        help="on a mesh, run the whole round on every rank")
         ServeConfig.add_arguments(ap)
         return ap
 
@@ -250,6 +275,10 @@ class ExperimentConfig:
             pipeline_staleness=args.pipeline_staleness,
             staleness_weighting=args.staleness_weighting,
             staleness_lambda=args.staleness_lambda,
+            mesh_shape=(None if args.mesh_shape is None else
+                        tuple(int(v) for v in args.mesh_shape.split(","))),
+            mesh_axes=tuple(args.mesh_axes.split(",")),
+            shard_cohort=not args.no_shard_cohort,
             scenario=ScenarioConfig.from_flags(args),
             resilience=ResilienceConfig.from_flags(args),
             serve=ServeConfig.from_flags(args),

@@ -7,8 +7,12 @@ resume (``ckpt_dir``, ``resume``), the client-population scenario
 pipelined rounds (``pipeline_depth``, ``pipeline_staleness``): a ring
 of in-flight extracted cohorts, whose async extracts run on a side CUDA
 stream beside the tail of the round before (the stand-in for JAX's
-asynchronous dispatch).  No mesh branches (its config fields must keep
-their defaults).
+asynchronous dispatch), and the mesh (``mesh_shape``, ``mesh_axes``,
+``shard_cohort``): one rank a card over ``torch.distributed``, the
+cohort's slots split over the ranks, the per-client store row-sharded.
+Every rank samples the same cohort from the seed and copies only its
+own slots' batches to its device; metrics and evaluations come out the
+same on every rank.
 
     eng = Engine(ExperimentConfig(algo="cyclesfl", rounds=100))
     result = eng.run()           # {"history": [...], "grad_stability": ...}
@@ -36,7 +40,8 @@ import torch
 from repro_torch.api.config import ExperimentConfig
 from repro_torch.api.phases import (PipelinedAlgorithm, SLAlgorithm,
                                     TrainState, build_algorithm,
-                                    build_pipelined_algorithm)
+                                    build_pipelined_algorithm, place_state,
+                                    slot_split, whole_state)
 from repro_torch.api.registry import get_program
 from repro_torch.api.tasks import build_task
 from repro_torch.checkpoint import (latest_step, load_checkpoint,
@@ -53,6 +58,7 @@ from repro_torch.resilience import (HEALTH_EMA, HEALTH_NONFINITE,
                                     ResilienceExhaustedError,
                                     build_fault_stream)
 from repro_torch.scenario.profiles import build_profile_stream
+from repro_torch.sharding.specs import shard_aligned_capacity
 from repro_torch.utils.device import resolve_device  # noqa: F401
 from repro_torch.utils.tree import tree_leaves, tree_map
 
@@ -141,6 +147,12 @@ class Engine:
     :meth:`round_key` of the round.  ``side_stream`` (async pipelining
     on the card only) runs each prefetched extract on a second CUDA
     stream; False keeps the whole schedule on one stream.
+
+    With ``cfg.mesh_shape`` the Engine builds the mesh once
+    (``launch.mesh.make_engine_mesh``, over the process group torchrun
+    or the caller started) and trains on this rank's card; ``close()``
+    ends a process group the mesh started itself.  Callbacks see this
+    rank's state; :meth:`whole_state` gathers the per-client store.
     """
 
     def __init__(self, cfg: ExperimentConfig, *, device=None,
@@ -151,8 +163,15 @@ class Engine:
                  plan_fn: Optional[PlanFn] = None,
                  side_stream: bool = True,
                  log=print):
-        self.device = resolve_device(device)
         cfg.validate()
+        self.mesh = None
+        if cfg.mesh_shape is not None:
+            from repro_torch.launch.mesh import make_engine_mesh
+            self.mesh = make_engine_mesh(cfg.mesh_shape, cfg.mesh_axes,
+                                         device)
+            self.device = self.mesh.device
+        else:
+            self.device = resolve_device(device)
         if (task is None) != (fed is None):
             raise ValueError("pass BOTH task and fed (they come from one "
                              "generator) or neither")
@@ -216,7 +235,8 @@ class Engine:
         opt_s, opt_c = adam(cfg.lr_server), adam(cfg.lr_client)
         self.algo: SLAlgorithm = build_algorithm(
             program, task, opt_s, opt_c, cfg.cycle, plan_fn=plan_fn,
-            device=self.device, resilience=cfg.resilience)
+            device=self.device, resilience=cfg.resilience, mesh=self.mesh,
+            shard_data=cfg.shard_cohort, n_clients=fed.n_clients)
         # ---- pipelined rounds: the (extract, tail) pair, so cohort k+1's
         # feature extraction can be in flight while cohort k's server
         # phase runs.  None for the fused sequential programs (nothing to
@@ -271,8 +291,31 @@ class Engine:
 
     @property
     def padded_capacity(self) -> int:
-        """The shape rounds are padded to: without a mesh, the capacity."""
-        return self.cohort_capacity
+        """The shape rounds are padded to: :attr:`cohort_capacity` rounded
+        up to a multiple of the mesh's batch-axis shard count, so every
+        rank owns an equal share of the slots.  The sampler still clips
+        to the capacity, so the draws do not depend on the rank count;
+        the added slots are dead (sentinel id, zero mask) like any
+        padded slot.  Identity off the mesh, at one rank and with
+        ``shard_cohort`` off."""
+        cap = self.cohort_capacity
+        if self.mesh is None or not self.cfg.shard_cohort:
+            return cap
+        return shard_aligned_capacity(self.mesh, cap)
+
+    def whole_state(self, state: TrainState) -> TrainState:
+        """The whole TrainState on every rank (the per-client store's rows
+        gathered from the mesh; off the mesh, ``state`` itself)."""
+        if self.mesh is None:
+            return state
+        return whole_state(state, self.algo.store_rows, self.mesh.comm)
+
+    def close(self):
+        """End the process group the Engine's mesh started (a world of 1
+        with no group of its own); a group torchrun or the caller
+        started is left to them."""
+        if self.mesh is not None:
+            self.mesh.close()
 
     def _sample_cohort_ids(self, rng: np.random.Generator) -> np.ndarray:
         """Draw one round's live cohort, advancing the sample clock.
@@ -352,6 +395,7 @@ class Engine:
         put = lambda a: None if a is None else torch.from_numpy(a).to(
             self.device)
         if not cfg.pad_cohorts:
+            xs, ys = self._own_slots(xs, ys)
             return put(cohort), put(xs), put(ys), None
         cap = self.padded_capacity
         pad = cap - live
@@ -373,7 +417,16 @@ class Engine:
                        drop_hazard=ev.hazard_drops,
                        drop_deadline=ev.deadline_drops,
                        lag_drawn_max=int(ev.lag.max()) if live else 0)
+        xs, ys = self._own_slots(xs, ys)
         return put(cohort), put(xs), put(ys), put(mask)
+
+    def _own_slots(self, xs, ys):
+        """On a mesh, the batches of this rank's slots only (the cohort
+        ids and the mask stay whole)."""
+        split = slot_split(self.algo.mesh, len(xs))
+        if split is None:
+            return xs, ys
+        return xs[split.lo:split.hi], ys[split.lo:split.hi]
 
     def sync(self, metrics):
         """Block until the round's work is done: the card's queue drains
@@ -655,6 +708,7 @@ class Engine:
             state, start_round = self.restore(rng)
         if state is None:
             state = self.init_state()
+        state = place_state(state, self.algo.store_rows)
         tracker = GradStabilityTracker()
         history = []
         t0 = time.time()
@@ -768,7 +822,8 @@ class Engine:
             tracker.update(metrics)
             self._emit("on_round", rnd, state, metrics)
             if (rnd + 1) % cfg.eval_every == 0 or rnd == cfg.rounds - 1:
-                loss, mets = evaluate(self.task, state, self.fed)
+                loss, mets = evaluate(self.task, self.whole_state(state),
+                                      self.fed)
                 history.append({"round": rnd + 1, "test_loss": loss, **mets,
                                 "train_loss": float(metrics["server_loss"]),
                                 "elapsed_s": round(time.time() - t0, 1)})

@@ -1,9 +1,8 @@
 """Declarative round programs: every SL algorithm as a composition of
 typed phases over one ``TrainState``.
 
-Port of ``repro/api/phases.py`` without the mesh hooks.  An algorithm
-is a :class:`RoundProgram`, an ordered
-tuple of phases drawn from
+Port of ``repro/api/phases.py``.  An algorithm is a
+:class:`RoundProgram`, an ordered tuple of phases drawn from
 
     ExtractFeatures -> ServerUpdate -> FeatureGradients -> ClientUpdate
     -> Commit
@@ -29,6 +28,17 @@ ExtractFeatures head into two calls, ``extract`` and ``tail``, whose
 composition is the round: the Engine's pipelined schedule runs the
 extract of cohort k + L before (async) or after (sync) the tail of
 cohort k.
+
+On a mesh (``build_algorithm(..., mesh=)``) each rank runs the round on
+its own cohort slots (a ``SlotSplit``: ``xs``/``ys`` hold those slots,
+``cohort`` and ``mask`` the whole cohort), the PSL family's per-client
+store is row-sharded (a ``StoreRows``), and every cross-slot value is
+reduced over ranks through the mesh's collectives: FedAvg commits,
+cohort-mean gradients, the data-parallel server inner loop, and the
+per-slot metrics, which are gathered so every rank reports the same.
+The programs that chain along the cohort (``ssl``, ``sflv2``,
+``cyclessl``) shard nothing: every rank runs them whole.  At one rank
+the mesh round runs the unsharded round's arithmetic, bit for bit.
 """
 from __future__ import annotations
 
@@ -42,15 +52,18 @@ from repro_torch.core.cyclesl import (CycleConfig, PlanFn, _slot,
                                       client_updates, extract_features,
                                       feature_gradients, server_inner_loop)
 from repro_torch.core.feature_store import pool_store
-from repro_torch.core.protocol import (EntityState, broadcast_entity,
-                                       entity_mean, entity_step, init_entity,
-                                       masked_axis0_mean, masked_entity_mean,
-                                       put_entities, select_entities,
+from repro_torch.core.protocol import (EntityState, SlotSplit, StoreRows,
+                                       broadcast_entity, entity_mean,
+                                       entity_step, gather_slots, init_entity,
+                                       masked_entity_mean, put_entities,
+                                       select_entities, slot_mean,
                                        stack_entities, take_entities)
 from repro_torch.core.split import SplitTask
 from repro_torch.optim import Optimizer
 from repro_torch.resilience.guards import health_vector
-from repro_torch.utils.tree import tree_map
+from repro_torch.sharding.specs import (batch_axes, cohort_shard_axes,
+                                        local_slots, store_rows)
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
 
 class TrainState(NamedTuple):
@@ -72,6 +85,10 @@ class SLAlgorithm:
     init: Callable[..., TrainState]
     round: Callable[..., tuple[TrainState, dict]]
     uses_global_client: bool
+    # the mesh the round's phases split the cohort over (None: every
+    # slot on this rank), and the per-client store rows this rank holds
+    mesh: Any = None
+    store_rows: Optional[StoreRows] = None
 
 
 @dataclass(frozen=True)
@@ -111,6 +128,8 @@ class RoundVars:
                                       # tensor (None = unweighted); it
                                       # scales the server and feature
                                       # gradients
+    split: Optional[SlotSplit] = None  # this rank's slots on a mesh,
+    store_rows: Optional[StoreRows] = None  # and its per-client store rows
     metrics: dict = field(default_factory=dict)
 
 
@@ -130,11 +149,13 @@ def masked_mean(x, mask):
             / torch.clamp(torch.sum(mask), min=1.0))
 
 
-def feat_grad_metrics(fgrads, mask=None) -> dict:
+def feat_grad_metrics(fgrads, mask=None, split=None) -> dict:
     """Mean and (population) std over slots of the per-slot feature
-    gradient norm, scaled by 1/sqrt(features per slot)."""
+    gradient norm, scaled by 1/sqrt(features per slot); with ``split``
+    over every rank's slots (the norms are gathered)."""
     fg = fgrads.reshape(fgrads.shape[0], -1).float()
-    norms = torch.linalg.vector_norm(fg, dim=-1) / fg.shape[-1] ** 0.5
+    norms = gather_slots(torch.linalg.vector_norm(fg, dim=-1)
+                         / fg.shape[-1] ** 0.5, split)
     if mask is None:
         return {"feat_grad_norm_mean": norms.mean(),
                 "feat_grad_norm_std": norms.std(correction=0)}
@@ -173,7 +194,8 @@ class ExtractFeatures(Phase):
         v.cohort_clients = (
             broadcast_entity(state.client_global, v.ys.shape[0])
             if state.clients is None
-            else take_entities(state.clients, v.cohort))
+            else take_entities(state.clients, v.cohort, v.store_rows,
+                               v.split))
         v.server_prev = state.server.params
         v.feats = extract_features(ctx.task, v.cohort_clients.params, v.xs)
 
@@ -211,7 +233,7 @@ class ServerUpdate(Phase):
             server, sloss = server_inner_loop(
                 ctx.task, v.state.server, ctx.opt_server, store, v.key,
                 ctx.cycle, batch=v.ys.shape[1], plan_fn=ctx.plan_fn,
-                grad_scale=v.stale_w)
+                grad_scale=v.stale_w, split=v.split)
             v.metrics["server_loss"] = sloss
         elif self.mode == "replica_avg":
             losses, gs = _pair_server_losses_and_grads(ctx, v)
@@ -220,17 +242,18 @@ class ServerUpdate(Phase):
             # C replicas with a [C] step take one stacked step
             rep = entity_step(broadcast_entity(v.state.server, v.ys.shape[0]),
                               gs, ctx.opt_server)
-            server = (entity_mean(rep) if v.mask is None
-                      else masked_entity_mean(rep, v.mask))
-            v.metrics["server_loss"] = masked_mean(losses, v.mask)
+            server = (entity_mean(rep, v.split) if v.mask is None
+                      else masked_entity_mean(rep, v.mask, v.split))
+            v.metrics["server_loss"] = masked_mean(
+                gather_slots(losses, v.split), v.mask)
         elif self.mode == "mean_grad":
             losses, gs = _pair_server_losses_and_grads(ctx, v)
-            gmean = tree_map(lambda g: g.mean(0) if v.mask is None
-                             else masked_axis0_mean(g, v.mask), gs)
+            gmean = slot_mean(gs, v.mask, v.split)
             if v.stale_w is not None:
                 gmean = tree_map(lambda g: g * v.stale_w, gmean)
             server = entity_step(v.state.server, gmean, ctx.opt_server)
-            v.metrics["server_loss"] = masked_mean(losses, v.mask)
+            v.metrics["server_loss"] = masked_mean(
+                gather_slots(losses, v.split), v.mask)
         else:
             raise ValueError(f"unknown ServerUpdate mode {self.mode!r}")
         v.state = v.state._replace(server=server)
@@ -254,10 +277,11 @@ class FeatureGradients(Phase):
                else self.average)
         ccfg = replace(ctx.cycle, avg_client_grads=avg)
         v.fgrads = feature_gradients(ctx.task, params, v.feats, v.ys, ccfg,
-                                     mask=v.mask)
+                                     mask=v.mask, split=v.split)
         if v.stale_w is not None:
             v.fgrads = v.fgrads * v.stale_w.to(v.fgrads.dtype)
-        v.metrics.update(feat_grad_metrics(v.fgrads, mask=v.mask))
+        v.metrics.update(feat_grad_metrics(v.fgrads, mask=v.mask,
+                                           split=v.split))
 
 
 @dataclass(frozen=True)
@@ -286,9 +310,12 @@ class ClientUpdate(Phase):
                 gnorms.append(gn)
             v.cohort_clients, gnorms = entity, torch.stack(gnorms)
         else:
+            mask = (v.mask if v.mask is None or v.split is None
+                    else v.split.local(v.mask))
             v.cohort_clients, gnorms = client_updates(
                 ctx.task, v.cohort_clients, ctx.opt_client, v.xs, v.fgrads,
-                grad_clip=clip, mask=v.mask)
+                grad_clip=clip, mask=mask)
+            gnorms = gather_slots(gnorms, v.split)
         if self.record_gnorm:
             v.metrics["client_grad_norm_mean"] = masked_mean(gnorms, v.mask)
 
@@ -309,11 +336,13 @@ class Commit(Phase):
         state, cc = v.state, v.cohort_clients
         if self.mode == "per_client":
             v.state = state._replace(
-                clients=put_entities(state.clients, v.cohort, cc))
+                clients=put_entities(state.clients, v.cohort, cc,
+                                     v.store_rows, v.split))
         elif self.mode == "average":
             v.state = state._replace(
-                client_global=(entity_mean(cc) if v.mask is None
-                               else masked_entity_mean(cc, v.mask)))
+                client_global=(entity_mean(cc, v.split) if v.mask is None
+                               else masked_entity_mean(cc, v.mask,
+                                                       v.split)))
         elif self.mode == "global":
             v.state = state._replace(client_global=cc)
         else:
@@ -428,14 +457,15 @@ class LocalFedAvgRound(Phase):
                               stack_entities([gc for _, gc, _ in outs]),
                               ctx.opt_client)
         if v.mask is None:
-            server, client = entity_mean(servers), entity_mean(clients)
+            server = entity_mean(servers, v.split)
+            client = entity_mean(clients, v.split)
         else:
-            server = masked_entity_mean(servers, v.mask)
-            client = masked_entity_mean(clients, v.mask)
+            server = masked_entity_mean(servers, v.mask, v.split)
+            client = masked_entity_mean(clients, v.mask, v.split)
         zero = torch.zeros((), device=v.ys.device)
+        losses = gather_slots(torch.stack([l for l, _, _ in outs]), v.split)
         v.metrics.update(
-            server_loss=masked_mean(torch.stack([l for l, _, _ in outs]),
-                                    v.mask),
+            server_loss=masked_mean(losses, v.mask),
             feat_grad_norm_mean=zero, feat_grad_norm_std=zero)
         v.state = v.state._replace(server=server, client_global=client)
 
@@ -454,42 +484,126 @@ class RoundProgram:
 
 def init_train_state(seed: int, n_clients: int, task: SplitTask,
                      opt_server: Optimizer, opt_client: Optimizer,
-                     global_client: bool, device="cpu") -> TrainState:
+                     global_client: bool, device="cpu",
+                     rows: Optional[StoreRows] = None) -> TrainState:
     """Fresh state: the server and the client models drawn in turn from
-    one CPU generator seeded with ``seed``, then moved to ``device``."""
+    one CPU generator seeded with ``seed``, then moved to ``device``.
+    ``rows`` keeps only those rows of the per-client store (every client
+    starts from the same draw, so a rank's rows are that draw
+    repeated)."""
     gen = torch.Generator().manual_seed(seed)
     to_dev = lambda tree: tree_map(lambda t: t.to(device), tree)
     server = init_entity(to_dev(task.init_server(gen)), opt_server)
     client0 = init_entity(to_dev(task.init_client(gen)), opt_client)
     if global_client:
         return TrainState(server, None, client0)
-    return TrainState(server, broadcast_entity(client0, n_clients), None)
+    n = n_clients if rows is None else rows.hi - rows.lo
+    return TrainState(server, broadcast_entity(client0, n), None)
+
+
+def shards_cohort(program: RoundProgram) -> bool:
+    """False for the programs that chain along the cohort (ssl, sflv2 and
+    cyclessl carry one model from slot to slot): on a mesh every rank
+    runs those whole."""
+    return not any(isinstance(p, (SequentialChainRound,
+                                  ServerSequentialRound))
+                   or (isinstance(p, ClientUpdate) and p.chained)
+                   for p in program.phases)
+
+
+def slot_split(mesh, n_slots: int) -> Optional[SlotSplit]:
+    """This rank's slots of a cohort of ``n_slots`` on ``mesh`` (None off
+    the mesh).  The cohort must split evenly over every batch axis, as
+    the Engine's shard-aligned capacity makes it; a cohort that does not
+    raises rather than run replicated."""
+    if mesh is None:
+        return None
+    axes = batch_axes(mesh)
+    if cohort_shard_axes(mesh, n_slots) != axes:
+        raise ValueError(
+            f"a cohort of {n_slots} slots does not split over the mesh's "
+            f"batch axes {dict((a, mesh.shape[a]) for a in axes)}: pad "
+            "cohorts (pad_cohorts=True aligns the capacity) or draw a "
+            "cohort that divides them")
+    lo, hi = local_slots(mesh, n_slots)
+    return SlotSplit(mesh, lo, hi, n_slots)
+
+
+def place_state(state: TrainState, rows: Optional[StoreRows]) -> TrainState:
+    """A whole TrainState cut to this rank's rows of the per-client store
+    (a state already cut passes through)."""
+    if rows is None or state.clients is None or not rows.sharded:
+        return state
+    if state.clients.step.shape[0] == rows.hi - rows.lo:
+        return state
+    if state.clients.step.shape[0] != rows.n:
+        raise ValueError(f"a store of {state.clients.step.shape[0]} rows is "
+                         f"neither the whole {rows.n} nor this rank's "
+                         f"{rows.hi - rows.lo}")
+    return state._replace(clients=tree_map(
+        lambda x: x[rows.lo:rows.hi].contiguous(), state.clients))
+
+
+def whole_state(state: TrainState, rows: Optional[StoreRows], comm
+                ) -> TrainState:
+    """The whole TrainState on every rank: the per-client store's rows
+    ``all_gather``ed (one call per dtype); the rest is the same on every
+    rank already."""
+    if rows is None or state.clients is None or not rows.sharded:
+        return state
+    leaves = comm.all_gather_tree(tree_leaves(state.clients), "state")
+    return state._replace(clients=tree_unflatten_like(state.clients, leaves))
 
 
 def build_algorithm(program: RoundProgram, task: SplitTask,
                     opt_server: Optimizer, opt_client: Optimizer,
                     cycle: CycleConfig = CycleConfig(),
                     plan_fn: Optional[PlanFn] = None,
-                    device="cpu", resilience: Any = None) -> SLAlgorithm:
+                    device="cpu", resilience: Any = None, mesh: Any = None,
+                    shard_data: bool = True,
+                    n_clients: Optional[int] = None) -> SLAlgorithm:
     """Bind a RoundProgram to a task and optimizers.
 
     ``resilience`` (a ``ResilienceConfig`` with ``guard=True``) appends
     the :class:`HealthGuard` phase; the round's trailing ``ema`` is then
     the loss-EMA carry.  ``None`` or guard off: the guard-free round.
+
+    ``mesh`` (a ``launch.mesh.Mesh``) runs the round on this rank's slots
+    (see the module's docstring); ``round`` then takes this rank's slots
+    of ``xs``/``ys`` and the whole ``cohort`` and ``mask``.  The per-client
+    store of ``n_clients`` rows (required for the PSL family) is
+    row-sharded unless ``shard_data`` is off, which also keeps the
+    phases whole on every rank, as for the programs that chain along
+    the cohort.
     """
+    if mesh is not None and resilience is not None and resilience.guard:
+        raise NotImplementedError(
+            "the health guard on a mesh is not ported yet (ROADMAP item 9b)")
+    ctx_mesh = mesh if shard_data and shards_cohort(program) else None
+    rows = None
+    if ctx_mesh is not None and not program.uses_global_client:
+        if n_clients is None:
+            raise ValueError("a per-client program on a mesh needs "
+                             "n_clients, the store's rows")
+        rows = StoreRows(*store_rows(ctx_mesh, n_clients), n_clients)
     ctx = PhaseContext(task, opt_server, opt_client, cycle.check_ported(),
                        plan_fn)
     guard = (HealthGuard(resilience.ema_alpha, resilience.spike_factor)
              if resilience is not None and resilience.guard else None)
 
     def init(seed: int, n_clients: int) -> TrainState:
+        if rows is not None and n_clients != rows.n:
+            raise ValueError(f"built for {rows.n} clients, asked for "
+                             f"{n_clients}")
         return init_train_state(seed, n_clients, task, opt_server,
                                 opt_client, program.uses_global_client,
-                                device)
+                                device, rows)
 
     def round_fn(state, cohort, xs, ys, key, mask=None, ema=None):
         v = RoundVars(state=state, cohort=cohort, xs=xs, ys=ys, key=key,
-                      mask=mask, ema=ema)
+                      mask=mask, ema=ema,
+                      split=slot_split(ctx_mesh, cohort.shape[0]),
+                      store_rows=rows)
         for phase in program.phases:
             phase(ctx, v)
         if guard is not None:
@@ -497,7 +611,7 @@ def build_algorithm(program: RoundProgram, task: SplitTask,
         return v.state, v.metrics
 
     return SLAlgorithm(program.name, init, round_fn,
-                       program.uses_global_client)
+                       program.uses_global_client, ctx_mesh, rows)
 
 
 # ------------------------------------------------------ pipelined rounds

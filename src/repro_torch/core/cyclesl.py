@@ -1,6 +1,6 @@
 """CycleSL round — paper Algorithm 1.
 
-Port of ``repro/core/cyclesl.py`` without the mesh hooks.
+Port of ``repro/core/cyclesl.py``.
 
   1. clients extract features        B_i^f = θ_C_i(B_i^x)
   2. server pools a feature dataset  D_S^f = ⨄ B_i^f           (Eq. 3)
@@ -12,6 +12,12 @@ Port of ``repro/core/cyclesl.py`` without the mesh hooks.
 PyTorch runs eagerly, so the JAX package's ``vmap`` over cohort slots is
 a Python loop over slots here, and its ``scan`` over server steps a
 Python loop.  Nothing in the loops reads a value back to the host.
+
+On a mesh (a ``SlotSplit`` passed as ``split``) the slot loops run over
+the rank's own slots, D_S^f stays row-sharded, and the server, the same
+on every rank, steps data-parallel: each rank's part of a minibatch,
+its loss and gradients reduced over ranks (see
+:func:`server_inner_loop`).
 """
 from __future__ import annotations
 
@@ -21,10 +27,13 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core.feature_store import (FeatureStore, gather_batch,
+                                            gather_everything,
                                             masked_resample_plan, pool_store,
-                                            resample_plan)
-from repro_torch.core.protocol import (EntityState, entity_step,
-                                       masked_axis0_mean, select_entities)
+                                            resample_plan,
+                                            shard_local_fused_loss,
+                                            shard_local_gather)
+from repro_torch.core.protocol import (EntityState, SlotSplit, entity_step,
+                                       select_entities, slot_mean)
 from repro_torch.core.split import SplitTask
 from repro_torch.kernels import ops
 from repro_torch.optim import Optimizer, clip_by_global_norm
@@ -45,7 +54,10 @@ class CycleConfig:
     avg_client_grads: bool = False  # CycleSGLR: SGLR-style grad averaging
     # global-norm clip on every server and client step (None = off)
     grad_clip: Optional[float] = None
-    # mesh-only knob of the JAX package; not ported (must stay False)
+    # on a mesh, resample each server minibatch shard-LOCAL (each rank
+    # gathers the rows of its pool slice, a masked sum assembles the
+    # minibatch) instead of gathering the whole pool to every rank; bit
+    # for bit the same minibatches.  Inert off the mesh.
     shard_local_resample: bool = False
     # the JAX package's kernel override; the port picks the kernel by
     # device, so this must stay None
@@ -56,10 +68,6 @@ class CycleConfig:
     fused_gather_loss: bool = False
 
     def check_ported(self) -> "CycleConfig":
-        if self.shard_local_resample:
-            raise NotImplementedError(
-                "cycle.shard_local_resample needs a mesh, which the port "
-                "does not have yet")
         if self.resample_use_kernel is not None:
             raise NotImplementedError(
                 "cycle.resample_use_kernel: the port takes the kernel on "
@@ -100,7 +108,8 @@ def _value_and_grad(loss_fn, params):
 def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
                       store: FeatureStore, key: int, ccfg: CycleConfig,
                       batch: int, plan_fn: Optional[PlanFn] = None,
-                      grad_scale=None) -> tuple[EntityState, torch.Tensor]:
+                      grad_scale=None, split: Optional[SlotSplit] = None
+                      ) -> tuple[EntityState, torch.Tensor]:
     """E epochs of minibatch training on the resampled feature dataset.
 
     With a row-validity mask on the store (padded cohort) the loop runs
@@ -116,9 +125,22 @@ def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
     task exposes a linear server head.  ``grad_scale`` (a scalar tensor,
     or None) multiplies every clipped gradient before the optimizer
     step: the staleness-weighting hook of pipelined rounds.
+
+    ``split`` puts the loop on a mesh: ``store`` holds this rank's pool
+    slice, the plan (from the full validity, the same on every rank)
+    indexes the whole pool, and each minibatch comes shard-local
+    (``ccfg.shard_local_resample``) or from the pool gathered once.  When
+    the minibatch's rows divide the ranks, each rank takes the loss of
+    its part, scaled by its share of the rows (1 at one rank, never
+    multiplied in), and the loss and gradients are summed with one
+    ``all_reduce``; the fused loss reduces its own.  Clipping and the
+    step follow on the summed gradients, so the server stays the same on
+    every rank.
     """
     device = store.features.device
-    sb = min(ccfg.server_batch or batch, store.size)
+    n = 1 if split is None else split.comm.size
+    total = store.size * n
+    sb = min(ccfg.server_batch or batch, total)
     labels = store.labels
     fused = (ccfg.fused_gather_loss and task.server_head is not None
              and isinstance(labels, torch.Tensor)
@@ -126,7 +148,7 @@ def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
     if plan_fn is not None:
         plan, step_ok = plan_fn(key, store.valid, ccfg.server_epochs, sb)
     elif store.valid is None:
-        plan = resample_plan(key, store.size, ccfg.server_epochs, sb, device)
+        plan = resample_plan(key, total, ccfg.server_epochs, sb, device)
         step_ok = None
     else:
         plan, step_ok = masked_resample_plan(key, store.valid,
@@ -137,16 +159,43 @@ def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
             step_ok = step_ok[:, : ccfg.server_steps]
     plan2 = (plan.reshape(-1, sb).to(device=device, dtype=torch.int32)
              .contiguous())
-    flat = store.features.reshape(store.size, -1)
+    shard_local = split is not None and ccfg.shard_local_resample
+    pool = store
+    if split is not None and not shard_local:
+        pool = gather_everything(store, split)
+    flat = pool.features.reshape(pool.size, -1)
+    # data-parallel minibatch: this rank's rows [m0, m1) of each step
+    dp = split is not None and not fused and sb % n == 0
+    if dp:
+        m0 = split.comm.rank * (sb // n)
+        m1 = m0 + sb // n
+        share = (m1 - m0) / sb
+
+    def step_loss_and_grads(params, idx):
+        if fused:
+            if shard_local:
+                loss_fn = lambda p: shard_local_fused_loss(
+                    store, idx, task.server_head(p), split)
+            else:
+                loss_fn = lambda p: ops.fused_gather_loss_mean(
+                    flat, pool.labels, idx, task.server_head(p))
+            return _value_and_grad(loss_fn, params)
+        if shard_local:
+            f, y = shard_local_gather(store, idx, split)
+        else:
+            f, y = gather_batch(pool, idx[m0:m1] if dp else idx)
+        if not dp:
+            return _value_and_grad(lambda p: task.server_loss(p, f, y),
+                                   params)
+        loss_fn = ((lambda p: task.server_loss(p, f, y)) if share == 1.0
+                   else (lambda p: task.server_loss(p, f, y) * share))
+        loss, grads = _value_and_grad(loss_fn, params)
+        summed = split.comm.all_reduce_tree(tree_leaves(grads) + [loss],
+                                            "grads")
+        return summed[-1], tree_unflatten_like(grads, summed[:-1])
 
     def apply_step(entity, idx):
-        if fused:
-            loss_fn = lambda p: ops.fused_gather_loss_mean(
-                flat, labels, idx, task.server_head(p))
-        else:
-            f, y = gather_batch(store, idx)
-            loss_fn = lambda p: task.server_loss(p, f, y)
-        loss, grads = _value_and_grad(loss_fn, entity.params)
+        loss, grads = step_loss_and_grads(entity.params, idx)
         grads = _maybe_clip(grads, ccfg.grad_clip)
         if grad_scale is not None:
             grads = tree_map(lambda g: g * grad_scale, grads)
@@ -170,13 +219,16 @@ def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
 
 
 def feature_gradients(task: SplitTask, server_params, feats, ys,
-                      ccfg: CycleConfig, mask=None) -> torch.Tensor:
+                      ccfg: CycleConfig, mask=None,
+                      split: Optional[SlotSplit] = None) -> torch.Tensor:
     """B_i^g for every cohort member, with θ_S^{t+1} frozen (Eq. 5).
 
     Each client's gradient is that of ITS OWN batch-mean loss: the sum of
     the per-client losses is differentiated (one pooled mean over all
     C·b rows would scale every gradient by 1/C).  ``mask`` restricts the
-    SGLR-style cohort mean to live slots.
+    SGLR-style cohort mean to live slots.  With ``split``, ``feats`` and
+    ``ys`` are this rank's slots, ``mask`` the full [C] mask, and the
+    cohort mean runs over every rank's slots.
     """
     frozen = tree_map(lambda p: p.detach(), server_params)
     f = feats.detach().requires_grad_(True)
@@ -185,8 +237,7 @@ def feature_gradients(task: SplitTask, server_params, feats, ys,
                     for c in range(f.shape[0]))
         (grads,) = torch.autograd.grad(total, f)
     if ccfg.avg_client_grads:
-        mean = (grads.mean(0) if mask is None
-                else masked_axis0_mean(grads, mask))
+        mean = slot_mean(grads, mask, split)
         grads = mean.unsqueeze(0).expand_as(grads).contiguous()
     return grads
 

@@ -1,8 +1,18 @@
 """The server-side global feature dataset + resampler (paper Eq. 3).
 
-Port of the single-device half of ``repro/core/feature_store.py``, and
-its ``StaleFeatureRing`` of in-flight extracted stages (pipelined
-rounds).
+Port of ``repro/core/feature_store.py``: the pool, its plans and
+gathers, the mesh's shard-local resample, and the ``StaleFeatureRing``
+of in-flight extracted stages (pipelined rounds).
+
+On a mesh each rank pools the features of its own cohort slots, so it
+holds the contiguous rows ``[s * R, (s+1) * R)`` of D_S^f (shard ``s``,
+R rows a shard), while the [T] row-validity mask, which the plan reads,
+is built from the full attendance mask on every rank.  A resampled
+minibatch then comes either shard-LOCAL (:func:`shard_local_gather`,
+:func:`shard_local_fused_loss`: each rank gathers the plan rows it
+holds, and a masked sum over ranks, exact because every row has one
+owner, assembles the minibatch) or from the gathered pool
+(:func:`gather_everything`, one ``all_gather`` of D_S^f a round).
 
 ``D_S^f = ⨄_i B_i^f``: client feature batches are pooled and the server
 resamples shuffled minibatches that are no longer client-bound.
@@ -22,7 +32,9 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.utils.tree import tree_map
+from repro_torch.sharding.specs import pool_shard_info, shard_range
+from repro_torch.utils.tree import (tree_leaves, tree_map,
+                                    tree_unflatten_like)
 
 _M32 = 0xFFFFFFFF
 
@@ -114,8 +126,126 @@ def gather_batch(store: FeatureStore, idx: torch.Tensor):
 
 def pool_store(feats, ys, mask=None) -> FeatureStore:
     """The pooled D_S^f handoff for one cohort: the features are data to
-    the server, so they are detached from any client graph."""
+    the server, so they are detached from any client graph.  On a mesh
+    ``feats`` and ``ys`` are this rank's slots and ``mask`` the full [C]
+    mask: the store holds the rank's rows and the full [T] validity."""
     return FeatureStore.pool(feats.detach(), ys, mask=mask)
+
+
+def shard_slice_indices(idx: torch.Tensor, shard: int, rows_per_shard: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Translate global gather indices into ONE shard's pool-slice frame.
+
+    Shard ``s`` owns the contiguous global rows ``[s * rows_per_shard,
+    (s+1) * rows_per_shard)``; a global index lands in exactly one
+    shard's slice, so across shards the ``ok`` masks partition the
+    gather.  Returns ``(local, ok)``: ``local`` is clipped into ``[0,
+    rows_per_shard)`` so masked-off rows still index safely (int32, as
+    the kernels take it)."""
+    local = idx.long() - shard * rows_per_shard
+    ok = (local >= 0) & (local < rows_per_shard)
+    return local.clamp(0, rows_per_shard - 1).to(torch.int32), ok
+
+
+def _slice_of(store: FeatureStore, split) -> tuple[int, int]:
+    """(shard, rows a shard) of this rank's pool slice, by the pool's
+    geometry on the mesh (``sharding.specs.pool_shard_info``)."""
+    total = store.size * split.comm.size
+    info = pool_shard_info(split.mesh, total)
+    if info is None or info[2] != store.size:
+        raise ValueError(f"a pool of {total} rows does not split into "
+                         f"slices of this rank's {store.size} over "
+                         f"{split.mesh.shape}")
+    axes, n_shards, rows = info
+    return shard_range(split.mesh, axes, n_shards)[0], rows
+
+
+def _zero_unowned(rows: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    return torch.where(ok.reshape((-1,) + (1,) * (rows.dim() - 1)), rows, 0)
+
+
+def shard_local_gather(store: FeatureStore, idx: torch.Tensor, split,
+                       replicate_out: bool = False):
+    """Shard-LOCAL resample ``out[i] = store[idx[i]]`` on a mesh, where
+    ``store`` holds this rank's pool slice and ``split`` (a
+    ``core.protocol.SlotSplit``) says which.
+
+    Each rank runs the ``feature_resample`` kernel over its slice with
+    the translated indices (:func:`shard_slice_indices`), zeros the rows
+    that other ranks own, and the masked rows are summed over ranks:
+    ``reduce_scatter`` when the minibatch's M rows divide the ranks (rank
+    r keeps rows ``[r M/n, (r+1) M/n)``, its data-parallel part) and
+    ``replicate_out`` is off, else ``all_reduce`` (every rank gets all M
+    rows).  Every row has one owner, so the sum is exact and the rows
+    are bit for bit those of the gather of the whole pool.  On the wire:
+    the [M, ...] minibatch instead of the [T, ...] pool."""
+    shard, rows = _slice_of(store, split)
+    local, ok = shard_slice_indices(idx, shard, rows)
+    leaves = [store.features] + tree_leaves(store.labels)
+    taken = [_zero_unowned(ops.resample_rows(a, local), ok) for a in leaves]
+    comm = split.comm
+    if idx.shape[0] % comm.size == 0 and not replicate_out:
+        out = comm.reduce_scatter_tree(taken, "minibatch")
+    else:
+        out = comm.all_reduce_tree(taken, "minibatch")
+    return out[0], tree_unflatten_like(store.labels, out[1:])
+
+
+class _ShardLocalFusedLoss(torch.autograd.Function):
+    """Mean fused gather + linear-head loss over one minibatch, from this
+    rank's pool slice; differentiable in ``w`` only.  Forward: the
+    ``gather_loss`` kernel over the slice at the translated indices, the
+    rows other ranks own zeroed, the mean over the M rows, and a scalar
+    ``all_reduce``.  Backward: the analytic ``dw = fᵀ (softmax -
+    onehot) g / M`` over the rows this rank owns, ``all_reduce``d."""
+
+    @staticmethod
+    def forward(ctx, src, labels, local, ok, w, comm):
+        ctx.save_for_backward(src, labels, local, ok, w)
+        ctx.comm = comm
+        losses = ops.gather_loss_microbatch(src, labels, local, w)
+        return comm.all_reduce(torch.mean(torch.where(ok, losses, 0.0)),
+                               "loss")
+
+    @staticmethod
+    def backward(ctx, g):
+        src, labels, local, ok, w = ctx.saved_tensors
+        f = torch.index_select(src.reshape(src.shape[0], -1), 0,
+                               local).float()
+        logits = f @ w.float()
+        y = torch.index_select(labels, 0, local).long()
+        p = torch.softmax(logits, dim=-1)
+        onehot = torch.nn.functional.one_hot(y, w.shape[1]).float()
+        dlogits = (p - onehot) * (g / local.shape[0])
+        # rows other ranks own contribute exact zeros to dw
+        dlogits = torch.where(ok[:, None], dlogits, 0.0)
+        dw = ctx.comm.all_reduce(f.T @ dlogits, "head_grad").to(w.dtype)
+        return None, None, None, None, dw, None
+
+
+def shard_local_fused_loss(store: FeatureStore, idx: torch.Tensor, w,
+                           split) -> torch.Tensor:
+    """The minibatch-mean fused gather + head loss on a mesh without the
+    pool crossing ranks: one float32 scalar on the wire forward, the
+    head's [D, K] gradient backward.  At one rank it runs the ops of
+    ``ops.fused_gather_loss_mean``."""
+    shard, rows = _slice_of(store, split)
+    local, ok = shard_slice_indices(idx, shard, rows)
+    flat = store.features.reshape(store.size, -1)
+    return _ShardLocalFusedLoss.apply(flat, store.labels, local, ok, w,
+                                      split.comm)
+
+
+def gather_everything(store: FeatureStore, split) -> FeatureStore:
+    """The whole pool on every rank: this rank's slice ``all_gather``ed
+    (one call per dtype), the validity unchanged (it is whole already).
+    The other route of the mesh's resample: ``gather_batch`` then runs
+    on it as off the mesh."""
+    leaves = split.comm.all_gather_tree(
+        [store.features] + tree_leaves(store.labels), "pool")
+    return FeatureStore(leaves[0],
+                        tree_unflatten_like(store.labels, leaves[1:]),
+                        store.valid)
 
 
 class RingEntry(NamedTuple):

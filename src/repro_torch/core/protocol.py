@@ -6,22 +6,71 @@ A cohort of clients is one ``EntityState`` whose leaves are stacked
 along a leading slot dim [C, ...] (``step`` is then [C]).  Every
 function is functional: it returns new tensors and never writes its
 inputs.
+
+On a mesh a rank holds only its slots of a cohort ([lo, hi) of C, a
+:class:`SlotSplit`) and only its rows of the per-client [N, ...] store
+(a :class:`StoreRows`).  The cross-slot reductions then reduce each
+rank's partial over its slots with ``all_reduce``; a reduction over
+every slot is written so that at one rank it runs exactly the
+unsharded ops (a mean over slots is each rank's mean scaled by its
+share of the slots, and the share 1 is never multiplied in).
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from repro_torch.optim import Optimizer
 from repro_torch.optim.optimizer import apply_updates
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import (tree_leaves, tree_map,
+                                    tree_unflatten_like)
 
 
 class EntityState(NamedTuple):
     params: Any
     opt_state: Any
     step: torch.Tensor           # int32 scalar, or [C] when stacked
+
+
+class SlotSplit(NamedTuple):
+    """The slots ``[lo, hi)`` of a C-slot cohort this rank holds on
+    ``mesh`` (a ``launch.mesh.Mesh``), whose collectives reach the other
+    ranks' slots."""
+    mesh: Any
+    lo: int
+    hi: int
+    total: int
+
+    @property
+    def comm(self):
+        return self.mesh.comm
+
+    def local(self, x):
+        """This rank's part of a full [C, ...] tensor (the mask, say)."""
+        return x[self.lo:self.hi]
+
+    @property
+    def share(self) -> float:
+        return (self.hi - self.lo) / self.total
+
+    @property
+    def whole(self) -> bool:
+        """True when this rank holds every slot (the cohort is not
+        split, or the world is one rank)."""
+        return self.hi - self.lo == self.total
+
+
+class StoreRows(NamedTuple):
+    """The rows ``[lo, hi)`` of the per-client [N, ...] store this rank
+    holds (every row when the store is replicated)."""
+    lo: int
+    hi: int
+    n: int
+
+    @property
+    def sharded(self) -> bool:
+        return self.hi - self.lo < self.n
 
 
 def init_entity(params, opt: Optimizer) -> EntityState:
@@ -51,10 +100,21 @@ def stack_entities(entities: list[EntityState]) -> EntityState:
     return tree_map(lambda *xs: torch.stack(xs), *entities)
 
 
-def entity_mean(stacked: EntityState) -> EntityState:
+def _reduced_sums(sums: list, split: Optional[SlotSplit]) -> list:
+    return sums if split is None else split.comm.all_reduce_tree(sums,
+                                                                 "slot_mean")
+
+
+def entity_mean(stacked: EntityState,
+                split: Optional[SlotSplit] = None) -> EntityState:
     """FedAvg over the leading cohort dim, dtype-preserving (the int32
-    step stays int32: every member stepped once, so its mean is exact)."""
-    return tree_map(lambda x: (x.sum(0) / x.shape[0]).to(x.dtype), stacked)
+    step stays int32: every member stepped once, so its mean is exact).
+    With ``split`` the sum runs over every rank's slots."""
+    leaves = tree_leaves(stacked)
+    n = leaves[0].shape[0] if split is None else split.total
+    sums = _reduced_sums([x.sum(0) for x in leaves], split)
+    return tree_unflatten_like(
+        stacked, [(s / n).to(x.dtype) for s, x in zip(sums, leaves)])
 
 
 def broadcast_entity(entity: EntityState, n: int) -> EntityState:
@@ -64,18 +124,52 @@ def broadcast_entity(entity: EntityState, n: int) -> EntityState:
                     .contiguous(), entity)
 
 
-def take_entities(stacked: EntityState, idx: torch.Tensor) -> EntityState:
+def take_entities(stacked: EntityState, idx: torch.Tensor,
+                  rows: Optional[StoreRows] = None,
+                  split: Optional[SlotSplit] = None) -> EntityState:
     """Gather cohort slots.  Padded slots carry the sentinel id N; it is
-    clamped to a real client (the slot is masked out downstream)."""
-    def one(x):
-        return torch.index_select(x, 0, idx.clamp(0, x.shape[0] - 1))
-    return tree_map(one, stacked)
+    clamped to a real client (the slot is masked out downstream).
+
+    On a mesh (``rows`` and ``split`` given) the result is this rank's
+    slots.  From a row-sharded store each rank gathers the cohort rows
+    it holds and zeros the others, and the sum over ranks, which has one
+    owner for every row and is therefore exact, comes back
+    ``reduce_scatter``ed to the slots' owners (``all_reduce``d when the
+    cohort is not split)."""
+    if rows is None or not rows.sharded:
+        ids = idx if split is None else split.local(idx)
+        return tree_map(lambda x: torch.index_select(
+            x, 0, ids.clamp(0, x.shape[0] - 1)), stacked)
+    local = idx.clamp(0, rows.n - 1) - rows.lo
+    ok = (local >= 0) & (local < rows.hi - rows.lo)
+    safe = local.clamp(0, rows.hi - rows.lo - 1)
+
+    def owned(x):
+        got = torch.index_select(x, 0, safe)
+        return torch.where(ok.reshape((-1,) + (1,) * (got.dim() - 1)), got, 0)
+    leaves = [owned(x) for x in tree_leaves(stacked)]
+    comm = split.comm
+    got = (comm.all_reduce_tree(leaves, "store_read") if split.whole
+           else comm.reduce_scatter_tree(leaves, "store_read"))
+    return tree_unflatten_like(stacked, got)
 
 
 def put_entities(stacked: EntityState, idx: torch.Tensor,
-                 values: EntityState) -> EntityState:
+                 values: EntityState, rows: Optional[StoreRows] = None,
+                 split: Optional[SlotSplit] = None) -> EntityState:
     """Scatter cohort slots back; writes at the sentinel id N (or any id
-    out of range) are dropped, so padded slots are no-ops."""
+    out of range) are dropped, so padded slots are no-ops.
+
+    On a mesh ``values`` holds this rank's slots: they are
+    ``all_gather``ed (unless the cohort is not split), and each rank
+    writes the rows of its part of the store."""
+    if split is not None and not split.whole:
+        leaves = split.comm.all_gather_tree(tree_leaves(values),
+                                            "store_write")
+        values = tree_unflatten_like(values, leaves)
+    if rows is not None and rows.sharded:
+        # ids another rank holds fall out of [0, rows) and are dropped
+        idx = torch.where(idx < rows.n, idx - rows.lo, -1)
     n = stacked.step.shape[0]
     # out-of-range ids land in one extra scratch row that is cut off
     dst = torch.where((idx >= 0) & (idx < n), idx, n).long()
@@ -86,20 +180,51 @@ def put_entities(stacked: EntityState, idx: torch.Tensor,
     return tree_map(one, stacked, values)
 
 
-def masked_axis0_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Masked, dtype-preserving mean over the leading axis: rows with
-    mask 0 contribute exact zeros and are excluded from the count."""
+def _masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     mb = mask.reshape((-1,) + (1,) * (x.dim() - 1))
-    total = torch.where(mb > 0, x, torch.zeros((), dtype=x.dtype,
-                                               device=x.device)).sum(0)
-    return (total / mask.sum()).to(x.dtype)
+    return torch.where(mb > 0, x, torch.zeros((), dtype=x.dtype,
+                                              device=x.device)).sum(0)
 
 
-def masked_entity_mean(stacked: EntityState, mask: torch.Tensor
-                       ) -> EntityState:
+def slot_mean(tree, mask=None, split: Optional[SlotSplit] = None):
+    """The mean over the leading slot axis of every leaf of a [C, ...]
+    tree (a tensor is a tree of one leaf): over the live slots when
+    ``mask`` is given (rows with mask 0 contribute exact zeros, the
+    count is the mask's; dtype-preserving), and with ``split`` over
+    every rank's slots, one ``all_reduce`` per dtype.  Unmasked, each
+    rank's mean is scaled by its share of the slots before the sum (at
+    one rank: the plain mean)."""
+    leaves = tree_leaves(tree)
+    if mask is None:
+        parts = [x.mean(0) for x in leaves]
+        if split is not None:
+            if split.share != 1.0:
+                parts = [p * split.share for p in parts]
+            parts = split.comm.all_reduce_tree(parts, "slot_mean")
+        return tree_unflatten_like(tree, parts)
+    m = mask if split is None else split.local(mask)
+    sums = _reduced_sums([_masked_sum(x, m) for x in leaves], split)
+    count = mask.sum()
+    return tree_unflatten_like(
+        tree, [(s / count).to(x.dtype) for s, x in zip(sums, leaves)])
+
+
+def masked_entity_mean(stacked: EntityState, mask: torch.Tensor,
+                       split: Optional[SlotSplit] = None) -> EntityState:
     """FedAvg over the live slots only: ``mask`` is [C] with 1.0 for
-    live cohort members, 0.0 for padded slots."""
-    return tree_map(lambda x: masked_axis0_mean(x, mask), stacked)
+    live cohort members, 0.0 for padded slots.  With ``split`` the
+    stack holds this rank's slots of the full [C] ``mask``: the masked
+    partial sums are reduced over ranks, the count is the mask's."""
+    return slot_mean(stacked, mask, split)
+
+
+def gather_slots(x: torch.Tensor, split: Optional[SlotSplit]
+                 ) -> torch.Tensor:
+    """Every slot's row of a per-slot [C_local, ...] tensor (a loss or a
+    norm a slot), in slot order: ``all_gather``ed on a split cohort."""
+    if split is None or split.whole:
+        return x
+    return split.comm.all_gather(x, "metrics")
 
 
 def select_entities(mask, new: EntityState, old: EntityState) -> EntityState:

@@ -1,0 +1,160 @@
+"""Device meshes over ``torch.distributed``: one process a rank, one card
+a rank.
+
+Port of ``repro/launch/mesh.py``.  The JAX package lays one program over
+the devices of a ``jax.sharding.Mesh``; here each rank is a process
+driving one device, and a :class:`Mesh` is the
+``torch.distributed.device_mesh.DeviceMesh`` over an initialized process
+group plus what the round needs of it: the axis sizes, this rank's
+coordinates and a :class:`~repro_torch.sharding.collectives.Collectives`
+over the batch axes.
+
+The process group comes from ``torchrun`` (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``), or from a caller that
+spawns the ranks and initializes the group itself.  A world of 1 with
+no group starts its own over a ``file://`` store.  The backend follows
+the device: NCCL for ``cuda``, gloo for ``cpu``.
+
+Production meshes:
+
+  Single pod : (data=16, model=16)            = 256 chips
+  Multi-pod  : (pod=2, data=16, model=16)     = 512 chips
+
+Both have a ``model`` axis, whose FSDP/TP placement of the weights is
+ROADMAP item 9b: until it lands they raise.
+"""
+from __future__ import annotations
+
+import math
+import os
+import shutil
+import tempfile
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.sharding.collectives import Collectives
+from repro_torch.sharding.specs import BATCH_AXES, batch_axes
+from repro_torch.utils.device import resolve_device
+
+BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+
+
+@dataclass
+class Mesh:
+    """A device mesh of this process's world.
+
+    ``shape`` maps axis name to size (what the spec functions read),
+    ``coords`` maps it to this rank's coordinate, ``device`` is the card
+    (or the CPU) this rank drives, and ``comm`` moves every cross-rank
+    value of the round over the batch axes.  ``owns_group`` is True when
+    :func:`make_engine_mesh` started the process group, so :meth:`close`
+    ends it (and removes the file store of a world of 1)."""
+    device_mesh: Any
+    shape: dict
+    coords: dict
+    device: torch.device
+    comm: Collectives
+    owns_group: bool = False
+    store_dir: Optional[str] = None
+
+    def close(self):
+        if self.owns_group and dist.is_initialized():
+            dist.destroy_process_group()
+        self.owns_group = False
+        if self.store_dir is not None:
+            shutil.rmtree(self.store_dir, ignore_errors=True)
+            self.store_dir = None
+
+
+def _start_group(backend: str, n: int) -> tuple[bool, Optional[str]]:
+    """Join the process group torchrun describes, or start a world of 1
+    over a file store: (whether this call started a group, the store's
+    directory)."""
+    if dist.is_initialized():
+        return False, None
+    if "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+        return True, None
+    if n != 1:
+        raise RuntimeError(
+            f"a mesh of {n} ranks needs a process group of {n}: launch with "
+            f"`torchrun --nproc-per-node {n}`, or spawn the ranks and call "
+            "torch.distributed.init_process_group in each first")
+    store_dir = tempfile.mkdtemp(prefix="repro_mesh_")
+    dist.init_process_group(
+        backend, init_method=f"file://{os.path.join(store_dir, 'store')}",
+        rank=0, world_size=1)
+    return True, store_dir
+
+
+def make_engine_mesh(shape, axes, device=None) -> Mesh:
+    """Mesh from the serializable ``ExperimentConfig.mesh_shape`` /
+    ``mesh_axes`` knobs, over the world of this process group.
+
+    ``device=None`` means the card (it raises without one).  Raises when
+    the shape's product is not the world size, when a ``cuda`` mesh
+    asks for more ranks than there are cards (NCCL refuses two ranks on
+    one card), when the group's backend does not follow the device, and
+    when a ``model`` axis is larger than 1 (ROADMAP item 9b)."""
+    shape = tuple(int(s) for s in shape)
+    axes = tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh_shape {shape} and mesh_axes {axes} must "
+                         "have equal length")
+    sizes = dict(zip(axes, shape))
+    if not set(axes) <= set(BATCH_AXES) | {"model"} or "data" not in sizes:
+        raise ValueError(f"mesh axes {axes}: expected 'data', and 'pod' and "
+                         "'model' where wanted")
+    if sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            f"mesh {sizes}: a 'model' axis > 1 places the weights FSDP/TP "
+            "through DTensor, not ported yet (ROADMAP item 9b)")
+    dev = resolve_device(device)
+    n = math.prod(shape)
+    if dev.type == "cuda" and n > torch.cuda.device_count():
+        raise RuntimeError(
+            f"mesh {sizes} needs {n} ranks, one card each, but this machine "
+            f"has {torch.cuda.device_count()} (NCCL refuses two ranks on "
+            "one card)")
+    backend = BACKEND.get(dev.type)
+    if backend is None:
+        raise ValueError(f"no mesh backend for device {dev}")
+    owns, store_dir = _start_group(backend, n)
+    if dist.get_backend() != backend:
+        raise RuntimeError(f"a {dev.type} mesh runs over {backend}, but the "
+                           f"process group uses {dist.get_backend()}")
+    if dist.get_world_size() != n:
+        raise ValueError(f"mesh {sizes} has {n} ranks, the process group "
+                         f"{dist.get_world_size()}")
+    if dev.type == "cuda":
+        local = int(os.environ.get(
+            "LOCAL_RANK", dist.get_rank() % torch.cuda.device_count()))
+        dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+    from torch.distributed.device_mesh import init_device_mesh
+    dm = init_device_mesh(dev.type, shape, mesh_dim_names=axes)
+    coords = dict(zip(axes, dm.get_coordinate()))
+    # with the model axis at 1 the batch axes span the whole world, so
+    # the default group is their group
+    return Mesh(dm, sizes, coords, dev, Collectives(None), owns, store_dir)
+
+
+def make_local_mesh(device=None) -> Mesh:
+    """Degenerate (1, 1) mesh of one rank."""
+    return make_engine_mesh((1, 1), ("data", "model"), device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_engine_mesh(shape, axes, device)
+
+
+def cohort_size(mesh) -> int:
+    n = 1
+    for a in batch_axes(mesh):
+        n *= mesh.shape[a]
+    return n

@@ -10,6 +10,11 @@ Thin front end over ``repro_torch.api.Engine``.  It runs on the card
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train \
       --algo cyclesfl --task image --rounds 200 --clients 100 --width 32
+
+On N cards of one host, one rank a card (``--no-shard-cohort`` runs the
+whole round on every rank); rank 0 prints:
+  PYTHONPATH=src torchrun --nproc-per-node N -m repro_torch.launch.train \
+      --mesh-shape N,1 --rounds 200 --clients 100 --width 32
 """
 from __future__ import annotations
 
@@ -46,7 +51,16 @@ def main(argv=None):
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     cfg = ExperimentConfig.from_flags(args)
-    res = Engine(cfg, device=args.device).run()
+    # every rank of a mesh trains; rank 0 (torchrun's RANK) reports
+    lead = int(os.environ.get("RANK", "0")) == 0
+    eng = Engine(cfg, device=args.device,
+                 log=print if lead else (lambda *a: None))
+    try:
+        res = eng.run()
+    finally:
+        eng.close()
+    if not lead:
+        return res
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

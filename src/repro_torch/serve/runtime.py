@@ -152,7 +152,7 @@ class ServeRuntime:
         if mesh is not None:
             raise NotImplementedError(
                 "ServeRuntime(mesh=...): the slot table's mesh placement "
-                "is not ported yet (ROADMAP.md queue 1 item 9, multi-GPU)")
+                "is not ported yet (ROADMAP.md queue 1 item 9b)")
         self.arch = arch
         self.serve = serve.validate()
         self.device = resolve_device(device)

@@ -1,0 +1,148 @@
+"""The cross-rank ops of the mesh path, over one process group.
+
+Every value that crosses ranks on the mesh path passes through one
+:class:`Collectives` object, which keeps a census of its calls and
+bytes by op.  The JAX package counts the collectives of its compiled
+round from HLO text (``repro/utils/hlo.py``); the census is the port's
+counterpart, read by the tests and by ``launch.meshcheck``.
+
+Each call names what it moves (``what``: "pool", "minibatch", "grads",
+...), and the census counts calls and bytes under ``"{op}/{what}"``.
+The bytes of a call are the payload one rank hands to it: the tensor of
+an ``all_reduce`` or a ``broadcast``, the whole input of a
+``reduce_scatter``, the local chunk of an ``all_gather``.
+
+The ``*_tree`` forms move a list of tensors in one call per dtype: the
+tensors are flattened into one buffer (rows kept for the dim-0 ops),
+which changes no value, since every op is elementwise over the buffer.
+All ops sum; a sum whose other terms are exact zeros (an owner-masked
+gather) is exact.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+# the single-tensor forms were renamed after torch 2.11; take whichever
+# this torch has
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or \
+    dist.reduce_scatter_tensor
+_all_gather = getattr(dist, "all_gather_single", None) or \
+    dist.all_gather_into_tensor
+
+
+class Collectives:
+    """all_reduce, reduce_scatter, all_gather and broadcast over ``group``
+    (None = the default group), each counted in :attr:`census` under
+    ``"{op}/{what}"``."""
+
+    def __init__(self, group=None):
+        self.group = group
+        self.size = dist.get_world_size(group)
+        self.rank = dist.get_rank(group)
+        self.census: dict[str, dict[str, int]] = {}
+
+    def _count(self, op: str, what: str, t: torch.Tensor):
+        row = self.census.setdefault(f"{op}/{what}", {"calls": 0, "bytes": 0})
+        row["calls"] += 1
+        row["bytes"] += t.numel() * t.element_size()
+
+    def take_census(self) -> dict:
+        """The census since the last take, and a fresh one."""
+        out, self.census = self.census, {}
+        return out
+
+    # ------------------------------------------------------------ tensors
+    def all_reduce(self, t: torch.Tensor, what: str) -> torch.Tensor:
+        """The sum over ranks, as a new tensor on every rank."""
+        return self._all_reduce_(t.contiguous().clone(), what)
+
+    def _all_reduce_(self, t: torch.Tensor, what: str) -> torch.Tensor:
+        """:meth:`all_reduce` in place, into a buffer of the caller's."""
+        self._count("all_reduce", what, t)
+        dist.all_reduce(t, group=self.group)
+        return t
+
+    def reduce_scatter(self, t: torch.Tensor, what: str) -> torch.Tensor:
+        """The sum over ranks of ``t`` [n * k, ...]; rank r keeps rows
+        ``[r * k, (r + 1) * k)``."""
+        t = t.contiguous()
+        if t.shape[0] % self.size:
+            raise ValueError(f"reduce_scatter of {t.shape[0]} rows over "
+                             f"{self.size} ranks")
+        out = t.new_empty((t.shape[0] // self.size,) + tuple(t.shape[1:]))
+        self._count("reduce_scatter", what, t)
+        _reduce_scatter(out, t, group=self.group)
+        return out
+
+    def all_gather(self, t: torch.Tensor, what: str) -> torch.Tensor:
+        """Every rank's ``t`` [k, ...], concatenated in rank order along
+        dim 0."""
+        t = t.contiguous()
+        out = t.new_empty((t.shape[0] * self.size,) + tuple(t.shape[1:]))
+        self._count("all_gather", what, t)
+        _all_gather(out, t, group=self.group)
+        return out
+
+    def broadcast(self, t: torch.Tensor, what: str, src: int = 0
+                  ) -> torch.Tensor:
+        """Rank ``src``'s ``t`` on every rank."""
+        out = t.contiguous().clone()
+        self._count("broadcast", what, out)
+        dist.broadcast(out, dist.get_global_rank(self.group, src)
+                       if self.group is not None else src, group=self.group)
+        return out
+
+    # -------------------------------------------------------------- trees
+    def _by_dtype(self, tensors: list, rows: bool, op, what: str):
+        """Run ``op`` once per dtype over the tensors flattened into one
+        buffer ([k, sum of row sizes] with ``rows``, else 1-D) and split
+        the result back into the tensors' shapes."""
+        out: list[Optional[torch.Tensor]] = [None] * len(tensors)
+        groups: dict = {}
+        for i, t in enumerate(tensors):
+            groups.setdefault(t.dtype, []).append(i)
+        for idx in groups.values():
+            ts = [tensors[i] for i in idx]
+            if rows:
+                k = ts[0].shape[0]
+                flat = (ts[0].reshape(k, -1) if len(ts) == 1 else
+                        torch.cat([t.reshape(k, -1) for t in ts], dim=1))
+                res = op(flat, what)
+                widths = [t[0].numel() if k else 0 for t in ts]
+                parts = torch.split(res, widths, dim=1)
+                for i, t, p in zip(idx, ts, parts):
+                    out[i] = p.reshape((res.shape[0],)
+                                       + tuple(t.shape[1:])).contiguous()
+            else:
+                # a fresh buffer, even of one tensor: the op may write it
+                flat = torch.cat([t.reshape(-1) for t in ts])
+                res = op(flat, what)
+                parts = torch.split(res, [t.numel() for t in ts])
+                for i, t, p in zip(idx, ts, parts):
+                    out[i] = p.reshape(t.shape)
+        return out
+
+    def all_reduce_tree(self, tensors: list, what: str) -> list:
+        return self._by_dtype(tensors, False, self._all_reduce_, what)
+
+    def reduce_scatter_tree(self, tensors: list, what: str) -> list:
+        """Each tensor [n * k, ...] -> this rank's [k, ...] rows of the
+        sum."""
+        return self._by_dtype(tensors, True, self.reduce_scatter, what)
+
+    def all_gather_tree(self, tensors: list, what: str) -> list:
+        """Each tensor [k, ...] -> every rank's rows, [n * k, ...]."""
+        return self._by_dtype(tensors, True, self.all_gather, what)
+
+
+def census_by_op(census: dict) -> dict:
+    """A census's calls and bytes summed by op."""
+    out: dict = {}
+    for key, row in census.items():
+        tot = out.setdefault(key.split("/")[0], {"calls": 0, "bytes": 0})
+        tot["calls"] += row["calls"]
+        tot["bytes"] += row["bytes"]
+    return out

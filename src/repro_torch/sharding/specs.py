@@ -1,0 +1,259 @@
+"""Path-regex sharding rules (t5x-style) for every repro model.
+
+Port of the spec logic of ``repro/sharding/specs.py``.  A spec is a
+tuple with one entry per dim of a leaf: an axis name, a tuple of axis
+names, or ``None`` (replicated), as the JAX package's ``PartitionSpec``
+holds them.  The functions read only ``mesh.shape``, a mapping of axis
+name to size, so any object with that attribute will do.
+
+Rules give a spec template for the trailing dims of a leaf; leading
+dims (the stacked layer dim, the stacked client dim of a cohort) are
+handled by role:
+
+  role='server'/'full' — stacked-layer leading dim replicated.
+  role='client'        — an extra leading cohort dim sharded over
+                         ('pod','data'); the 'data' FSDP component inside
+                         the rule is dropped (an axis may appear once).
+
+The mesh path runs with a ``model`` axis of size 1, so the weights'
+FSDP/TP specs are computed here but every rank holds whole weights; the
+layout pins of the JAX package (``constrain_*``) have no counterpart
+yet.  What the mesh path does use is the cohort's split:
+:func:`local_slots` is the slot range a rank owns, the port's
+counterpart of ``slot_shard_map``.
+"""
+from __future__ import annotations
+
+import re
+from typing import Optional, Sequence
+
+from repro_torch.utils.tree import map_with_path
+
+BATCH_AXES = ("pod", "data")
+
+# (regex over '/'-joined leaf path, trailing-dims spec template)
+# templates use axis names; None = replicated dim.
+RULES: list[tuple[str, tuple]] = [
+    # embeddings / heads
+    (r"embed/table$", ("model", "data")),
+    (r"lm_head/w$", ("data", "model")),
+    (r"(encoder|decoder)/pos$", (None, "data")),
+    # attention projections
+    (r"attn/wq$", ("data", "model")),
+    (r"attn/wk$", ("data", "model")),
+    (r"attn/wv$", ("data", "model")),
+    (r"attn/wo$", ("model", "data")),
+    # dense ffn
+    (r"ffn/w_gate$", ("data", "model")),
+    (r"ffn/w_up$", ("data", "model")),
+    (r"ffn/w_down$", ("model", "data")),
+    (r"ffn/w_in$", ("data", "model")),
+    (r"ffn/b_in$", ("model",)),
+    (r"ffn/w_out$", ("model", "data")),
+    # moe (expert-parallel by default; grok overrides via shard_mode)
+    (r"moe/router$", ("data", None)),
+    (r"moe/w_gate$", ("model", "data", None)),
+    (r"moe/w_up$", ("model", "data", None)),
+    (r"moe/w_down$", ("model", None, "data")),
+    # CNN/MLP dense layers (the server stage at the deep cuts): FSDP over
+    # the input dim + TP over the output dim
+    (r"lin/w$", ("data", "model")),
+    # mamba2
+    (r"mamba/w_in$", ("data", "model")),
+    (r"mamba/conv_w$", (None, "model")),
+    (r"mamba/w_out$", ("model", "data")),
+    (r"mamba/(a_log|dt_bias|D)$", ("model",)),
+    (r"mamba/gate_norm/scale$", ("model",)),
+    # everything else (norms, biases, conv_b): replicated
+    (r".*", ()),
+]
+
+MOE_FFN_MODE_RULES: list[tuple[str, tuple]] = [
+    (r"moe/w_gate$", (None, "data", "model")),
+    (r"moe/w_up$", (None, "data", "model")),
+    (r"moe/w_down$", (None, "model", "data")),
+]
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    """The mesh's batch axes, ('pod', 'data') or those of them it has."""
+    return tuple(a for a in BATCH_AXES if a in mesh.shape)
+
+
+def _axes_size(mesh, axes) -> int:
+    size = 1
+    for a in axes:
+        size *= mesh.shape[a]
+    return size
+
+
+def shard_if_divisible(dim: int, axis, mesh):
+    """Drop a sharding axis when the dim doesn't divide the axis size."""
+    if axis is None:
+        return None
+    axes = axis if isinstance(axis, tuple) else (axis,)
+    if any(a not in mesh.shape for a in axes):
+        return None
+    return axis if dim % _axes_size(mesh, axes) == 0 else None
+
+
+def _spec_for(path: str, shape: Sequence[int], mesh,
+              rules: list[tuple[str, tuple]], role: str) -> tuple:
+    template: tuple = ()
+    for pat, tpl in rules:
+        if re.search(pat, path):
+            template = tpl
+            break
+    nd, nt = len(shape), len(template)
+    axes = [None] * (nd - nt) + list(template[:nd])
+    if role == "client":
+        # drop 'data' (used by the cohort dim), then shard the leading
+        # cohort dim over ('pod','data') / 'data'
+        axes = [None if a == "data" else a for a in axes]
+        cohort_axes = batch_axes(mesh)
+        if axes:
+            axes[0] = cohort_axes if len(cohort_axes) > 1 else (
+                cohort_axes[0] if cohort_axes else None)
+    return tuple(shard_if_divisible(d, a, mesh) if a is not None else None
+                 for d, a in zip(shape, axes))
+
+
+def param_specs(params, mesh, role: str = "full",
+                moe_shard_mode: str = "expert"):
+    """A tree of specs matching ``params`` (tensors, on any device,
+    the ``meta`` one included).
+
+    role: 'full'/'server' — plain model params;
+          'client'        — params stacked with a leading cohort dim.
+    """
+    rules = RULES
+    if moe_shard_mode == "ffn":
+        rules = MOE_FFN_MODE_RULES + RULES
+    return map_with_path(
+        lambda path, leaf: _spec_for(path, tuple(leaf.shape), mesh, rules,
+                                     role), params)
+
+
+def _batch_axes_for(mesh, n: int) -> Optional[tuple[str, ...]]:
+    """The batch axes a leading dim of ``n`` rows shards over:
+    ('pod', 'data') when n divides their combined size, else 'data'
+    alone when n divides it, else None."""
+    axes = batch_axes(mesh)
+    if axes and n % _axes_size(mesh, axes) == 0:
+        return axes
+    if "data" in mesh.shape and n % mesh.shape["data"] == 0:
+        return ("data",)
+    return None
+
+
+def pool_shard_info(mesh, total: int
+                    ) -> Optional[tuple[tuple[str, ...], int, int]]:
+    """Per-shard pool-slice geometry for the shard-local resample:
+    ``(axes, n_shards, rows_per_shard)``; shard ``s`` owns the contiguous
+    global rows ``[s * rows_per_shard, (s+1) * rows_per_shard)``.
+    ``None`` when there is no mesh or the pool rows divide no batch
+    axis."""
+    if mesh is None:
+        return None
+    axes = _batch_axes_for(mesh, total)
+    if axes is None:
+        return None
+    size = _axes_size(mesh, axes)
+    return axes, size, total // size
+
+
+def _lead(axes: tuple):
+    return axes if len(axes) > 1 else axes[0]
+
+
+def pool_slice_spec(mesh, total: int, ndim: int) -> Optional[tuple]:
+    """Spec of one pooled ``[T, ...]`` array under
+    :func:`pool_shard_info`'s geometry (leading rows over the batch
+    axes, trailing dims replicated); ``None`` when the pool has no even
+    slicing."""
+    info = pool_shard_info(mesh, total)
+    if info is None:
+        return None
+    return (_lead(info[0]),) + (None,) * (ndim - 1)
+
+
+def batch_spec(mesh, batch: int, extra_dims: int = 1) -> tuple:
+    """Shard the leading batch dim over ('pod','data') if divisible."""
+    axes = _batch_axes_for(mesh, batch)
+    if axes is None:
+        return (None,) * (1 + extra_dims)
+    return (_lead(axes),) + (None,) * extra_dims
+
+
+def cohort_shard_axes(mesh, n_slots: int) -> Optional[tuple]:
+    """Batch-axis tuple the [C, ...] cohort dim shards over, or None when
+    there is no mesh / the dim doesn't divide the combined axis size."""
+    if mesh is None:
+        return None
+    return _batch_axes_for(mesh, n_slots)
+
+
+def shard_aligned_capacity(mesh, capacity: int) -> int:
+    """Round a cohort capacity up to a multiple of the batch-axis shard
+    count so no shard runs under-filled.  Padded rounds are
+    capacity-invariant, which is what makes this round-up numerically
+    free.  Identity off-mesh and at 1 device."""
+    if mesh is None:
+        return capacity
+    size = _axes_size(mesh, batch_axes(mesh))
+    if size <= 1:
+        return capacity
+    return ((capacity + size - 1) // size) * size
+
+
+def shard_range(mesh, axes, n: int) -> tuple[int, int]:
+    """``(lo, hi)``: the rows of a leading dim of ``n`` that this rank
+    holds when the dim shards over ``axes`` (an axis name, a tuple of
+    them, or None = replicated, every row).  ``mesh.coords`` maps each
+    axis to the rank's coordinate; the shard index folds them row-major,
+    as the JAX package lays a sharded dim over its axes."""
+    if axes is None:
+        return 0, n
+    axes = axes if isinstance(axes, tuple) else (axes,)
+    per = n // _axes_size(mesh, axes)
+    s = 0
+    for a in axes:
+        s = s * mesh.shape[a] + mesh.coords[a]
+    return s * per, (s + 1) * per
+
+
+def local_slots(mesh, n_slots: int) -> tuple[int, int]:
+    """The slots of a [n_slots, ...] cohort dim this rank owns, or every
+    slot when :func:`cohort_shard_axes` is None: the port's counterpart
+    of ``slot_shard_map``, whose slot-wise work each rank does for its
+    own range."""
+    return shard_range(mesh, cohort_shard_axes(mesh, n_slots), n_slots)
+
+
+def store_rows(mesh, n_clients: int, shard_cohort: bool = True
+               ) -> tuple[int, int]:
+    """The rows of the per-client [N, ...] store this rank holds: its
+    leading dim's spec under :func:`train_state_shardings` (role
+    'client', or replicated with ``shard_cohort`` off)."""
+    if mesh is None or not shard_cohort:
+        return 0, n_clients
+    lead = _spec_for("step", (n_clients,), mesh, RULES, "client")[0]
+    return shard_range(mesh, lead, n_clients)
+
+
+def train_state_shardings(state, mesh, moe_shard_mode: str = "expert",
+                          shard_cohort: bool = True):
+    """A spec tree for a TrainState-like NamedTuple ``(server, clients,
+    client_global)``: server / client_global as plain model entities
+    (role 'server' / 'full'); clients, the persistent [N, ...]
+    per-client stack, with its leading dim over the batch axes (role
+    'client') unless ``shard_cohort`` is off."""
+    def _field(sub, role):
+        if sub is None:
+            return None
+        return param_specs(sub, mesh, role, moe_shard_mode)
+
+    return type(state)(
+        _field(state.server, "server"),
+        _field(state.clients, "client" if shard_cohort else "full"),
+        _field(state.client_global, "full"))

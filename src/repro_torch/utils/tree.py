@@ -84,3 +84,21 @@ def tree_unflatten_like(tree: Any, leaves: list) -> Any:
 def tree_slice(tree: Any, start: int, stop: int | None = None) -> Any:
     """Slice every leaf's leading dim: used to split stacked layer params."""
     return tree_map(lambda x: x[start:stop], tree)
+
+
+def map_with_path(fn: Callable[[str, Any], Any], tree: Any) -> Any:
+    """tree_map where ``fn`` receives ('a/b/c', leaf): the key path of
+    ``tree_leaves_with_path`` joined by '/', as the JAX package's
+    ``repro.utils.tree.path_str`` joins its key paths."""
+    def go(t, path):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: go(t[k], path + (k,)) for k in t}
+        if _is_namedtuple(t):
+            return type(t)(*(go(x, path + (k,))
+                             for k, x in zip(t._fields, t)))
+        if isinstance(t, (list, tuple)):
+            return type(t)(go(x, path + (i,)) for i, x in enumerate(t))
+        return fn("/".join(str(k) for k in path), t)
+    return go(tree, ())

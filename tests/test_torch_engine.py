@@ -113,22 +113,21 @@ def test_config_round_trips_from_reference_dict(jcfg):
     assert cfg.to_dict() == jcfg.to_dict()
 
 
-# each knob with the mesh knob that is still not ported (the pipeline
-# and staleness knobs are ported; with a mesh they still raise)
+# what the port still refuses: a mesh with a 'model' axis > 1, and a
+# mesh with the pipeline, staleness, checkpoint, serve, scenario and
+# resilience knobs (ROADMAP item 9b; those knobs are ported off the mesh)
 OUT_OF_SLICE = {
     "pipeline": dict(pipeline_depth=1, mesh_shape=(2, 1)),
-    "mesh": dict(mesh_shape=(2, 1)),
-    "mesh-axes": dict(mesh_axes=("x", "y")),
-    "staleness": dict(staleness_weighting="inverse", shard_cohort=False),
-    # the serve, checkpoint, scenario, resilience and pipeline knobs are
-    # ported; their mesh branches are not
+    "mesh": dict(mesh_shape=(1, 2)),
+    "mesh-axes": dict(mesh_shape=(1, 1, 2),
+                      mesh_axes=("pod", "data", "model")),
+    "staleness": dict(staleness_weighting="inverse", pipeline_depth=1,
+                      mesh_shape=(1, 1)),
     "resume": dict(resume=True, ckpt_dir="ckpt", mesh_shape=(2, 1)),
     "ckpt": dict(ckpt_dir="ckpt", mesh_shape=(2, 1)),
     "serve": dict(serve={"slots": 4}, mesh_shape=(2, 1)),
-    "scenario": dict(scenario={"kind": "diurnal-churn"},
-                     shard_cohort=False),
-    "resilience": dict(resilience={"guard": True}, mesh_axes=("x", "y")),
-    "shard-local": dict(cycle={"shard_local_resample": True}),
+    "scenario": dict(scenario={"kind": "diurnal-churn"}, mesh_shape=(1, 1)),
+    "resilience": dict(resilience={"guard": True}, mesh_shape=(1, 1)),
     "kernel-override": dict(cycle={"resample_use_kernel": True}),
 }
 

@@ -65,7 +65,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.resilience.policy",
                 "repro_torch.resilience.harness",
                 "repro_torch.models.encdec",
-                "repro_torch.configs.whisper_base"):
+                "repro_torch.configs.whisper_base",
+                "repro_torch.sharding", "repro_torch.sharding.specs",
+                "repro_torch.sharding.collectives",
+                "repro_torch.launch.mesh", "repro_torch.launch.meshcheck"):
         assert mod in out["modules"]
 
 
