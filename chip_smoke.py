@@ -100,13 +100,25 @@ Phases, each of which ends the script with a non-zero exit on failure:
     resample, each bit for bit the unsharded port with exact launches
     and its collectives' census a round; rounds/s of the mesh against
     unsharded in turns; with two cards or more, the ten programs on
-    min(cards, 4) ranks within 1e-5 of one rank.
+    min(cards, 4) ranks within 1e-5 of one rank;
+25. the ``model`` axis, in a process of its own: a (1, 1) mesh through
+    the tensor- and expert-parallel code at olmoe-1b-7b's full width
+    (depth 4, bf16, 3 rounds and the prefill), bit for bit the
+    unsharded steps with their launches; flash_attention, fused_adam
+    and topk_gating at a rank's shapes on a model axis of 2 and 4; with
+    two cards or more, on (1, n) (n = 4 where there are four, else 2):
+    the smoke config within 1e-5 of unsharded (loss, every gradient,
+    prefill logits), full width at depth 4 against the unsharded run,
+    and olmoe-1b-7b whole (16 blocks) for 3 rounds with exact launches,
+    its census held to the count written beside ``tp_census``, peak
+    memory a card, rounds/s, tokens/s and the prefill.
 
 It then prints the ``kernels`` JSON line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -885,14 +897,18 @@ def device_profile(torch, label, run):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (kernels, copies): the host ops that
-    # launched them carry the same device time again
+    # launched them carry the same device time again, and so do the
+    # "nccl:*" ranges c10d marks on the device around its kernels
     rows = sorted(((e.key, e.count, e.self_device_time_total)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), key=lambda r: -r[2])
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("nccl:")), key=lambda r: -r[2])
     busy = sum(r[2] for r in rows)
+    nccl = sum(r[2] for r in rows if r[0].startswith("nccl"))
     print(f"profile {label}: {wall_us / 1e3:.1f}ms wall, device busy "
-          f"{busy / 1e3:.1f}ms ({busy / wall_us:.1%})")
+          f"{busy / 1e3:.1f}ms ({busy / wall_us:.1%}), NCCL kernels "
+          f"{nccl / 1e3:.1f}ms ({nccl / wall_us:.1%} of the wall)")
     for name, count, t in rows[:12]:
         print(f"profile {label}:   {t / 1e3:8.3f}ms {count:6d}x {name[:90]}")
     # the port's own kernels, however small, by their function names
@@ -904,6 +920,7 @@ def device_profile(torch, label, run):
               f"{r['device_ms']:.3f}ms ({r['device_ms'] * 1e3 / busy:.2%} of "
               f"device busy)")
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+            "nccl_ms": nccl / 1e3,
             "top": [{"name": n, "count": c, "device_ms": t / 1e3}
                     for n, c, t in rows[:25]], "port_kernels": ours}
 
@@ -1023,7 +1040,8 @@ def block_launches(cfg, lo, hi):
     return out
 
 
-def split_round(torch, label, cfg, rounds=ROUNDS, profile=False):
+def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
+                keep_state=False):
     """A transformer path: ``build_train_step`` for ``cfg`` (its
     published cut), cohort 2, batch 2 a client, sequence 2048; random
     init on the card, tokens from a numpy seed; ``rounds`` CycleSL
@@ -1040,7 +1058,12 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False):
     forwards a round, each one flash_attention and one topk_gating
     launch.  zamba2-1.2b, 38 blocks cut after 4: 8 + 68 + 68 + 8 = 152
     ssd_scan launches a round, and flash_attention 2 * (steps + C) = 8
-    (the shared block after blocks 12 and 25, both on the server)."""
+    (the shared block after blocks 12 and 25, both on the server).
+
+    ``mesh`` runs the step on a mesh whose batch axes hold one rank
+    (phase 25): each rank its shards, the same launches on every rank
+    (a shard is a leaf as a whole leaf is), and each round's census of
+    the ``model`` axis kept; ``keep_state`` returns the final state."""
     from repro_torch.configs import InputShape
     from repro_torch.core.cyclesl import CycleConfig
     from repro_torch.launch.steps import build_train_step
@@ -1048,7 +1071,8 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False):
     L, cut, C, b = cfg.n_layers, cfg.cut_layers, COHORT, BATCH
     shape = InputShape(label, SEQ, C * b, "train")
     cycle = CycleConfig(server_epochs=1, server_batch=b)
-    bundle = build_train_step(cfg, shape, cycle, cohort=C, device="cuda")
+    bundle = build_train_step(cfg, shape, cycle, cohort=C, device="cuda",
+                              mesh=mesh)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1069,13 +1093,17 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False):
     batches = [bundle.make_batch(r) for r in range(rounds)]
     torch.cuda.synchronize()
     reset_counters()
-    stamps, metrics = [time.perf_counter()], []
+    if mesh is not None:
+        mesh.model_comm.take_census()
+    stamps, metrics, census = [time.perf_counter()], [], []
     for r in range(rounds):
         xs, ys = batches[r]
         server, clients, m = bundle.fn(server, clients, xs, ys, r)
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         metrics.append({k: float(v) for k, v in m.items()})
+        if mesh is not None:
+            census.append(mesh.model_comm.take_census())
     launches = read_counters()
     peak = torch.cuda.max_memory_allocated()
     rps = (rounds - 1) / (stamps[-1] - stamps[1])
@@ -1102,7 +1130,10 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False):
     if profile:                 # one more round, after the counted ones
         prof = device_profile(torch, label, lambda: bundle.fn(
             server, clients, *batches[0], 0))
-    return {"profile": prof, "config": {
+    extra = {"state": (server, clients)} if keep_state else {}
+    if mesh is not None:
+        extra["census"] = census
+    return {**extra, "profile": prof, "config": {
                 "arch": cfg.name, "n_layers": L, "cut": cut, "cohort": C,
                 "batch": b, "seq": SEQ, "server_steps": steps,
                 "dtype": cfg.dtype},
@@ -1114,13 +1145,14 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False):
             "expected_launches": expect}
 
 
-def prefill(torch, label, cfg):
+def prefill(torch, label, cfg, mesh=None, keep=False):
     """``build_prefill_step`` for ``cfg``, batch 2, sequence 2048: one
-    forward through every block (``block_launches`` of [0, L))."""
+    forward through every block (``block_launches`` of [0, L)); on
+    ``mesh`` each rank its shards.  ``keep`` returns the logits."""
     from repro_torch.configs import InputShape
     from repro_torch.launch.steps import build_prefill_step
     shape = InputShape(label, SEQ, BATCH, "prefill")
-    bundle = build_prefill_step(cfg, shape, device="cuda")
+    bundle = build_prefill_step(cfg, shape, device="cuda", mesh=mesh)
     torch.cuda.empty_cache()
     (params,), (batch,) = bundle.init_state(0), bundle.make_batch(0)
     bundle.fn(params, batch)                       # warm
@@ -1144,7 +1176,8 @@ def prefill(torch, label, cfg):
         if launches[k] != n:
             raise AssertionError(f"{label}: {k} launched {launches[k]} "
                                  f"times, expected {n}")
-    return {"ms": ms, "launches": launches, "shape": list(logits.shape)}
+    return {"ms": ms, "launches": launches, "shape": list(logits.shape),
+            **({"logits": logits} if keep else {})}
 
 
 TRANSFORMER_PARITY = (("olmoe-1b-7b", 2), ("gemma2-2b", 4),
@@ -3188,6 +3221,440 @@ def run_mesh_phase(out_path, profile=False):
     return 0
 
 
+# phase 25: the model axis, tensor- and expert-parallel weights for the
+# transformer train and prefill steps, in a process of its own
+# (``python3 chip_smoke.py --tp-phase OUT``)
+TP_LR = 3e-4              # the step builders' Adam rate
+TP_METRIC_RTOL = 3e-3     # depth 4 bf16 on (1, n) against unsharded
+TP_SHARE_MAX = 0.25       # of the weights more than one bf16 ulp apart
+TP_PARAMS = os.path.join(ROOT, "build", "chip_smoke_tp_unsharded.pt")
+
+
+def tp_census(cfg, m, chunk=512):
+    """{census key: {"calls", "bytes"}} of the ``model`` axis in one round
+    of ``build_train_step`` on a (1, m) mesh: written down from the
+    shapes, before any run.  A block pass forward reduces its split
+    attention output and its MoE (or FFN) output once each, a float32
+    [b, S, d] (the MoE's [G, group, d]); backward, each split unit's
+    input gradient once (``copy_to_model``: the attention's with the q
+    and k norms' scales, the MoE's with the combine weights [G, group *
+    k]).  The client blocks run forward in the extract and in each
+    slot's VJP (backward there), the server blocks forward and backward
+    in each server step and each slot's feature gradient.  A split vocab
+    adds the embedding's reduce to each client forward and, to each
+    server forward, a logits gather (the rank's [b, chunk, vocab / m] in
+    the model's dtype) and (backward) the head input's float32 reduce
+    per chunk of 512 positions; a split client half adds one norm (a
+    float) a slot."""
+    from repro_torch.sharding.parallel import sharded_units
+    units = sharded_units(cfg, {"model": m})
+    C, b, S = COHORT, BATCH, SEQ
+    steps = C * b // b          # server steps: server batch b, 1 epoch
+    out = {}
+
+    def add(key, calls, nbytes):
+        row = out.setdefault(f"model/{key}", {"calls": 0, "bytes": 0})
+        row["calls"] += calls
+        row["bytes"] += calls * nbytes
+    cut, L, d, f32 = cfg.cut_layers, cfg.n_layers, cfg.d_model, 4
+    act = b * S * d * f32
+    fwd = 2 * C * cut + (steps + C) * (L - cut)
+    bwd = C * cut + (steps + C) * (L - cut)
+    if units["attn"]:
+        norms = 2 * cfg.hd * f32 if cfg.attn.qk_norm else 0
+        add("all_reduce/attn", fwd, act)
+        add("all_reduce/act_grad", bwd, act + norms)
+    if units["moe"]:
+        gs = min(cfg.moe.group_size, b * S)
+        tokens = -(-(b * S) // gs) * gs
+        add("all_reduce/moe", fwd, tokens * d * f32)
+        add("all_reduce/moe_grad", bwd, tokens * (d + cfg.moe.top_k) * f32)
+    if units["ffn"]:
+        add("all_reduce/ffn", fwd, act)
+        add("all_reduce/act_grad", bwd, act)
+    if units["vocab"]:
+        cs = min(chunk, S)
+        n_chunks = -(-S // cs)
+        elt = 2 if cfg.dtype == "bfloat16" else 4
+        add("all_reduce/embed", 2 * C, act)
+        add("all_gather/logits", n_chunks * (steps + C),
+            b * cs * cfg.vocab_padded // m * elt)
+        add("all_reduce/act_grad", n_chunks * (steps + C), b * cs * d * f32)
+    if any(units.values()):
+        add("all_reduce/grad_norm", C, f32)
+    return out
+
+
+def tp_kernel_checks(torch, dev):
+    """The kernels of the model-axis path at its per-rank shapes, each
+    against its plain version: ``flash_attention`` on a rank's heads of
+    olmoe's 16 at m = 2 and 4 ([2, 2048, 16 / m, 128] bf16 causal,
+    tensor-core design), ``fused_adam`` on a rank's expert stacks at
+    m = 4 (the server's [14, 16, 2048, 1024] and the client slots' [2,
+    2, 16, 2048, 1024], bf16 with float32 moments) and ``topk_gating``
+    at the router's [4096, 64] k 8, which every rank computes whole."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import design, flash_attention
+    from repro_torch.kernels.topk_gating import topk_gating
+    gen = torch.Generator(device=dev).manual_seed(25)
+    cfg = get_config("olmoe-1b-7b")
+    rows = []
+    for m in (2, 4):
+        B, S, H, D = BATCH, SEQ, cfg.n_heads // m, cfg.hd
+        q, k, v = (torch.randn(B, S, H, D, device=dev, generator=gen
+                               ).to(torch.bfloat16) for _ in range(3))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pairs = S * (S + 1) // 2
+        row = check("flash_attention", f"[{B}, {S}, {H}, {D}] bf16 causal "
+                    f"design={design(q.dtype, D)} (a rank's heads, model "
+                    f"axis {m})",
+                    lambda: (flash_attention(q, k, v, causal=True),),
+                    lambda: (ref.flash_attention_ref(q, k, v, causal=True),),
+                    2e-2, 4 * q.numel() * q.element_size(),
+                    4 * B * H * D * pairs,
+                    library=lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True), dtype=q.dtype)
+        row["design"] = design(q.dtype, D)
+        rows.append(row)
+        del q, k, v, qt, kt, vt
+    mo, m = cfg.moe, 4
+    L_srv = cfg.n_layers - cfg.cut_layers
+    for shape, steps in (((L_srv, mo.n_experts // m, cfg.d_model,
+                           mo.d_ff_expert), 3),
+                         ((COHORT, cfg.cut_layers, mo.n_experts // m,
+                           cfg.d_model, mo.d_ff_expert), [2, 0])):
+        p = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        g = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        mm = torch.randn(shape, device=dev, generator=gen) * 0.1
+        vv = torch.rand(shape, device=dev, generator=gen) * 0.1
+        step = torch.tensor(steps, dtype=torch.int32, device=dev)
+        n = p.numel()
+        rows.append(check(
+            "fused_adam", f"{list(shape)} bf16 step{list(step.shape)} (a "
+            f"rank's experts, model axis {m})",
+            lambda: ops.fused_adam(p, g, mm, vv, step, lr=1e-3),
+            lambda: ref.fused_adam_ref(p, g, mm, vv, step, lr=1e-3),
+            1e-6, n * (3 * 2 + 4 * 4) + 4 * step.numel(), 14 * n,
+            dtype=torch.bfloat16, ulps=1))
+        del p, g, mm, vv
+        torch.cuda.empty_cache()
+    x = torch.randn(BATCH * SEQ, mo.n_experts, device=dev, generator=gen)
+    got, want = topk_gating(x, mo.top_k), ref.topk_gating_ref(x, mo.top_k)
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError("topk_gating: ids differ from the plain version")
+    rows.append(check(
+        "topk_gating", f"[{BATCH * SEQ}, {mo.n_experts}] k={mo.top_k} (the "
+        "router, whole on every rank)",
+        lambda: (topk_gating(x, mo.top_k)[0],),
+        lambda: (ref.topk_gating_ref(x, mo.top_k)[0],), 1e-6,
+        x.numel() * 4 + x.shape[0] * mo.top_k * 8,
+        x.numel() * (4 + 2 * mo.top_k), dtype=x.dtype))
+    return rows
+
+
+def tp_smoke_grads(torch, mesh):
+    """olmoe-1b-7b's smoke config (f32, TF32 off) on the mesh against the
+    unsharded model on this rank's card: the end-to-end loss of one
+    slot's batch and every leaf's gradient gathered whole, each within
+    1e-5 of the leaf's largest entry, and the prefill's float32
+    last-position logits likewise.  Returns the worst relative
+    differences."""
+    from repro_torch.configs import InputShape, smoke_config
+    from repro_torch.core.cyclesl import _value_and_grad
+    from repro_torch.core.split import make_transformer_task
+    from repro_torch.launch import inputs as inputs_lib
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.sharding.parallel import TensorParallel
+    from repro_torch.sharding.specs import (gather_params, model_shard_plan,
+                                            shard_params)
+    from repro_torch.utils.tree import tree_leaves
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.device
+    cfg = smoke_config("olmoe-1b-7b")
+    tp = TensorParallel.from_mesh(mesh, cfg)
+    full, task = make_transformer_task(cfg), make_transformer_task(cfg, tp)
+    cp = full.init_client(torch.Generator(device=dev).manual_seed(1))
+    sp = full.init_server(torch.Generator(device=dev).manual_seed(0))
+    plans = [model_shard_plan(t, cfg, mesh.shape, mesh.coords)
+             for t in (cp, sp)]
+    local = [shard_params(t, p) for t, p in zip((cp, sp), plans)]
+    xs, ys = inputs_lib.make_train_batch(
+        cfg, InputShape("smoke", 64, 4, "train"), COHORT, 0)
+    x = {"tokens": torch.from_numpy(xs["tokens"][0]).to(dev)}
+    y = torch.from_numpy(ys[0]).to(dev)
+    l0, g0 = _value_and_grad(lambda p: full.e2e_loss(p[0], p[1], x, y),
+                             (cp, sp))
+    l1, g1 = _value_and_grad(lambda p: task.e2e_loss(p[0], p[1], x, y),
+                             tuple(local))
+    g1 = tuple(gather_params(g, p, mesh.model_comm)
+               for g, p in zip(g1, plans))
+    worst = max(float((a - b).abs().max() / a.abs().max())
+                for a, b in zip(tree_leaves(g0), tree_leaves(g1))
+                if a.numel() and float(a.abs().max()) > 0)
+    params = Transformer.init(torch.Generator(device=dev).manual_seed(2),
+                              cfg)
+    plan = model_shard_plan(params, cfg, mesh.shape, mesh.coords)
+    with torch.no_grad():
+        want, _ = Transformer.forward(params, cfg, x["tokens"])
+        got, _ = Transformer.forward(shard_params(params, plan), cfg,
+                                     x["tokens"], tp=tp)
+    logits = float((got[:, -1] - want[:, -1]).abs().max()
+                   / want[:, -1].abs().max())
+    loss = abs(float(l1) - float(l0)) / abs(float(l0))
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    return {"loss_rel": loss, "grad_worst_rel": worst,
+            "prefill_logits_rel": logits,
+            "ok": max(loss, worst, logits) <= 1e-5}
+
+
+def _bf16_ulp(torch, t):
+    _, e = torch.frexp(t.float())
+    return torch.where(t == 0, 0.0, torch.exp2(e.float() - 8))
+
+
+def tp_against_unsharded(torch, params, rows, want_rows, steps):
+    """Hold a full-width bf16 run on the model axis to the unsharded run
+    on one card: per-round metrics within rtol ``TP_METRIC_RTOL`` (the
+    std of the feature-gradient norms against their mean); every weight
+    within the 2 * lr * steps that Adam's near-sign steps can move it
+    plus one bf16 ulp of its value (one rounding of the stored weight);
+    and at most ``TP_SHARE_MAX`` of the weights more than one bf16 ulp
+    of their value from the unsharded run's.  The partial sums round to
+    bf16 once more than the unsharded products, so a few weights whose
+    gradient is near zero step the other way: the limits sit above what
+    sound runs read and below what a planted backward fault reads
+    (:func:`planted_backward_fault`).  ``steps`` is the most steps an
+    entity took."""
+    from repro_torch.utils.tree import tree_leaves
+    want = torch.load(TP_PARAMS, map_location="cpu", weights_only=False)
+    worst = max(abs(r[k] - w[k]) / max(abs(w[k]), w["feat_grad_norm_mean"]
+                                       if k == "feat_grad_norm_std" else 0.0)
+                for r, w in zip(rows, want_rows) for k in w)
+    bound = 2 * TP_LR * steps
+    over, w_max, moved, past_ulp, total = 0.0, 0.0, 0, 0, 0
+    for a, b in zip(tree_leaves(want), tree_leaves(params)):
+        a = a.to(b.device)
+        d = (a.float() - b.float()).abs()
+        ulp = _bf16_ulp(torch, a)
+        w_max = max(w_max, float(d.max()))
+        over = max(over, float((d - bound - ulp).max()))
+        moved += int((d > 0).sum())
+        past_ulp += int((d > ulp).sum())
+        total += d.numel()
+        del a, d, ulp
+    ok = (worst <= TP_METRIC_RTOL and over <= 0.0
+          and past_ulp / total <= TP_SHARE_MAX)
+    return {"worst_metric_rel_diff": worst, "weights_max_abs": w_max,
+            "bound": bound, "over_bound": over,
+            "share_differing": moved / total,
+            "share_past_one_ulp": past_ulp / total, "ok": ok}
+
+
+@contextlib.contextmanager
+def planted_backward_fault():
+    """The control of :func:`tp_against_unsharded`: inside, each
+    ``copy_to_model`` drops its gradient's all-reduce, so every rank
+    keeps its own partial input gradient (what a missing reduce would
+    do).  The forward is untouched; the check must refuse the run."""
+    from repro_torch.sharding import parallel
+    real = parallel._CopyToModel.__dict__["backward"]
+    parallel._CopyToModel.backward = staticmethod(
+        lambda ctx, *gs: (None, None) + gs)
+    try:
+        yield
+    finally:
+        parallel._CopyToModel.backward = real
+
+
+def tp_rank_runs(mesh, rounds, profile, want_rows):
+    """Phase 25 on a (1, n) mesh of spawned ranks, one card each: (1) the
+    smoke check (:func:`tp_smoke_grads`); (2) olmoe-1b-7b at full width,
+    depth 4, bf16, ``rounds`` rounds gathered whole and held to the
+    unsharded run of this phase's one-card part (rank 0 reads its
+    weights from ``TP_PARAMS``; :func:`tp_against_unsharded`), then
+    again under :func:`planted_backward_fault`, which that check must
+    refuse; (3) olmoe-1b-7b whole, 16 blocks: ``rounds`` timed rounds with exact
+    launches, each round's census, peak memory, and the prefill.  Only
+    rank 0 prints; every rank returns its own numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.sharding.specs import gather_params, model_shard_plan
+    rank = mesh.model_comm.rank
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    out = {"smoke": tp_smoke_grads(torch, mesh)}
+    n = mesh.model_comm.size
+    print(f"tp (1, {n}): TF32 products "
+          f"{torch.backends.cuda.matmul.allow_tf32}, as unsharded")
+    full = get_config("olmoe-1b-7b")
+    cfg4 = full.with_(n_layers=OLMOE_DEPTH)
+
+    def depth4(label, fault):
+        with planted_backward_fault() if fault else contextlib.nullcontext():
+            run = split_round(torch, f"tp (1, {n}) depth {OLMOE_DEPTH}"
+                              + label, cfg4, rounds, mesh=mesh,
+                              keep_state=True)
+        server, clients = run.pop("state")
+        params = tuple(gather_params(e.params, model_shard_plan(
+            e.params, cfg4, mesh.shape, mesh.coords, role, local=True),
+            mesh.model_comm) for e, role in ((server, "full"),
+                                              (clients, "client")))
+        del server, clients
+        held = (tp_against_unsharded(torch, params, run["metrics"],
+                                     want_rows, 2 * rounds)
+                if rank == 0 else None)
+        del params
+        torch.cuda.empty_cache()
+        return run, held
+
+    out["depth4"], out["against_unsharded"] = depth4("", False)
+    _, out["planted_fault"] = depth4(" (planted backward fault)", True)
+    out["whole"] = split_round(torch, f"tp (1, {n}) whole", full, rounds,
+                               profile=profile, mesh=mesh)
+    torch.cuda.empty_cache()
+    out["prefill"] = prefill(torch, f"tp (1, {n}) whole prefill", full,
+                             mesh=mesh)
+    out["expected_census"] = tp_census(full, n)
+    return out
+
+
+def tp_phase(torch, rounds=ROUNDS, dev="cuda", profile=False):
+    """Phase 25: the ``model`` axis.  One card: a (1, 1) mesh through the
+    model-axis code at olmoe-1b-7b's full width (depth 4, bf16, cohort
+    2, batch 2, sequence 2048), ``rounds`` train rounds and the prefill,
+    each bit for bit the unsharded step (every leaf of the state, held
+    in host memory between the runs, the metrics, the logits) with the
+    unsharded launches and no collective; then the
+    kernels at the per-rank shapes of a model axis of 2 and 4
+    (:func:`tp_kernel_checks`).  With two cards or more, n = 4 where
+    there are four, else 2: :func:`tp_rank_runs` on (1, n), its census
+    held exactly to :func:`tp_census`, the same launches and metrics on
+    every rank.  Raises on any miss."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.meshcheck import spawn_ranks
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    out, checks = {}, {}
+    cards = torch.cuda.device_count()
+    cfg4 = get_config("olmoe-1b-7b").with_(n_layers=OLMOE_DEPTH)
+    mesh = make_local_mesh(dev)
+    try:
+        runs, logits = {}, {}
+        for label, m in (("unsharded", None), ("mesh (1, 1)", mesh)):
+            torch.cuda.empty_cache()
+            r = split_round(torch, f"tp {label}", cfg4, rounds, mesh=m,
+                            keep_state=True)
+            state = r.pop("state")
+            if m is None:             # the unsharded state, in host memory
+                want = tree_map(lambda t: t.cpu(), state)
+                if cards >= 2:
+                    os.makedirs(os.path.dirname(TP_PARAMS), exist_ok=True)
+                    torch.save((want[0].params, want[1].params), TP_PARAMS)
+            else:
+                checks["(1, 1) round == unsharded"] = all(
+                    torch.equal(x, y.cpu()) for x, y in zip(
+                        tree_leaves(want), tree_leaves(state)))
+                del want
+            del state
+            torch.cuda.empty_cache()
+            p = prefill(torch, f"tp {label} prefill", cfg4, mesh=m, keep=True)
+            logits[label] = p.pop("logits")
+            runs[label] = {"round": r, "prefill": p}
+        a, b = runs["unsharded"], runs["mesh (1, 1)"]
+        checks["(1, 1) round == unsharded"] &= (
+            a["round"]["metrics"] == b["round"]["metrics"])
+        checks["(1, 1) launches == unsharded"] = (
+            a["round"]["launches"] == b["round"]["launches"]
+            and a["prefill"]["launches"] == b["prefill"]["launches"])
+        checks["(1, 1) prefill == unsharded"] = bool(torch.equal(
+            logits["unsharded"], logits["mesh (1, 1)"]))
+        checks["(1, 1) takes no collective"] = all(
+            c == {} for c in b["round"]["census"]) and \
+            mesh.comm.take_census() == {}
+        print("tp (1, 1) at full width (depth 4): " + ", ".join(
+            f"{k} {v}" for k, v in checks.items()))
+        out["one_card"] = runs
+    finally:
+        mesh.close()
+    del logits
+    torch.cuda.empty_cache()
+    out["kernel_checks"] = tp_kernel_checks(torch, torch.device(dev))
+    torch.cuda.empty_cache()
+    if cards >= 2:
+        n = 4 if cards >= 4 else 2
+        ranks = spawn_ranks(n, tp_rank_runs, (
+            rounds, profile, runs["unsharded"]["round"]["metrics"]),
+            "cuda", shape=(1, n), timeout=900)
+        want = tp_census(get_config("olmoe-1b-7b"), n)
+        r0 = ranks[0]
+        checks[f"(1, {n}) smoke loss and gradients within 1e-5"] = all(
+            r["smoke"]["ok"] for r in ranks)
+        checks[f"(1, {n}) depth 4 against unsharded"] = \
+            r0["against_unsharded"]["ok"]
+        checks[f"(1, {n}) depth 4 check refuses a planted backward "
+               "fault"] = not r0["planted_fault"]["ok"]
+        for part in ("depth4", "whole"):
+            checks[f"(1, {n}) {part} same metrics and launches on every "
+                   "rank"] = all(
+                r[part]["metrics"] == r0[part]["metrics"]
+                and r[part]["launches"] == r0[part]["launches"]
+                for r in ranks)
+        checks[f"(1, {n}) whole census == predicted"] = all(
+            c == want for r in ranks for c in r["whole"]["census"])
+        checks[f"(1, {n}) depth 4 census == predicted"] = all(
+            c == tp_census(cfg4, n) for r in ranks
+            for c in r["depth4"]["census"])
+        peak = max(r["whole"]["peak_bytes"] for r in ranks)
+        checks[f"(1, {n}) whole fits a card"] = peak < 80e9
+        w = r0["whole"]
+        print(f"tp (1, {n}) olmoe-1b-7b whole: {w['rounds_per_s']:.3f} "
+              f"rounds/s, {w['tokens_per_s']:.1f} tokens/s, peak "
+              f"{peak / 1e9:.2f} GB a card (max over ranks), prefill "
+              f"{r0['prefill']['ms']:.2f} ms; census a round "
+              f"{_census_line(w['census'][0])} (predicted "
+              f"{_census_line(want)}); smoke {r0['smoke']}; depth 4 "
+              f"against unsharded {r0['against_unsharded']}; with a "
+              f"planted backward fault {r0['planted_fault']}")
+        out["world"] = {"n": n, "rank0": r0, "peak_bytes_max": peak,
+                        "census_predicted": want,
+                        "ranks": [{k: r[k] for k in ("smoke",)}
+                                  | {"peak_bytes": r["whole"]["peak_bytes"]}
+                                  for r in ranks]}
+    else:
+        print("tp: one card, so the (1, n) part of phase 25 did not run")
+    bad = [k for k, v in checks.items() if not v]
+    out["checks"] = checks
+    if bad:
+        raise AssertionError(f"tp: {bad}")
+    return out
+
+
+def run_tp_phase(out_path, profile=False):
+    """The entry of ``--tp-phase``: phase 25 alone, its report written
+    to ``out_path``."""
+    import torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(f"tp: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    _build.build_all()
+    res = tp_phase(torch, profile=profile)
+    res["nvidia_smi"] = smi
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    return 0
+
+
 def kernel_profile(torch, run, dev="cuda"):
     """``run()`` under the profiler: device launches (kernels and copies),
     device busy ms, wall ms."""
@@ -3271,9 +3738,14 @@ def main(argv=None):
     ap.add_argument("--mesh-phase", default=None, metavar="OUT",
                     help="run phase 24 alone (the process main() starts "
                          "for it) and write its report to OUT")
+    ap.add_argument("--tp-phase", default=None, metavar="OUT",
+                    help="run phase 25 alone (the process main() starts "
+                         "for it) and write its report to OUT")
     args = ap.parse_args(argv)
     if args.mesh_phase:
         return run_mesh_phase(args.mesh_phase, args.profile)
+    if args.tp_phase:
+        return run_tp_phase(args.tp_phase, args.profile)
 
     import torch
     if not torch.cuda.is_available():
@@ -3412,8 +3884,23 @@ def main(argv=None):
     with open(mesh_out) as f:
         mesh_runs = json.load(f)
     t24 = time.perf_counter()
+
+    # 25. the model axis, in a process of its own (a (1, 1) mesh on this
+    # card; with two cards or more, (1, n) in spawned ranks)
+    tp_out = os.path.join(ROOT, "build", "chip_smoke_tp.json")
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--tp-phase", tp_out]
+                          + (["--profile"] if args.profile else []),
+                          timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 25 (model axis) exited {proc.returncode}")
+    with open(tp_out) as f:
+        tp_runs = json.load(f)
+    t25 = time.perf_counter()
     phase_s.update({"18": t19 - t18, "19": t20 - t19, "20": t21 - t20,
-                    "21-22": t22 - t21b, "23": t23 - t22, "24": t24 - t23})
+                    "21-22": t22 - t21b, "23": t23 - t22, "24": t24 - t23,
+                    "25": t25 - t24})
     print("phases took " + ", ".join(f"{k}: {v:.1f}s"
                                      for k, v in phase_s.items()))
 
@@ -3447,7 +3934,8 @@ def main(argv=None):
                        "launch_floor": floor, "zoo": zoo_runs,
                        "workloads": workload_runs, "serving": serving,
                        "fault_paths": fault_paths, "whisper": whisper_runs,
-                       "mesh": mesh_runs, "phase_s": phase_s}, f,
+                       "mesh": mesh_runs, "model_axis": tp_runs,
+                       "phase_s": phase_s}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

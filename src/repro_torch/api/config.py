@@ -150,8 +150,11 @@ class ExperimentConfig:
             sizes = dict(zip(self.mesh_axes, self.mesh_shape))
             if sizes.get("model", 1) > 1:
                 raise NotImplementedError(
-                    f"mesh {sizes}: a 'model' axis > 1 (FSDP/TP weights "
-                    "through DTensor) is not ported yet (ROADMAP item 9b)")
+                    f"mesh {sizes}: the Engine's 'model' axis > 1 (the "
+                    "CNN's lin/w rule, gather_loss with a sharded head) "
+                    "is not ported yet (ROADMAP item 9b, the Engine's "
+                    "model axis); the transformer train and prefill "
+                    "steps take one (launch.steps)")
             for name, used in MESH_9B.items():
                 if used(self):
                     raise NotImplementedError(

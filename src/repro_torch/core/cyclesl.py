@@ -17,7 +17,11 @@ On a mesh (a ``SlotSplit`` passed as ``split``) the slot loops run over
 the rank's own slots, D_S^f stays row-sharded, and the server, the same
 on every rank, steps data-parallel: each rank's part of a minibatch,
 its loss and gradients reduced over ranks (see
-:func:`server_inner_loop`).
+:func:`server_inner_loop`).  On a ``model`` axis (the task's ``tp``)
+every rank of a model group draws the same plan and resamples the same
+minibatch, the reference's replicated server batch, and the halves run
+on the rank's shards; gradient norms (the clip, the reported client
+norms) sum the shards' squares over the axis (``sharding.parallel``).
 """
 from __future__ import annotations
 
@@ -33,10 +37,12 @@ from repro_torch.core.feature_store import (FeatureStore, gather_batch,
                                             shard_local_fused_loss,
                                             shard_local_gather)
 from repro_torch.core.protocol import (EntityState, SlotSplit, entity_step,
-                                       select_entities, slot_mean)
+                                       gather_slots, select_entities,
+                                       slot_mean)
 from repro_torch.core.split import SplitTask
 from repro_torch.kernels import ops
 from repro_torch.optim import Optimizer, clip_by_global_norm
+from repro_torch.sharding.parallel import global_norm
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
 # plan_fn(key, valid, epochs, server_batch) -> (plan [E, steps, sb] int,
@@ -86,10 +92,12 @@ def _n_slots(tree) -> int:
     return tree_leaves(tree)[0].shape[0]
 
 
-def _maybe_clip(grads, max_norm: Optional[float]):
+def _maybe_clip(grads, max_norm: Optional[float], tp=None):
+    """Clip to ``max_norm``; with a model axis (``tp``) the norm is that
+    of the whole tree, summed over the shards."""
     if max_norm is None:
         return grads
-    clipped, _ = clip_by_global_norm(grads, max_norm)
+    clipped, _ = clip_by_global_norm(grads, max_norm, global_norm(grads, tp))
     return clipped
 
 
@@ -133,7 +141,9 @@ def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
     the minibatch's rows divide the ranks, each rank takes the loss of
     its part, scaled by its share of the rows (1 at one rank, never
     multiplied in), and the loss and gradients are summed with one
-    ``all_reduce``; the fused loss reduces its own.  Clipping and the
+    ``all_reduce``; the fused loss reduces its own.  A server split over
+    a model axis (the task's ``tp``) takes the whole minibatch on every
+    rank instead, as the reference's ``tp_layout`` does.  Clipping and the
     step follow on the summed gradients, so the server stays the same on
     every rank.
     """
@@ -164,8 +174,13 @@ def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
     if split is not None and not shard_local:
         pool = gather_everything(store, split)
     flat = pool.features.reshape(pool.size, -1)
-    # data-parallel minibatch: this rank's rows [m0, m1) of each step
-    dp = split is not None and not fused and sb % n == 0
+    # the reference's tp_layout: a server whose weights split over a
+    # model axis takes the whole minibatch on every rank (its MoE groups,
+    # and so its capacity drops, stay those of the unsharded step);
+    # else a data-parallel minibatch, this rank's rows [m0, m1) a step
+    tp_layout = task.tp is not None and task.tp.size > 1 and any(
+        task.tp.units.values())
+    dp = split is not None and not fused and sb % n == 0 and not tp_layout
     if dp:
         m0 = split.comm.rank * (sb // n)
         m1 = m0 + sb // n
@@ -181,7 +196,8 @@ def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
                     flat, pool.labels, idx, task.server_head(p))
             return _value_and_grad(loss_fn, params)
         if shard_local:
-            f, y = shard_local_gather(store, idx, split)
+            f, y = shard_local_gather(store, idx, split,
+                                      replicate_out=tp_layout)
         else:
             f, y = gather_batch(pool, idx[m0:m1] if dp else idx)
         if not dp:
@@ -196,7 +212,7 @@ def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
 
     def apply_step(entity, idx):
         loss, grads = step_loss_and_grads(entity.params, idx)
-        grads = _maybe_clip(grads, ccfg.grad_clip)
+        grads = _maybe_clip(grads, ccfg.grad_clip, task.tp)
         if grad_scale is not None:
             grads = tree_map(lambda g: g * grad_scale, grads)
         return entity_step(entity, grads, opt_s), loss
@@ -249,10 +265,9 @@ def _client_grads(task: SplitTask, params, x, g, grad_clip):
     with torch.enable_grad():
         out = task.client_forward(tree_unflatten_like(params, leaves), x)
         grads = torch.autograd.grad(out, leaves, grad_outputs=g.to(out.dtype))
-    grads = _maybe_clip(tree_unflatten_like(params, list(grads)), grad_clip)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(l.float()))
-                           for l in tree_leaves(grads)))
-    return grads, gnorm
+    grads = _maybe_clip(tree_unflatten_like(params, list(grads)), grad_clip,
+                        task.tp)
+    return grads, global_norm(grads, task.tp)
 
 
 def client_update_one(task: SplitTask, entity: EntityState, x, g,
@@ -308,18 +323,24 @@ def cyclesl_extract(task: SplitTask, clients: EntityState, xs, ys
 def cyclesl_tail(task: SplitTask, server: EntityState, clients: EntityState,
                  opt_s: Optimizer, opt_c: Optimizer, xs, ys, key: int,
                  ccfg: CycleConfig, feats, store: FeatureStore,
-                 plan_fn: Optional[PlanFn] = None):
+                 plan_fn: Optional[PlanFn] = None,
+                 split: Optional[SlotSplit] = None):
     """Phases 3-5 of Algorithm 1 on an extract handoff.  Returns
-    (server', clients', metrics)."""
+    (server', clients', metrics).  With ``split`` the cohort arrays and
+    ``clients`` are this rank's slots, and the metrics run over every
+    rank's (the same on every rank)."""
     batch = tree_leaves(ys)[0].shape[1]
     server, server_loss = server_inner_loop(
-        task, server, opt_s, store, key, ccfg, batch=batch, plan_fn=plan_fn)
-    fgrads = feature_gradients(task, server.params, feats, ys, ccfg)
+        task, server, opt_s, store, key, ccfg, batch=batch, plan_fn=plan_fn,
+        split=split)
+    fgrads = feature_gradients(task, server.params, feats, ys, ccfg,
+                               split=split)
     fg_flat = fgrads.reshape(fgrads.shape[0], -1).float()
-    per_sample_norm = (torch.linalg.vector_norm(fg_flat, dim=-1)
-                       / fg_flat.shape[-1] ** 0.5)
+    per_sample_norm = gather_slots(torch.linalg.vector_norm(fg_flat, dim=-1)
+                                   / fg_flat.shape[-1] ** 0.5, split)
     clients, client_gnorms = client_updates(task, clients, opt_c, xs, fgrads,
                                             grad_clip=ccfg.grad_clip)
+    client_gnorms = gather_slots(client_gnorms, split)
     metrics = {
         "server_loss": server_loss,
         "feat_grad_norm_mean": per_sample_norm.mean(),
@@ -331,10 +352,12 @@ def cyclesl_tail(task: SplitTask, server: EntityState, clients: EntityState,
 
 def cyclesl_round(task: SplitTask, server: EntityState, clients: EntityState,
                   opt_s: Optimizer, opt_c: Optimizer, xs, ys, key: int,
-                  ccfg: CycleConfig, plan_fn: Optional[PlanFn] = None):
+                  ccfg: CycleConfig, plan_fn: Optional[PlanFn] = None,
+                  split: Optional[SlotSplit] = None):
     """One full CycleSL round (Algorithm 1) on cohort-stacked [C, b, ...]
     batches and a cohort-stacked client EntityState: extract ∘ tail.
-    Returns (server', clients', metrics)."""
+    Returns (server', clients', metrics).  ``split`` runs it on a mesh's
+    batch axes, the batches and ``clients`` this rank's slots."""
     feats, store = cyclesl_extract(task, clients, xs, ys)
     return cyclesl_tail(task, server, clients, opt_s, opt_c, xs, ys, key,
-                        ccfg, feats, store, plan_fn=plan_fn)
+                        ccfg, feats, store, plan_fn=plan_fn, split=split)

@@ -16,6 +16,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.cnn import StageModel
 from repro_torch.models.transformer import (Transformer, block_kind,
                                             positions_for)
+from repro_torch.sharding.specs import model_shard_plan, shard_params
 from repro_torch.utils.tree import tree_leaves, tree_slice
 
 
@@ -36,6 +37,10 @@ class SplitTask:
     # the contract the fused gather + loss kernel relies on; None
     # disables fusion
     server_head: Any = None                           # (θ_S) -> w, or None
+    # the sharding.parallel.TensorParallel the halves' params are split
+    # under (their leaves then hold this rank's shards; gradient norms
+    # sum the shards over the model axis), or None
+    tp: Any = None
 
     def server_loss(self, sp, features, y):
         return self.loss(self.server_apply(sp, features), y)
@@ -108,7 +113,7 @@ def make_stage_task(model: StageModel, cut: int, kind: str = "xent",
 
 
 # -------------------------------------------------- Transformer builder
-def make_transformer_task(cfg: ArchConfig) -> SplitTask:
+def make_transformer_task(cfg: ArchConfig, tp=None) -> SplitTask:
     """Cut a decoder-only arch after ``cfg.cut_layers`` blocks.
 
     θ_C = embedding + blocks[:cut] (the smashed data is the block-`cut`
@@ -117,12 +122,26 @@ def make_transformer_task(cfg: ArchConfig) -> SplitTask:
     hybrid family, the shared attention block (a client cut must end
     before its first position).  Each side draws the whole model from its
     own generator and keeps its half, as the JAX package does with keys.
+
+    ``tp`` (a ``sharding.parallel.TensorParallel``) puts both halves on
+    a mesh's ``model`` axis: each rank still draws the whole model (the
+    same on every rank of a model group, from one seed) and keeps its
+    shard of each leaf (``sharding.specs.model_shard_plan``), and the
+    forwards run on the shards.
     """
     cut = cfg.cut_layers
 
+    def keep(half):
+        if tp is None or tp.size == 1:
+            return half
+        plan = model_shard_plan(half, cfg, {"model": tp.size},
+                                {"model": tp.rank})
+        return shard_params(half, plan)
+
     def init_client(gen):
         p = Transformer.init(gen, cfg)
-        return {"embed": p["embed"], "blocks": tree_slice(p["blocks"], 0, cut)}
+        return keep({"embed": p["embed"],
+                     "blocks": tree_slice(p["blocks"], 0, cut)})
 
     def init_server(gen):
         p = Transformer.init(gen, cfg)
@@ -134,16 +153,16 @@ def make_transformer_task(cfg: ArchConfig) -> SplitTask:
             out["embed"] = p["embed"]    # unembedding copy server-side
         if block_kind(cfg) == "hybrid":
             out["shared_attn"] = p["shared_attn"]
-        return out
+        return keep(out)
 
     def client_forward(cp, batch):
         tokens = batch["tokens"] if isinstance(batch, dict) else batch
         patch = batch.get("patch_embeds") if isinstance(batch, dict) else None
         B, S = tokens.shape
-        x = Transformer.embed_inputs(cp, cfg, tokens, patch)
+        x = Transformer.embed_inputs(cp, cfg, tokens, patch, tp)
         x, _ = Transformer.stack_forward(cp, cfg, x,
                                          positions_for(B, S, tokens.device),
-                                         first_block=0, n_blocks=cut)
+                                         first_block=0, n_blocks=cut, tp=tp)
         return x
 
     def server_apply(sp, features):
@@ -153,12 +172,12 @@ def make_transformer_task(cfg: ArchConfig) -> SplitTask:
         B, S = features.shape[:2]
         x, metrics = Transformer.stack_forward(
             sp, cfg, features, positions_for(B, S, features.device),
-            first_block=cut, n_blocks=cfg.n_layers - cut)
+            first_block=cut, n_blocks=cfg.n_layers - cut, tp=tp)
         return {"hidden": x, "aux": metrics, "params": sp}
 
     def loss(outputs, labels):
         nll, _ = Transformer.chunked_lm_loss(
-            outputs["params"], cfg, outputs["hidden"], labels)
+            outputs["params"], cfg, outputs["hidden"], labels, tp=tp)
         if cfg.moe is not None:
             nll = (nll + cfg.moe.aux_weight * outputs["aux"]["aux_loss"]
                    + cfg.moe.router_z_weight * outputs["aux"]["z_loss"])
@@ -166,8 +185,8 @@ def make_transformer_task(cfg: ArchConfig) -> SplitTask:
 
     def metrics(outputs, labels):
         _, acc = Transformer.chunked_lm_loss(
-            outputs["params"], cfg, outputs["hidden"], labels)
+            outputs["params"], cfg, outputs["hidden"], labels, tp=tp)
         return {"accuracy": acc}
 
     return SplitTask(f"{cfg.name}@cut{cut}", init_client, init_server,
-                     client_forward, server_apply, loss, metrics)
+                     client_forward, server_apply, loss, metrics, tp=tp)

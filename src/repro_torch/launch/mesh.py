@@ -6,8 +6,10 @@ the devices of a ``jax.sharding.Mesh``; here each rank is a process
 driving one device, and a :class:`Mesh` is the
 ``torch.distributed.device_mesh.DeviceMesh`` over an initialized process
 group plus what the round needs of it: the axis sizes, this rank's
-coordinates and a :class:`~repro_torch.sharding.collectives.Collectives`
-over the batch axes.
+coordinates and two :class:`~repro_torch.sharding.collectives.Collectives`,
+``comm`` over the batch axes (the cohort's split) and ``model_comm``
+over the ``model`` axis (the weights' tensor- and expert-parallel
+split, ``sharding.parallel``).
 
 The process group comes from ``torchrun`` (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``), or from a caller that
@@ -20,8 +22,9 @@ Production meshes:
   Single pod : (data=16, model=16)            = 256 chips
   Multi-pod  : (pod=2, data=16, model=16)     = 512 chips
 
-Both have a ``model`` axis, whose FSDP/TP placement of the weights is
-ROADMAP item 9b: until it lands they raise.
+A ``model`` axis > 1 places the transformer train and prefill steps'
+weights tensor- and expert-parallel (``launch.steps``); the Engine's
+model axis and FSDP over ``data`` are what is left of ROADMAP item 9b.
 """
 from __future__ import annotations
 
@@ -48,8 +51,10 @@ class Mesh:
 
     ``shape`` maps axis name to size (what the spec functions read),
     ``coords`` maps it to this rank's coordinate, ``device`` is the card
-    (or the CPU) this rank drives, and ``comm`` moves every cross-rank
-    value of the round over the batch axes.  ``owns_group`` is True when
+    (or the CPU) this rank drives, ``comm`` moves every cross-rank
+    value of the round over the batch axes and ``model_comm`` every one
+    over the ``model`` axis (census keys ``"model/..."``; None without
+    that axis).  ``owns_group`` is True when
     :func:`make_engine_mesh` started the process group, so :meth:`close`
     ends it (and removes the file store of a world of 1)."""
     device_mesh: Any
@@ -57,6 +62,7 @@ class Mesh:
     coords: dict
     device: torch.device
     comm: Collectives
+    model_comm: Optional[Collectives]
     owns_group: bool = False
     store_dir: Optional[str] = None
 
@@ -97,8 +103,7 @@ def make_engine_mesh(shape, axes, device=None) -> Mesh:
     ``device=None`` means the card (it raises without one).  Raises when
     the shape's product is not the world size, when a ``cuda`` mesh
     asks for more ranks than there are cards (NCCL refuses two ranks on
-    one card), when the group's backend does not follow the device, and
-    when a ``model`` axis is larger than 1 (ROADMAP item 9b)."""
+    one card) and when the group's backend does not follow the device."""
     shape = tuple(int(s) for s in shape)
     axes = tuple(axes)
     if len(shape) != len(axes):
@@ -108,10 +113,6 @@ def make_engine_mesh(shape, axes, device=None) -> Mesh:
     if not set(axes) <= set(BATCH_AXES) | {"model"} or "data" not in sizes:
         raise ValueError(f"mesh axes {axes}: expected 'data', and 'pod' and "
                          "'model' where wanted")
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"mesh {sizes}: a 'model' axis > 1 places the weights FSDP/TP "
-            "through DTensor, not ported yet (ROADMAP item 9b)")
     dev = resolve_device(device)
     n = math.prod(shape)
     if dev.type == "cuda" and n > torch.cuda.device_count():
@@ -137,9 +138,36 @@ def make_engine_mesh(shape, axes, device=None) -> Mesh:
     from torch.distributed.device_mesh import init_device_mesh
     dm = init_device_mesh(dev.type, shape, mesh_dim_names=axes)
     coords = dict(zip(axes, dm.get_coordinate()))
-    # with the model axis at 1 the batch axes span the whole world, so
-    # the default group is their group
-    return Mesh(dm, sizes, coords, dev, Collectives(None), owns, store_dir)
+    return Mesh(dm, sizes, coords, dev, _batch_comm(dm, sizes),
+                _model_comm(dm, sizes), owns, store_dir)
+
+
+def _batch_comm(dm, sizes) -> Collectives:
+    """The batch axes' collectives.  With no ``model`` axis > 1 they span
+    the world, so the default group is theirs (the census and the calls
+    of a (N, 1) mesh stay as they were); one batch axis takes its
+    sub-mesh's group; ``pod`` and ``data`` beside a model axis take the
+    group of the ranks that share this rank's model coordinate, read
+    off the mesh's rank grid in any axis order (every rank builds every
+    such group, in one order)."""
+    m = sizes.get("model", 1)
+    if m == 1:
+        return Collectives(None)
+    axes = tuple(a for a in BATCH_AXES if a in sizes)
+    if len(axes) == 1:
+        return Collectives(dm[axes[0]].get_group())
+    grid = dm.mesh.movedim(list(sizes).index("model"), -1).reshape(-1, m)
+    group, _ = dist.new_subgroups_by_enumeration(grid.t().tolist())
+    return Collectives(group)
+
+
+def _model_comm(dm, sizes) -> Optional[Collectives]:
+    """The ``model`` axis' collectives, over its sub-mesh's group, counted
+    under ``"model/..."``; None without a model axis (the model code
+    then takes no collective)."""
+    if "model" not in sizes:
+        return None
+    return Collectives(dm["model"].get_group(), axis="model")
 
 
 def make_local_mesh(device=None) -> Mesh:

@@ -123,14 +123,14 @@ def max_diff(a_state, a_rows, b_state, b_rows) -> float:
 
 
 # ------------------------------------------------------------ the ranks
-def _rank_entry(rank, world, store, device, fn, args, out_dir):
+def _rank_entry(rank, world, store, device, fn, args, out_dir, shape):
     torch.set_num_threads(1)
     if device == "cuda":
         torch.cuda.set_device(rank)
     dist.init_process_group(BACKEND[device], init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
-        mesh = make_engine_mesh((world, 1), ("data", "model"), device)
+        mesh = make_engine_mesh(shape, ("data", "model"), device)
         out = fn(mesh, *args)
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
@@ -138,17 +138,20 @@ def _rank_entry(rank, world, store, device, fn, args, out_dir):
 
 
 def spawn_ranks(world: int, fn, args=(), device="cpu", workdir=None,
-                timeout: float = 600.0) -> list:
+                timeout: float = 600.0, shape=None) -> list:
     """Run ``fn(mesh, *args)`` in ``world`` spawned ranks, each one over
-    an (world, 1) mesh on ``device`` (gloo for ``cpu``, NCCL for
-    ``cuda``, one card a rank), its process group started from a
-    ``file://`` store under ``workdir``.  Returns every rank's result,
-    in rank order; raises if a rank fails or outlives ``timeout``."""
+    a ('data', 'model') mesh of ``shape`` (default (world, 1)) on
+    ``device`` (gloo for ``cpu``, NCCL for ``cuda``, one card a rank),
+    its process group started from a ``file://`` store under
+    ``workdir``.  Returns every rank's result, in rank order; raises if
+    a rank fails or outlives ``timeout``."""
+    shape = (world, 1) if shape is None else tuple(shape)
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(dir=workdir) as d:
         store = os.path.join(d, "store")
         procs = [ctx.Process(target=_rank_entry,
-                             args=(r, world, store, device, fn, args, d))
+                             args=(r, world, store, device, fn, args, d,
+                                   shape))
                  for r in range(world)]
         for p in procs:
             p.start()

@@ -1,9 +1,8 @@
 """Step-function builders: the CycleSL round, prefill and decode.
 
-Port of ``repro/launch/steps.py`` without mesh or shardings (the
-decode state's placement, ``decode_state_shardings``, waits for the
-multi-GPU port).  For an (arch x input shape), decoder-only or whisper's
-encoder-decoder, the builders return a :class:`StepBundle`:
+Port of ``repro/launch/steps.py``.  For an (arch x input shape),
+decoder-only or whisper's encoder-decoder, the builders return a
+:class:`StepBundle`:
 
   train   — one full CycleSL round (paper Algorithm 1) over a cohort of
             clients: the paper's technique IS the train step (and
@@ -14,6 +13,19 @@ encoder-decoder, the builders return a :class:`StepBundle`:
   decode  — one token against a KV cache / SSM state (serving).
 
 The step runs on the card unless ``device="cpu"`` is passed.
+
+The train and prefill steps take a ``mesh`` (``launch.mesh.Mesh``), the
+port's counterpart of the reference's ``NamedSharding``s of the train
+state: on its ``model`` axis the dense and MoE transformers' weights are
+tensor- and expert-parallel (``sharding.parallel``; each rank holds its
+shards), over its batch axes the train step's cohort is split as the
+Engine's is (each rank its slots), and the server steps on the whole
+minibatch on every rank when its weights split over ``model`` (the
+reference's ``tp_layout``), else data-parallel; the prefill batch is
+replicated over the batch axes.  The mesh's device
+is the step's.  The decode state's placement
+(``decode_state_shardings``), FSDP over ``data`` and the Mamba, hybrid
+and whisper steps on a model axis are ROADMAP item 9b.
 """
 from __future__ import annotations
 
@@ -24,16 +36,20 @@ import numpy as np
 import torch
 
 from repro_torch.api.engine import resolve_device
+from repro_torch.api.phases import slot_split
 from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.core.cyclesl import (CycleConfig, PlanFn, cyclesl_extract,
                                       cyclesl_round, cyclesl_tail)
-from repro_torch.core.protocol import broadcast_entity, init_entity
+from repro_torch.core.protocol import SlotSplit, broadcast_entity, init_entity
 from repro_torch.core.split import (SplitTask, make_transformer_task,
                                    xent_loss)
 from repro_torch.launch import inputs as inputs_lib
+from repro_torch.launch.mesh import cohort_size
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import adam
+from repro_torch.sharding.parallel import TensorParallel
+from repro_torch.sharding.specs import model_shard_plan, shard_params
 
 
 @dataclass
@@ -95,38 +111,59 @@ class _TrainSubstrate:
     device: torch.device
     init_state: Callable[[int], tuple]
     make_batch: Callable[[int], tuple]
+    split: Optional[SlotSplit] = None
+
+
+def _mesh_device(mesh, device) -> torch.device:
+    return resolve_device(device) if mesh is None else mesh.device
+
+
+def _tensor_parallel(cfg: ArchConfig, mesh) -> Optional[TensorParallel]:
+    """The step's ``model``-axis context, or None off the mesh.  Raises for
+    a family whose step has no model axis yet (the whole-unit rule)."""
+    return None if mesh is None else TensorParallel.from_mesh(mesh, cfg)
 
 
 def _train_substrate(cfg: ArchConfig, shape: InputShape, cycle: CycleConfig,
-                     cohort: int, device) -> _TrainSubstrate:
+                     cohort: int, device, mesh=None) -> _TrainSubstrate:
     inputs_lib.train_batch_specs(cfg, shape, cohort)  # validates cfg, split
-    dev = resolve_device(device)
+    dev = _mesh_device(mesh, device)
     cycle = cycle.check_ported()
+    tp = _tensor_parallel(cfg, mesh)
     task = (make_whisper_task(cfg) if cfg.family == "audio"
-            else make_transformer_task(cfg))
+            else make_transformer_task(cfg, tp))
     opt_s, opt_c = adam(3e-4), adam(3e-4)
+    # the cohort's split over the batch axes (none on a mesh whose batch
+    # axes hold one rank: its slots are every slot)
+    split = (slot_split(mesh, cohort)
+             if mesh is not None and cohort_size(mesh) > 1 else None)
+    lo, hi = (0, cohort) if split is None else (split.lo, split.hi)
 
     def init_state(seed: int):
         gen_s = torch.Generator(device=dev).manual_seed(seed)
         gen_c = torch.Generator(device=dev).manual_seed(seed + 1)
         server = init_entity(task.init_server(gen_s), opt_s)
         clients = broadcast_entity(
-            init_entity(task.init_client(gen_c), opt_c), cohort)
+            init_entity(task.init_client(gen_c), opt_c), hi - lo)
         return server, clients
 
     def make_batch(seed: int):
         xs, ys = inputs_lib.make_train_batch(cfg, shape, cohort, seed)
+        if split is not None:
+            xs = {k: v[lo:hi] for k, v in xs.items()}
+            ys = (ys[lo:hi] if not isinstance(ys, dict)
+                  else {k: v[lo:hi] for k, v in ys.items()})
         return (inputs_lib.to_device(xs, cfg, dev),
                 inputs_lib.to_device(ys, cfg, dev))
 
     return _TrainSubstrate(task, opt_s, opt_c, cycle, dev, init_state,
-                           make_batch)
+                           make_batch, split)
 
 
 def build_train_step(cfg: ArchConfig, shape: InputShape,
                      cycle: CycleConfig = CycleConfig(), *, cohort: int,
-                     device=None, plan_fn: Optional[PlanFn] = None
-                     ) -> StepBundle:
+                     device=None, plan_fn: Optional[PlanFn] = None,
+                     mesh=None) -> StepBundle:
     """``fn(server, clients, xs, ys, key) -> (server', clients',
     metrics)``: one ``cyclesl_round`` of the arch's split task (the
     transformer cut, or whisper's encoder/decoder) with ``adam(3e-4)``
@@ -138,12 +175,18 @@ def build_train_step(cfg: ArchConfig, shape: InputShape,
     [C, b, S], b = global_batch / cohort; for audio ``{"frames": [C, b,
     1500, d]}`` and ``{"tokens", "labels"}`` [C, b, min(S, 448)].
     ``plan_fn`` replaces the round's resample plan (see
-    ``core.cyclesl.PlanFn``)."""
-    sub = _train_substrate(cfg, shape, cycle, cohort, device)
+    ``core.cyclesl.PlanFn``).
+
+    On ``mesh`` (see the module's docstring) ``init_state`` gives this
+    rank's shards and slots, ``make_batch`` this rank's slots, and the
+    step this rank's new shards and slots with metrics that are the same
+    on every rank."""
+    sub = _train_substrate(cfg, shape, cycle, cohort, device, mesh)
 
     def train_step(server, clients, xs, ys, key: int):
         return cyclesl_round(sub.task, server, clients, sub.opt_s, sub.opt_c,
-                             xs, ys, key, sub.cycle, plan_fn=plan_fn)
+                             xs, ys, key, sub.cycle, plan_fn=plan_fn,
+                             split=sub.split)
 
     return StepBundle("train", train_step, sub.init_state, sub.make_batch,
                       sub.device)
@@ -177,20 +220,27 @@ def build_pipelined_train_steps(cfg: ArchConfig, shape: InputShape,
 
 
 # ----------------------------------------------------------- prefill step
-def build_prefill_step(cfg: ArchConfig, shape: InputShape, *, device=None
-                       ) -> StepBundle:
+def build_prefill_step(cfg: ArchConfig, shape: InputShape, *, device=None,
+                       mesh=None) -> StepBundle:
     """``fn(params, batch) -> logits [B, vocab] bfloat16`` of the last
     position, from the full model's forward (no gradient).
     ``init_state(seed)`` gives (params,), ``make_batch(seed)`` gives
     (batch,) with ``batch["tokens"]`` [B, S] (and for audio
-    ``batch["frames"]`` [B, 1500, d])."""
+    ``batch["frames"]`` [B, 1500, d]).  On ``mesh`` the params are this
+    rank's shards of the whole draw and every rank returns the whole
+    logits."""
     inputs_lib.prefill_specs(cfg, shape)             # validates cfg
-    dev = resolve_device(device)
+    dev = _mesh_device(mesh, device)
     model = EncDec if cfg.family == "audio" else Transformer
+    tp = _tensor_parallel(cfg, mesh)
 
     def init_state(seed: int):
-        return (model.init(torch.Generator(device=dev).manual_seed(seed),
-                           cfg),)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                            cfg)
+        if tp is not None and tp.size > 1:
+            params = shard_params(params, model_shard_plan(
+                params, cfg, {"model": tp.size}, {"model": tp.rank}))
+        return (params,)
 
     def make_batch(seed: int):
         return (inputs_lib.to_device(
@@ -203,7 +253,8 @@ def build_prefill_step(cfg: ArchConfig, shape: InputShape, *, device=None
                                         batch["tokens"])
             else:
                 logits, _ = Transformer.forward(
-                    params, cfg, batch["tokens"], batch.get("patch_embeds"))
+                    params, cfg, batch["tokens"], batch.get("patch_embeds"),
+                    tp=tp)
         return logits[:, -1].to(torch.bfloat16)
 
     return StepBundle("prefill", prefill, init_state, make_batch, dev)

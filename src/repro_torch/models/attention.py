@@ -28,6 +28,7 @@ from repro_torch.kernels.ref import mask_bias as _mask_bias  # noqa: F401
 from repro_torch.kernels.ref import sdpa, sdpa_qchunked  # noqa: F401
 from repro_torch.models import module
 from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_init
+from repro_torch.sharding.parallel import copy_to_model, reduce_from_model
 
 
 def attn_init(gen, cfg: ArchConfig, dtype):
@@ -64,24 +65,45 @@ def _check_index_positions(positions, S: int) -> None:
     torch._assert_async(torch.all(positions == want))
 
 
-def attend_full(params, cfg: ArchConfig, x, positions, window: Optional[int]):
+def attend_full(params, cfg: ArchConfig, x, positions, window: Optional[int],
+                tp=None):
     """Full-sequence (train / prefill) attention over causal index
-    positions.  Returns (out, (k, v))."""
+    positions.  Returns (out, (k, v)).
+
+    Head-parallel when ``tp`` splits the attention unit: ``wq``, ``wk``
+    and ``wv`` hold this rank's whole heads (columns), the norms, RoPE
+    and the kernel run on them, and ``wo`` (its rows) gives a partial sum
+    that is reduced over the ``model`` axis; ``x`` and the q/k norms'
+    scales enter through one ``copy_to_model``."""
     a: AttnConfig = cfg.attn
     hd = cfg.hd
-    q = _split_heads(x @ params["wq"], cfg.n_heads, hd)
-    k = _split_heads(x @ params["wk"], cfg.n_kv_heads, hd)
-    v = _split_heads(x @ params["wv"], cfg.n_kv_heads, hd)
-    if "q_norm" in params:
-        q = rmsnorm(params["q_norm"], q)
-        k = rmsnorm(params["k_norm"], k)
+    split = tp is not None and tp.on("attn")
+    n_h, n_kv = cfg.n_heads, cfg.n_kv_heads
+    norms = ([params["q_norm"], params["k_norm"]] if "q_norm" in params
+             else [])
+    if split:
+        # the norms' scales are whole on every rank but meet only this
+        # rank's heads: their gradients are partial, as x's is
+        if norms:
+            x, *scales = copy_to_model(tp, x, *(n["scale"] for n in norms))
+            norms = [{"scale": s} for s in scales]
+        else:
+            x = copy_to_model(tp, x)
+        n_h, n_kv = n_h // tp.size, n_kv // tp.size
+    q = _split_heads(x @ params["wq"], n_h, hd)
+    k = _split_heads(x @ params["wk"], n_kv, hd)
+    v = _split_heads(x @ params["wv"], n_kv, hd)
+    if norms:
+        q = rmsnorm(norms[0], q)
+        k = rmsnorm(norms[1], k)
     if a.rope:
         q = apply_rope(q, positions, a.rope_theta)
         k = apply_rope(k, positions, a.rope_theta)
     _check_index_positions(positions, q.shape[1])
     out = ops.flash_attention(q, k, v, causal=True, window=window,
                               softcap=a.logit_softcap)
-    return _merge_heads(out) @ params["wo"], (k, v)
+    out = _merge_heads(out) @ params["wo"]
+    return (reduce_from_model(tp, out, "attn") if split else out), (k, v)
 
 
 class KVCache(NamedTuple):

@@ -6,6 +6,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import module
+from repro_torch.sharding.parallel import copy_to_model, reduce_from_model
 
 
 def swiglu_init(gen, d: int, f: int, dtype):
@@ -16,9 +17,16 @@ def swiglu_init(gen, d: int, f: int, dtype):
     }
 
 
-def swiglu(params, x):
+def swiglu(params, x, tp=None, unit: str = "ffn"):
+    """SwiGLU; tensor-parallel when ``tp`` splits ``unit`` (``w_gate`` and
+    ``w_up`` column-parallel, ``w_down`` row-parallel, its partial sums
+    reduced over the ``model`` axis)."""
+    split = tp is not None and tp.on(unit)
+    if split:
+        x = copy_to_model(tp, x)
     g = F.silu(x @ params["w_gate"])
-    return (g * (x @ params["w_up"])) @ params["w_down"]
+    y = (g * (x @ params["w_up"])) @ params["w_down"]
+    return reduce_from_model(tp, y, unit) if split else y
 
 
 def gelu_mlp_init(gen, d: int, f: int, dtype):

@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import module
+from repro_torch.sharding.parallel import reduce_from_model
 
 
 # ---------------------------------------------------------------- norms
@@ -61,10 +62,21 @@ def embedding_init(gen, vocab: int, d: int, dtype=torch.float32):
     return {"table": module.embed_init(gen, vocab, d, dtype)}
 
 
-def embedding(params, ids):
+def embedding(params, ids, tp=None):
     """Row lookup ``table[ids]`` (its backward sums rows in a fixed
-    order, so card runs repeat bit for bit)."""
-    return F.embedding(ids.long(), params["table"])
+    order, so card runs repeat bit for bit).
+
+    Vocab-parallel when ``tp`` splits the vocab: the table holds this
+    rank's rows, ids of other ranks' rows look up zeros, and the sum over
+    the ``model`` axis, which has one nonzero term a row, is exact."""
+    if tp is None or not tp.on("vocab"):
+        return F.embedding(ids.long(), params["table"])
+    n = params["table"].shape[0]
+    local = ids.long() - tp.rank * n
+    ok = (local >= 0) & (local < n)
+    rows = F.embedding(local.clamp(0, n - 1), params["table"])
+    return reduce_from_model(tp, torch.where(ok[..., None], rows, 0),
+                             "embed")
 
 
 def unembed(params, x):

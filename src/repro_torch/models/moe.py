@@ -1,8 +1,10 @@
 """Mixture-of-Experts layer with sort-based (gather/scatter) dispatch.
 
-Port of ``repro/models/moe.py`` without its sharding constraints (one
-card has no mesh).  Assignments are sorted by expert id, ranked within
-their expert and gathered into a capacity-bounded [E, C, d] buffer, so
+Port of ``repro/models/moe.py``; on a mesh's ``model`` axis it runs
+expert-parallel (or, for ``shard_mode='ffn'``, with each expert's hidden
+columns split) instead of under the JAX package's sharding constraints.
+Assignments are sorted by expert id, ranked within their expert and
+gathered into a capacity-bounded [E, C, d] buffer, so
 the expert matmuls cost the active FLOPs (times the capacity slack).
 Tokens over an expert's capacity are dropped (GShard semantics).
 
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import MoEConfig
 from repro_torch.kernels import ops
 from repro_torch.models import module
+from repro_torch.sharding.parallel import copy_to_model, reduce_from_model
 
 
 def moe_init(gen, d: int, mcfg: MoEConfig, dtype):
@@ -45,11 +48,21 @@ def router_probs(params, x2d):
     return torch.softmax(logits, dim=-1), logits
 
 
-def _dispatch_groups(params, mcfg: MoEConfig, xg):
+def _dispatch_groups(params, mcfg: MoEConfig, xg, tp=None):
     """Sort-based dispatch + combine for G token groups at once, each
     with its own capacity.  xg [G, S, d] -> (y [G, S, d], aux [G],
     z [G], ce [G, E]).  The router's top-k is one launch over all G * S
-    rows, and the experts are one batched product over all groups."""
+    rows, and the experts are one batched product over all groups.
+
+    When ``tp`` splits the MoE unit, the tokens stay replicated: every
+    rank routes, sorts, ranks and dispatches them the same way, then
+    runs its own experts (the stacks hold ``E / m`` of them; the other
+    experts' outputs come from their ranks), or in ``'ffn'`` mode every
+    expert on its hidden columns.  Each rank's combine is a partial sum,
+    reduced over the ``model`` axis.  The expert inputs and the combine
+    weights meet this rank's part only, so their gradients are partial
+    too: they enter through one ``copy_to_model``.  The router and its
+    aux and z losses are the same on every rank and count once."""
     G, S, d = xg.shape
     E, k = mcfg.n_experts, mcfg.top_k
     C = max(1, int(S * k / E * mcfg.capacity_factor))
@@ -61,6 +74,9 @@ def _dispatch_groups(params, mcfg: MoEConfig, xg):
     # ---- flatten assignments and sort by expert (stable), per group ----
     flat_e = top_e.reshape(G, n).long()
     flat_w = top_p.reshape(G, n)
+    split = tp is not None and tp.on("moe")
+    if split:
+        xg, flat_w = copy_to_model(tp, xg, flat_w, what="moe_grad")
     order = torch.argsort(flat_e, dim=1, stable=True)            # [G, n]
     ar = torch.arange(n, device=dev)
     inv = torch.empty_like(order).scatter_(1, order, ar.expand(G, n))
@@ -81,17 +97,29 @@ def _dispatch_groups(params, mcfg: MoEConfig, xg):
     buf = buf.index_add(0, slot, rows)
     # expert-major for the products: [E, G*C, d] (a view when G is 1)
     buf = buf.reshape(G, E, C, d).transpose(0, 1).reshape(E, G * C, d)
+    # expert-parallel: this rank's experts [e0, e0 + El) of the buffer,
+    # and zeros for the other ranks' outputs.  The dispatch and the
+    # combine keep the layout over all E experts, so their scatters
+    # collide no more than the unsharded ones
+    El = params["w_gate"].shape[0]
+    e0 = tp.rank * El if El != E else 0
+    if El != E:
+        buf = buf[e0:e0 + El].clone()
 
     # ---- per-expert SwiGLU: batched matmuls [E,G*C,d] x [E,d,f] ----
     g = F.silu(torch.bmm(buf, params["w_gate"]))
     u = torch.bmm(buf, params["w_up"])
     yb = torch.bmm(g * u, params["w_down"])
+    if El != E:
+        yb = F.pad(yb, (0, 0, 0, 0, e0, E - e0 - El))
     yb = yb.reshape(E, G, C, d).transpose(0, 1).reshape(G * E * C, d)
 
     # ---- combine back to tokens ----
     contrib = yb[slot] * (sw * keep.float()).reshape(-1, 1).to(xg.dtype)
     flat_inv = ((torch.arange(G, device=dev) * n)[:, None] + inv).reshape(-1)
     y = contrib[flat_inv].reshape(G, S, k, d).sum(dim=2)
+    if split:
+        y = reduce_from_model(tp, y, "moe")
 
     # ---- router losses (per group; averaged by the caller) ----
     probs, logits = probs.reshape(G, S, E), logits.reshape(G, S, E)
@@ -103,7 +131,7 @@ def _dispatch_groups(params, mcfg: MoEConfig, xg):
     return y, aux, z, ce
 
 
-def moe_apply(params, mcfg: MoEConfig, x, group_size=None):
+def moe_apply(params, mcfg: MoEConfig, x, group_size=None, tp=None):
     """Apply the MoE block.  x: [..., d] -> (y, metrics).
 
     Tokens are dispatched in GROUPS of ``group_size`` (default
@@ -113,6 +141,8 @@ def moe_apply(params, mcfg: MoEConfig, x, group_size=None):
     what the JAX serving runtime's ``vmap`` over slots does.  metrics =
     {'aux_loss', 'z_loss', 'load'}; the caller adds
     ``aux_weight * aux_loss + router_z_weight * z_loss`` to its loss.
+    ``tp`` splits the experts over a ``model`` axis (see
+    :func:`_dispatch_groups`).
     """
     orig_shape = x.shape
     d = x.shape[-1]
@@ -122,7 +152,8 @@ def moe_apply(params, mcfg: MoEConfig, x, group_size=None):
     n_pad = (-T) % gs
     if n_pad:
         x2 = F.pad(x2, (0, 0, 0, n_pad))
-    y, aux, z, ce = _dispatch_groups(params, mcfg, x2.reshape(-1, gs, d))
+    y, aux, z, ce = _dispatch_groups(params, mcfg, x2.reshape(-1, gs, d),
+                                     tp)
     metrics = {"aux_loss": aux.mean(), "z_loss": z.mean(),
                "load": ce.mean(0)}
     return y.reshape(-1, d)[:T].reshape(orig_shape), metrics

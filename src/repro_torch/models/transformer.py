@@ -13,7 +13,11 @@ attention, router and SSD-scan kernel launches once per block per
 forward, with no recompute.  The attention and scan backwards recompute
 their plain versions (``kernels.ops``), which launch no kernel.  The
 hybrid family (zamba2) applies ONE shared attention block after each
-listed mamba block.  The split-learning
+listed mamba block.  The full-sequence functions take ``tp``, a
+``sharding.parallel.TensorParallel``: on a mesh's ``model`` axis the
+attention, FFN and MoE blocks, the embedding and the head run on this
+rank's shards of their weights (the dense and MoE families; Mamba and
+hybrid stacks there raise).  The split-learning
 cut is a leading-dim slice of the stacked block params, so client and
 server halves run the same code (``core.split``).
 
@@ -39,6 +43,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (embedding, rmsnorm, rmsnorm_init,
                                        softcap, unembed)
 from repro_torch.models.module import embed_init, normal, stacked_init
+from repro_torch.sharding.parallel import copy_to_model, gather_from_model
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -118,22 +123,24 @@ def block_init(gen, cfg: ArchConfig, dtype):
 
 
 # ---------------------------------------------------------- block forward
-def dense_or_moe_block(params, cfg: ArchConfig, x, positions, window):
+def dense_or_moe_block(params, cfg: ArchConfig, x, positions, window,
+                       tp=None):
     """One attention block (full-seq).  Returns (x, metrics)."""
     h = rmsnorm(params["norm_attn"], x, cfg.norm_eps)
-    a, _ = attn_lib.attend_full(params["attn"], cfg, h, positions, window)
+    a, _ = attn_lib.attend_full(params["attn"], cfg, h, positions, window,
+                                tp)
     if cfg.sandwich_norm:
         a = rmsnorm(params["post_attn"], a, cfg.norm_eps)
     x = x + a
     h = rmsnorm(params["norm_ffn"], x, cfg.norm_eps)
     metrics = _zero_metrics(x.device)
     if "moe" in params:
-        f, m = moe_lib.moe_apply(params["moe"], cfg.moe, h)
+        f, m = moe_lib.moe_apply(params["moe"], cfg.moe, h, tp=tp)
         if "shared_ffn" in params:
-            f = f + ffn_lib.swiglu(params["shared_ffn"], h)
+            f = f + ffn_lib.swiglu(params["shared_ffn"], h, tp, "shared_ffn")
         metrics = {"aux_loss": m["aux_loss"], "z_loss": m["z_loss"]}
     else:
-        f = ffn_lib.swiglu(params["ffn"], h)
+        f = ffn_lib.swiglu(params["ffn"], h, tp)
         if cfg.sandwich_norm:
             f = rmsnorm(params["post_ffn"], f, cfg.norm_eps)
     return x + f, metrics
@@ -175,7 +182,7 @@ class Transformer:
     # -------------- stacks -----------------
     @staticmethod
     def _run_stack(blocks, cfg: ArchConfig, x, positions, *, layer_offset: int,
-                   long_context: bool):
+                   long_context: bool, tp=None):
         """Blocks in order, in groups of ``period``.  Returns
         (x, metrics summed over the blocks)."""
         kind = block_kind(cfg)
@@ -194,7 +201,7 @@ class Transformer:
                 local = _is_local(cfg, (layer_offset + slot) % period
                                   if period > 1 else 0)
                 window = attn_lib.layer_window(cfg, local, long_context)
-                x, m = dense_or_moe_block(bp, cfg, x, positions, window)
+                x, m = dense_or_moe_block(bp, cfg, x, positions, window, tp)
             metrics = {k: metrics[k] + m[k] for k in metrics}
         return x, metrics
 
@@ -217,8 +224,9 @@ class Transformer:
 
     # -------------- forward -----------------
     @staticmethod
-    def embed_inputs(params, cfg: ArchConfig, tokens, patch_embeds=None):
-        x = embedding(params["embed"], tokens)
+    def embed_inputs(params, cfg: ArchConfig, tokens, patch_embeds=None,
+                     tp=None):
+        x = embedding(params["embed"], tokens, tp)
         if cfg.family == "vlm" and patch_embeds is not None:
             npt = patch_embeds.shape[1]
             x = torch.cat([patch_embeds.to(x.dtype), x[:, npt:]], dim=1)
@@ -229,10 +237,15 @@ class Transformer:
     @staticmethod
     def stack_forward(params, cfg: ArchConfig, x, positions, *,
                       first_block: int, n_blocks: int,
-                      long_context: bool = False):
+                      long_context: bool = False, tp=None):
         """Run blocks [first, first+n) of a (possibly sliced) stack."""
         if n_blocks == 0:
             return x, _zero_metrics(x.device)
+        if tp is not None and tp.size > 1 and block_kind(cfg) in (
+                "mamba", "hybrid"):
+            raise NotImplementedError(
+                f"{cfg.name}: Mamba and hybrid stacks on a 'model' axis "
+                "(ROADMAP item 9b)")
         if block_kind(cfg) == "hybrid":
             shared = params.get("shared_attn")
             if shared is None and any(
@@ -250,15 +263,23 @@ class Transformer:
                 long_context=long_context)
         return Transformer._run_stack(
             params["blocks"], cfg, x, positions, layer_offset=first_block,
-            long_context=long_context)
+            long_context=long_context, tp=tp)
 
     @staticmethod
-    def head(params, cfg: ArchConfig, x, keep_padded: bool = False):
+    def head(params, cfg: ArchConfig, x, keep_padded: bool = False,
+             tp=None):
         """Final norm + unembedding.  Returns float32 logits [..., vocab]
-        (padded columns sliced off unless ``keep_padded``)."""
+        (padded columns sliced off unless ``keep_padded``).  When ``tp``
+        splits the vocab, each rank's logits are its columns, gathered
+        over the ``model`` axis before the softcap."""
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        split = tp is not None and tp.on("vocab")
+        if split:
+            x = copy_to_model(tp, x)
         logits = unembed(params["embed"], x) if cfg.tie_embeddings \
             else x @ params["lm_head"]["w"]
+        if split:
+            logits = gather_from_model(tp, logits, "logits")
         logits = softcap(logits.float(), cfg.attn.final_softcap)
         if keep_padded or cfg.vocab_padded == cfg.vocab:
             return logits
@@ -266,11 +287,13 @@ class Transformer:
 
     @staticmethod
     def chunked_lm_loss(params, cfg: ArchConfig, hidden, labels,
-                        chunk: int = 512):
+                        chunk: int = 512, tp=None):
         """Cross-entropy from final hidden states over sequence chunks of
         ``chunk`` positions, each a [B, chunk, vocab_padded] logits tile;
         padded vocab columns are masked to -1e30 and label -1 (sequence
-        padding) is left out.  Returns (mean nll, mean accuracy)."""
+        padding) is left out.  Returns (mean nll, mean accuracy).  On a
+        ``model`` axis each tile is gathered whole (``head``) and the
+        arithmetic is the same."""
         B, S, d = hidden.shape
         chunk = min(chunk, S)
         if S % chunk:
@@ -284,7 +307,8 @@ class Transformer:
         nll_sum = correct_sum = count = 0.0
         for lo in range(0, S, chunk):
             h, l = hidden[:, lo:lo + chunk], labels[:, lo:lo + chunk]
-            logits = Transformer.head(params, cfg, h, keep_padded=True)
+            logits = Transformer.head(params, cfg, h, keep_padded=True,
+                                      tp=tp)
             if n_pad:
                 logits = logits.masked_fill(pad_cols, -1e30)
             ll = torch.log_softmax(logits, dim=-1)
@@ -300,16 +324,16 @@ class Transformer:
 
     @staticmethod
     def forward(params, cfg: ArchConfig, tokens, patch_embeds=None,
-                long_context: bool = False):
+                long_context: bool = False, tp=None):
         """Full forward.  tokens [B, S] -> (logits float32 [B, S, V],
         metrics)."""
         B, S = tokens.shape
         positions = positions_for(B, S, tokens.device)
-        x = Transformer.embed_inputs(params, cfg, tokens, patch_embeds)
+        x = Transformer.embed_inputs(params, cfg, tokens, patch_embeds, tp)
         x, metrics = Transformer.stack_forward(
             params, cfg, x, positions, first_block=0, n_blocks=cfg.n_layers,
-            long_context=long_context)
-        return Transformer.head(params, cfg, x), metrics
+            long_context=long_context, tp=tp)
+        return Transformer.head(params, cfg, x, tp=tp), metrics
 
     # -------------- loss -----------------
     @staticmethod

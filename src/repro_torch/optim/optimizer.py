@@ -20,6 +20,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.parallel import global_norm
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
 
@@ -132,10 +133,11 @@ def adam(lr: float | Callable[[Any], Any], b1: float = 0.9, b2: float = 0.999,
     return Optimizer(init, update, apply if fused else None)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm=None):
     """Scale ``grads`` so their global norm is at most ``max_norm``;
-    returns (clipped, norm) with the norm left on the device."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                        for g in tree_leaves(grads)))
+    returns (clipped, norm) with the norm left on the device.  ``norm``
+    is the tree's norm where the caller has it (a tree of shards on a
+    model axis, ``sharding.parallel.global_norm(grads, tp)``)."""
+    gn = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), gn

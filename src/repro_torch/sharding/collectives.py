@@ -8,6 +8,9 @@ counterpart, read by the tests and by ``launch.meshcheck``.
 
 Each call names what it moves (``what``: "pool", "minibatch", "grads",
 ...), and the census counts calls and bytes under ``"{op}/{what}"``.
+A mesh keeps one object per group: the batch axes' (keys as above) and
+the ``model`` axis' (keys ``"model/{op}/{what}"``), so a round's census
+splits by axis.
 The bytes of a call are the payload one rank hands to it: the tensor of
 an ``all_reduce`` or a ``broadcast``, the whole input of a
 ``reduce_scatter``, the local chunk of an ``all_gather``.
@@ -36,16 +39,21 @@ _all_gather = getattr(dist, "all_gather_single", None) or \
 class Collectives:
     """all_reduce, reduce_scatter, all_gather and broadcast over ``group``
     (None = the default group), each counted in :attr:`census` under
-    ``"{op}/{what}"``."""
+    ``"{op}/{what}"``, prefixed ``"{axis}/"`` when ``axis`` names the
+    group's mesh axis.  ``rank`` and ``size`` are this process's rank in
+    the group and the group's size."""
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, axis: Optional[str] = None):
         self.group = group
+        self.axis = axis
         self.size = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
         self.census: dict[str, dict[str, int]] = {}
 
     def _count(self, op: str, what: str, t: torch.Tensor):
-        row = self.census.setdefault(f"{op}/{what}", {"calls": 0, "bytes": 0})
+        key = f"{op}/{what}" if self.axis is None else \
+            f"{self.axis}/{op}/{what}"
+        row = self.census.setdefault(key, {"calls": 0, "bytes": 0})
         row["calls"] += 1
         row["bytes"] += t.numel() * t.element_size()
 
@@ -139,10 +147,11 @@ class Collectives:
 
 
 def census_by_op(census: dict) -> dict:
-    """A census's calls and bytes summed by op."""
+    """A census's calls and bytes summed by op (an axis prefix kept:
+    ``"model/all_reduce"`` beside ``"all_reduce"``)."""
     out: dict = {}
     for key, row in census.items():
-        tot = out.setdefault(key.split("/")[0], {"calls": 0, "bytes": 0})
+        tot = out.setdefault(key.rsplit("/", 1)[0], {"calls": 0, "bytes": 0})
         tot["calls"] += row["calls"]
         tot["bytes"] += row["bytes"]
     return out

@@ -15,19 +15,24 @@ handled by role:
                          ('pod','data'); the 'data' FSDP component inside
                          the rule is dropped (an axis may appear once).
 
-The mesh path runs with a ``model`` axis of size 1, so the weights'
-FSDP/TP specs are computed here but every rank holds whole weights; the
-layout pins of the JAX package (``constrain_*``) have no counterpart
-yet.  What the mesh path does use is the cohort's split:
-:func:`local_slots` is the slot range a rank owns, the port's
-counterpart of ``slot_shard_map``.
+The mesh path uses the cohort's split (:func:`local_slots` is the slot
+range a rank owns, the port's counterpart of ``slot_shard_map``) and,
+for the transformer train and prefill steps, the specs' ``model`` axis:
+:func:`model_shard_plan` reads it, under the whole-unit rule of
+``sharding.parallel``, into each leaf's split dimension and this rank's
+range, and :func:`shard_params` / :func:`gather_params` move a tree
+between whole and this rank's shards.  The specs' ``data`` components
+(FSDP) are computed but not placed: the batch axes keep the weights
+whole on every rank, and the layout pins of the JAX package
+(``constrain_*``) have no counterpart.
 """
 from __future__ import annotations
 
 import re
 from typing import Optional, Sequence
 
-from repro_torch.utils.tree import map_with_path
+from repro_torch.sharding.parallel import sharded_units, unit_of
+from repro_torch.utils.tree import map_with_path, tree_map
 
 BATCH_AXES = ("pod", "data")
 
@@ -257,3 +262,88 @@ def train_state_shardings(state, mesh, moe_shard_mode: str = "expert",
         _field(state.server, "server"),
         _field(state.clients, "client" if shard_cohort else "full"),
         _field(state.client_global, "full"))
+
+
+# ------------------------------------------------------------ model axis
+class Shard:
+    """How a leaf lies on the ``model`` axis: split along ``dim`` with
+    this rank holding ``[lo, hi)`` of it, or whole (``dim`` None)."""
+    __slots__ = ("dim", "lo", "hi")
+
+    def __init__(self, dim: Optional[int] = None, lo: int = 0, hi: int = 0):
+        self.dim, self.lo, self.hi = dim, lo, hi
+
+
+class _ModelOnly:
+    def __init__(self, m: int):
+        self.shape = {"model": m}
+
+
+def model_shard_plan(params, cfg, sizes, coords, role: str = "full",
+                     local: bool = False):
+    """For each leaf of ``params`` (whole leaves, on any device, or
+    anything with a ``shape``): a :class:`Shard`, the dimension its
+    :func:`param_specs` spec puts on the ``model`` axis and the range
+    this rank (``coords['model']``) holds, or whole.  A leaf splits only
+    when its unit does (``sharding.parallel.sharded_units``), so a split
+    falls on whole heads, experts, hidden columns or vocab rows.  ``role``
+    is the specs' ('client' for a [C, ...] cohort stack).  ``local``
+    reads ``params`` as this rank's shards (a split dim 1/m of the
+    whole), the plan they were cut by."""
+    m, r = sizes.get("model", 1), coords.get("model", 0)
+    units = sharded_units(cfg, sizes)
+    mode = cfg.moe.shard_mode if cfg.moe is not None else "expert"
+    rules = MOE_FFN_MODE_RULES + RULES if mode == "ffn" else RULES
+    mesh = _ModelOnly(1 if local else m)
+
+    def one(path, leaf):
+        unit = unit_of(path)
+        if unit is None or not units[unit]:
+            return Shard()
+        spec = _spec_for(path, tuple(leaf.shape), mesh, rules, role)
+        if "model" not in spec:
+            raise ValueError(f"{path} {tuple(leaf.shape)}: its unit {unit} "
+                             f"splits over {m} ranks but its spec {spec} "
+                             "does not")
+        dim = spec.index("model")
+        per = leaf.shape[dim] if local else leaf.shape[dim] // m
+        return Shard(dim, r * per, (r + 1) * per)
+    return map_with_path(one, params)
+
+
+def shard_params(full, plan):
+    """This rank's part of a whole tree under ``plan``: a contiguous copy
+    of each split leaf's slice (the kernels take contiguous leaves), each
+    whole leaf as it is."""
+    return tree_map(lambda x, s: x if s.dim is None else
+                    x.narrow(s.dim, s.lo, s.hi - s.lo).contiguous(),
+                    full, plan)
+
+
+def gather_params(local, plan, comm):
+    """The whole tree from every rank's part: each split leaf
+    all-gathered over ``comm`` (the mesh's ``model_comm``) along its
+    dimension, in rank order."""
+    return tree_map(lambda x, s: x if s.dim is None else comm.all_gather(
+        x.movedim(s.dim, 0), "params").movedim(0, s.dim).contiguous(),
+        local, plan)
+
+
+def _entity_map(fn, entity, plan):
+    """``fn(tree, plan)`` over an ``EntityState``'s params and each of
+    its optimizer state's params-like trees (Adam's ``m`` and ``v``)."""
+    opt = entity.opt_state
+    if isinstance(opt, dict):
+        opt = {k: fn(v, plan) for k, v in opt.items()}
+    return type(entity)(fn(entity.params, plan), opt, entity.step)
+
+
+def shard_entity(entity, plan):
+    """:func:`shard_params` of an entity's params and optimizer moments."""
+    return _entity_map(shard_params, entity, plan)
+
+
+def gather_entity(entity, plan, comm):
+    """:func:`gather_params` of an entity's params and optimizer
+    moments."""
+    return _entity_map(lambda t, p: gather_params(t, p, comm), entity, plan)

@@ -6,7 +6,10 @@ CNN zoo's stage lists, a ``Transformer`` parameter dict with its stacked
 [L, ...] blocks, and the ``EntityState``/``TrainState`` around them.  The
 port keeps the same layout, so carrying is a leafwise conversion; the
 NamedTuples ``TrainState`` and ``EntityState`` are matched by field
-name, so nothing of the JAX package is imported here.
+name, so nothing of the JAX package is imported here.  On a mesh's
+``model`` axis a rank holds shards (``sharding.specs.model_shard_plan``):
+:func:`to_shards` carries whole weights into a rank's shards and
+:func:`from_shards` a rank's shards back to a whole numpy tree.
 """
 from __future__ import annotations
 
@@ -17,6 +20,8 @@ import torch
 
 from repro_torch.api.phases import TrainState
 from repro_torch.core.protocol import EntityState
+from repro_torch.sharding.specs import (gather_entity, gather_params,
+                                        shard_params)
 from repro_torch.utils.tree import tree_map
 
 
@@ -58,3 +63,18 @@ def train_state_from_reference(state: Any, device="cpu") -> TrainState:
     return TrainState(entity_from_reference(state.server, device),
                       entity_from_reference(state.clients, device),
                       entity_from_reference(state.client_global, device))
+
+
+def to_shards(tree: Any, plan, device="cpu") -> Any:
+    """Whole weights (numpy-convertible leaves) -> this rank's shards
+    under ``plan`` on ``device``."""
+    return shard_params(to_torch(tree, device), plan)
+
+
+def from_shards(local: Any, plan, comm) -> Any:
+    """A rank's shards (a params tree or an ``EntityState``) -> the whole
+    tree as numpy arrays, gathered over ``comm`` (the mesh's
+    ``model_comm``; every rank of the axis takes part)."""
+    if isinstance(local, EntityState):
+        return to_numpy(gather_entity(local, plan, comm))
+    return to_numpy(gather_params(local, plan, comm))

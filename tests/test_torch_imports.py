@@ -68,6 +68,7 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.configs.whisper_base",
                 "repro_torch.sharding", "repro_torch.sharding.specs",
                 "repro_torch.sharding.collectives",
+                "repro_torch.sharding.parallel",
                 "repro_torch.launch.mesh", "repro_torch.launch.meshcheck"):
         assert mod in out["modules"]
 

@@ -296,10 +296,13 @@ def test_cuda_mesh_wider_than_the_cards_raises(monkeypatch):
                                         ((1, 1, 4), ("pod", "data",
                                                      "model"))])
 def test_model_axis_raises_naming_9b(shape, axes):
+    """The mesh takes a model axis (here it asks for the world of ranks it
+    needs); the Engine still refuses one, naming what is left of 9b."""
     from repro_torch.launch.mesh import make_engine_mesh
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         make_engine_mesh(shape, axes, "cpu")
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(NotImplementedError,
+                       match="item 9b, the Engine's model axis"):
         ExperimentConfig(mesh_shape=shape, mesh_axes=axes).validate()
 
 
