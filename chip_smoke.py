@@ -1060,15 +1060,18 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
     ssd_scan launches a round, and flash_attention 2 * (steps + C) = 8
     (the shared block after blocks 12 and 25, both on the server).
 
-    ``mesh`` runs the step on a mesh whose batch axes hold one rank
-    (phase 25): each rank its shards, the same launches on every rank
-    (a shard is a leaf as a whole leaf is), and each round's census of
-    the ``model`` axis kept; ``keep_state`` returns the final state."""
+    ``mesh`` runs the step on a mesh (phase 25): each rank its blocks
+    and its ``C / cohort_size(mesh)`` slots, the same launches on every
+    rank (a block is a leaf as a whole leaf is; the slot counts above
+    are the rank's), and each round's census of both axes kept;
+    ``keep_state`` returns the final state."""
     from repro_torch.configs import InputShape
     from repro_torch.core.cyclesl import CycleConfig
+    from repro_torch.launch.mesh import cohort_size
     from repro_torch.launch.steps import build_train_step
     from repro_torch.utils.tree import tree_leaves
     L, cut, C, b = cfg.n_layers, cfg.cut_layers, COHORT, BATCH
+    c_local = C if mesh is None else C // cohort_size(mesh)
     shape = InputShape(label, SEQ, C * b, "train")
     cycle = CycleConfig(server_epochs=1, server_batch=b)
     bundle = build_train_step(cfg, shape, cycle, cohort=C, device="cuda",
@@ -1082,10 +1085,12 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
     state_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves((server, clients)))
     n_server = sum(t.numel() for t in tree_leaves(server.params))
-    n_client = sum(t.numel() for t in tree_leaves(clients.params)) // C
+    n_client = (sum(t.numel() for t in tree_leaves(clients.params))
+                // c_local)
     steps = cycle.server_epochs * (C * b // cycle.server_batch)
     client, srv = block_launches(cfg, 0, cut), block_launches(cfg, cut, L)
-    per_round = {k: 2 * C * client[k] + (steps + C) * srv[k] for k in client}
+    per_round = {k: 2 * c_local * client[k] + (steps + c_local) * srv[k]
+                 for k in client}
     expect = {k: n * rounds for k, n in per_round.items()}
     expect.update(feature_resample=2 * steps * rounds, gather_loss=0,
                   fused_adam=(len(tree_leaves(server.params)) * steps
@@ -1095,6 +1100,7 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
     reset_counters()
     if mesh is not None:
         mesh.model_comm.take_census()
+        mesh.comm.take_census()
     stamps, metrics, census = [time.perf_counter()], [], []
     for r in range(rounds):
         xs, ys = batches[r]
@@ -1103,7 +1109,8 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
         stamps.append(time.perf_counter())
         metrics.append({k: float(v) for k, v in m.items()})
         if mesh is not None:
-            census.append(mesh.model_comm.take_census())
+            census.append({**mesh.model_comm.take_census(),
+                           **mesh.comm.take_census()})
     launches = read_counters()
     peak = torch.cuda.max_memory_allocated()
     rps = (rounds - 1) / (stamps[-1] - stamps[1])
@@ -1118,7 +1125,8 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
     print(f"{label}: rounds 2..{rounds} at {rps:.3f} rounds/s, "
           f"{rps * tokens:.1f} tokens/s; peak memory {peak / 1e9:.2f} GB; "
           f"launches {launches} (expected {expect}; a round: client blocks "
-          f"{client} x {2 * C}, server blocks {srv} x {steps + C})")
+          f"{client} x {2 * c_local}, server blocks {srv} x "
+          f"{steps + c_local})")
     vals = [v for m in metrics for v in m.values()]
     if not all(math.isfinite(x) for x in vals):
         raise AssertionError(f"{label}: non-finite metrics {metrics}")
@@ -1905,26 +1913,36 @@ def _sync(torch, dev):
 def run_engine(torch, cfg, dev="cuda", state=None, **engine_kw):
     """``Engine.run()`` on ``dev`` with the launch counters reset just
     before and read just after: the result, the last committed state
-    (whole, on a mesh), each round's scalar metrics and the host clock
-    after each round (the Engine syncs every round under
-    ``collect_timing``; without it the callback syncs), on a mesh the
-    census of each round's collectives, the launches and the Engine."""
+    (whole, on a mesh: gathered after the last round's census), each
+    round's scalar metrics and the host clock after each round (the
+    Engine syncs every round under ``collect_timing``; without it the
+    callback syncs), on a mesh the census of each round's collectives
+    (both axes'; a round's evaluation lands in the next round's), the
+    launches and the Engine."""
     from repro_torch.api import Engine
     stamps, rows, final, census = [], [], [], []
+
+    def take(engine):
+        c = dict(engine.mesh.comm.take_census())
+        for other in (engine.mesh.model_comm, engine.mesh.data_comm):
+            if other is not None and other is not engine.mesh.comm:
+                c.update(other.take_census())
+        return c
 
     class Rec:
         def on_round(self, engine, rnd, st, metrics):
             _sync(torch, dev)
             stamps.append(time.perf_counter())
             rows.append({k: v for k, v in metrics.items() if v.numel() == 1})
-            final[:] = [engine.whole_state(st)]
             if engine.mesh is not None:
-                census.append(engine.mesh.comm.take_census())
+                census.append(take(engine))
+            if rnd == engine.cfg.rounds - 1:
+                final[:] = [engine.whole_state(st)]
 
     eng = Engine(cfg, device=dev, callbacks=[Rec()], log=lambda msg: None,
                  **engine_kw)
     if eng.mesh is not None:
-        eng.mesh.comm.take_census()
+        take(eng)
     reset_counters()
     _sync(torch, dev)
     t0 = time.perf_counter()
@@ -3230,10 +3248,11 @@ TP_SHARE_MAX = 0.25       # of the weights more than one bf16 ulp apart
 TP_PARAMS = os.path.join(ROOT, "build", "chip_smoke_tp_unsharded.pt")
 
 
-def tp_census(cfg, m, chunk=512):
+def tp_census(cfg, m, chunk=512, c_local=COHORT):
     """{census key: {"calls", "bytes"}} of the ``model`` axis in one round
-    of ``build_train_step`` on a (1, m) mesh: written down from the
-    shapes, before any run.  A block pass forward reduces its split
+    of ``build_train_step`` on a (d, m) mesh whose rank holds
+    ``c_local`` of the cohort's slots (all of them when d is 1): written
+    down from the shapes, before any run.  A block pass forward reduces its split
     attention output and its MoE (or FFN) output once each, a float32
     [b, S, d] (the MoE's [G, group, d]); backward, each split unit's
     input gradient once (``copy_to_model``: the attention's with the q
@@ -3248,8 +3267,8 @@ def tp_census(cfg, m, chunk=512):
     float) a slot."""
     from repro_torch.sharding.parallel import sharded_units
     units = sharded_units(cfg, {"model": m})
-    C, b, S = COHORT, BATCH, SEQ
-    steps = C * b // b          # server steps: server batch b, 1 epoch
+    C, b, S = c_local, BATCH, SEQ
+    steps = COHORT * b // b     # server steps: server batch b, 1 epoch
     out = {}
 
     def add(key, calls, nbytes):
@@ -3283,6 +3302,92 @@ def tp_census(cfg, m, chunk=512):
     if any(units.values()):
         add("all_reduce/grad_norm", C, f32)
     return out
+
+
+def fsdp_census(cfg, d, m, c_local):
+    """{census key: {"calls", "bytes"}} of the batch axes in one round of
+    ``build_train_step`` on a (d, m) mesh, d > 1, whose rank holds
+    ``c_local`` slots: written down from the shapes before any run.
+    The server's minibatch is replicated (the model axis splits its
+    units: the reference's ``tp_layout``), so each of the ``steps``
+    server steps gathers each leaf the plan splits over ``data`` once
+    (``all_gather/weights``, the payload a rank's block, bf16), and the
+    feature gradients' frozen server once more; its gradients are
+    sliced, with no collective.  A block's bytes are its leaf's dtype's
+    (bf16, the router float32).  The pool is gathered once (the
+    features [c_local * b, S, d] in the model's dtype and the int32
+    labels, a call each) and the per-slot metrics twice (a float a
+    slot)."""
+    from repro_torch.core.split import make_transformer_task
+    from repro_torch.models.module import SHAPES
+    from repro_torch.sharding.specs import shard_plan
+    from repro_torch.utils.tree import tree_leaves
+    half = make_transformer_task(cfg).init_server(SHAPES)
+    plan = shard_plan(half, {"data": d, "model": m}, {"data": 0, "model": 0},
+                      "server", cfg)
+    steps, b, elt = COHORT * BATCH // BATCH, BATCH, 2 if \
+        cfg.dtype == "bfloat16" else 4
+    out = {}
+
+    def add(key, calls, nbytes):
+        row = out.setdefault(key, {"calls": 0, "bytes": 0})
+        row["calls"] += calls
+        row["bytes"] += calls * nbytes
+    for x, s in zip(tree_leaves(half), tree_leaves(plan)):
+        if s.ddim is not None:
+            blk = x.numel() // d // (m if s.dim is not None else 1)
+            add("all_gather/weights", steps + 1, blk * x.element_size())
+    add("all_gather/pool", 1, c_local * b * SEQ * cfg.d_model * elt)
+    add("all_gather/pool", 1, c_local * b * SEQ * 4)
+    add("all_gather/metrics", 2, c_local * 4)
+    return out
+
+
+def whole_step_state(mesh, cfg, server, clients):
+    """The train step's state on ``mesh`` gathered whole: the server's
+    params from their blocks over ``data`` and ``model``, the client
+    slots' params over the batch axes and their ``model`` blocks."""
+    from repro_torch.core.split import make_transformer_task
+    from repro_torch.launch.mesh import cohort_size
+    from repro_torch.models.module import SHAPES
+    from repro_torch.sharding.specs import Shard, gather_params, shard_plan
+    from repro_torch.utils.tree import (tree_leaves, tree_map,
+                                        tree_unflatten_like)
+    task = make_transformer_task(cfg)
+    sp = shard_plan(task.init_server(SHAPES), mesh.shape, mesh.coords,
+                    "server", cfg)
+    cp = shard_plan(task.init_client(SHAPES), mesh.shape, mesh.coords,
+                    "full", cfg)
+    srv = gather_params(server.params, sp, mesh.model_comm, mesh.data_comm)
+    cl = clients.params
+    if cohort_size(mesh) > 1:
+        cl = tree_unflatten_like(cl, mesh.comm.all_gather_tree(
+            tree_leaves(cl), "state"))
+    return srv, gather_params(cl, tree_map(Shard.stacked, cp),
+                              mesh.model_comm)
+
+
+@contextlib.contextmanager
+def planted_data_fault():
+    """The control of :func:`tp_against_unsharded` on a mesh whose
+    ``data`` axis holds FSDP blocks: inside, the FSDP backward drops its
+    cross-rank step, so a data-parallel gradient keeps this rank's own
+    partial (no reduce-scatter) and a replicated one hands every rank
+    the first block (no slice to its own), what a missing reduce or a
+    misplaced block would do.  The forward is untouched; the check must
+    refuse the run."""
+    from repro_torch.sharding import parallel
+    real = parallel._GatherFromData.__dict__["backward"]
+
+    def first_block(ctx, *gs):
+        return (None, None, None) + tuple(
+            g.narrow(d, 0, s[d]).contiguous()
+            for g, d, (s, _, _) in zip(gs, ctx.dims, ctx.meta))
+    parallel._GatherFromData.backward = staticmethod(first_block)
+    try:
+        yield
+    finally:
+        parallel._GatherFromData.backward = real
 
 
 def tp_kernel_checks(torch, dev):
@@ -3366,9 +3471,8 @@ def tp_smoke_grads(torch, mesh):
     from repro_torch.core.split import make_transformer_task
     from repro_torch.launch import inputs as inputs_lib
     from repro_torch.models.transformer import Transformer
-    from repro_torch.sharding.parallel import TensorParallel
-    from repro_torch.sharding.specs import (gather_params, model_shard_plan,
-                                            shard_params)
+    from repro_torch.sharding.specs import (gather_params, shard_params,
+                                            shard_plan)
     from repro_torch.utils.tree import tree_leaves
     tf32 = (torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.allow_tf32)
@@ -3376,11 +3480,12 @@ def tp_smoke_grads(torch, mesh):
     torch.backends.cudnn.allow_tf32 = False
     dev = mesh.device
     cfg = smoke_config("olmoe-1b-7b")
-    tp = TensorParallel.from_mesh(mesh, cfg)
-    full, task = make_transformer_task(cfg), make_transformer_task(cfg, tp)
+    full = make_transformer_task(cfg)
+    task = make_transformer_task(cfg, mesh=mesh)
+    on_model = {"model": mesh.shape.get("model", 1)}
     cp = full.init_client(torch.Generator(device=dev).manual_seed(1))
     sp = full.init_server(torch.Generator(device=dev).manual_seed(0))
-    plans = [model_shard_plan(t, cfg, mesh.shape, mesh.coords)
+    plans = [shard_plan(t, on_model, mesh.coords, "full", cfg)
              for t in (cp, sp)]
     local = [shard_params(t, p) for t, p in zip((cp, sp), plans)]
     xs, ys = inputs_lib.make_train_batch(
@@ -3398,11 +3503,11 @@ def tp_smoke_grads(torch, mesh):
                 if a.numel() and float(a.abs().max()) > 0)
     params = Transformer.init(torch.Generator(device=dev).manual_seed(2),
                               cfg)
-    plan = model_shard_plan(params, cfg, mesh.shape, mesh.coords)
+    plan = shard_plan(params, on_model, mesh.coords, "full", cfg)
     with torch.no_grad():
         want, _ = Transformer.forward(params, cfg, x["tokens"])
         got, _ = Transformer.forward(shard_params(params, plan), cfg,
-                                     x["tokens"], tp=tp)
+                                     x["tokens"], tp=task.tp)
     logits = float((got[:, -1] - want[:, -1]).abs().max()
                    / want[:, -1].abs().max())
     loss = abs(float(l1) - float(l0)) / abs(float(l0))
@@ -3473,38 +3578,39 @@ def planted_backward_fault():
 
 
 def tp_rank_runs(mesh, rounds, profile, want_rows):
-    """Phase 25 on a (1, n) mesh of spawned ranks, one card each: (1) the
+    """Phase 25 on a (d, m) mesh of spawned ranks, one card each: (1) the
     smoke check (:func:`tp_smoke_grads`); (2) olmoe-1b-7b at full width,
     depth 4, bf16, ``rounds`` rounds gathered whole and held to the
     unsharded run of this phase's one-card part (rank 0 reads its
     weights from ``TP_PARAMS``; :func:`tp_against_unsharded`), then
-    again under :func:`planted_backward_fault`, which that check must
-    refuse; (3) olmoe-1b-7b whole, 16 blocks: ``rounds`` timed rounds with exact
-    launches, each round's census, peak memory, and the prefill.  Only
-    rank 0 prints; every rank returns its own numbers."""
+    again under :func:`planted_backward_fault` (on (1, n)) or
+    :func:`planted_data_fault` (d > 1, FSDP over ``data``), which that
+    check must refuse; (3) olmoe-1b-7b whole, 16 blocks: ``rounds``
+    timed rounds with exact launches, each round's census, peak memory,
+    and the prefill.  Only rank 0 prints; every rank returns its own
+    numbers."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.sharding.specs import gather_params, model_shard_plan
-    rank = mesh.model_comm.rank
+    from repro_torch.launch.mesh import cohort_size
+    rank = torch.distributed.get_rank()
     if rank != 0:
         sys.stdout = open(os.devnull, "w")
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    lab = f"({d}, {m})"
     out = {"smoke": tp_smoke_grads(torch, mesh)}
-    n = mesh.model_comm.size
-    print(f"tp (1, {n}): TF32 products "
+    print(f"tp {lab}: TF32 products "
           f"{torch.backends.cuda.matmul.allow_tf32}, as unsharded")
     full = get_config("olmoe-1b-7b")
     cfg4 = full.with_(n_layers=OLMOE_DEPTH)
+    fault_ctx = planted_data_fault if d > 1 else planted_backward_fault
 
     def depth4(label, fault):
-        with planted_backward_fault() if fault else contextlib.nullcontext():
-            run = split_round(torch, f"tp (1, {n}) depth {OLMOE_DEPTH}"
+        with fault_ctx() if fault else contextlib.nullcontext():
+            run = split_round(torch, f"tp {lab} depth {OLMOE_DEPTH}"
                               + label, cfg4, rounds, mesh=mesh,
                               keep_state=True)
         server, clients = run.pop("state")
-        params = tuple(gather_params(e.params, model_shard_plan(
-            e.params, cfg4, mesh.shape, mesh.coords, role, local=True),
-            mesh.model_comm) for e, role in ((server, "full"),
-                                              (clients, "client")))
+        params = whole_step_state(mesh, cfg4, server, clients)
         del server, clients
         held = (tp_against_unsharded(torch, params, run["metrics"],
                                      want_rows, 2 * rounds)
@@ -3514,13 +3620,26 @@ def tp_rank_runs(mesh, rounds, profile, want_rows):
         return run, held
 
     out["depth4"], out["against_unsharded"] = depth4("", False)
-    _, out["planted_fault"] = depth4(" (planted backward fault)", True)
-    out["whole"] = split_round(torch, f"tp (1, {n}) whole", full, rounds,
+    _, out["planted_fault"] = depth4(
+        f" (planted {'data' if d > 1 else 'backward'} fault)", True)
+    out["whole"] = split_round(torch, f"tp {lab} whole", full, rounds,
                                profile=profile, mesh=mesh)
     torch.cuda.empty_cache()
-    out["prefill"] = prefill(torch, f"tp (1, {n}) whole prefill", full,
+    out["prefill"] = prefill(torch, f"tp {lab} whole prefill", full,
                              mesh=mesh)
-    out["expected_census"] = tp_census(full, n)
+    out["expected_census"] = step_census(full, d, m)
+    out["expected_census_depth4"] = step_census(cfg4, d, m)
+    return out
+
+
+def step_census(cfg, d, m):
+    """The census of one train round on a (d, m) mesh: the model axis'
+    (:func:`tp_census`) and, where ``data`` splits the cohort and the
+    weights, the batch axes' (:func:`fsdp_census`)."""
+    c_local = COHORT // d
+    out = tp_census(cfg, m, c_local=c_local)
+    if d > 1:
+        out.update(fsdp_census(cfg, d, m, c_local))
     return out
 
 
@@ -3532,10 +3651,11 @@ def tp_phase(torch, rounds=ROUNDS, dev="cuda", profile=False):
     in host memory between the runs, the metrics, the logits) with the
     unsharded launches and no collective; then the
     kernels at the per-rank shapes of a model axis of 2 and 4
-    (:func:`tp_kernel_checks`).  With two cards or more, n = 4 where
-    there are four, else 2: :func:`tp_rank_runs` on (1, n), its census
-    held exactly to :func:`tp_census`, the same launches and metrics on
-    every rank.  Raises on any miss."""
+    (:func:`tp_kernel_checks`).  With four cards :func:`tp_rank_runs` on
+    (1, 4) and then on (2, 2) (FSDP over ``data`` and TP over
+    ``model``), with two on (1, 2): each census held exactly to
+    :func:`step_census`, the same launches and metrics on every rank.
+    Raises on any miss."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.launch.meshcheck import spawn_ranks
@@ -3586,48 +3706,56 @@ def tp_phase(torch, rounds=ROUNDS, dev="cuda", profile=False):
     torch.cuda.empty_cache()
     out["kernel_checks"] = tp_kernel_checks(torch, torch.device(dev))
     torch.cuda.empty_cache()
-    if cards >= 2:
-        n = 4 if cards >= 4 else 2
+    worlds = ([(1, 4), (2, 2)] if cards >= 4 else
+              [(1, 2)] if cards >= 2 else [])
+    out["worlds"] = {}
+    for d, m in worlds:
+        lab, n = f"({d}, {m})", d * m
+        torch.cuda.empty_cache()
         ranks = spawn_ranks(n, tp_rank_runs, (
             rounds, profile, runs["unsharded"]["round"]["metrics"]),
-            "cuda", shape=(1, n), timeout=900)
-        want = tp_census(get_config("olmoe-1b-7b"), n)
+            "cuda", shape=(d, m), timeout=900)
         r0 = ranks[0]
-        checks[f"(1, {n}) smoke loss and gradients within 1e-5"] = all(
+        want, want4 = r0["expected_census"], r0["expected_census_depth4"]
+        fault = "data" if d > 1 else "backward"
+        checks[f"{lab} smoke loss and gradients within 1e-5"] = all(
             r["smoke"]["ok"] for r in ranks)
-        checks[f"(1, {n}) depth 4 against unsharded"] = \
+        checks[f"{lab} depth 4 against unsharded"] = \
             r0["against_unsharded"]["ok"]
-        checks[f"(1, {n}) depth 4 check refuses a planted backward "
+        checks[f"{lab} depth 4 check refuses a planted {fault} "
                "fault"] = not r0["planted_fault"]["ok"]
         for part in ("depth4", "whole"):
-            checks[f"(1, {n}) {part} same metrics and launches on every "
+            # ranks that share a batch coordinate run the same slots
+            checks[f"{lab} {part} same metrics and launches on every "
                    "rank"] = all(
                 r[part]["metrics"] == r0[part]["metrics"]
                 and r[part]["launches"] == r0[part]["launches"]
                 for r in ranks)
-        checks[f"(1, {n}) whole census == predicted"] = all(
+        checks[f"{lab} whole census == predicted"] = all(
             c == want for r in ranks for c in r["whole"]["census"])
-        checks[f"(1, {n}) depth 4 census == predicted"] = all(
-            c == tp_census(cfg4, n) for r in ranks
-            for c in r["depth4"]["census"])
+        checks[f"{lab} depth 4 census == predicted"] = all(
+            c == want4 for r in ranks for c in r["depth4"]["census"])
         peak = max(r["whole"]["peak_bytes"] for r in ranks)
-        checks[f"(1, {n}) whole fits a card"] = peak < 80e9
+        checks[f"{lab} whole fits a card"] = peak < 80e9
         w = r0["whole"]
-        print(f"tp (1, {n}) olmoe-1b-7b whole: {w['rounds_per_s']:.3f} "
+        print(f"tp {lab} olmoe-1b-7b whole: {w['rounds_per_s']:.3f} "
               f"rounds/s, {w['tokens_per_s']:.1f} tokens/s, peak "
-              f"{peak / 1e9:.2f} GB a card (max over ranks), prefill "
+              f"{peak / 1e9:.2f} GB a card (max over ranks), entity states "
+              f"{w['state_bytes'] / 1e9:.2f} GB a card, prefill "
               f"{r0['prefill']['ms']:.2f} ms; census a round "
               f"{_census_line(w['census'][0])} (predicted "
               f"{_census_line(want)}); smoke {r0['smoke']}; depth 4 "
               f"against unsharded {r0['against_unsharded']}; with a "
-              f"planted backward fault {r0['planted_fault']}")
-        out["world"] = {"n": n, "rank0": r0, "peak_bytes_max": peak,
-                        "census_predicted": want,
-                        "ranks": [{k: r[k] for k in ("smoke",)}
-                                  | {"peak_bytes": r["whole"]["peak_bytes"]}
-                                  for r in ranks]}
-    else:
-        print("tp: one card, so the (1, n) part of phase 25 did not run")
+              f"planted {fault} fault {r0['planted_fault']}")
+        out["worlds"][lab] = {
+            "n": n, "rank0": r0, "peak_bytes_max": peak,
+            "census_predicted": want,
+            "ranks": [{k: r[k] for k in ("smoke",)}
+                      | {"peak_bytes": r["whole"]["peak_bytes"],
+                         "state_bytes": r["whole"]["state_bytes"]}
+                      for r in ranks]}
+    if not worlds:
+        print("tp: one card, so the (d, m) part of phase 25 did not run")
     bad = [k for k, v in checks.items() if not v]
     out["checks"] = checks
     if bad:
@@ -3649,6 +3777,325 @@ def run_tp_phase(out_path, profile=False):
     print(f"tp: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     _build.build_all()
     res = tp_phase(torch, profile=profile)
+    res["nvidia_smi"] = smi
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    return 0
+
+
+# phase 26: the Engine on the reference's 2-D mesh, its weights placed
+# as the reference places them (FSDP over data, the dense stages'
+# columns over model), in a process of its own
+# (``python3 chip_smoke.py --engine-mesh-phase OUT``)
+# the meshes of each world: four cards run (2, 2), (4, 1) (FSDP only)
+# and (1, 4) (the 62-class head whole: 62 % 4 != 0), two run (1, 2)
+ENGINE_MESHES = {4: ((2, 2), (4, 1), (1, 4)), 2: ((1, 2),)}
+# the census keys the placement adds (every "model/..." key too)
+PLACEMENT_KEYS = ("all_gather/weights", "reduce_scatter/wgrads",
+                  "reduce_scatter/slot_mean")
+
+
+def engine_mesh_variants(rounds):
+    """The main path's two variants (cut 2; cut 3 with the fused
+    ``gather_loss``) at ``rounds`` rounds, each with its launches a
+    round at a capacity of ``cap`` slots (the masked server loop runs
+    ``cap`` steps of one server batch of 16): at cut 2 the features and
+    labels gathered a step and Adam on the server's 2 leaves a step and
+    the client stack's 4 once; at cut 3 one ``gather_loss`` and Adam on
+    the head a step, the client stack's 5 leaves once."""
+    from repro_torch.api import ExperimentConfig
+    return {
+        "cut2": (ExperimentConfig(rounds=rounds, eval_every=rounds, cut=2,
+                                  **MAIN),
+                 lambda cap: {"feature_resample": 2 * cap * rounds,
+                              "fused_adam": (2 * cap + 4) * rounds,
+                              "gather_loss": 0}),
+        "cut3 fused": (ExperimentConfig(rounds=rounds, eval_every=rounds,
+                                        cut=3, **MAIN).with_cycle(
+                                            fused_gather_loss=True),
+                       lambda cap: {"feature_resample": 0,
+                                    "fused_adam": (cap + 5) * rounds,
+                                    "gather_loss": cap * rounds})}
+
+
+def engine_mesh_census(cut, shape, cap, width=32, b=16, n_cls=10):
+    """{census key: {"calls", "bytes"}} of the keys the placement adds to
+    one round of the main path on a (d, m) mesh at capacity ``cap``
+    (``cap / d`` slots a rank), written down from the shapes before any
+    run.  femnist's ``lin/w`` leaves: stage 2's [7 * 7 * 2w, 2048] (the
+    server's at cut 2, the client's at cut 3) and the head [2048, 10]
+    (the image task's 10 classes; the server's), float32; each splits
+    its rows over ``data`` (roles server and full) and its columns over
+    ``model`` where they divide (the head's 10 over 2, not over 4).
+
+    ``data`` (the batch axes' collectives): each of the ``cap`` server
+    steps gathers each of the server's blocks once and the feature
+    gradients' frozen server once more (``all_gather/weights``, a call
+    a leaf, the payload a rank's block); a server that splits no column
+    over ``model`` steps data-parallel (2-D meshes keep the minibatch
+    replicated) and reduce-scatters each float32 gradient a step (the
+    payload the leaf whole over ``data``), its ``all_reduce/grads``
+    then the loss alone; at cut 3
+    the shared client model's stage 2 is gathered for the cohort's
+    copies (its params and each Adam moment, a call each) and FedAvg'd
+    back into the blocks in one call (``reduce_scatter/slot_mean``).  ``model``: a split dense
+    stage gathers its output's columns (``act``, a rank's [rows, n /
+    m]) each forward and, in a backward that reaches its input, sums
+    the input's gradient (``act_grad``, [rows, d_in]); the server
+    forwards ``b`` rows a step (with the fused loss, the head is
+    gathered whole instead, ``head``) and each of the rank's slots'
+    feature gradients ``b`` rows, reaching the features; at cut 3 each
+    slot's client forward runs in the extract and in its VJP, whose
+    norm is summed over the axis (``grad_norm``)."""
+    d, m = shape
+    f32, rows2 = 4, 7 * 7 * 2 * width
+    lin2, head = (rows2, 2048), (2048, n_cls)
+    server, client = ([lin2, head], []) if cut == 2 else ([head], [lin2])
+    c_local = cap // d
+    msplit = lambda n: m > 1 and n % m == 0
+    dsplit = lambda n: d > 1 and n % d == 0
+    cols = lambda c: c // m if msplit(c) else c
+    out = {}
+
+    def add(key, calls, nbytes):
+        if calls and nbytes:
+            row = out.setdefault(key, {"calls": 0, "bytes": 0})
+            row["calls"] += calls
+            row["bytes"] += calls * nbytes
+    tp_layout = any(msplit(c) for _, c in server)
+    fused = cut == 3
+    for r, c in server:
+        if dsplit(r):
+            add("all_gather/weights", cap + 1, r // d * cols(c) * f32)
+            if d > 1 and not tp_layout and not fused:
+                add("reduce_scatter/wgrads", cap, r * cols(c) * f32)
+    if d > 1 and not tp_layout and not fused:
+        add("all_reduce/grads", cap, f32)
+    for r, c in client:
+        if dsplit(r):
+            add("all_gather/weights", 3, r // d * cols(c) * f32)
+            add("reduce_scatter/slot_mean", 1, 3 * r * cols(c) * f32)
+
+    def dense(rows, stage, grad_in):
+        r, c = stage
+        if msplit(c):
+            add("model/all_gather/act", 1, rows * c // m * f32)
+            if grad_in:
+                add("model/all_reduce/act_grad", 1, rows * r * f32)
+    for step in range(cap):
+        if fused:
+            if msplit(head[1]):
+                add("model/all_gather/head", 1, head[0] * head[1] // m * f32)
+        else:
+            for i, st in enumerate(server):
+                dense(b, st, i > 0)
+    for slot in range(c_local):
+        for st in server:
+            dense(b, st, True)
+        for st in client:
+            dense(b, st, False)        # the extract, no gradient
+            dense(b, st, True)         # the VJP
+            if msplit(st[1]):
+                add("model/all_reduce/grad_norm", 1, f32)
+    return out
+
+
+def _placement_keys(census) -> dict:
+    return {k: v for k, v in census.items()
+            if k.startswith("model/") or k in PLACEMENT_KEYS
+            or k == "all_reduce/grads"}
+
+
+def engine_mesh_world_runs(mesh, shapes, rounds):
+    """Phase 26 on the spawned ranks, one card each, for each mesh shape
+    of ``shapes`` (over this world): the main path's two variants for
+    ``MESH_CHECK_ROUNDS`` rounds (metrics, launches, each round's
+    census, the capacity, the last evaluation and, on rank 0, the state
+    gathered whole), then ``rounds`` timed rounds of cut 2, the mesh and
+    the unsharded Engine on this rank's card in turns; on (2, 2) also
+    the ten programs at phase 13's protocol.  Only rank 0 prints."""
+    import torch
+    from repro_torch.api import ExperimentConfig, algorithm_names
+    from repro_torch.utils.tree import tree_map
+    lead = torch.distributed.get_rank() == 0
+    if not lead:
+        sys.stdout = open(os.devnull, "w")
+
+    def keep(r):
+        rec = {"rows": r["rows"], "launches": r["launches"],
+               "census": r["census"], "last": r["res"]["history"][-1],
+               "capacity": r["engine"].padded_capacity}
+        if lead:
+            rec["state"] = tree_map(lambda t: t.cpu(), r["state"])
+        return rec
+    out = {}
+    for shape in shapes:
+        rec = out[str(tuple(shape))] = {}
+        for name, (cfg, _) in engine_mesh_variants(
+                MESH_CHECK_ROUNDS).items():
+            rec[name] = keep(run_engine(torch, dataclasses.replace(
+                cfg, mesh_shape=tuple(shape)), mesh.device))
+        timed = dataclasses.replace(engine_mesh_variants(rounds)["cut2"][0],
+                                    collect_timing=True)
+        rps = {}
+        for label in ("mesh", "unsharded", "unsharded", "mesh"):
+            cfg = (dataclasses.replace(timed, mesh_shape=tuple(shape))
+                   if label == "mesh" else timed)
+            t = run_engine(torch, cfg, mesh.device)["res"]["round_time_s"]
+            rps.setdefault(label, []).append(1.0 / t)
+        rec["rounds/s"] = rps
+        if tuple(shape) == (2, 2):
+            out["zoo (2, 2)"] = {algo: keep(run_engine(
+                torch, ExperimentConfig(algo=algo, mesh_shape=(2, 2),
+                                        **PHASE13).with_cycle(
+                                            server_epochs=2),
+                mesh.device)) for algo in algorithm_names()}
+    return out
+
+
+def engine_mesh_phase(torch, rounds=MESH_ROUNDS, dev="cuda"):
+    """Phase 26: the Engine on the reference's 2-D mesh.  One card: a
+    (1, 1) mesh through the placement code is bit for bit the unsharded
+    Engine (state, metrics), with equal launches and no weight moved, at
+    the main path's protocol (femnist width 32, 100 clients, cohort 5,
+    batch 16, ``rounds`` rounds), cut 2 and cut 3 fused.  Four cards:
+    (2, 2), (4, 1) and (1, 4) in one spawned world, (1, 2) in a world of
+    two: each variant's ``MESH_CHECK_ROUNDS`` rounds held to the
+    unsharded run as the card is held to the CPU (``compare_runs``), the
+    census of the keys the placement adds exact against
+    :func:`engine_mesh_census` on every rank (round 1; every round the
+    same), launches by kernel exact on every rank at the mesh's
+    capacity, the same metrics on every rank, rounds/s against
+    unsharded in turns; on (2, 2) the ten programs at phase 13's
+    protocol, each held to its unsharded run the same way.  Raises on
+    any miss."""
+    from repro_torch.api import ExperimentConfig, algorithm_names
+    from repro_torch.launch.meshcheck import spawn_ranks
+    from repro_torch.utils.tree import tree_map
+    checks, out = {}, {"one_card": {}, "worlds": {}}
+    variants = engine_mesh_variants(rounds)
+    print(f"engine mesh: on {torch.cuda.get_device_name(0)}, "
+          f"{torch.cuda.device_count()} card(s)")
+    for name, (cfg, expect) in variants.items():
+        base = run_engine(torch, cfg, dev)
+        one = run_engine(torch, dataclasses.replace(cfg, mesh_shape=(1, 1)),
+                         dev)
+        want = expect(5)
+        got = {k: one["launches"][k] for k in want}
+        placed = [k for c in one["census"] for k in c
+                  if k.startswith("model/") or k in PLACEMENT_KEYS]
+        checks[f"(1, 1) {name} == unsharded"] = _same(torch, one, base)
+        checks[f"(1, 1) {name} launches == unsharded"] = (
+            one["launches"] == base["launches"] and got == want)
+        checks[f"(1, 1) {name} moves no weight"] = not placed
+        out["one_card"][name] = {"launches": one["launches"],
+                                 "census": one["census"][0]}
+        print(f"engine mesh (1, 1) {name}: bit for bit the unsharded "
+              f"Engine {checks[f'(1, 1) {name} == unsharded']}; launches "
+              f"{got} (expected {want}); census a round "
+              f"{_census_line(one['census'][0])}")
+    cards = torch.cuda.device_count()
+    worlds = [n for n in ENGINE_MESHES if cards >= n]
+    if not worlds:
+        print("engine mesh: one card, so the 2-D meshes of phase 26 did not "
+              "run")
+    else:
+        short = {name: run_engine(torch, dataclasses.replace(
+            cfg, rounds=MESH_CHECK_ROUNDS, eval_every=MESH_CHECK_ROUNDS),
+            dev) for name, (cfg, _) in variants.items()}
+        zoo_base = {algo: run_engine(torch, ExperimentConfig(
+            algo=algo, **PHASE13).with_cycle(server_epochs=2), dev)
+            for algo in algorithm_names()}
+
+        def held(label, base, got):
+            try:
+                compare_runs(torch, label, {
+                    "cpu": (base["rows"],
+                            tree_map(lambda t: t.cpu(), base["state"]),
+                            base["res"]["history"][-1], base["engine"]),
+                    "cuda": (got["rows"], got["state"], got["last"], None)},
+                    what="mesh")
+                return True
+            except AssertionError:
+                return False
+        short_expect = engine_mesh_variants(MESH_CHECK_ROUNDS)
+        for n in worlds:
+            shapes = ENGINE_MESHES[n]
+            torch.cuda.empty_cache()
+            ranks = spawn_ranks(n, engine_mesh_world_runs, (shapes, rounds),
+                                dev, shape=shapes[0], timeout=900)
+            r0 = ranks[0]
+            for shape in shapes:
+                key = str(tuple(shape))
+                lab = f"({shape[0]}, {shape[1]})"
+                rec = out["worlds"][key] = {"rounds/s": r0[key]["rounds/s"]}
+                for name in variants:
+                    got = r0[key][name]
+                    cap = got["capacity"]
+                    cut = 2 if name == "cut2" else 3
+                    want_c = engine_mesh_census(cut, shape, cap)
+                    want_l = short_expect[name][1](cap)
+                    checks[f"{lab} {name} held to unsharded"] = held(
+                        f"{lab} {name} against unsharded "
+                        f"({MESH_CHECK_ROUNDS} rounds)", short[name], got)
+                    checks[f"{lab} {name} census == predicted"] = all(
+                        _placement_keys(c) == want_c
+                        for r in ranks for c in r[key][name]["census"][:1])
+                    checks[f"{lab} {name} every round's census the same"] = \
+                        all(c == r[key][name]["census"][0] for r in ranks
+                            for c in r[key][name]["census"][1:])
+                    checks[f"{lab} {name} launches"] = all(
+                        {k: r[key][name]["launches"][k] for k in want_l}
+                        == want_l for r in ranks)
+                    checks[f"{lab} {name} same metrics on every rank"] = all(
+                        r[key][name]["rows"] == got["rows"] for r in ranks)
+                    rec[name] = {"capacity": cap, "census": got["census"][0],
+                                 "census_predicted": want_c,
+                                 "launches": got["launches"],
+                                 "rows": got["rows"]}
+                    print(f"engine mesh {lab} {name}: capacity {cap}; "
+                          f"launches {[{k: r[key][name]['launches'][k] for k in want_l} for r in ranks]} "
+                          f"(expected {want_l} on every rank); census a "
+                          f"round {_census_line(got['census'][0])} "
+                          f"(placement predicted {_census_line(want_c)})")
+                print(f"engine mesh {lab} cut 2: rank 0's rounds/s in turns "
+                      + ", ".join(f"{k} {v}" for k, v in
+                                  r0[key]["rounds/s"].items()))
+            if "zoo (2, 2)" in r0:
+                for algo, got in r0["zoo (2, 2)"].items():
+                    checks[f"(2, 2) {algo} held to unsharded"] = held(
+                        f"(2, 2) {algo} against unsharded (phase 13's "
+                        "protocol)", zoo_base[algo], got)
+                    checks[f"(2, 2) {algo} same metrics on every rank"] = all(
+                        r["zoo (2, 2)"][algo]["rows"] == got["rows"]
+                        for r in ranks)
+                out["worlds"]["zoo (2, 2)"] = {
+                    a: {"launches": g["launches"], "census": g["census"][0]}
+                    for a, g in r0["zoo (2, 2)"].items()}
+    bad = [k for k, v in checks.items() if not v]
+    print(f"engine mesh checks: {len(checks) - len(bad)} of {len(checks)} "
+          "held" + (f"; failed {bad}" if bad else ""))
+    out["checks"] = checks
+    if bad:
+        raise AssertionError(f"engine mesh: {bad}")
+    return out
+
+
+def run_engine_mesh_phase(out_path):
+    """The entry of ``--engine-mesh-phase``: phase 26 alone, its report
+    written to ``out_path``."""
+    import torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(f"engine mesh: {smi}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}")
+    _build.build_all()
+    res = engine_mesh_phase(torch)
     res["nvidia_smi"] = smi
     with open(out_path, "w") as f:
         json.dump(res, f, indent=1, default=str)
@@ -3741,11 +4188,16 @@ def main(argv=None):
     ap.add_argument("--tp-phase", default=None, metavar="OUT",
                     help="run phase 25 alone (the process main() starts "
                          "for it) and write its report to OUT")
+    ap.add_argument("--engine-mesh-phase", default=None, metavar="OUT",
+                    help="run phase 26 alone (the process main() starts "
+                         "for it) and write its report to OUT")
     args = ap.parse_args(argv)
     if args.mesh_phase:
         return run_mesh_phase(args.mesh_phase, args.profile)
     if args.tp_phase:
         return run_tp_phase(args.tp_phase, args.profile)
+    if args.engine_mesh_phase:
+        return run_engine_mesh_phase(args.engine_mesh_phase)
 
     import torch
     if not torch.cuda.is_available():
@@ -3898,9 +4350,23 @@ def main(argv=None):
     with open(tp_out) as f:
         tp_runs = json.load(f)
     t25 = time.perf_counter()
+
+    # 26. the Engine on the reference's 2-D mesh, in a process of its own
+    # (a (1, 1) mesh on this card; with four cards and two, the 2-D
+    # meshes in spawned ranks)
+    em_out = os.path.join(ROOT, "build", "chip_smoke_engine_mesh.json")
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--engine-mesh-phase", em_out], timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 26 (engine mesh) exited "
+                           f"{proc.returncode}")
+    with open(em_out) as f:
+        engine_mesh_runs = json.load(f)
+    t26 = time.perf_counter()
     phase_s.update({"18": t19 - t18, "19": t20 - t19, "20": t21 - t20,
                     "21-22": t22 - t21b, "23": t23 - t22, "24": t24 - t23,
-                    "25": t25 - t24})
+                    "25": t25 - t24, "26": t26 - t25})
     print("phases took " + ", ".join(f"{k}: {v:.1f}s"
                                      for k, v in phase_s.items()))
 
@@ -3935,6 +4401,7 @@ def main(argv=None):
                        "workloads": workload_runs, "serving": serving,
                        "fault_paths": fault_paths, "whisper": whisper_runs,
                        "mesh": mesh_runs, "model_axis": tp_runs,
+                       "engine_mesh": engine_mesh_runs,
                        "phase_s": phase_s}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))

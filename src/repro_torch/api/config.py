@@ -3,10 +3,12 @@
 ``ExperimentConfig.from_dict`` accepts the JAX package's ``to_dict()``
 output unchanged, so one dict drives both packages.  Every field the
 JAX package has is kept with its default.  The mesh knobs run the round
-on a ``torch.distributed`` mesh whose ``model`` axis is 1; ``validate``
-raises ``NotImplementedError``, naming ROADMAP item 9b, for a ``model``
-axis above 1 and for a mesh with the pipelined rounds, resilience,
-checkpoints, a scenario or a serve config.  ``scenario`` and
+on a ``torch.distributed`` mesh, ``(data, model)`` or ``(pod, data,
+model)``, whose weights lie as the reference places them (FSDP over
+``data``, the dense stages' columns over ``model``); ``validate``
+raises ``NotImplementedError``, naming ROADMAP item 9b, for a mesh with
+the pipelined rounds, resilience, checkpoints, a scenario or a serve
+config.  ``scenario`` and
 ``resilience`` are the port's ``ScenarioConfig`` and
 ``ResilienceConfig`` (their dict forms load too); ``serve`` is the
 port's ``ServeConfig``, which ``repro_torch.launch.serve --continuous``
@@ -147,14 +149,6 @@ class ExperimentConfig:
                 raise ValueError(f"mesh_shape {self.mesh_shape} and "
                                  f"mesh_axes {self.mesh_axes} must have "
                                  "equal length")
-            sizes = dict(zip(self.mesh_axes, self.mesh_shape))
-            if sizes.get("model", 1) > 1:
-                raise NotImplementedError(
-                    f"mesh {sizes}: the Engine's 'model' axis > 1 (the "
-                    "CNN's lin/w rule, gather_loss with a sharded head) "
-                    "is not ported yet (ROADMAP item 9b, the Engine's "
-                    "model axis); the transformer train and prefill "
-                    "steps take one (launch.steps)")
             for name, used in MESH_9B.items():
                 if used(self):
                     raise NotImplementedError(

@@ -151,8 +151,12 @@ class Engine:
     With ``cfg.mesh_shape`` the Engine builds the mesh once
     (``launch.mesh.make_engine_mesh``, over the process group torchrun
     or the caller started) and trains on this rank's card; ``close()``
-    ends a process group the mesh started itself.  Callbacks see this
-    rank's state; :meth:`whole_state` gathers the per-client store.
+    ends a process group the mesh started itself.  The task is placed on
+    the mesh (``api.tasks.build_task(..., mesh=)``): on a ``model`` axis
+    its dense stages split their columns, and where the round splits the
+    cohort the server and the shared client model hold FSDP blocks over
+    ``data`` (the reference's ``train_state_shardings``).  Callbacks see
+    this rank's state; :meth:`whole_state` gathers it whole.
     """
 
     def __init__(self, cfg: ExperimentConfig, *, device=None,
@@ -177,7 +181,8 @@ class Engine:
                              "generator) or neither")
         if task is None:
             task, fed, mk = build_task(cfg.task, cfg.n_clients, cfg.alpha,
-                                       cfg.seed, cfg.width, cfg.cut)
+                                       cfg.seed, cfg.width, cfg.cut,
+                                       mesh=self.mesh)
             metric_key = metric_key or mk
         self.cfg = cfg
         self.task = task
@@ -303,12 +308,17 @@ class Engine:
             return cap
         return shard_aligned_capacity(self.mesh, cap)
 
-    def whole_state(self, state: TrainState) -> TrainState:
-        """The whole TrainState on every rank (the per-client store's rows
-        gathered from the mesh; off the mesh, ``state`` itself)."""
+    def whole_state(self, state: TrainState, model: bool = True
+                    ) -> TrainState:
+        """The whole TrainState on every rank: the per-client store's
+        rows, the FSDP blocks over ``data`` and (with ``model``) the
+        ``model`` blocks gathered from the mesh; off the mesh, ``state``
+        itself.  Evaluation reads it with the ``model`` blocks kept,
+        which the task's forwards take."""
         if self.mesh is None:
             return state
-        return whole_state(state, self.algo.store_rows, self.mesh.comm)
+        return whole_state(state, self.algo.store_rows, self.mesh.comm,
+                           self.algo.task, model=model)
 
     def close(self):
         """End the process group the Engine's mesh started (a world of 1
@@ -708,7 +718,7 @@ class Engine:
             state, start_round = self.restore(rng)
         if state is None:
             state = self.init_state()
-        state = place_state(state, self.algo.store_rows)
+        state = place_state(state, self.algo.store_rows, self.algo.task)
         tracker = GradStabilityTracker()
         history = []
         t0 = time.time()
@@ -822,7 +832,8 @@ class Engine:
             tracker.update(metrics)
             self._emit("on_round", rnd, state, metrics)
             if (rnd + 1) % cfg.eval_every == 0 or rnd == cfg.rounds - 1:
-                loss, mets = evaluate(self.task, self.whole_state(state),
+                loss, mets = evaluate(self.task,
+                                      self.whole_state(state, model=False),
                                       self.fed)
                 history.append({"round": rnd + 1, "test_loss": loss, **mets,
                                 "train_loss": float(metrics["server_loss"]),

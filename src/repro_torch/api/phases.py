@@ -39,6 +39,16 @@ per-slot metrics, which are gathered so every rank reports the same.
 The programs that chain along the cohort (``ssl``, ``sflv2``,
 ``cyclessl``) shard nothing: every rank runs them whole.  At one rank
 the mesh round runs the unsharded round's arithmetic, bit for bit.
+
+The task carries the weights' placement (``core.split``): on the
+``model`` axis its forwards run on this rank's blocks, and where the
+round splits the cohort the server and the shared client model hold
+their FSDP blocks over ``data`` (:func:`place_state`).  The server's
+inner loop gathers them at use (``core.cyclesl``); a phase that copies
+an entity to its slots (the shared client's broadcast, the server's
+replicas) gathers it whole over ``data`` first, as a slot's copy is
+whole there (the reference's role 'client'), and a mean over the slots
+back into it hands each rank its block of the sum.
 """
 from __future__ import annotations
 
@@ -50,19 +60,23 @@ import torch
 from repro_torch.core.cyclesl import (CycleConfig, PlanFn, _slot,
                                       _value_and_grad, client_update_one,
                                       client_updates, extract_features,
-                                      feature_gradients, server_inner_loop)
+                                      feature_gradients, server_inner_loop,
+                                      server_whole, task_plan)
 from repro_torch.core.feature_store import pool_store
-from repro_torch.core.protocol import (EntityState, SlotSplit, StoreRows,
-                                       broadcast_entity, entity_mean,
-                                       entity_step, gather_slots, init_entity,
+from repro_torch.core.protocol import (DataBlocks, EntityState, SlotSplit,
+                                       StoreRows, broadcast_entity,
+                                       data_blocks, entity_mean, entity_step,
+                                       gather_slots, init_entity,
                                        masked_entity_mean, put_entities,
                                        select_entities, slot_mean,
                                        stack_entities, take_entities)
 from repro_torch.core.split import SplitTask
 from repro_torch.optim import Optimizer
 from repro_torch.resilience.guards import health_vector
-from repro_torch.sharding.specs import (batch_axes, cohort_shard_axes,
-                                        local_slots, store_rows)
+from repro_torch.sharding.specs import (Shard, batch_axes,
+                                        cohort_shard_axes, gather_entity,
+                                        local_slots, shard_entity,
+                                        store_rows)
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
 
@@ -89,6 +103,10 @@ class SLAlgorithm:
     # slot on this rank), and the per-client store rows this rank holds
     mesh: Any = None
     store_rows: Optional[StoreRows] = None
+    # the task the round runs: its ``fsdp`` is set only where the round
+    # holds FSDP blocks (it splits the cohort over a mesh whose ``data``
+    # axis has more than one rank); the state is placed and gathered by it
+    task: Optional[SplitTask] = None
 
 
 @dataclass(frozen=True)
@@ -164,6 +182,24 @@ def feat_grad_metrics(fgrads, mask=None, split=None) -> dict:
     return {"feat_grad_norm_mean": mu, "feat_grad_norm_std": torch.sqrt(var)}
 
 
+def whole_entity(task, entity: EntityState, half: str) -> EntityState:
+    """``entity`` (the server, or the shared client model: ``half``
+    'server' or 'client') whole over ``data``: its FSDP blocks of the
+    params and the Adam moments all-gathered, where the round holds
+    blocks (``task.fsdp``); else ``entity`` itself."""
+    if task.fsdp is None:
+        return entity
+    return gather_entity(entity, task_plan(task, half), data_comm=task.fsdp)
+
+
+def mean_into(task, half: str, entity: Optional[EntityState] = None
+              ) -> Optional[DataBlocks]:
+    """Where a mean over the slots into ``half`` lands: its FSDP blocks
+    (an EntityState mean when ``entity`` gives its structure, else a
+    params-like tree's), or None off FSDP."""
+    return data_blocks(task.fsdp, task_plan(task, half), entity)
+
+
 def _joint_value_and_grad(task, cp, sp, x, y):
     """(loss, d/d θ_C, d/d θ_S) of the end-to-end loss, both halves in
     one backward; a leaf the loss does not use gets zeros, as under
@@ -192,7 +228,9 @@ class ExtractFeatures(Phase):
     def __call__(self, ctx, v):
         state = v.state
         v.cohort_clients = (
-            broadcast_entity(state.client_global, v.ys.shape[0])
+            broadcast_entity(whole_entity(ctx.task, state.client_global,
+                                          "client"),
+                             v.ys.shape[0])
             if state.clients is None
             else take_entities(state.clients, v.cohort, v.store_rows,
                                v.split))
@@ -200,10 +238,10 @@ class ExtractFeatures(Phase):
         v.feats = extract_features(ctx.task, v.cohort_clients.params, v.xs)
 
 
-def _pair_server_losses_and_grads(ctx, v):
-    """Per-pair server loss and gradient at θ_S^t over the cohort's
-    features: [C] losses and a [C, ...]-stacked gradient tree."""
-    sp = v.state.server.params
+def _pair_server_losses_and_grads(ctx, v, sp):
+    """Per-pair server loss and gradient at θ_S^t (``sp``, whole over
+    ``data``) over the cohort's features: [C] losses and a [C, ...]-
+    stacked gradient tree."""
     pairs = [_value_and_grad(
         lambda p, c=c: ctx.task.server_loss(p, v.feats[c], _slot(v.ys, c)),
         sp) for c in range(v.feats.shape[0])]
@@ -236,19 +274,23 @@ class ServerUpdate(Phase):
                 grad_scale=v.stale_w, split=v.split)
             v.metrics["server_loss"] = sloss
         elif self.mode == "replica_avg":
-            losses, gs = _pair_server_losses_and_grads(ctx, v)
+            whole = whole_entity(ctx.task, v.state.server, "server")
+            losses, gs = _pair_server_losses_and_grads(ctx, v, whole.params)
             if v.stale_w is not None:
                 gs = tree_map(lambda g: g * v.stale_w, gs)
             # C replicas with a [C] step take one stacked step
-            rep = entity_step(broadcast_entity(v.state.server, v.ys.shape[0]),
+            rep = entity_step(broadcast_entity(whole, v.ys.shape[0]),
                               gs, ctx.opt_server)
-            server = (entity_mean(rep, v.split) if v.mask is None
-                      else masked_entity_mean(rep, v.mask, v.split))
+            into = mean_into(ctx.task, "server", whole)
+            server = (entity_mean(rep, v.split, into) if v.mask is None
+                      else masked_entity_mean(rep, v.mask, v.split, into))
             v.metrics["server_loss"] = masked_mean(
                 gather_slots(losses, v.split), v.mask)
         elif self.mode == "mean_grad":
-            losses, gs = _pair_server_losses_and_grads(ctx, v)
-            gmean = slot_mean(gs, v.mask, v.split)
+            losses, gs = _pair_server_losses_and_grads(
+                ctx, v, server_whole(ctx.task, v.state.server.params))
+            gmean = slot_mean(gs, v.mask, v.split,
+                              mean_into(ctx.task, "server"))
             if v.stale_w is not None:
                 gmean = tree_map(lambda g: g * v.stale_w, gmean)
             server = entity_step(v.state.server, gmean, ctx.opt_server)
@@ -339,10 +381,12 @@ class Commit(Phase):
                 clients=put_entities(state.clients, v.cohort, cc,
                                      v.store_rows, v.split))
         elif self.mode == "average":
+            into = mean_into(ctx.task, "client", cc)
             v.state = state._replace(
-                client_global=(entity_mean(cc, v.split) if v.mask is None
-                               else masked_entity_mean(cc, v.mask,
-                                                       v.split)))
+                client_global=(entity_mean(cc, v.split, into)
+                               if v.mask is None else
+                               masked_entity_mean(cc, v.mask, v.split,
+                                                  into)))
         elif self.mode == "global":
             v.state = state._replace(client_global=cc)
         else:
@@ -447,21 +491,25 @@ class LocalFedAvgRound(Phase):
 
     def __call__(self, ctx, v):
         task, n = ctx.task, v.ys.shape[0]
-        cp, sp = v.state.client_global.params, v.state.server.params
+        srv = whole_entity(task, v.state.server, "server")
+        cli = whole_entity(task, v.state.client_global, "client")
+        cp, sp = cli.params, srv.params
         outs = [_joint_value_and_grad(task, cp, sp, _slot(v.xs, c),
                                       _slot(v.ys, c)) for c in range(n)]
-        servers = entity_step(broadcast_entity(v.state.server, n),
+        servers = entity_step(broadcast_entity(srv, n),
                               stack_entities([gs for _, _, gs in outs]),
                               ctx.opt_server)
-        clients = entity_step(broadcast_entity(v.state.client_global, n),
+        clients = entity_step(broadcast_entity(cli, n),
                               stack_entities([gc for _, gc, _ in outs]),
                               ctx.opt_client)
+        s_into = mean_into(task, "server", srv)
+        c_into = mean_into(task, "client", cli)
         if v.mask is None:
-            server = entity_mean(servers, v.split)
-            client = entity_mean(clients, v.split)
+            server = entity_mean(servers, v.split, s_into)
+            client = entity_mean(clients, v.split, c_into)
         else:
-            server = masked_entity_mean(servers, v.mask, v.split)
-            client = masked_entity_mean(clients, v.mask, v.split)
+            server = masked_entity_mean(servers, v.mask, v.split, s_into)
+            client = masked_entity_mean(clients, v.mask, v.split, c_into)
         zero = torch.zeros((), device=v.ys.device)
         losses = gather_slots(torch.stack([l for l, _, _ in outs]), v.split)
         v.metrics.update(
@@ -529,9 +577,31 @@ def slot_split(mesh, n_slots: int) -> Optional[SlotSplit]:
     return SlotSplit(mesh, lo, hi, n_slots)
 
 
-def place_state(state: TrainState, rows: Optional[StoreRows]) -> TrainState:
+def _cut_data(entity: Optional[EntityState], plan) -> Optional[EntityState]:
+    """An entity whole over ``data`` cut to this rank's FSDP blocks; one
+    already cut (every leaf ``plan`` splits over ``data`` is the size of
+    its block) passes through."""
+    if entity is None:
+        return entity
+    if all(x.shape[s.ddim] == s.dhi - s.dlo
+           for x, s in zip(tree_leaves(entity.params), tree_leaves(plan))
+           if s.ddim is not None):
+        return entity
+    return shard_entity(entity, plan, model=False)
+
+
+def place_state(state: TrainState, rows: Optional[StoreRows],
+                task: Optional[SplitTask] = None) -> TrainState:
     """A whole TrainState cut to this rank's rows of the per-client store
-    (a state already cut passes through)."""
+    and, where ``task`` (the round's, ``SLAlgorithm.task``) holds FSDP
+    blocks, to this rank's blocks of the server and the shared client
+    model (a state already cut passes through).  The ``model`` blocks
+    are the task's own: its ``init_*`` keep them."""
+    if task is not None and task.fsdp is not None:
+        state = state._replace(
+            server=_cut_data(state.server, task_plan(task, "server")),
+            client_global=_cut_data(state.client_global,
+                                    task_plan(task, "client")))
     if rows is None or state.clients is None or not rows.sharded:
         return state
     if state.clients.step.shape[0] == rows.hi - rows.lo:
@@ -544,15 +614,37 @@ def place_state(state: TrainState, rows: Optional[StoreRows]) -> TrainState:
         lambda x: x[rows.lo:rows.hi].contiguous(), state.clients))
 
 
-def whole_state(state: TrainState, rows: Optional[StoreRows], comm
+def whole_state(state: TrainState, rows: Optional[StoreRows], comm,
+                task: Optional[SplitTask] = None, model: bool = True
                 ) -> TrainState:
     """The whole TrainState on every rank: the per-client store's rows
-    ``all_gather``ed (one call per dtype); the rest is the same on every
-    rank already."""
-    if rows is None or state.clients is None or not rows.sharded:
+    ``all_gather``ed (one call per dtype) and, with ``task`` (the
+    round's, as :func:`place_state` took it), its FSDP blocks of the
+    server and the shared client model gathered over ``data`` and with
+    ``model`` the task's ``model`` blocks of every entity, over its
+    ``model`` axis.  The rest is the same on every rank already."""
+    if rows is not None and state.clients is not None and rows.sharded:
+        leaves = comm.all_gather_tree(tree_leaves(state.clients), "state")
+        state = state._replace(
+            clients=tree_unflatten_like(state.clients, leaves))
+    if task is None or not task.plans:
         return state
-    leaves = comm.all_gather_tree(tree_leaves(state.clients), "state")
-    return state._replace(clients=tree_unflatten_like(state.clients, leaves))
+    sp, cp = task_plan(task, "server"), task_plan(task, "client")
+    if task.fsdp is not None:
+        state = state._replace(
+            server=gather_entity(state.server, sp, data_comm=task.fsdp),
+            client_global=(None if state.client_global is None else
+                           gather_entity(state.client_global, cp,
+                                         data_comm=task.fsdp)))
+    if model and task.tp is not None and task.tp.size > 1:
+        mc = task.tp.comm
+        state = TrainState(
+            gather_entity(state.server, sp, mc),
+            None if state.clients is None else gather_entity(
+                state.clients, tree_map(Shard.stacked, cp), mc),
+            None if state.client_global is None else gather_entity(
+                state.client_global, cp, mc))
+    return state
 
 
 def build_algorithm(program: RoundProgram, task: SplitTask,
@@ -574,12 +666,15 @@ def build_algorithm(program: RoundProgram, task: SplitTask,
     store of ``n_clients`` rows (required for the PSL family) is
     row-sharded unless ``shard_data`` is off, which also keeps the
     phases whole on every rank, as for the programs that chain along
-    the cohort.
+    the cohort; such a round holds its weights whole over ``data`` (the
+    algorithm's ``task`` has no ``fsdp``).
     """
     if mesh is not None and resilience is not None and resilience.guard:
         raise NotImplementedError(
             "the health guard on a mesh is not ported yet (ROADMAP item 9b)")
     ctx_mesh = mesh if shard_data and shards_cohort(program) else None
+    if ctx_mesh is None and task.fsdp is not None:
+        task = replace(task, fsdp=None)
     rows = None
     if ctx_mesh is not None and not program.uses_global_client:
         if n_clients is None:
@@ -611,7 +706,7 @@ def build_algorithm(program: RoundProgram, task: SplitTask,
         return v.state, v.metrics
 
     return SLAlgorithm(program.name, init, round_fn,
-                       program.uses_global_client, ctx_mesh, rows)
+                       program.uses_global_client, ctx_mesh, rows, task)
 
 
 # ------------------------------------------------------ pipelined rounds

@@ -22,6 +22,12 @@ every rank of a model group draws the same plan and resamples the same
 minibatch, the reference's replicated server batch, and the halves run
 on the rank's shards; gradient norms (the clip, the reported client
 norms) sum the shards' squares over the axis (``sharding.parallel``).
+With FSDP over ``data`` (the task's ``fsdp``: set only where the round
+splits the cohort, ``api.phases.build_algorithm``) the server holds its blocks of the leaves its plan splits over ``data``:
+every step gathers them at use, and the backward hands each rank its
+block of the gradient, reduce-scattered from the data-parallel
+minibatch's partial sums or sliced from the replicated one's; the step
+runs on the blocks.
 """
 from __future__ import annotations
 
@@ -42,7 +48,7 @@ from repro_torch.core.protocol import (EntityState, SlotSplit, entity_step,
 from repro_torch.core.split import SplitTask
 from repro_torch.kernels import ops
 from repro_torch.optim import Optimizer, clip_by_global_norm
-from repro_torch.sharding.parallel import global_norm
+from repro_torch.sharding.parallel import gather_from_data, global_norm
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
 # plan_fn(key, valid, epochs, server_batch) -> (plan [E, steps, sb] int,
@@ -92,13 +98,30 @@ def _n_slots(tree) -> int:
     return tree_leaves(tree)[0].shape[0]
 
 
-def _maybe_clip(grads, max_norm: Optional[float], tp=None):
-    """Clip to ``max_norm``; with a model axis (``tp``) the norm is that
-    of the whole tree, summed over the shards."""
+def _maybe_clip(grads, max_norm: Optional[float], tp=None, plan=None,
+                data=None):
+    """Clip to ``max_norm``; with a model axis (``tp``) or a ``data``
+    split the norm is that of the whole tree, summed over the blocks
+    (``plan`` says which leaves are blocks)."""
     if max_norm is None:
         return grads
-    clipped, _ = clip_by_global_norm(grads, max_norm, global_norm(grads, tp))
+    clipped, _ = clip_by_global_norm(grads, max_norm,
+                                     global_norm(grads, tp, plan, data))
     return clipped
+
+
+def task_plan(task: SplitTask, half: str):
+    """The task's plan of ``half`` ('server' or 'client'), or None."""
+    return None if task.plans is None else task.plans.get(half)
+
+
+def server_whole(task: SplitTask, params):
+    """The server's params whole over ``data``, outside autograd (the
+    frozen server of the feature gradients, a replica's copy)."""
+    if task.fsdp is None:
+        return params
+    with torch.no_grad():
+        return gather_from_data(task.fsdp, params, task_plan(task, "server"))
 
 
 def _value_and_grad(loss_fn, params):
@@ -178,22 +201,37 @@ def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
     # model axis takes the whole minibatch on every rank (its MoE groups,
     # and so its capacity drops, stay those of the unsharded step);
     # else a data-parallel minibatch, this rank's rows [m0, m1) a step
-    tp_layout = task.tp is not None and task.tp.size > 1 and any(
-        task.tp.units.values())
+    plan = task_plan(task, "server")
+    tp_layout = (plan is not None and task.tp.size > 1
+                 and any(s.dim is not None for s in tree_leaves(plan)))
     dp = split is not None and not fused and sb % n == 0 and not tp_layout
     if dp:
         m0 = split.comm.rank * (sb // n)
         m1 = m0 + sb // n
         share = (m1 - m0) / sb
+    # FSDP: the leaves split over data are gathered at use; from the
+    # data-parallel minibatch their gradients come back reduce-scattered
+    # (this rank's block of the sum), from a replicated one sliced
+    fsdp = task.fsdp
+    if fsdp is not None and split is None:
+        raise ValueError("a server in FSDP blocks steps on a cohort split "
+                         "over the mesh")
+    blocked = ({i for i, s in enumerate(tree_leaves(plan))
+                if s.ddim is not None}
+               if fsdp is not None and plan is not None else set())
+
+    def whole(p):
+        return p if fsdp is None else gather_from_data(
+            fsdp, p, plan, split.comm if dp else None)
 
     def step_loss_and_grads(params, idx):
         if fused:
             if shard_local:
                 loss_fn = lambda p: shard_local_fused_loss(
-                    store, idx, task.server_head(p), split)
+                    store, idx, task.server_head(whole(p)), split)
             else:
                 loss_fn = lambda p: ops.fused_gather_loss_mean(
-                    flat, pool.labels, idx, task.server_head(p))
+                    flat, pool.labels, idx, task.server_head(whole(p)))
             return _value_and_grad(loss_fn, params)
         if shard_local:
             f, y = shard_local_gather(store, idx, split,
@@ -201,18 +239,23 @@ def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
         else:
             f, y = gather_batch(pool, idx[m0:m1] if dp else idx)
         if not dp:
-            return _value_and_grad(lambda p: task.server_loss(p, f, y),
-                                   params)
-        loss_fn = ((lambda p: task.server_loss(p, f, y)) if share == 1.0
-                   else (lambda p: task.server_loss(p, f, y) * share))
+            return _value_and_grad(
+                lambda p: task.server_loss(whole(p), f, y), params)
+        loss_fn = ((lambda p: task.server_loss(whole(p), f, y))
+                   if share == 1.0 else
+                   (lambda p: task.server_loss(whole(p), f, y) * share))
         loss, grads = _value_and_grad(loss_fn, params)
-        summed = split.comm.all_reduce_tree(tree_leaves(grads) + [loss],
-                                            "grads")
-        return summed[-1], tree_unflatten_like(grads, summed[:-1])
+        leaves = tree_leaves(grads)
+        rest = [i for i in range(len(leaves)) if i not in blocked]
+        summed = split.comm.all_reduce_tree([leaves[i] for i in rest]
+                                            + [loss], "grads")
+        for i, g in zip(rest, summed):
+            leaves[i] = g
+        return summed[-1], tree_unflatten_like(grads, leaves)
 
     def apply_step(entity, idx):
         loss, grads = step_loss_and_grads(entity.params, idx)
-        grads = _maybe_clip(grads, ccfg.grad_clip, task.tp)
+        grads = _maybe_clip(grads, ccfg.grad_clip, task.tp, plan, fsdp)
         if grad_scale is not None:
             grads = tree_map(lambda g: g * grad_scale, grads)
         return entity_step(entity, grads, opt_s), loss
@@ -246,7 +289,7 @@ def feature_gradients(task: SplitTask, server_params, feats, ys,
     ``ys`` are this rank's slots, ``mask`` the full [C] mask, and the
     cohort mean runs over every rank's slots.
     """
-    frozen = tree_map(lambda p: p.detach(), server_params)
+    frozen = server_whole(task, tree_map(lambda p: p.detach(), server_params))
     f = feats.detach().requires_grad_(True)
     with torch.enable_grad():
         total = sum(task.server_loss(frozen, f[c], _slot(ys, c))
@@ -265,9 +308,11 @@ def _client_grads(task: SplitTask, params, x, g, grad_clip):
     with torch.enable_grad():
         out = task.client_forward(tree_unflatten_like(params, leaves), x)
         grads = torch.autograd.grad(out, leaves, grad_outputs=g.to(out.dtype))
+    # a slot's copy is whole over data: its plan's model blocks only
+    plan = task_plan(task, "client")
     grads = _maybe_clip(tree_unflatten_like(params, list(grads)), grad_clip,
-                        task.tp)
-    return grads, global_norm(grads, task.tp)
+                        task.tp, plan)
+    return grads, global_norm(grads, task.tp, plan)
 
 
 def client_update_one(task: SplitTask, entity: EntityState, x, g,

@@ -13,7 +13,11 @@ On a mesh a rank holds only its slots of a cohort ([lo, hi) of C, a
 rank's partial over its slots with ``all_reduce``; a reduction over
 every slot is written so that at one rank it runs exactly the
 unsharded ops (a mean over slots is each rank's mean scaled by its
-share of the slots, and the share 1 is never multiplied in).
+share of the slots, and the share 1 is never multiplied in).  A mean
+into an entity whose leaves split over ``data`` (FSDP, ``into``: a
+:class:`DataBlocks`) hands each rank its block of the sum instead
+(``sharding.parallel.reduce_to_blocks``), the other leaves' sums all
+reduced as before.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 
 from repro_torch.optim import Optimizer
 from repro_torch.optim.optimizer import apply_updates
+from repro_torch.sharding.parallel import reduce_to_blocks
 from repro_torch.utils.tree import (tree_leaves, tree_map,
                                     tree_unflatten_like)
 
@@ -100,19 +105,65 @@ def stack_entities(entities: list[EntityState]) -> EntityState:
     return tree_map(lambda *xs: torch.stack(xs), *entities)
 
 
-def _reduced_sums(sums: list, split: Optional[SlotSplit]) -> list:
-    return sums if split is None else split.comm.all_reduce_tree(sums,
-                                                                 "slot_mean")
+class DataBlocks(NamedTuple):
+    """Where a mean over the slots lands when its target holds FSDP
+    blocks: the ``data`` axis' collectives and each leaf's data dim
+    (None: whole over ``data``), in ``tree_leaves`` order."""
+    comm: Any
+    dims: list
+
+
+def data_blocks(comm, plan, entity: Optional[EntityState] = None
+                ) -> Optional[DataBlocks]:
+    """The :class:`DataBlocks` of a tree under ``plan`` (a
+    ``sharding.specs`` plan of the params), or with ``entity`` of that
+    EntityState over it (its params, each params-like tree of its
+    optimizer state, its step); None when ``comm`` (the data axis'
+    collectives) is None: the target is whole."""
+    if comm is None:
+        return None
+    dims = [s.ddim for s in tree_leaves(plan)]
+    if entity is not None:
+        n_opt = (len(entity.opt_state)
+                 if isinstance(entity.opt_state, dict) else 0)
+        dims = dims * (1 + n_opt) + [None]
+    return DataBlocks(comm, dims)
+
+
+def _reduced_sums(sums: list, split: Optional[SlotSplit],
+                  into: Optional[DataBlocks] = None) -> list:
+    """The sums over every rank's slots of each rank's partial ``sums``:
+    all-reduced, or for the leaves ``into`` puts on ``data`` this rank's
+    block of it."""
+    if split is None:
+        return sums
+    if into is None or all(b is None for b in into.dims):
+        return split.comm.all_reduce_tree(sums, "slot_mean")
+    out = list(sums)
+    rest = [i for i, b in enumerate(into.dims) if b is None]
+    blk = [i for i, b in enumerate(into.dims) if b is not None]
+    if rest:
+        got = split.comm.all_reduce_tree([sums[i] for i in rest],
+                                         "slot_mean")
+        for i, t in zip(rest, got):
+            out[i] = t
+    got = reduce_to_blocks(into.comm, split.comm, [sums[i] for i in blk],
+                           [into.dims[i] for i in blk], "slot_mean")
+    for i, t in zip(blk, got):
+        out[i] = t.contiguous()
+    return out
 
 
 def entity_mean(stacked: EntityState,
-                split: Optional[SlotSplit] = None) -> EntityState:
+                split: Optional[SlotSplit] = None,
+                into: Optional[DataBlocks] = None) -> EntityState:
     """FedAvg over the leading cohort dim, dtype-preserving (the int32
     step stays int32: every member stepped once, so its mean is exact).
-    With ``split`` the sum runs over every rank's slots."""
+    With ``split`` the sum runs over every rank's slots; with ``into``
+    (:func:`data_blocks`) into this rank's FSDP blocks."""
     leaves = tree_leaves(stacked)
     n = leaves[0].shape[0] if split is None else split.total
-    sums = _reduced_sums([x.sum(0) for x in leaves], split)
+    sums = _reduced_sums([x.sum(0) for x in leaves], split, into)
     return tree_unflatten_like(
         stacked, [(s / n).to(x.dtype) for s, x in zip(sums, leaves)])
 
@@ -186,36 +237,39 @@ def _masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
                                               device=x.device)).sum(0)
 
 
-def slot_mean(tree, mask=None, split: Optional[SlotSplit] = None):
+def slot_mean(tree, mask=None, split: Optional[SlotSplit] = None,
+              into: Optional[DataBlocks] = None):
     """The mean over the leading slot axis of every leaf of a [C, ...]
     tree (a tensor is a tree of one leaf): over the live slots when
     ``mask`` is given (rows with mask 0 contribute exact zeros, the
     count is the mask's; dtype-preserving), and with ``split`` over
-    every rank's slots, one ``all_reduce`` per dtype.  Unmasked, each
-    rank's mean is scaled by its share of the slots before the sum (at
-    one rank: the plain mean)."""
+    every rank's slots, one ``all_reduce`` per dtype (into this rank's
+    FSDP blocks for the leaves ``into`` puts on ``data``).  Unmasked,
+    each rank's mean is scaled by its share of the slots before the sum
+    (at one rank: the plain mean)."""
     leaves = tree_leaves(tree)
     if mask is None:
         parts = [x.mean(0) for x in leaves]
         if split is not None:
             if split.share != 1.0:
                 parts = [p * split.share for p in parts]
-            parts = split.comm.all_reduce_tree(parts, "slot_mean")
+            parts = _reduced_sums(parts, split, into)
         return tree_unflatten_like(tree, parts)
     m = mask if split is None else split.local(mask)
-    sums = _reduced_sums([_masked_sum(x, m) for x in leaves], split)
+    sums = _reduced_sums([_masked_sum(x, m) for x in leaves], split, into)
     count = mask.sum()
     return tree_unflatten_like(
         tree, [(s / count).to(x.dtype) for s, x in zip(sums, leaves)])
 
 
 def masked_entity_mean(stacked: EntityState, mask: torch.Tensor,
-                       split: Optional[SlotSplit] = None) -> EntityState:
+                       split: Optional[SlotSplit] = None,
+                       into: Optional[DataBlocks] = None) -> EntityState:
     """FedAvg over the live slots only: ``mask`` is [C] with 1.0 for
     live cohort members, 0.0 for padded slots.  With ``split`` the
     stack holds this rank's slots of the full [C] ``mask``: the masked
     partial sums are reduced over ranks, the count is the mask's."""
-    return slot_mean(stacked, mask, split)
+    return slot_mean(stacked, mask, split, into)
 
 
 def gather_slots(x: torch.Tensor, split: Optional[SlotSplit]

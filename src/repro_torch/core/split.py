@@ -4,6 +4,16 @@ Port of ``repro/core/split.py``: the StageModel zoo's tasks (xent or
 mse loss) and the decoder-only transformer cut after ``cfg.cut_layers``
 blocks, dense, MoE, SSM and hybrid (whisper's encoder-decoder task is
 not ported yet).
+
+On a mesh a task holds its halves' placement (``sharding.specs.shard_plan``
+of the whole halves): ``tp``, the ``model`` axis the forwards split
+over, ``fsdp``, the ``data`` axis' collectives when it has more than one
+rank, and ``plans``, each half's plan (the server's at role 'server',
+the client's at 'full').  ``init_server``/``init_client`` draw the whole
+model and keep this rank's ``model`` blocks; the ``data`` blocks (FSDP)
+are cut where a round places its state (``api.phases.place_state``),
+and the round gathers them at use (``sharding.parallel.gather_from_data``):
+the task's forwards always take leaves whole over ``data``.
 """
 from __future__ import annotations
 
@@ -14,9 +24,11 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.cnn import StageModel
+from repro_torch.models.module import SHAPES
 from repro_torch.models.transformer import (Transformer, block_kind,
                                             positions_for)
-from repro_torch.sharding.specs import model_shard_plan, shard_params
+from repro_torch.sharding.parallel import TensorParallel, gather_from_model
+from repro_torch.sharding.specs import shard_params, shard_plan
 from repro_torch.utils.tree import tree_leaves, tree_slice
 
 
@@ -41,6 +53,12 @@ class SplitTask:
     # under (their leaves then hold this rank's shards; gradient norms
     # sum the shards over the model axis), or None
     tp: Any = None
+    # the data axis' Collectives when the halves' leaves split over it
+    # (FSDP), else None
+    fsdp: Any = None
+    # {"server": plan, "client": plan}: each half's sharding.specs plan
+    # (from the whole halves' shapes), or None
+    plans: Any = None
 
     def server_loss(self, sp, features, y):
         return self.loss(self.server_apply(sp, features), y)
@@ -74,46 +92,84 @@ def mse_metrics(pred, y):
     return {"angular_deg": torch.mean(torch.rad2deg(torch.arccos(cos)))}
 
 
+def mesh_placement(mesh, cfg=None):
+    """``(tp, fsdp)`` of a task on ``mesh``: its ``model`` axis (the
+    whole-unit rule of ``cfg``, or a stage model's for ``cfg`` None) and
+    the ``data`` axis' collectives where that axis has more than one
+    rank (None otherwise)."""
+    fsdp = mesh.data_comm if mesh.shape.get("data", 1) > 1 else None
+    return TensorParallel.from_mesh(mesh, cfg), fsdp
+
+
 def make_stage_task(model: StageModel, cut: int, kind: str = "xent",
-                    name: str | None = None) -> SplitTask:
+                    name: str | None = None, mesh=None) -> SplitTask:
     """Split a StageModel at stage index ``cut`` (paper's block-wise cut).
 
     The client and the server each draw the whole model from their own
     generator and keep their half, as the JAX package does with keys.
+
+    ``mesh`` (a ``launch.mesh.Mesh``) places the halves by the
+    reference's rules: each half's plan comes from the whole model's
+    shapes (a shape-only draw, ``models.module.SHAPES``), the halves
+    keep their ``model`` blocks (a ``lin/w`` whose columns divide the
+    axis), and the dense stages run column-parallel
+    (``models.cnn.dense``).
     """
     if not 0 < cut < model.n_stages:
         raise ValueError(f"cut {cut} out of range (1..{model.n_stages - 1})")
     loss, metrics = ((xent_loss, xent_metrics) if kind == "xent"
                      else (mse_loss, mse_metrics))
+    tp = fsdp = plans = None
+    if mesh is not None:
+        tp, fsdp = mesh_placement(mesh)
+        whole = model.init(SHAPES)
+        plans = {"server": shard_plan(whole[cut:], mesh.shape, mesh.coords,
+                                      "server"),
+                 "client": shard_plan(whole[:cut], mesh.shape, mesh.coords,
+                                      "full")}
+
+    def keep(half, key):
+        return half if plans is None else shard_params(half, plans[key],
+                                                       data=False)
 
     def init_client(gen):
-        return model.init(gen)[:cut]
+        return keep(model.init(gen)[:cut], "client")
 
     def init_server(gen):
-        return model.init(gen)[cut:]
+        return keep(model.init(gen)[cut:], "server")
 
     def client_forward(cp, x):
-        return model.apply_range(cp, x, 0, cut)
+        return model.apply_range(cp, x, 0, cut, tp)
 
     def server_apply(sp, f):
         x = f
         for i in range(cut, model.n_stages):
-            x = model.stages[i][1](sp[i - cut], x)
+            x = model.apply_stage(i, sp[i - cut], x, tp)
         return x
 
     # the fused gather + loss contract: the whole server half is the
-    # model's final flatten-matmul head (last cut) under xent
+    # model's final flatten-matmul head (last cut) under xent; a head
+    # split over the model axis is gathered whole for the kernel, as the
+    # reference's shard-local loss takes it (in_specs P(None, None))
     server_head = None
     if kind == "xent" and cut == model.n_stages - 1 and model.head_is_linear:
-        server_head = lambda sp: tree_leaves(sp[-1])[0]
+        head_dim = (None if plans is None
+                    else tree_leaves(plans["server"][-1])[0].dim)
+
+        def server_head(sp):
+            w = tree_leaves(sp[-1])[0]
+            if head_dim is None:
+                return w
+            return gather_from_model(tp, w, "head", head_dim)
 
     return SplitTask(name or f"{model.name}@cut{cut}",
                      init_client, init_server, client_forward,
-                     server_apply, loss, metrics, server_head=server_head)
+                     server_apply, loss, metrics, server_head=server_head,
+                     tp=tp, fsdp=fsdp, plans=plans)
 
 
 # -------------------------------------------------- Transformer builder
-def make_transformer_task(cfg: ArchConfig, tp=None) -> SplitTask:
+def make_transformer_task(cfg: ArchConfig, mesh=None) -> SplitTask:
     """Cut a decoder-only arch after ``cfg.cut_layers`` blocks.
 
     θ_C = embedding + blocks[:cut] (the smashed data is the block-`cut`
@@ -123,28 +179,21 @@ def make_transformer_task(cfg: ArchConfig, tp=None) -> SplitTask:
     before its first position).  Each side draws the whole model from its
     own generator and keeps its half, as the JAX package does with keys.
 
-    ``tp`` (a ``sharding.parallel.TensorParallel``) puts both halves on
-    a mesh's ``model`` axis: each rank still draws the whole model (the
-    same on every rank of a model group, from one seed) and keeps its
-    shard of each leaf (``sharding.specs.model_shard_plan``), and the
-    forwards run on the shards.
+    ``mesh`` (a ``launch.mesh.Mesh``) places both halves on it
+    (:func:`mesh_placement`): each rank still draws the whole model (the
+    same on every rank, from one seed) and keeps its ``model`` shard of
+    each leaf (``sharding.specs.shard_plan``), and the forwards run on
+    the shards over ``tp``; the plans also hold each leaf's FSDP block
+    over ``data``.  The plans read the halves' shapes from a shape-only
+    draw (``models.module.SHAPES``).
     """
     cut = cfg.cut_layers
+    tp = fsdp = plans = None
 
-    def keep(half):
-        if tp is None or tp.size == 1:
-            return half
-        plan = model_shard_plan(half, cfg, {"model": tp.size},
-                                {"model": tp.rank})
-        return shard_params(half, plan)
+    def client_half(p):
+        return {"embed": p["embed"], "blocks": tree_slice(p["blocks"], 0, cut)}
 
-    def init_client(gen):
-        p = Transformer.init(gen, cfg)
-        return keep({"embed": p["embed"],
-                     "blocks": tree_slice(p["blocks"], 0, cut)})
-
-    def init_server(gen):
-        p = Transformer.init(gen, cfg)
+    def server_half(p):
         out = {"blocks": tree_slice(p["blocks"], cut, None),
                "final_norm": p["final_norm"]}
         if not cfg.tie_embeddings:
@@ -153,7 +202,25 @@ def make_transformer_task(cfg: ArchConfig, tp=None) -> SplitTask:
             out["embed"] = p["embed"]    # unembedding copy server-side
         if block_kind(cfg) == "hybrid":
             out["shared_attn"] = p["shared_attn"]
-        return keep(out)
+        return out
+
+    if mesh is not None:
+        tp, fsdp = mesh_placement(mesh, cfg)
+        shapes = Transformer.init(SHAPES, cfg)
+        plans = {"client": shard_plan(client_half(shapes), mesh.shape,
+                                      mesh.coords, "full", cfg),
+                 "server": shard_plan(server_half(shapes), mesh.shape,
+                                      mesh.coords, "server", cfg)}
+
+    def keep(half, key):
+        return half if plans is None else shard_params(half, plans[key],
+                                                       data=False)
+
+    def init_client(gen):
+        return keep(client_half(Transformer.init(gen, cfg)), "client")
+
+    def init_server(gen):
+        return keep(server_half(Transformer.init(gen, cfg)), "server")
 
     def client_forward(cp, batch):
         tokens = batch["tokens"] if isinstance(batch, dict) else batch
@@ -189,4 +256,5 @@ def make_transformer_task(cfg: ArchConfig, tp=None) -> SplitTask:
         return {"accuracy": acc}
 
     return SplitTask(f"{cfg.name}@cut{cut}", init_client, init_server,
-                     client_forward, server_apply, loss, metrics, tp=tp)
+                     client_forward, server_apply, loss, metrics, tp=tp,
+                     fsdp=fsdp, plans=plans)

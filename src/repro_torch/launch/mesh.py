@@ -22,9 +22,11 @@ Production meshes:
   Single pod : (data=16, model=16)            = 256 chips
   Multi-pod  : (pod=2, data=16, model=16)     = 512 chips
 
-A ``model`` axis > 1 places the transformer train and prefill steps'
-weights tensor- and expert-parallel (``launch.steps``); the Engine's
-model axis and FSDP over ``data`` are what is left of ROADMAP item 9b.
+The reference places a round's weights 2-D, FSDP over ``data`` and
+tensor-parallel over ``model`` (``sharding.specs.shard_plan``): the
+Engine's round and the transformer train and prefill steps hold each
+leaf's block on a rank, gather it at use over ``data_comm`` and split
+their products over ``model_comm`` (``sharding.parallel``).
 """
 from __future__ import annotations
 
@@ -54,7 +56,11 @@ class Mesh:
     (or the CPU) this rank drives, ``comm`` moves every cross-rank
     value of the round over the batch axes and ``model_comm`` every one
     over the ``model`` axis (census keys ``"model/..."``; None without
-    that axis).  ``owns_group`` is True when
+    that axis).  ``data_comm`` is the ``data`` axis' own (FSDP's weight
+    gathers and gradient reduce-scatters): ``comm`` itself unless a
+    ``pod`` axis > 1 shares the batch axes, then the group of the ranks
+    that differ only in their ``data`` coordinate (census keys
+    ``"data/..."``).  ``owns_group`` is True when
     :func:`make_engine_mesh` started the process group, so :meth:`close`
     ends it (and removes the file store of a world of 1)."""
     device_mesh: Any
@@ -63,6 +69,7 @@ class Mesh:
     device: torch.device
     comm: Collectives
     model_comm: Optional[Collectives]
+    data_comm: Optional[Collectives] = None
     owns_group: bool = False
     store_dir: Optional[str] = None
 
@@ -138,8 +145,15 @@ def make_engine_mesh(shape, axes, device=None) -> Mesh:
     from torch.distributed.device_mesh import init_device_mesh
     dm = init_device_mesh(dev.type, shape, mesh_dim_names=axes)
     coords = dict(zip(axes, dm.get_coordinate()))
-    return Mesh(dm, sizes, coords, dev, _batch_comm(dm, sizes),
-                _model_comm(dm, sizes), owns, store_dir)
+    comm = _batch_comm(dm, sizes)
+    data_comm = (Collectives(dm["data"].get_group(), axis="data")
+                 if sizes.get("pod", 1) > 1 else comm)
+    if data_comm.rank != coords["data"]:
+        raise RuntimeError(f"the data axis' group ranks this rank "
+                           f"{data_comm.rank}, its coordinate is "
+                           f"{coords['data']}")
+    return Mesh(dm, sizes, coords, dev, comm, _model_comm(dm, sizes),
+                data_comm, owns, store_dir)
 
 
 def _batch_comm(dm, sizes) -> Collectives:

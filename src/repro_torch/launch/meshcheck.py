@@ -10,9 +10,16 @@ runs the same padded rounds (capacity C 8, live cohort sizes 5 + r % 3,
   mesh1  — a (1, 1) mesh of one rank in this process: must match
            ``base`` BIT FOR BIT (at one rank every collective is the
            identity and the mesh round runs the unsharded arithmetic),
-  meshN  — an (N, 1) mesh of N spawned ranks over ('data', 'model'):
-           must match within float tolerance (the sums over ranks
-           reorder float32 sums at ~1e-7), the same on every rank.
+  meshN  — an (N, 1) mesh of N spawned ranks over ('data', 'model'),
+           or the (d, m) mesh ``--shape d,m`` asks for (N = d * m): must
+           match within float tolerance (the sums over ranks reorder
+           float32 sums at ~1e-7), the same on every rank.  The task is
+           placed on the mesh as the Engine places it
+           (``core.split.make_stage_task(..., mesh=)``); the protocol's
+           mlp has no ``lin/w`` leaf, so its weights stay whole and a
+           (d, m) mesh checks the cohort's split over ``data`` beside a
+           ``model`` axis (the Engine's tests and ``chip_smoke.py`` phase
+           26 hold the placed femnist weights).
 
 With ``--shard-local`` it checks instead, on both meshes, that the
 shard-local resample is bit for bit the gather-everything route (the
@@ -22,7 +29,7 @@ eager round has no trace, so that check has no counterpart here.  The
 census of each run's collectives comes with the report.
 
   PYTHONPATH=src python -m repro_torch.launch.meshcheck --ranks 4 \\
-      --device cpu [--shard-local]
+      --device cpu [--shard-local] [--shape 2,2]
 
 The default, ``--device cuda``, runs the ranks over NCCL, one card
 each, and exits 2 when there are fewer cards than ranks; the CPU runs
@@ -56,10 +63,11 @@ from repro_torch.utils.tree import tree_leaves, tree_map
 C, B, ROUNDS = 8, 8, 3          # capacity 8 divides every swept mesh
 
 
-def task_and_data():
-    """The protocol's task and its [C, B, 8] inputs and [C, B] labels
-    (numpy's ``default_rng(0)``, as the JAX package draws them)."""
-    task = make_stage_task(mlp(8, [16], 4), cut=1, kind="xent")
+def task_and_data(mesh=None):
+    """The protocol's task (placed on ``mesh``) and its [C, B, 8] inputs
+    and [C, B] labels (numpy's ``default_rng(0)``, as the JAX package
+    draws them)."""
+    task = make_stage_task(mlp(8, [16], 4), cut=1, kind="xent", mesh=mesh)
     rng = np.random.default_rng(0)
     w = rng.normal(size=(8, 4))
     xs = np.stack([rng.normal(size=(B, 8))
@@ -89,11 +97,9 @@ def drive(name, task, xs, ys, mesh=None, rounds: int = ROUNDS,
     algo = build_algorithm(get_program(name), task, opt, opt, ccfg,
                            plan_fn=plan_fn, device=device, mesh=mesh,
                            n_clients=C)
-    if state0 is None:
-        state = algo.init(0, C)
-    else:
-        state = place_state(tree_map(lambda t: t.to(device), state0),
-                            algo.store_rows)
+    state = (algo.init(0, C) if state0 is None
+             else tree_map(lambda t: t.to(device), state0))
+    state = place_state(state, algo.store_rows, algo.task)
     cohort = torch.arange(C, device=device)
     split = slot_split(algo.mesh, C)
     if split is not None:
@@ -108,7 +114,7 @@ def drive(name, task, xs, ys, mesh=None, rounds: int = ROUNDS,
         if mesh is not None:
             census.append(mesh.comm.take_census())
     if mesh is not None:
-        state = whole_state(state, algo.store_rows, mesh.comm)
+        state = whole_state(state, algo.store_rows, mesh.comm, algo.task)
     return tree_map(lambda t: t.cpu(), state), rows, census
 
 
@@ -174,7 +180,7 @@ def spawn_ranks(world: int, fn, args=(), device="cpu", workdir=None,
 def _runs(mesh, algos, shard_local_sweep):
     """Every program on ``mesh``: the default route, or with
     ``shard_local_sweep`` both routes of the resample."""
-    task, xs, ys = task_and_data()
+    task, xs, ys = task_and_data(mesh)
     dev = mesh.device
     out = {}
     for name in algos:
@@ -206,8 +212,15 @@ def main(argv=None) -> int:
     ap.add_argument("--shard-local", action="store_true",
                     help="check the shard-local resample against the "
                          "gather-everything route instead")
+    ap.add_argument("--shape", default=None,
+                    help="d,m: the N-rank mesh's (data, model) shape "
+                         "(default N,1, N = --ranks)")
     args = ap.parse_args(argv)
-    n = args.ranks
+    shape = ((args.ranks, 1) if args.shape is None else
+             tuple(int(x) for x in args.shape.split(",")))
+    if len(shape) != 2:
+        ap.error(f"--shape {args.shape}: expected d,m")
+    n = shape[0] * shape[1]
     if args.device == "cuda" and torch.cuda.device_count() < n:
         print(json.dumps({"error": f"needs {n} cards, have "
                           f"{torch.cuda.device_count()}"}))
@@ -219,8 +232,10 @@ def main(argv=None) -> int:
         one = _runs(mesh1, algos, args.shard_local)
     finally:
         mesh1.close()
-    ranks = spawn_ranks(n, _runs, (algos, args.shard_local), args.device)
-    report = {"ranks": n, "device": args.device, "capacity": C,
+    ranks = spawn_ranks(n, _runs, (algos, args.shard_local), args.device,
+                        shape=shape)
+    report = {"ranks": n, "shape": list(shape), "device": args.device,
+              "capacity": C,
               "rounds": ROUNDS, "algos": {}}
     task, xs, ys = task_and_data()
     for name in algos:

@@ -18,14 +18,16 @@ The train and prefill steps take a ``mesh`` (``launch.mesh.Mesh``), the
 port's counterpart of the reference's ``NamedSharding``s of the train
 state: on its ``model`` axis the dense and MoE transformers' weights are
 tensor- and expert-parallel (``sharding.parallel``; each rank holds its
-shards), over its batch axes the train step's cohort is split as the
-Engine's is (each rank its slots), and the server steps on the whole
-minibatch on every rank when its weights split over ``model`` (the
-reference's ``tp_layout``), else data-parallel; the prefill batch is
-replicated over the batch axes.  The mesh's device
-is the step's.  The decode state's placement
-(``decode_state_shardings``), FSDP over ``data`` and the Mamba, hybrid
-and whisper steps on a model axis are ROADMAP item 9b.
+shards), over ``data`` the server's and the prefill's weights are FSDP
+blocks (``sharding.specs.shard_plan``, gathered at use, the gradient
+handed back as each rank's block), over its batch axes the train step's
+cohort is split as the Engine's is (each rank its slots), and the
+server steps on the whole minibatch on every rank when its weights
+split over ``model`` (the reference's ``tp_layout``), else
+data-parallel; the prefill batch is replicated over the batch axes.
+The mesh's device is the step's.  The decode state's placement
+(``decode_state_shardings``) and the Mamba, hybrid and whisper steps on
+a model axis are ROADMAP item 9b.
 """
 from __future__ import annotations
 
@@ -42,14 +44,15 @@ from repro_torch.core.cyclesl import (CycleConfig, PlanFn, cyclesl_extract,
                                       cyclesl_round, cyclesl_tail)
 from repro_torch.core.protocol import SlotSplit, broadcast_entity, init_entity
 from repro_torch.core.split import (SplitTask, make_transformer_task,
-                                   xent_loss)
+                                   mesh_placement, xent_loss)
 from repro_torch.launch import inputs as inputs_lib
 from repro_torch.launch.mesh import cohort_size
 from repro_torch.models.encdec import EncDec
+from repro_torch.models.module import SHAPES
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import adam
-from repro_torch.sharding.parallel import TensorParallel
-from repro_torch.sharding.specs import model_shard_plan, shard_params
+from repro_torch.sharding.parallel import gather_from_data
+from repro_torch.sharding.specs import shard_entity, shard_params, shard_plan
 
 
 @dataclass
@@ -118,20 +121,17 @@ def _mesh_device(mesh, device) -> torch.device:
     return resolve_device(device) if mesh is None else mesh.device
 
 
-def _tensor_parallel(cfg: ArchConfig, mesh) -> Optional[TensorParallel]:
-    """The step's ``model``-axis context, or None off the mesh.  Raises for
-    a family whose step has no model axis yet (the whole-unit rule)."""
-    return None if mesh is None else TensorParallel.from_mesh(mesh, cfg)
-
-
 def _train_substrate(cfg: ArchConfig, shape: InputShape, cycle: CycleConfig,
                      cohort: int, device, mesh=None) -> _TrainSubstrate:
     inputs_lib.train_batch_specs(cfg, shape, cohort)  # validates cfg, split
     dev = _mesh_device(mesh, device)
     cycle = cycle.check_ported()
-    tp = _tensor_parallel(cfg, mesh)
-    task = (make_whisper_task(cfg) if cfg.family == "audio"
-            else make_transformer_task(cfg, tp))
+    if cfg.family == "audio":
+        if mesh is not None:
+            mesh_placement(mesh, cfg)   # whisper on a model axis: 9b
+        task = make_whisper_task(cfg)
+    else:
+        task = make_transformer_task(cfg, mesh=mesh)
     opt_s, opt_c = adam(3e-4), adam(3e-4)
     # the cohort's split over the batch axes (none on a mesh whose batch
     # axes hold one rank: its slots are every slot)
@@ -143,6 +143,10 @@ def _train_substrate(cfg: ArchConfig, shape: InputShape, cycle: CycleConfig,
         gen_s = torch.Generator(device=dev).manual_seed(seed)
         gen_c = torch.Generator(device=dev).manual_seed(seed + 1)
         server = init_entity(task.init_server(gen_s), opt_s)
+        if task.fsdp is not None:
+            # FSDP: the server keeps its blocks over data (the cohort's
+            # slot copies stay whole there, the reference's role client)
+            server = shard_entity(server, task.plans["server"], model=False)
         clients = broadcast_entity(
             init_entity(task.init_client(gen_c), opt_c), hi - lo)
         return server, clients
@@ -227,19 +231,27 @@ def build_prefill_step(cfg: ArchConfig, shape: InputShape, *, device=None,
     ``init_state(seed)`` gives (params,), ``make_batch(seed)`` gives
     (batch,) with ``batch["tokens"]`` [B, S] (and for audio
     ``batch["frames"]`` [B, 1500, d]).  On ``mesh`` the params are this
-    rank's shards of the whole draw and every rank returns the whole
-    logits."""
+    rank's blocks of the whole draw (over ``model`` and, FSDP, over
+    ``data``: gathered over ``data`` at use) and every rank returns the
+    whole logits."""
     inputs_lib.prefill_specs(cfg, shape)             # validates cfg
     dev = _mesh_device(mesh, device)
     model = EncDec if cfg.family == "audio" else Transformer
-    tp = _tensor_parallel(cfg, mesh)
+    tp = fsdp = plan = None
+    if mesh is not None:
+        # whisper raises on a model axis (9b) and runs whole elsewhere
+        tp, fsdp = mesh_placement(mesh, cfg)
+        if cfg.family == "audio":
+            fsdp = None
+        elif tp.size > 1 or fsdp is not None:
+            plan = shard_plan(Transformer.init(SHAPES, cfg), mesh.shape,
+                              mesh.coords, "full", cfg)
 
     def init_state(seed: int):
         params = model.init(torch.Generator(device=dev).manual_seed(seed),
                             cfg)
-        if tp is not None and tp.size > 1:
-            params = shard_params(params, model_shard_plan(
-                params, cfg, {"model": tp.size}, {"model": tp.rank}))
+        if plan is not None:
+            params = shard_params(params, plan)
         return (params,)
 
     def make_batch(seed: int):
@@ -248,6 +260,8 @@ def build_prefill_step(cfg: ArchConfig, shape: InputShape, *, device=None,
 
     def prefill(params, batch):
         with torch.no_grad():
+            if fsdp is not None:
+                params = gather_from_data(fsdp, params, plan)
             if cfg.family == "audio":
                 logits = EncDec.forward(params, cfg, batch["frames"],
                                         batch["tokens"])

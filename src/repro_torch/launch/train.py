@@ -12,9 +12,13 @@ Usage:
       --algo cyclesfl --task image --rounds 200 --clients 100 --width 32
 
 On N cards of one host, one rank a card (``--no-shard-cohort`` runs the
-whole round on every rank); rank 0 prints:
+whole round on every rank); rank 0 prints.  ``--mesh-shape d,m`` places
+the weights as the reference's 2-D mesh does (FSDP over ``data``, the
+dense stages' columns over ``model``; d * m = N):
   PYTHONPATH=src torchrun --nproc-per-node N -m repro_torch.launch.train \
       --mesh-shape N,1 --rounds 200 --clients 100 --width 32
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --mesh-shape 2,2 --rounds 200 --clients 100 --width 32
 """
 from __future__ import annotations
 

@@ -7,6 +7,12 @@ weights HWIO, dense weights [d_in, d_out].  The convolutions run NCHW
 inside ``conv2d``/``maxpool``/``batchnorm`` and permute back, so a
 dense stage flattens in NHWC order and the smashed data at the cut is
 NHWC, exactly as in the reference.
+
+On a mesh's ``model`` axis (``tp``, a ``sharding.parallel.TensorParallel``)
+a dense stage's ``lin/w`` [d_in, n_out] is column-parallel where its
+columns divide the axis (:func:`dense`): the rank holds its block of
+columns, multiplies it and gathers the product's columns before the
+next stage or the loss.  Conv, BatchNorm and pool stages run whole.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import module
+from repro_torch.sharding.parallel import copy_to_model, gather_from_model
 
 
 # --------------------------------------------------------------- conv ops
@@ -69,6 +76,17 @@ def batchnorm(params, x, eps: float = 1e-5):
     return y.permute(0, 2, 3, 1)
 
 
+def dense(w, x, n_out: int, tp=None):
+    """``x @ w`` for a ``lin/w`` of ``n_out`` columns.  Where ``tp``
+    splits its columns (``tp.splits(n_out)``), ``w`` is this rank's
+    block of them: the input's gradient is summed over the axis
+    (``copy_to_model``) and the product's columns are gathered in rank
+    order (``gather_from_model``), so the stage's output is whole."""
+    if tp is None or not tp.splits(n_out):
+        return x @ w
+    return gather_from_model(tp, copy_to_model(tp, x) @ w, "act", dim=-1)
+
+
 # ------------------------------------------------------- stage-list models
 class StageModel:
     """A model = ordered stages; stage i: (init_fn(gen) -> params, apply_fn).
@@ -91,13 +109,21 @@ class StageModel:
     def init(self, gen: torch.Generator):
         return [init(gen) for init, _ in self.stages]
 
-    def apply_range(self, params, x, lo: int, hi: int):
+    def apply_stage(self, i: int, p, x, tp=None):
+        """Stage ``i`` on its params ``p``; a dense stage (its params
+        hold ``lin``) takes the model axis ``tp``."""
+        fn = self.stages[i][1]
+        if tp is not None and isinstance(p, dict) and "lin" in p:
+            return fn(p, x, tp)
+        return fn(p, x)
+
+    def apply_range(self, params, x, lo: int, hi: int, tp=None):
         for i in range(lo, hi):
-            x = self.stages[i][1](params[i], x)
+            x = self.apply_stage(i, params[i], x, tp)
         return x
 
-    def apply(self, params, x):
-        return self.apply_range(params, x, 0, self.n_stages)
+    def apply(self, params, x, tp=None):
+        return self.apply_range(params, x, 0, self.n_stages, tp)
 
 
 # ------------------------------------------------------------ LEAF FEMNIST
@@ -121,15 +147,15 @@ def femnist_cnn(n_classes: int = 62, width: int = 32) -> StageModel:
     def s2_init(g):
         return {"lin": {"w": module.dense_init(g, 7 * 7 * 2 * w, 2048)}}
 
-    def s2(p, x):
+    def s2(p, x, tp=None):
         x = x.reshape(x.shape[0], -1)
-        return torch.relu(x @ p["lin"]["w"])
+        return torch.relu(dense(p["lin"]["w"], x, 2048, tp))
 
     def s3_init(g):
         return {"lin": {"w": module.dense_init(g, 2048, n_classes)}}
 
-    def s3(p, x):
-        return x @ p["lin"]["w"]
+    def s3(p, x, tp=None):
+        return dense(p["lin"]["w"], x, n_classes, tp)
 
     return StageModel("femnist_cnn", [(s0_init, s0), (s1_init, s1),
                                       (s2_init, s2), (s3_init, s3)], n_classes,
@@ -159,8 +185,9 @@ def celeba_cnn(n_classes: int = 2, width: int = 32, img: int = 84) -> StageModel
         return {"lin": {"w": module.dense_init(g, final_hw * final_hw * w,
                                                n_classes)}}
 
-    def head(p, x):
-        return x.reshape(x.shape[0], -1) @ p["lin"]["w"]
+    def head(p, x, tp=None):
+        return dense(p["lin"]["w"], x.reshape(x.shape[0], -1), n_classes,
+                     tp)
 
     stages = [(conv_stage_init(3, w), conv_stage)]
     for _ in range(3):
@@ -212,10 +239,10 @@ def resnet9(n_classes: int = 100, width: int = 64, img: int = 32) -> StageModel:
     def head_init(g):
         return {"lin": {"w": module.dense_init(g, 8 * w, n_classes)}}
 
-    def head(p, x):
+    def head(p, x, tp=None):
         # global max pool; amax splits a tie's gradient evenly, as JAX does
         x = torch.amax(x, dim=(1, 2))
-        return x @ p["lin"]["w"]
+        return dense(p["lin"]["w"], x, n_classes, tp)
 
     stages = [
         (convblock_init(3, w), partial(convblock, False)),          # conv1

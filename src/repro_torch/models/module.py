@@ -3,7 +3,10 @@
 Every draw is made on the generator's device: a CPU generator gives the
 same weights on any machine (the CNN zoo's callers move them where they
 run), and a generator created on the card draws a full-width
-transformer there without a trip through host memory.
+transformer there without a trip through host memory.  :data:`SHAPES`,
+a stand-in generator on the ``meta`` device, draws nothing: an init
+made with it gives the weights' shapes and dtypes alone, which is all a
+sharding plan reads.
 """
 from __future__ import annotations
 
@@ -15,10 +18,20 @@ import torch
 from repro_torch.utils.tree import tree_map
 
 
+class _Shapes:
+    """A generator stand-in on the ``meta`` device (see :data:`SHAPES`)."""
+    device = torch.device("meta")
+
+
+SHAPES = _Shapes()
+
+
 def truncated_normal(gen: torch.Generator, shape, scale: float,
                      dtype=torch.float32) -> torch.Tensor:
     """Standard normal truncated to [-2, 2], times ``scale``."""
     w = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    if w.is_meta:
+        return w.to(dtype)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (w * scale).to(dtype)
 
@@ -35,6 +48,8 @@ def normal(gen: torch.Generator, shape, scale: float,
            dtype=torch.float32) -> torch.Tensor:
     """Standard normal times ``scale``, drawn in float32, cast last."""
     w = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    if w.is_meta:
+        return w.to(dtype)
     w.normal_(generator=gen)
     return (w * scale).to(dtype)
 

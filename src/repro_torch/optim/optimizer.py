@@ -136,8 +136,8 @@ def adam(lr: float | Callable[[Any], Any], b1: float = 0.9, b2: float = 0.999,
 def clip_by_global_norm(grads, max_norm: float, norm=None):
     """Scale ``grads`` so their global norm is at most ``max_norm``;
     returns (clipped, norm) with the norm left on the device.  ``norm``
-    is the tree's norm where the caller has it (a tree of shards on a
-    model axis, ``sharding.parallel.global_norm(grads, tp)``)."""
+    is the tree's norm where the caller has it (a tree of blocks on a
+    mesh, ``sharding.parallel.global_norm(grads, tp, plan, data)``)."""
     gn = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return tree_map(lambda g: g * scale, grads), gn

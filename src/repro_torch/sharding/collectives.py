@@ -10,13 +10,18 @@ Each call names what it moves (``what``: "pool", "minibatch", "grads",
 ...), and the census counts calls and bytes under ``"{op}/{what}"``.
 A mesh keeps one object per group: the batch axes' (keys as above) and
 the ``model`` axis' (keys ``"model/{op}/{what}"``), so a round's census
-splits by axis.
+splits by axis.  FSDP's weight gathers and gradient reduce-scatters run
+over the batch axes (``all_gather/weights``, ``reduce_scatter/wgrads``,
+``reduce_scatter/slot_mean`` for a FedAvg into blocks), or under
+``"data/..."`` where a ``pod`` axis > 1 gives ``data`` a group of its
+own.
 The bytes of a call are the payload one rank hands to it: the tensor of
 an ``all_reduce`` or a ``broadcast``, the whole input of a
 ``reduce_scatter``, the local chunk of an ``all_gather``.
 
 The ``*_tree`` forms move a list of tensors in one call per dtype: the
-tensors are flattened into one buffer (rows kept for the dim-0 ops),
+tensors are flattened into one buffer (laid out rank block by rank
+block for the dim-0 ops, so tensors of different row counts share it),
 which changes no value, since every op is elementwise over the buffer.
 All ops sum; a sum whose other terms are exact zeros (an owner-masked
 gather) is exact.
@@ -104,46 +109,56 @@ class Collectives:
         return out
 
     # -------------------------------------------------------------- trees
-    def _by_dtype(self, tensors: list, rows: bool, op, what: str):
+    def _by_dtype(self, tensors: list, rows: Optional[str], op, what: str):
         """Run ``op`` once per dtype over the tensors flattened into one
-        buffer ([k, sum of row sizes] with ``rows``, else 1-D) and split
-        the result back into the tensors' shapes."""
+        1-D buffer and split the result back into the tensors' shapes.
+        ``rows`` 'gather': each rank's tensors [k_i, ...] side by side,
+        the result every rank's in rank order, [n * k_i, ...] each;
+        'scatter': each tensor [n * k_i, ...] laid out rank block by
+        rank block, this rank's rows [k_i, ...] of each back; None: the
+        op is elementwise over the buffer."""
         out: list[Optional[torch.Tensor]] = [None] * len(tensors)
         groups: dict = {}
         for i, t in enumerate(tensors):
             groups.setdefault(t.dtype, []).append(i)
+        n = self.size
         for idx in groups.values():
             ts = [tensors[i] for i in idx]
-            if rows:
-                k = ts[0].shape[0]
-                flat = (ts[0].reshape(k, -1) if len(ts) == 1 else
-                        torch.cat([t.reshape(k, -1) for t in ts], dim=1))
+            if rows == "scatter":
+                flat = torch.cat([t.reshape(n, -1) for t in ts],
+                                 dim=1).reshape(-1)
                 res = op(flat, what)
-                widths = [t[0].numel() if k else 0 for t in ts]
-                parts = torch.split(res, widths, dim=1)
+                parts = torch.split(res, [t.numel() // n for t in ts])
                 for i, t, p in zip(idx, ts, parts):
-                    out[i] = p.reshape((res.shape[0],)
-                                       + tuple(t.shape[1:])).contiguous()
+                    out[i] = p.reshape((t.shape[0] // n,)
+                                       + tuple(t.shape[1:]))
             else:
                 # a fresh buffer, even of one tensor: the op may write it
                 flat = torch.cat([t.reshape(-1) for t in ts])
                 res = op(flat, what)
-                parts = torch.split(res, [t.numel() for t in ts])
-                for i, t, p in zip(idx, ts, parts):
-                    out[i] = p.reshape(t.shape)
+                if rows == "gather":
+                    parts = torch.split(res.reshape(n, -1),
+                                        [t.numel() for t in ts], dim=1)
+                    for i, t, p in zip(idx, ts, parts):
+                        out[i] = p.reshape((n * t.shape[0],)
+                                           + tuple(t.shape[1:]))
+                else:
+                    parts = torch.split(res, [t.numel() for t in ts])
+                    for i, t, p in zip(idx, ts, parts):
+                        out[i] = p.reshape(t.shape)
         return out
 
     def all_reduce_tree(self, tensors: list, what: str) -> list:
-        return self._by_dtype(tensors, False, self._all_reduce_, what)
+        return self._by_dtype(tensors, None, self._all_reduce_, what)
 
     def reduce_scatter_tree(self, tensors: list, what: str) -> list:
         """Each tensor [n * k, ...] -> this rank's [k, ...] rows of the
         sum."""
-        return self._by_dtype(tensors, True, self.reduce_scatter, what)
+        return self._by_dtype(tensors, "scatter", self.reduce_scatter, what)
 
     def all_gather_tree(self, tensors: list, what: str) -> list:
         """Each tensor [k, ...] -> every rank's rows, [n * k, ...]."""
-        return self._by_dtype(tensors, True, self.all_gather, what)
+        return self._by_dtype(tensors, "gather", self.all_gather, what)
 
 
 def census_by_op(census: dict) -> dict:

@@ -1,10 +1,11 @@
-"""Tensor and expert parallelism over a mesh's ``model`` axis.
+"""Tensor and expert parallelism over a mesh's ``model`` axis, and FSDP
+over its ``data`` axis.
 
 The JAX package gets its model axis from GSPMD: ``param_specs`` places
 the weights and XLA inserts the collectives.  The port writes the
 partitioned forward and backward itself.  Each rank holds its shard of
 every sharded leaf as a plain contiguous tensor (``sharding.specs``:
-``model_shard_plan``, ``shard_params``), the kernels take those shards
+``shard_plan``, ``shard_params``), the kernels take those shards
 as they take whole leaves, and every value that crosses the ``model``
 axis goes through the mesh's ``model_comm`` (a
 :class:`~repro_torch.sharding.collectives.Collectives`, census keys
@@ -19,12 +20,20 @@ Partial sums are reduced in float32 and rounded to the input's dtype
 once, after the sum.  With a ``model`` axis of 1 none of them takes a
 collective and the model code runs the unsharded ops.
 
+Over ``data`` a leaf whose plan splits it holds this rank's block of
+rows (FSDP, the reference's ``data`` spec components): the round
+gathers it whole at use (:func:`gather_from_data`, over the mesh's
+``data_comm``) and hands each rank its block of the gradient, the
+blocks of the sum over ranks when each rank's minibatch differs, its
+own slice when the minibatch is replicated.
+
 Which units split is the whole-unit rule (:func:`sharded_units`): an
 attention block, a dense FFN, a shared-expert FFN, an MoE expert stack
 or a vocab table splits over ``m`` ranks only where the split falls on
 whole heads, experts, hidden columns or vocab rows; otherwise the unit's
 leaves stay whole on every rank and the unit runs whole there, which
-computes the same values.  (GSPMD can also split ``wk``'s columns inside
+computes the same values.  A stage model's dense ``lin/w`` (the ``lin``
+unit) splits its columns wherever they divide ``m``.  (GSPMD can also split ``wk``'s columns inside
 a head, as ``shard_if_divisible`` allows; explicit code cannot.)
 """
 from __future__ import annotations
@@ -34,9 +43,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.utils.tree import map_with_path, tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
 
-UNITS = ("attn", "ffn", "shared_ffn", "moe", "vocab")
+UNITS = ("attn", "ffn", "shared_ffn", "moe", "vocab", "lin")
 
 # leaf path -> the unit it belongs to; leaves of no unit (norms, the
 # router, biases) are replicated on every rank
@@ -46,6 +55,7 @@ _UNIT_RULES = (
     (r"(^|/)ffn/(w_gate|w_up|w_down)$", "ffn"),
     (r"moe/(w_gate|w_up|w_down)$", "moe"),
     (r"(^|/)(embed/table|lm_head/w)$", "vocab"),
+    (r"(^|/)lin/w$", "lin"),
 )
 
 def unit_of(path: str) -> Optional[str]:
@@ -60,10 +70,15 @@ def sharded_units(cfg, sizes) -> dict:
     """The whole-unit rule: {unit: whether it splits over the ``model``
     axis of a mesh of ``sizes`` (axis name -> size)}.  Reads the
     config's shapes only.  Raises for a family whose step has no model
-    axis yet."""
+    axis yet.  ``cfg`` None is a stage model (``models.cnn``), which has
+    no config: its ``lin`` unit may split, and each ``lin/w`` does where
+    its columns divide the axis (:meth:`TensorParallel.splits`)."""
     m = sizes.get("model", 1)
     out = dict.fromkeys(UNITS, False)
     if m == 1:
+        return out
+    if cfg is None:
+        out["lin"] = True
         return out
     if cfg.family in ("ssm", "hybrid", "audio"):
         raise NotImplementedError(
@@ -95,20 +110,20 @@ class TensorParallel:
         self.rank = 0 if comm is None else comm.rank
 
     @classmethod
-    def from_mesh(cls, mesh, cfg) -> "TensorParallel":
+    def from_mesh(cls, mesh, cfg=None) -> "TensorParallel":
+        """The mesh's model axis for a transformer of ``cfg``, or for a
+        stage model (``cfg`` None)."""
         return cls(mesh.model_comm, sharded_units(cfg, mesh.shape))
 
     def on(self, unit: str) -> bool:
         """Whether ``unit`` runs split over more than one rank."""
         return self.size > 1 and self.units[unit]
 
-    def sharded_leaves(self, tree) -> list:
-        """For each leaf of a params-like tree (a gradient tree, say), in
-        ``tree_leaves`` order: whether this rank holds only a shard."""
-        def one(path, leaf):
-            unit = unit_of(path)
-            return unit is not None and self.on(unit)
-        return tree_leaves(map_with_path(one, tree))
+    def splits(self, n_out: int) -> bool:
+        """Whether a stage model's ``lin/w`` of ``n_out`` columns is split
+        (column-parallel): where the columns divide the axis, as
+        ``shard_if_divisible`` reads the ``lin/w`` spec."""
+        return self.on("lin") and n_out % self.size == 0
 
 
 def _on(tp: Optional[TensorParallel]) -> bool:
@@ -156,6 +171,77 @@ class _GatherFromModel(torch.autograd.Function):
                 None, None, None)
 
 
+class _GatherFromData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, dims, sum_over, *xs):
+        ctx.comm, ctx.dims, ctx.sum_over = comm, dims, sum_over
+        ctx.meta = [(x.shape, x.dtype, x.device) for x in xs]
+        # a leaf at a time: the gathered copy is the only whole one held
+        return tuple(comm.all_gather(x.movedim(d, 0), "weights")
+                     .movedim(0, d).contiguous() for x, d in zip(xs, dims))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        comm, dims = ctx.comm, ctx.dims
+        out = []
+        for g, d, (s, dt, dev) in zip(gs, dims, ctx.meta):
+            if g is None:
+                out.append(torch.zeros(s, dtype=dt, device=dev))
+            elif ctx.sum_over is not None:
+                (blk,) = reduce_to_blocks(comm, ctx.sum_over, [g.float()],
+                                          [d], "wgrads")
+                out.append(blk.to(dt).contiguous())
+            else:
+                out.append(g.narrow(d, comm.rank * s[d], s[d]).contiguous())
+        return (None, None, None) + tuple(out)
+
+
+def reduce_to_blocks(comm, sum_over, tensors: list, dims, what: str
+                     ) -> list:
+    """Each rank's block (along ``dims``, over the ``data`` axis' ``comm``)
+    of the sum over the ranks of ``sum_over`` of whole ``tensors``: one
+    ``reduce_scatter`` per dtype when the partial sums lie on the data
+    axis' ranks alone (``sum_over`` is ``comm``), else (a ``pod`` axis
+    beside it) one ``all_reduce`` over ``sum_over`` and the rank's
+    block."""
+    if sum_over is comm:
+        parts = comm.reduce_scatter_tree(
+            [t.movedim(d, 0) for t, d in zip(tensors, dims)], what)
+        return [p.movedim(0, d) for p, d in zip(parts, dims)]
+    sums = sum_over.all_reduce_tree(list(tensors), what)
+    return [t.narrow(d, comm.rank * (t.shape[d] // comm.size),
+                     t.shape[d] // comm.size)
+            for t, d in zip(sums, dims)]
+
+
+def gather_from_data(comm, tree, plan, sum_over=None):
+    """FSDP's gather at use: ``tree`` (a params tree whose leaves split
+    over ``data`` hold this rank's block, as ``plan`` says) with those
+    leaves all-gathered over ``comm`` (the mesh's ``data_comm``), one
+    call a leaf (census ``all_gather/weights``; a leaf at a time, so no
+    buffer of the whole tree is held beside the gathered leaves).  The
+    backward gives each rank its block of the whole gradient: with
+    ``sum_over`` (the collectives of the ranks whose minibatches differ,
+    each gradient a partial sum) the blocks of the sum over them, in
+    float32, a call a leaf (:func:`reduce_to_blocks`, census
+    ``reduce_scatter/wgrads``), rounded to the leaf's dtype after the
+    sum; without (the same minibatch on every rank, the whole gradient
+    on each) the rank's own block, with no collective.  ``comm`` None,
+    or no leaf split: ``tree`` as it is."""
+    if comm is None:
+        return tree
+    leaves, shards = tree_leaves(tree), tree_leaves(plan)
+    idx = [i for i, s in enumerate(shards) if s.ddim is not None]
+    if not idx:
+        return tree
+    got = _GatherFromData.apply(comm, tuple(shards[i].ddim for i in idx),
+                                sum_over, *(leaves[i] for i in idx))
+    leaves = list(leaves)
+    for i, g in zip(idx, got):
+        leaves[i] = g
+    return tree_unflatten_like(tree, leaves)
+
+
 def copy_to_model(tp: Optional[TensorParallel], *xs,
                   what: str = "act_grad"):
     """Each of ``xs`` as it is, whose gradients, partial on each rank
@@ -185,17 +271,39 @@ def gather_from_model(tp: Optional[TensorParallel], x, what: str,
     return _GatherFromModel.apply(x, tp.comm, what, dim % x.dim())
 
 
-def global_norm(grads, tp: Optional[TensorParallel] = None):
-    """The global L2 norm of a gradient tree whose sharded leaves (on a
-    model axis) hold this rank's shard: their squares are summed over
-    the axis in one all-reduce, the replicated leaves' counted once.
-    Off the axis every leaf is replicated: the unsharded arithmetic."""
+def global_norm(grads, tp: Optional[TensorParallel] = None, plan=None,
+                data=None):
+    """The global L2 norm of a gradient tree whose split leaves hold this
+    rank's block: each block's squares count once.  ``plan`` (a
+    ``sharding.specs`` plan of the tree) says which leaves split over
+    the model axis (``tp``) and over ``data`` (where ``data``, the data
+    axis' collectives, is given).  The squares of the model-split leaves
+    are summed over the model axis in one all-reduce (with those split
+    over both axes beside them), those of the data-split leaves over
+    ``data`` in one more; the replicated leaves' are counted once.
+    Without a plan every leaf is whole: the unsharded arithmetic."""
     leaves = tree_leaves(grads)
-    flags = (tp.sharded_leaves(grads) if _on(tp)
-             else [False] * len(leaves))
+    shards = tree_leaves(plan) if plan is not None else [None] * len(leaves)
+    mflags = [s is not None and _on(tp) and s.dim is not None
+              for s in shards]
+    dflags = [s is not None and data is not None and s.ddim is not None
+              for s in shards]
     sq = lambda g: torch.sum(torch.square(g.float()))
-    shard = [sq(g) for g, f in zip(leaves, flags) if f]
-    norm2 = sum(sq(g) for g, f in zip(leaves, flags) if not f)
-    if shard:
-        norm2 = norm2 + tp.comm.all_reduce(sum(shard), "grad_norm")
+
+    def part(m, d):
+        return [sq(g) for g, fm, fd in zip(leaves, mflags, dflags)
+                if fm == m and fd == d]
+    norm2 = sum(part(False, False))
+    m_only, d_only, both = part(True, False), part(False, True), \
+        part(True, True)
+    if both:
+        zero = torch.zeros((), dtype=torch.float32, device=both[0].device)
+        red = tp.comm.all_reduce(torch.stack([sum(m_only, zero),
+                                              sum(both)]), "grad_norm")
+        norm2 = norm2 + red[0]
+        d_only = d_only + [red[1]]
+    elif m_only:
+        norm2 = norm2 + tp.comm.all_reduce(sum(m_only), "grad_norm")
+    if d_only:
+        norm2 = norm2 + data.all_reduce(sum(d_only), "grad_norm")
     return torch.sqrt(norm2)

@@ -1,4 +1,5 @@
-"""Path-regex sharding rules (t5x-style) for every repro model.
+"""Path-regex sharding rules (t5x-style) for every repro model, and the
+placement they give a rank.
 
 Port of the spec logic of ``repro/sharding/specs.py``.  A spec is a
 tuple with one entry per dim of a leaf: an axis name, a tuple of axis
@@ -15,16 +16,17 @@ handled by role:
                          ('pod','data'); the 'data' FSDP component inside
                          the rule is dropped (an axis may appear once).
 
-The mesh path uses the cohort's split (:func:`local_slots` is the slot
-range a rank owns, the port's counterpart of ``slot_shard_map``) and,
-for the transformer train and prefill steps, the specs' ``model`` axis:
-:func:`model_shard_plan` reads it, under the whole-unit rule of
-``sharding.parallel``, into each leaf's split dimension and this rank's
-range, and :func:`shard_params` / :func:`gather_params` move a tree
-between whole and this rank's shards.  The specs' ``data`` components
-(FSDP) are computed but not placed: the batch axes keep the weights
-whole on every rank, and the layout pins of the JAX package
-(``constrain_*``) have no counterpart.
+The reference places every weight 2-D by these rules, FSDP over
+``data`` and tensor-parallel over ``model``; GSPMD then inserts the
+collectives.  The port places plain blocks: :func:`shard_plan` reads a
+tree's specs into each leaf's :class:`Shard`, the dimension it splits
+over ``model`` (under the whole-unit rule of ``sharding.parallel``) and
+over ``data`` (roles 'server' and 'full'), and this rank's range of
+each; :func:`shard_params` / :func:`gather_params` move a tree between
+whole and this rank's blocks.  The round gathers the ``data`` blocks at
+use (``sharding.parallel.gather_from_data``); the cohort's split is
+:func:`local_slots`, the port's counterpart of ``slot_shard_map``.  The
+layout pins of the JAX package (``constrain_*``) have no counterpart.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ import re
 from typing import Optional, Sequence
 
 from repro_torch.sharding.parallel import sharded_units, unit_of
-from repro_torch.utils.tree import map_with_path, tree_map
+from repro_torch.utils.tree import (map_with_path, tree_leaves, tree_map,
+                                    tree_unflatten_like)
 
 BATCH_AXES = ("pod", "data")
 
@@ -264,69 +267,126 @@ def train_state_shardings(state, mesh, moe_shard_mode: str = "expert",
         _field(state.client_global, "full"))
 
 
-# ------------------------------------------------------------ model axis
+# ---------------------------------------------------------- the placement
 class Shard:
-    """How a leaf lies on the ``model`` axis: split along ``dim`` with
-    this rank holding ``[lo, hi)`` of it, or whole (``dim`` None)."""
-    __slots__ = ("dim", "lo", "hi")
+    """How a leaf lies on a mesh: split along ``dim`` over the ``model``
+    axis, this rank holding ``[lo, hi)`` of it, and along ``ddim`` over
+    ``data`` (FSDP), this rank holding ``[dlo, dhi)`` of it; a None dim
+    is whole on that axis.  The two dims are never the same (an axis
+    appears once in a spec), so the cuts commute."""
+    __slots__ = ("dim", "lo", "hi", "ddim", "dlo", "dhi")
 
-    def __init__(self, dim: Optional[int] = None, lo: int = 0, hi: int = 0):
+    def __init__(self, dim: Optional[int] = None, lo: int = 0, hi: int = 0,
+                 ddim: Optional[int] = None, dlo: int = 0, dhi: int = 0):
         self.dim, self.lo, self.hi = dim, lo, hi
+        self.ddim, self.dlo, self.dhi = ddim, dlo, dhi
+
+    def model_only(self) -> "Shard":
+        """The same leaf whole over ``data`` (a cohort slot's copy)."""
+        return Shard(self.dim, self.lo, self.hi)
+
+    def stacked(self) -> "Shard":
+        """The leaf of a [N, ...] stack of copies (role 'client': the
+        cohort or the per-client store): its model split one dim on,
+        whole over ``data``."""
+        return Shard(None if self.dim is None else self.dim + 1,
+                     self.lo, self.hi)
 
 
-class _ModelOnly:
-    def __init__(self, m: int):
-        self.shape = {"model": m}
+class _Sizes:
+    def __init__(self, shape: dict):
+        self.shape = shape
 
 
-def model_shard_plan(params, cfg, sizes, coords, role: str = "full",
-                     local: bool = False):
+def shard_plan(params, sizes, coords, role: str = "full", cfg=None,
+               local: bool = False):
     """For each leaf of ``params`` (whole leaves, on any device, or
-    anything with a ``shape``): a :class:`Shard`, the dimension its
-    :func:`param_specs` spec puts on the ``model`` axis and the range
-    this rank (``coords['model']``) holds, or whole.  A leaf splits only
-    when its unit does (``sharding.parallel.sharded_units``), so a split
-    falls on whole heads, experts, hidden columns or vocab rows.  ``role``
-    is the specs' ('client' for a [C, ...] cohort stack).  ``local``
-    reads ``params`` as this rank's shards (a split dim 1/m of the
-    whole), the plan they were cut by."""
+    anything with a ``shape``): a :class:`Shard`, the placement of
+    :func:`param_specs` on a mesh of ``sizes`` (axis name -> size) for
+    the rank at ``coords``.
+
+    ``model``: the dimension its spec puts on the axis, where its unit
+    splits (``sharding.parallel.sharded_units``): a transformer unit
+    (``cfg``, an ``ArchConfig``) splits only on whole heads, experts,
+    hidden columns or vocab rows; a stage model's ``lin`` unit (``cfg``
+    None) splits each ``lin/w`` whose columns divide the axis, as
+    ``shard_if_divisible`` reads its spec.  ``data`` (FSDP), for roles
+    'server' and 'full' only: the spec's ``data`` dimension where it
+    divides the axis ('client', a [C, ...] stack, drops ``data`` as
+    :func:`param_specs` does).  ``local`` reads ``params`` as this
+    rank's model shards (a split dim 1/m of the whole), the plan they
+    were cut by; it places nothing over ``data``."""
     m, r = sizes.get("model", 1), coords.get("model", 0)
+    d, q = sizes.get("data", 1), coords.get("data", 0)
     units = sharded_units(cfg, sizes)
-    mode = cfg.moe.shard_mode if cfg.moe is not None else "expert"
+    mode = (cfg.moe.shard_mode if cfg is not None and cfg.moe is not None
+            else "expert")
     rules = MOE_FFN_MODE_RULES + RULES if mode == "ffn" else RULES
-    mesh = _ModelOnly(1 if local else m)
+    on_model = _Sizes({"model": 1 if local else m})
+    on_data = _Sizes({"data": d})
+    fsdp = d > 1 and role in ("server", "full") and not local
 
     def one(path, leaf):
+        shape = tuple(leaf.shape)
+        s = Shard()
         unit = unit_of(path)
-        if unit is None or not units[unit]:
-            return Shard()
-        spec = _spec_for(path, tuple(leaf.shape), mesh, rules, role)
-        if "model" not in spec:
-            raise ValueError(f"{path} {tuple(leaf.shape)}: its unit {unit} "
-                             f"splits over {m} ranks but its spec {spec} "
-                             "does not")
-        dim = spec.index("model")
-        per = leaf.shape[dim] if local else leaf.shape[dim] // m
-        return Shard(dim, r * per, (r + 1) * per)
+        if unit is not None and units[unit]:
+            spec = _spec_for(path, shape, on_model, rules, role)
+            if "model" in spec:
+                s.dim = spec.index("model")
+                per = shape[s.dim] if local else shape[s.dim] // m
+                s.lo, s.hi = r * per, (r + 1) * per
+            elif unit != "lin":
+                raise ValueError(f"{path} {shape}: its unit {unit} splits "
+                                 f"over {m} ranks but its spec {spec} "
+                                 "does not")
+        if fsdp:
+            spec = _spec_for(path, shape, on_data, rules, role)
+            if "data" in spec:
+                s.ddim = spec.index("data")
+                per = shape[s.ddim] // d
+                s.dlo, s.dhi = q * per, (q + 1) * per
+        return s
     return map_with_path(one, params)
 
 
-def shard_params(full, plan):
-    """This rank's part of a whole tree under ``plan``: a contiguous copy
-    of each split leaf's slice (the kernels take contiguous leaves), each
-    whole leaf as it is."""
-    return tree_map(lambda x, s: x if s.dim is None else
-                    x.narrow(s.dim, s.lo, s.hi - s.lo).contiguous(),
-                    full, plan)
+def _cut(x, s: Shard, model: bool, data: bool):
+    out = x
+    if model and s.dim is not None:
+        out = out.narrow(s.dim, s.lo, s.hi - s.lo)
+    if data and s.ddim is not None:
+        out = out.narrow(s.ddim, s.dlo, s.dhi - s.dlo)
+    return x if out is x else out.contiguous()
 
 
-def gather_params(local, plan, comm):
-    """The whole tree from every rank's part: each split leaf
-    all-gathered over ``comm`` (the mesh's ``model_comm``) along its
-    dimension, in rank order."""
-    return tree_map(lambda x, s: x if s.dim is None else comm.all_gather(
-        x.movedim(s.dim, 0), "params").movedim(0, s.dim).contiguous(),
-        local, plan)
+def shard_params(full, plan, model: bool = True, data: bool = True):
+    """This rank's part of a tree under ``plan``: a contiguous copy of
+    each split leaf's block (the kernels take contiguous leaves; a leaf
+    split over both axes is a 2-D block), each whole leaf as it is.
+    ``model``/``data`` pick the axes to cut (a tree already cut over
+    ``model`` takes ``model=False``)."""
+    return tree_map(lambda x, s: _cut(x, s, model, data), full, plan)
+
+
+def gather_params(local, plan, comm=None, data_comm=None):
+    """The whole tree from every rank's part: the leaves split over
+    ``data`` all-gathered over ``data_comm`` along their data dim in
+    one call per dtype (census ``all_gather/weights``), then each leaf
+    split over ``model`` all-gathered over ``comm`` (the mesh's
+    ``model_comm``) along its dimension, in rank order.  An axis whose
+    collectives are None is not gathered (a tree cut over one axis, or
+    one whose blocks over an axis stay)."""
+    leaves, shards = tree_leaves(local), tree_leaves(plan)
+    idx = [i for i, s in enumerate(shards) if s.ddim is not None]
+    if idx and data_comm is not None:
+        got = data_comm.all_gather_tree(
+            [leaves[i].movedim(shards[i].ddim, 0) for i in idx], "weights")
+        for i, g in zip(idx, got):
+            leaves[i] = g.movedim(0, shards[i].ddim).contiguous()
+    leaves = [x if s.dim is None or comm is None else comm.all_gather(
+        x.movedim(s.dim, 0), "params").movedim(0, s.dim).contiguous()
+        for x, s in zip(leaves, shards)]
+    return tree_unflatten_like(local, leaves)
 
 
 def _entity_map(fn, entity, plan):
@@ -338,12 +398,14 @@ def _entity_map(fn, entity, plan):
     return type(entity)(fn(entity.params, plan), opt, entity.step)
 
 
-def shard_entity(entity, plan):
+def shard_entity(entity, plan, model: bool = True, data: bool = True):
     """:func:`shard_params` of an entity's params and optimizer moments."""
-    return _entity_map(shard_params, entity, plan)
+    return _entity_map(lambda t, p: shard_params(t, p, model, data),
+                       entity, plan)
 
 
-def gather_entity(entity, plan, comm):
+def gather_entity(entity, plan, comm=None, data_comm=None):
     """:func:`gather_params` of an entity's params and optimizer
     moments."""
-    return _entity_map(lambda t, p: gather_params(t, p, comm), entity, plan)
+    return _entity_map(lambda t, p: gather_params(t, p, comm, data_comm),
+                       entity, plan)

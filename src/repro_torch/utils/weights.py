@@ -6,10 +6,10 @@ CNN zoo's stage lists, a ``Transformer`` parameter dict with its stacked
 [L, ...] blocks, and the ``EntityState``/``TrainState`` around them.  The
 port keeps the same layout, so carrying is a leafwise conversion; the
 NamedTuples ``TrainState`` and ``EntityState`` are matched by field
-name, so nothing of the JAX package is imported here.  On a mesh's
-``model`` axis a rank holds shards (``sharding.specs.model_shard_plan``):
-:func:`to_shards` carries whole weights into a rank's shards and
-:func:`from_shards` a rank's shards back to a whole numpy tree.
+name, so nothing of the JAX package is imported here.  On a mesh a rank
+holds blocks over ``model`` and ``data`` (``sharding.specs.shard_plan``):
+:func:`to_shards` carries whole weights into a rank's blocks and
+:func:`from_shards` a rank's blocks back to a whole numpy tree.
 """
 from __future__ import annotations
 
@@ -71,10 +71,11 @@ def to_shards(tree: Any, plan, device="cpu") -> Any:
     return shard_params(to_torch(tree, device), plan)
 
 
-def from_shards(local: Any, plan, comm) -> Any:
-    """A rank's shards (a params tree or an ``EntityState``) -> the whole
+def from_shards(local: Any, plan, comm, data_comm=None) -> Any:
+    """A rank's blocks (a params tree or an ``EntityState``) -> the whole
     tree as numpy arrays, gathered over ``comm`` (the mesh's
-    ``model_comm``; every rank of the axis takes part)."""
+    ``model_comm``) and, for blocks over ``data``, ``data_comm`` (the
+    mesh's); every rank of each axis takes part."""
     if isinstance(local, EntityState):
-        return to_numpy(gather_entity(local, plan, comm))
-    return to_numpy(gather_params(local, plan, comm))
+        return to_numpy(gather_entity(local, plan, comm, data_comm))
+    return to_numpy(gather_params(local, plan, comm, data_comm))

@@ -297,13 +297,14 @@ def test_cuda_mesh_wider_than_the_cards_raises(monkeypatch):
                                                      "model"))])
 def test_model_axis_raises_naming_9b(shape, axes):
     """The mesh takes a model axis (here it asks for the world of ranks it
-    needs); the Engine still refuses one, naming what is left of 9b."""
+    needs), and the Engine's config now takes one too: item 9b's first
+    two parts (the model axis, FSDP over data) are ported, and only the
+    combinations in ``MESH_9B`` still raise naming it."""
     from repro_torch.launch.mesh import make_engine_mesh
     with pytest.raises(RuntimeError, match="torchrun"):
         make_engine_mesh(shape, axes, "cpu")
-    with pytest.raises(NotImplementedError,
-                       match="item 9b, the Engine's model axis"):
-        ExperimentConfig(mesh_shape=shape, mesh_axes=axes).validate()
+    cfg = ExperimentConfig(mesh_shape=shape, mesh_axes=axes)
+    assert cfg.validate() is cfg
 
 
 MESH_WITH = {"pipeline": dict(pipeline_depth=1),

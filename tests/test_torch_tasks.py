@@ -18,6 +18,7 @@ import argparse
 
 import numpy as np
 import pytest
+import torch
 
 from repro.api.tasks import TASKS as J_TASKS
 from repro.api.tasks import build_task as j_build
@@ -31,6 +32,18 @@ EXPECT = {"image": ("femnist_cnn@cut2", "accuracy"),
           "cifar": ("resnet9@cut2", "accuracy"),
           "charlm": ("shakespeare_lstm@cut2", "accuracy"),
           "gaze": ("mlp@cut1", "angular_deg")}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread in this process: the LSTM's step loop and the
+    small convolutions gain nothing from more, and beside the suite's
+    other workers more threads only contend (each worker would start
+    one a core)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def test_registry_has_the_reference_tasks():

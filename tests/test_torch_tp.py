@@ -55,8 +55,8 @@ from repro_torch.launch.steps import build_prefill_step, build_train_step
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import Transformer
 from repro_torch.sharding.parallel import sharded_units, unit_of
-from repro_torch.sharding.specs import (gather_params, model_shard_plan,
-                                        param_specs, shard_params)
+from repro_torch.sharding.specs import (gather_params, param_specs,
+                                        shard_params, shard_plan)
 from repro_torch.utils.tree import (tree_leaves, tree_leaves_with_path,
                                     tree_map)
 from repro_torch.utils.weights import (entity_from_reference, from_shards,
@@ -123,7 +123,8 @@ def test_whole_unit_rule_and_plan_at_published_shapes(arch, m, meta_init):
     units = sharded_units(cfg, sizes)
     params = (EncDec if cfg.family == "audio" else Transformer).init(
         MetaGen(), cfg)
-    plan = model_shard_plan(params, cfg, sizes, {"data": 0, "model": m - 1})
+    plan = shard_plan(params, sizes, {"data": 0, "model": m - 1}, "full",
+                      cfg)
     specs = param_specs(params, _Sizes(m), "full", cfg.moe.shard_mode
                         if cfg.moe is not None else "expert")
     n_split = 0
@@ -182,14 +183,14 @@ def test_shard_and_gather_round_trip_at_smoke_width(arch, m):
     full = Transformer.init(torch.Generator().manual_seed(0), cfg)
     stacked = tree_map(lambda t: torch.stack([t, t + 1]), full)
     for tree, role in ((full, "full"), (stacked, "client")):
-        plans = [model_shard_plan(tree, cfg, sizes, {"model": r}, role)
+        plans = [shard_plan(tree, sizes, {"model": r}, role, cfg)
                  for r in range(m)]
         shards = [shard_params(tree, p) for p in plans]
         for r, s in enumerate(shards):
             assert all(t.is_contiguous() for t in tree_leaves(s))
             # the plan read back from the shards themselves
-            again = model_shard_plan(s, cfg, sizes, {"model": r}, role,
-                                     local=True)
+            again = shard_plan(s, sizes, {"model": r}, role, cfg,
+                               local=True)
             assert [(p.dim, p.lo, p.hi) for p in tree_leaves(again)] == [
                 (p.dim, p.lo, p.hi) for p in tree_leaves(plans[r])]
         for r in range(m):

@@ -16,9 +16,11 @@ from repro_torch.core.split import make_transformer_task
 from repro_torch.launch.mesh import cohort_size, make_engine_mesh
 from repro_torch.launch.steps import build_prefill_step, build_train_step
 from repro_torch.models.transformer import Transformer
+from repro_torch.models.module import SHAPES
 from repro_torch.sharding.parallel import TensorParallel
-from repro_torch.sharding.specs import (local_slots, model_shard_plan,
-                                        shard_entity, shard_params)
+from repro_torch.sharding.specs import (gather_params, local_slots,
+                                        shard_entity, shard_params,
+                                        shard_plan)
 from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
 from repro_torch.utils.weights import from_shards
 
@@ -51,24 +53,32 @@ def digest(tree) -> str:
     return h.hexdigest()
 
 
+def model_axis(mesh) -> dict:
+    """The mesh's sizes with every axis but ``model`` dropped: a plan of
+    them cuts over ``model`` alone."""
+    return {"model": mesh.shape.get("model", 1)}
+
+
 def _plans(mesh, cfg, server, clients):
-    """This rank's shard plans of the whole server entity and of the
+    """This rank's shard plans of the whole server entity (its FSDP
+    blocks over ``data`` too, as the train step places it) and of the
     whole [C, ...] client stack."""
-    return (model_shard_plan(server.params, cfg, mesh.shape, mesh.coords),
-            model_shard_plan(clients.params, cfg, mesh.shape, mesh.coords,
-                             "client"))
+    return (shard_plan(server.params, mesh.shape, mesh.coords, "server",
+                       cfg),
+            shard_plan(clients.params, model_axis(mesh), mesh.coords,
+                       "client", cfg))
 
 
 def grads(mesh, cfg, server, clients, seed):
     """The end-to-end loss of slot 0's batch of ``make_batch(seed)`` and
     its gradients in every leaf of both halves, on this rank's shards of
     the carried whole weights, gathered whole (numpy)."""
-    tp = TensorParallel.from_mesh(mesh, cfg)
-    task = make_transformer_task(cfg, tp)
-    ps = model_shard_plan(server.params, cfg, mesh.shape, mesh.coords)
+    task = make_transformer_task(cfg, mesh=mesh)
+    ps = shard_plan(server.params, model_axis(mesh), mesh.coords, "full",
+                    cfg)
     client = tree_unflatten_like(clients.params,
                                  [t[0] for t in tree_leaves(clients.params)])
-    pc = model_shard_plan(client, cfg, mesh.shape, mesh.coords)
+    pc = shard_plan(client, model_axis(mesh), mesh.coords, "full", cfg)
     cp = shard_params(client, pc)
     sp = shard_params(server.params, ps)
     xs, ys = build_train_step(cfg, SHAPE, cohort=C, device="cpu"
@@ -83,12 +93,16 @@ def grads(mesh, cfg, server, clients, seed):
 
 def prefill(mesh, cfg, seed):
     """The prefill step's bf16 logits and the float32 forward's
-    last-position logits on this rank's shards of the seed's draw."""
+    last-position logits on this rank's shards of the seed's draw (its
+    FSDP blocks gathered over ``data`` first, as the step does)."""
     bundle = build_prefill_step(cfg, PREFILL, device="cpu", mesh=mesh)
     (params,), (batch,) = bundle.init_state(seed), bundle.make_batch(seed)
+    plan = shard_plan(Transformer.init(SHAPES, cfg), mesh.shape, mesh.coords,
+                      "full", cfg)
+    whole = gather_params(params, plan, None, mesh.data_comm)
     tp = TensorParallel.from_mesh(mesh, cfg)
     with torch.no_grad():
-        logits, _ = Transformer.forward(params, cfg, batch["tokens"], tp=tp)
+        logits, _ = Transformer.forward(whole, cfg, batch["tokens"], tp=tp)
     return {"step": bundle.fn(params, batch).float(), "f32": logits[:, -1]}
 
 
@@ -119,7 +133,7 @@ def rounds(mesh, cfg, server, clients, plans, n_rounds):
     if split is not None:
         c = type(c)(*(tree_unflatten_like(t, mesh.comm.all_gather_tree(
             tree_leaves(t), "test")) for t in c))
-    state = (from_shards(s, p_srv, mesh.model_comm),
+    state = (from_shards(s, p_srv, mesh.model_comm, mesh.data_comm),
              from_shards(c, p_cl, mesh.model_comm))
     return {"rows": rows, "census": census, "state": state,
             "digest": digest(tree_leaves(
