@@ -111,7 +111,23 @@ Phases, each of which ends the script with a non-zero exit on failure:
     prefill logits), full width at depth 4 against the unsharded run,
     and olmoe-1b-7b whole (16 blocks) for 3 rounds with exact launches,
     its census held to the count written beside ``tp_census``, peak
-    memory a card, rounds/s, tokens/s and the prefill.
+    memory a card, rounds/s, tokens/s and the prefill; with four cards
+    also on (2, 2), FSDP over ``data`` beside the model axis;
+26. the Engine on the reference's 2-D mesh, in a process of its own: a
+    (1, 1) mesh on the main path bit for bit the unsharded Engine; with
+    four cards (2, 2), (4, 1) and (1, 4), with two (1, 2): the main
+    path held to unsharded with exact launches and census, and the ten
+    programs on (2, 2);
+27. the Mamba-2, hybrid and whisper steps on the ``model`` axis, in a
+    process of its own: a (1, 1) mesh through the head-parallel code
+    for zamba2-1.2b whole and whisper-base whole (bf16, 3 rounds and
+    the prefill), bit for bit the unsharded steps with their launches;
+    ssd_scan and flash_attention at a rank's shapes on a model axis of
+    2 and 4; with four cards zamba2-1.2b and whisper-base whole on (1,
+    4) and (2, 2), whisper-base on (4, 1) (FSDP alone) and mamba2-2.7b
+    at depth 8 on (1, 4) (two cards: (1, 2)), each held to the unsharded
+    run, its planted fault (the B/C branch's gradient sum dropped in a
+    Mamba model) refused, its census held to ``ssm_tp_census``.
 
 It then prints the ``kernels`` JSON line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -543,6 +559,83 @@ def launch_floor(torch):
     return out
 
 
+def _qkv(torch, dev, gen, B, Sq, Sk, H, Hkv, D, dtype, fused):
+    """Random q, k, v drawn on ``gen``; ``fused``: strided slices of one
+    [B, S, 3, H, D] projection."""
+    if fused:           # one [B, S, 3, H, D] projection, sliced
+        t = torch.randn(B, Sq, 3, H, D, device=dev, generator=gen
+                        ).to(dtype)
+        return t[:, :, 0], t[:, :, 1], t[:, :, 2]
+    return (torch.randn(B, Sq, H, D, device=dev, generator=gen).to(dtype),
+            torch.randn(B, Sk, Hkv, D, device=dev, generator=gen
+                        ).to(dtype),
+            torch.randn(B, Sk, Hkv, D, device=dev, generator=gen
+                        ).to(dtype))
+
+
+def _attention_sensitivity(label, q, k, v):
+    """What dropping the keys of the last 128-row tile, or masking
+    each row's own key (j < i instead of j <= i), moves the plain
+    causal output by."""
+    from repro_torch.kernels import ref
+    want = ref.flash_attention_ref(q, k, v).float()
+    cut = k.shape[1] - 128
+    drop = ref.flash_attention_ref(q, k[:, :cut], v[:, :cut]).float()
+    shift = ref.flash_attention_ref(q[:, 1:], k[:, :-1], v[:, :-1]
+                                    ).float()
+    d_tile = float((drop - want).abs().max())
+    d_diag = float((shift - want[:, 1:]).abs().max())
+    print(f"flash_attention {label}: dropping the last key tile moves "
+          f"the plain output by {d_tile:.3e}, masking the diagonal off "
+          f"by one by {d_diag:.3e}; the bf16 tolerance is 2e-2")
+    if not min(d_tile, d_diag) > 2 * 2e-2:
+        raise AssertionError("flash_attention: the bf16 tolerance would "
+                             "not catch a dropped tile or diagonal")
+
+def attention_check(torch, dev, gen, B, Sq, Sk, H, Hkv, D, dtype,
+                    causal=True, window=None, cap=None, main=False,
+                    fused=False, library=False, note=""):
+    """One ``flash_attention`` check (see :func:`flash_checks`): random
+    q, k, v drawn on ``gen``, the kernel against its plain version, its
+    work counted as the (query, key) pairs the mask keeps, SDPA's time
+    with ``main`` or ``library``; ``note`` is added to the printed
+    shape."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import design, flash_attention
+    q, k, v = _qkv(torch, dev, gen, B, Sq, Sk, H, Hkv, D, dtype, fused)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    # the (query, key) pairs this mask keeps: the work the call does
+    i = torch.arange(Sq, device=dev)[:, None]
+    j = torch.arange(Sk, device=dev)[None, :]
+    keep = torch.ones(Sq, Sk, dtype=torch.bool, device=dev)
+    if causal:
+        keep &= j <= i
+    if window is not None:
+        keep &= i - j < window
+    pairs = int(keep.sum())
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    lib = None
+    if main or library:
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                     is_causal=causal)
+    if main and dtype == torch.bfloat16:
+        _attention_sensitivity(f"[{B}, {Sq}, {H}, {D}]", q, k, v)
+    kind = design(dtype, D)
+    row = check("flash_attention",
+                f"q[{B}, {Sq}, {H}, {D}] kv[{B}, {Sk}, {Hkv}, {D}] "
+                f"{str(dtype)[6:]} causal={causal} window={window} "
+                f"softcap={cap}" + (" fused-qkv" if fused else "")
+                + f" design={kind}" + note,
+                lambda: (flash_attention(q, k, v, **kw),),
+                lambda: (ref.flash_attention_ref(q, k, v, **kw),),
+                2e-2 if dtype == torch.bfloat16 else 2e-5, nbytes,
+                4 * B * H * D * pairs, library=lib, dtype=dtype)
+    row["design"] = kind
+    return row
+
+
 def flash_checks(torch, dev, gen):
     """``flash_attention`` against its plain version (tolerances of
     tests/test_kernels.py: 2e-2 bf16, 2e-5 float32): the olmoe round's
@@ -563,73 +656,9 @@ def flash_checks(torch, dev, gen):
     the plain bf16 output moves when the last key tile is dropped and
     when the diagonal is masked off by one, against 2e-2.  Returns the
     olmoe bf16 row."""
-    import torch.nn.functional as F
+    import functools
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import design, flash_attention
-
-    def qkv(B, Sq, Sk, H, Hkv, D, dtype, fused):
-        if fused:           # one [B, S, 3, H, D] projection, sliced
-            t = torch.randn(B, Sq, 3, H, D, device=dev, generator=gen
-                            ).to(dtype)
-            return t[:, :, 0], t[:, :, 1], t[:, :, 2]
-        return (torch.randn(B, Sq, H, D, device=dev, generator=gen).to(dtype),
-                torch.randn(B, Sk, Hkv, D, device=dev, generator=gen
-                            ).to(dtype),
-                torch.randn(B, Sk, Hkv, D, device=dev, generator=gen
-                            ).to(dtype))
-
-    def sensitivity(label, q, k, v):
-        """What dropping the keys of the last 128-row tile, or masking
-        each row's own key (j < i instead of j <= i), moves the plain
-        causal output by."""
-        want = ref.flash_attention_ref(q, k, v).float()
-        cut = k.shape[1] - 128
-        drop = ref.flash_attention_ref(q, k[:, :cut], v[:, :cut]).float()
-        shift = ref.flash_attention_ref(q[:, 1:], k[:, :-1], v[:, :-1]
-                                        ).float()
-        d_tile = float((drop - want).abs().max())
-        d_diag = float((shift - want[:, 1:]).abs().max())
-        print(f"flash_attention {label}: dropping the last key tile moves "
-              f"the plain output by {d_tile:.3e}, masking the diagonal off "
-              f"by one by {d_diag:.3e}; the bf16 tolerance is 2e-2")
-        if not min(d_tile, d_diag) > 2 * 2e-2:
-            raise AssertionError("flash_attention: the bf16 tolerance would "
-                                 "not catch a dropped tile or diagonal")
-
-    def attention(B, Sq, Sk, H, Hkv, D, dtype, causal=True, window=None,
-                  cap=None, main=False, fused=False, library=False):
-        q, k, v = qkv(B, Sq, Sk, H, Hkv, D, dtype, fused)
-        kw = dict(causal=causal, window=window, softcap=cap)
-        # the (query, key) pairs this mask keeps: the work the call does
-        i = torch.arange(Sq, device=dev)[:, None]
-        j = torch.arange(Sk, device=dev)[None, :]
-        keep = torch.ones(Sq, Sk, dtype=torch.bool, device=dev)
-        if causal:
-            keep &= j <= i
-        if window is not None:
-            keep &= i - j < window
-        pairs = int(keep.sum())
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        lib = None
-        if main or library:
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                         is_causal=causal)
-        if main and dtype == torch.bfloat16:
-            sensitivity(f"[{B}, {Sq}, {H}, {D}]", q, k, v)
-        kind = design(dtype, D)
-        row = check("flash_attention",
-                    f"q[{B}, {Sq}, {H}, {D}] kv[{B}, {Sk}, {Hkv}, {D}] "
-                    f"{str(dtype)[6:]} causal={causal} window={window} "
-                    f"softcap={cap}" + (" fused-qkv" if fused else "")
-                    + f" design={kind}",
-                    lambda: (flash_attention(q, k, v, **kw),),
-                    lambda: (ref.flash_attention_ref(q, k, v, **kw),),
-                    2e-2 if dtype == torch.bfloat16 else 2e-5, nbytes,
-                    4 * B * H * D * pairs, library=lib, dtype=dtype)
-        row["design"] = kind
-        return row
+    attention = functools.partial(attention_check, torch, dev, gen)
 
     main = attention(2, 2048, 2048, 16, 16, 128, torch.bfloat16, main=True)
     attention(2, 2048, 2048, 16, 16, 128, torch.float32)
@@ -674,6 +703,102 @@ def flash_checks(torch, dev, gen):
     return main
 
 
+def _ssd_inputs(torch, dev, gen, B, L, H, P, N, G, dtype, A, sliced):
+    """Inputs of a scan as the model makes them (see
+    :func:`ssd_checks`); ``sliced="rank"`` as a rank of a model axis
+    makes them, x whole and B, C column slices of one [B, L, 2 G N]
+    conv output."""
+    import torch.nn.functional as F
+    if sliced == "rank":
+        x = torch.randn(B, L, H, P, device=dev, generator=gen).to(dtype)
+        bc = torch.randn(B, L, 2 * G * N, device=dev, generator=gen
+                         ).to(dtype)
+        bm, cm = (t.reshape(B, L, G, N) for t in torch.split(
+            bc, [G * N, G * N], dim=-1))
+    elif sliced:        # column slices of one [B, L, conv_ch] tensor
+        flat = torch.randn(B, L, H * P + 2 * G * N, device=dev,
+                           generator=gen).to(dtype)
+        x, bm, cm = torch.split(flat, [H * P, G * N, G * N], dim=-1)
+        x = x.reshape(B, L, H, P)
+        bm, cm = bm.reshape(B, L, G, N), cm.reshape(B, L, G, N)
+    else:
+        x = torch.randn(B, L, H, P, device=dev, generator=gen).to(dtype)
+        bm = torch.randn(B, L, G, N, device=dev, generator=gen).to(dtype)
+        cm = torch.randn(B, L, G, N, device=dev, generator=gen).to(dtype)
+    dt = F.softplus(torch.randn(B, L, H, device=dev, generator=gen))
+    if A is None:
+        A = -torch.linspace(1.0, 16.0, H, device=dev)
+    return x, dt, A.to(device=dev, dtype=torch.float32), bm, cm
+
+
+def _ssd_sensitivity(torch, x, dt, A, bm, cm, chunk, want, scale):
+    """What dropping the diagonal term (C_i . B_i) dt_i x_i, or the
+    state carried into each chunk, moves the output by."""
+    from repro_torch.kernels import ref
+    dev = x.device
+    rep = x.shape[2] // bm.shape[2]
+    cb = torch.einsum("blgn,blgn->blg", cm.float(), bm.float())
+    diag = (cb.repeat_interleave(rep, dim=2) * dt)[..., None] * x.float()
+    h0 = torch.zeros((x.shape[0], x.shape[2], bm.shape[3], x.shape[3]),
+                     device=dev)
+    fresh = torch.cat([ref.ssd_chunk(h0, x[:, lo:lo + chunk],
+                                     dt[:, lo:lo + chunk], A,
+                                     bm[:, lo:lo + chunk],
+                                     cm[:, lo:lo + chunk])[0]
+                       for lo in range(0, x.shape[1], chunk)], dim=1)
+    return (float(diag.abs().max()) / scale,
+            float((fresh - want.float()).abs().max()) / scale)
+
+
+def ssd_check(torch, dev, gen, label, B, L, H, P, N, G, dtype, chunk,
+              A=None, sliced=False, main=False):
+    """One ``ssd_scan`` check (see :func:`ssd_checks`): the kernel against
+    its plain chunked version on inputs drawn on ``gen``, its work the
+    recurrence's least; ``main`` first prints what a dropped diagonal
+    term or carry would move."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import design, ssd_scan
+    x, dt, A, bm, cm = _ssd_inputs(torch, dev, gen, B, L, H, P, N, G, dtype,
+                                   A, sliced)
+    want = ref.ssd_chunked(x, dt, A, bm, cm, chunk)
+    scale = max(float(w.float().abs().max()) for w in want)
+    if main:
+        drop_diag, no_carry = _ssd_sensitivity(torch, x, dt, A, bm, cm,
+                                               chunk, want[0], scale)
+        print(f"ssd_scan {label}: a dropped diagonal term moves y by "
+              f"{drop_diag:.3e} of max|y|, a missing carry by "
+              f"{no_carry:.3e}; the f32 tolerance is {SSD_F32_REL:.0e}")
+        if not SSD_F32_REL <= 0.1 * min(drop_diag, no_carry):
+            raise AssertionError("ssd_scan: the f32 tolerance would not "
+                                 "catch a dropped term or carry")
+    el = x.element_size()
+    # the function's least work, independent of the chunk: the
+    # recurrence's decay and dt B x^T update of h (3 N P a row and
+    # head) and y = C h (2 N P); a chunked form does more
+    flops = 5 * B * L * H * N * P
+    nbytes = (2 * x.numel() * el + (bm.numel() + cm.numel()) * el
+              + 4 * (dt.numel() + A.numel() + B * H * N * P))
+    kind = design(dtype, N, P)
+    row = check("ssd_scan", f"{label} x[{B}, {L}, {H}, {P}] "
+                f"B/C[{B}, {L}, {G}, {N}] {str(dtype)[6:]} chunk {chunk}"
+                + {False: "", True: " sliced", "rank": " a rank's B/C "
+                   "slices"}[sliced] + f" design={kind}",
+                lambda: ssd_scan(x, dt, A, bm, cm, chunk=chunk),
+                lambda: ref.ssd_chunked(x, dt, A, bm, cm, chunk),
+                SSD_F32_REL * scale, nbytes, flops, dtype=dtype,
+                ulps=1 if dtype == torch.bfloat16 else None)
+    row["max_rel_err"] = row["max_abs_err"] / scale
+    row["design"] = kind
+    got = ssd_scan(x, dt, A, bm, cm, chunk=chunk)
+    row["y_rel_err"], row["h_rel_err"] = (
+        float((g.double() - w.double()).abs().max()) / scale
+        for g, w in zip(got, want))
+    print(f"ssd_scan {label}: max|y, h| {scale:.4g}, error "
+          f"{row['max_rel_err']:.3e} of it (y {row['y_rel_err']:.3e}, "
+          f"final state {row['h_rel_err']:.3e})")
+    return row
+
+
 def ssd_checks(torch, dev, gen):
     """``ssd_scan`` against its plain chunked version, with inputs drawn
     as the model makes them (x, B, C ~ N(0, 1), dt = softplus(N(0, 1)),
@@ -693,82 +818,9 @@ def ssd_checks(torch, dev, gen):
     bf16 y to one bf16 ulp (the float32 sums differ in the last bits and
     flip a rounding now and then) and its float32 state to SSD_F32_REL
     of max|y, h|."""
-    import torch.nn.functional as F
+    import functools
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_scan import design, ssd_scan
-
-    def inputs(B, L, H, P, N, G, dtype, A, sliced):
-        if sliced:          # column slices of one [B, L, conv_ch] tensor
-            flat = torch.randn(B, L, H * P + 2 * G * N, device=dev,
-                               generator=gen).to(dtype)
-            x, bm, cm = torch.split(flat, [H * P, G * N, G * N], dim=-1)
-            x = x.reshape(B, L, H, P)
-            bm, cm = bm.reshape(B, L, G, N), cm.reshape(B, L, G, N)
-        else:
-            x = torch.randn(B, L, H, P, device=dev, generator=gen).to(dtype)
-            bm = torch.randn(B, L, G, N, device=dev, generator=gen).to(dtype)
-            cm = torch.randn(B, L, G, N, device=dev, generator=gen).to(dtype)
-        dt = F.softplus(torch.randn(B, L, H, device=dev, generator=gen))
-        if A is None:
-            A = -torch.linspace(1.0, 16.0, H, device=dev)
-        return x, dt, A.to(device=dev, dtype=torch.float32), bm, cm
-
-    def sensitivity(x, dt, A, bm, cm, chunk, want, scale):
-        """What dropping the diagonal term (C_i . B_i) dt_i x_i, or the
-        state carried into each chunk, moves the output by."""
-        rep = x.shape[2] // bm.shape[2]
-        cb = torch.einsum("blgn,blgn->blg", cm.float(), bm.float())
-        diag = (cb.repeat_interleave(rep, dim=2) * dt)[..., None] * x.float()
-        h0 = torch.zeros((x.shape[0], x.shape[2], bm.shape[3], x.shape[3]),
-                         device=dev)
-        fresh = torch.cat([ref.ssd_chunk(h0, x[:, lo:lo + chunk],
-                                         dt[:, lo:lo + chunk], A,
-                                         bm[:, lo:lo + chunk],
-                                         cm[:, lo:lo + chunk])[0]
-                           for lo in range(0, x.shape[1], chunk)], dim=1)
-        return (float(diag.abs().max()) / scale,
-                float((fresh - want.float()).abs().max()) / scale)
-
-    def scan(label, B, L, H, P, N, G, dtype, chunk, A=None, sliced=False,
-             main=False):
-        x, dt, A, bm, cm = inputs(B, L, H, P, N, G, dtype, A, sliced)
-        want = ref.ssd_chunked(x, dt, A, bm, cm, chunk)
-        scale = max(float(w.float().abs().max()) for w in want)
-        if main:
-            drop_diag, no_carry = sensitivity(x, dt, A, bm, cm, chunk,
-                                              want[0], scale)
-            print(f"ssd_scan {label}: a dropped diagonal term moves y by "
-                  f"{drop_diag:.3e} of max|y|, a missing carry by "
-                  f"{no_carry:.3e}; the f32 tolerance is {SSD_F32_REL:.0e}")
-            if not SSD_F32_REL <= 0.1 * min(drop_diag, no_carry):
-                raise AssertionError("ssd_scan: the f32 tolerance would not "
-                                     "catch a dropped term or carry")
-        el = x.element_size()
-        # the function's least work, independent of the chunk: the
-        # recurrence's decay and dt B x^T update of h (3 N P a row and
-        # head) and y = C h (2 N P); a chunked form does more
-        flops = 5 * B * L * H * N * P
-        nbytes = (2 * x.numel() * el + (bm.numel() + cm.numel()) * el
-                  + 4 * (dt.numel() + A.numel() + B * H * N * P))
-        kind = design(dtype, N, P)
-        row = check("ssd_scan", f"{label} x[{B}, {L}, {H}, {P}] "
-                    f"B/C[{B}, {L}, {G}, {N}] {str(dtype)[6:]} chunk {chunk}"
-                    + (" sliced" if sliced else "") + f" design={kind}",
-                    lambda: ssd_scan(x, dt, A, bm, cm, chunk=chunk),
-                    lambda: ref.ssd_chunked(x, dt, A, bm, cm, chunk),
-                    SSD_F32_REL * scale, nbytes, flops, dtype=dtype,
-                    ulps=1 if dtype == torch.bfloat16 else None)
-        row["max_rel_err"] = row["max_abs_err"] / scale
-        row["design"] = kind
-        got = ssd_scan(x, dt, A, bm, cm, chunk=chunk)
-        row["y_rel_err"], row["h_rel_err"] = (
-            float((g.double() - w.double()).abs().max()) / scale
-            for g, w in zip(got, want))
-        print(f"ssd_scan {label}: max|y, h| {scale:.4g}, error "
-              f"{row['max_rel_err']:.3e} of it (y {row['y_rel_err']:.3e}, "
-              f"final state {row['h_rel_err']:.3e})")
-        return row
+    scan = functools.partial(ssd_check, torch, dev, gen)
 
     def dims(arch):
         """(B, L, H, P, N, G) of the model's scan, and its chunk."""
@@ -1017,7 +1069,6 @@ def block_launches(cfg, lo, hi):
     its positions inside the range.  Nothing is checkpointed, so no
     forward runs twice, and the backwards recompute plain versions,
     which launch nothing."""
-    import torch
     from repro_torch.models.transformer import block_kind
     kind, n = block_kind(cfg), hi - lo
     if kind in ("mamba", "hybrid"):
@@ -1027,9 +1078,33 @@ def block_launches(cfg, lo, hi):
     else:
         out = {"ssd_scan": 0, "flash_attention": n,
                "topk_gating": n if kind == "moe" else 0}
-    # bf16 attention at head_dim 64 or 128 (olmoe, zamba2) and the bf16
-    # SSD scan at (N, P) = (64, 64) or (128, 64) (zamba2, mamba2-2.7b) run
-    # on the tensor cores, every launch of them
+    return by_design(cfg, out)
+
+
+def half_launches(cfg, half):
+    """Kernel launches of one forward through the ``"client"`` or
+    ``"server"`` half of the train step's split, or the ``"whole"``
+    model: ``block_launches`` of its blocks; whisper's encoder (the
+    client) launches flash_attention once a block and its decoder twice
+    (``whisper_forward_launches``)."""
+    if cfg.family == "audio":
+        n = whisper_forward_launches(cfg, encode=half != "server",
+                                     decode=half != "client")
+        return by_design(cfg, {"ssd_scan": 0, "flash_attention": n,
+                               "topk_gating": 0})
+    lo, hi = {"client": (0, cfg.cut_layers),
+              "server": (cfg.cut_layers, cfg.n_layers),
+              "whole": (0, cfg.n_layers)}[half]
+    return block_launches(cfg, lo, hi)
+
+
+def by_design(cfg, out):
+    """``out`` (launches by kernel) with flash_attention's and
+    ssd_scan's split by design: bf16 attention at head_dim 64 or 128
+    (olmoe, zamba2, whisper) and the bf16 SSD scan at (N, P) = (64, 64)
+    or (128, 64) (zamba2, mamba2-2.7b) run on the tensor cores, every
+    launch of them."""
+    import torch
     bf16 = cfg.torch_dtype == torch.bfloat16
     tc = {"flash_attention": bf16 and cfg.hd in (64, 128),
           "ssd_scan": bf16 and cfg.ssm is not None and (
@@ -1040,21 +1115,38 @@ def block_launches(cfg, lo, hi):
     return out
 
 
+def take_census(mesh) -> dict:
+    """The census of every collective group of ``mesh`` (its ``model``
+    axis', its batch axes', its ``data`` axis' where that is a group of
+    its own) since the last take, and a fresh one; {} off the mesh."""
+    if mesh is None:
+        return {}
+    out, seen = {}, []
+    for comm in (mesh.model_comm, mesh.comm, mesh.data_comm):
+        if comm is not None and all(comm is not c for c in seen):
+            seen.append(comm)
+            out.update(comm.take_census())
+    return out
+
+
 def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
-                keep_state=False):
+                keep_state=False, cohort=COHORT):
     """A transformer path: ``build_train_step`` for ``cfg`` (its
-    published cut), cohort 2, batch 2 a client, sequence 2048; random
-    init on the card, tokens from a numpy seed; ``rounds`` CycleSL
-    rounds with the launch counters reset before and read after.
+    published cut; whisper's encoder and decoder), ``cohort`` clients,
+    batch 2 a client, sequence 2048 (whisper: 1500 frames and 448 text
+    positions); random init on the card, tokens from a numpy seed;
+    ``rounds`` CycleSL rounds with the launch counters reset before and
+    read after.
 
     Expected launches per round: the client blocks [0, cut) run C times
     in the extract and C times in the client VJPs, the server blocks
     [cut, L) once in each of the steps = C * b / server batch server
     steps and C times in the feature gradients, each forward launching
-    ``block_launches``; feature_resample gathers features and labels
-    once a server step; fused_adam steps every server leaf once a server
-    step and every stacked client leaf once; gather_loss never runs (no
-    linear server head).  olmoe-1b-7b at depth 4, cut 2: 16 block
+    ``half_launches``; feature_resample gathers features and labels
+    (whisper: features, tokens and labels) once a server step;
+    fused_adam steps every server leaf once a server step and every
+    stacked client leaf once; gather_loss never runs (no linear server
+    head).  olmoe-1b-7b at depth 4, cut 2: 16 block
     forwards a round, each one flash_attention and one topk_gating
     launch.  zamba2-1.2b, 38 blocks cut after 4: 8 + 68 + 68 + 8 = 152
     ssd_scan launches a round, and flash_attention 2 * (steps + C) = 8
@@ -1070,9 +1162,11 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
     from repro_torch.launch.mesh import cohort_size
     from repro_torch.launch.steps import build_train_step
     from repro_torch.utils.tree import tree_leaves
-    L, cut, C, b = cfg.n_layers, cfg.cut_layers, COHORT, BATCH
+    L, cut, C, b = cfg.n_layers, cfg.cut_layers, cohort, BATCH
+    audio = cfg.family == "audio"
+    seq = WHISPER_TEXT if audio else SEQ
     c_local = C if mesh is None else C // cohort_size(mesh)
-    shape = InputShape(label, SEQ, C * b, "train")
+    shape = InputShape(label, seq, C * b, "train")
     cycle = CycleConfig(server_epochs=1, server_batch=b)
     bundle = build_train_step(cfg, shape, cycle, cohort=C, device="cuda",
                               mesh=mesh)
@@ -1088,19 +1182,18 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
     n_client = (sum(t.numel() for t in tree_leaves(clients.params))
                 // c_local)
     steps = cycle.server_epochs * (C * b // cycle.server_batch)
-    client, srv = block_launches(cfg, 0, cut), block_launches(cfg, cut, L)
+    client, srv = half_launches(cfg, "client"), half_launches(cfg, "server")
     per_round = {k: 2 * c_local * client[k] + (steps + c_local) * srv[k]
                  for k in client}
     expect = {k: n * rounds for k, n in per_round.items()}
-    expect.update(feature_resample=2 * steps * rounds, gather_loss=0,
+    expect.update(feature_resample=(3 if audio else 2) * steps * rounds,
+                  gather_loss=0,
                   fused_adam=(len(tree_leaves(server.params)) * steps
                               + len(tree_leaves(clients.params))) * rounds)
     batches = [bundle.make_batch(r) for r in range(rounds)]
     torch.cuda.synchronize()
     reset_counters()
-    if mesh is not None:
-        mesh.model_comm.take_census()
-        mesh.comm.take_census()
+    take_census(mesh)
     stamps, metrics, census = [time.perf_counter()], [], []
     for r in range(rounds):
         xs, ys = batches[r]
@@ -1109,15 +1202,15 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
         stamps.append(time.perf_counter())
         metrics.append({k: float(v) for k, v in m.items()})
         if mesh is not None:
-            census.append({**mesh.model_comm.take_census(),
-                           **mesh.comm.take_census()})
+            census.append(take_census(mesh))
     launches = read_counters()
     peak = torch.cuda.max_memory_allocated()
     rps = (rounds - 1) / (stamps[-1] - stamps[1])
-    tokens = C * b * SEQ
+    tokens = C * b * seq
     print(f"{label}: {cfg.name} L={L} cut={cut} d={cfg.d_model}, params "
           f"{n_client:,} a client, {n_server:,} the server; C={C} b={b} "
-          f"S={SEQ} {cfg.dtype}; init {init_s:.2f}s; entity states "
+          f"S={seq}" + (f" frames {WHISPER_FRAMES}" if audio else "")
+          + f" {cfg.dtype}; init {init_s:.2f}s; entity states "
           f"{state_bytes / 1e9:.2f} GB")
     for r, m in enumerate(metrics):
         print(f"{label} {r + 1}: {stamps[r + 1] - stamps[r]:.3f}s "
@@ -1143,8 +1236,9 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
         extra["census"] = census
     return {**extra, "profile": prof, "config": {
                 "arch": cfg.name, "n_layers": L, "cut": cut, "cohort": C,
-                "batch": b, "seq": SEQ, "server_steps": steps,
-                "dtype": cfg.dtype},
+                "batch": b, "seq": seq, "server_steps": steps,
+                "dtype": cfg.dtype,
+                **({"frames": WHISPER_FRAMES} if audio else {})},
             "params_client": n_client, "params_server": n_server,
             "state_bytes": state_bytes, "init_s": init_s,
             "round_s": [b - a for a, b in zip(stamps, stamps[1:])],
@@ -1154,12 +1248,14 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
 
 
 def prefill(torch, label, cfg, mesh=None, keep=False):
-    """``build_prefill_step`` for ``cfg``, batch 2, sequence 2048: one
-    forward through every block (``block_launches`` of [0, L)); on
-    ``mesh`` each rank its shards.  ``keep`` returns the logits."""
+    """``build_prefill_step`` for ``cfg``, batch 2, sequence 2048
+    (whisper: 1500 frames, 448 tokens): one forward through every block
+    (``half_launches`` of the whole model); on ``mesh`` each rank its
+    shards.  ``keep`` returns the logits."""
     from repro_torch.configs import InputShape
     from repro_torch.launch.steps import build_prefill_step
-    shape = InputShape(label, SEQ, BATCH, "prefill")
+    seq = WHISPER_TEXT if cfg.family == "audio" else SEQ
+    shape = InputShape(label, seq, BATCH, "prefill")
     bundle = build_prefill_step(cfg, shape, device="cuda", mesh=mesh)
     torch.cuda.empty_cache()
     (params,), (batch,) = bundle.init_state(0), bundle.make_batch(0)
@@ -1172,10 +1268,10 @@ def prefill(torch, label, cfg, mesh=None, keep=False):
     ms = (time.perf_counter() - t0) * 1e3
     launches = read_counters()
     ok = bool(torch.isfinite(logits.float()).all())
-    want = block_launches(cfg, 0, cfg.n_layers)
-    print(f"{label}: {cfg.name} L={cfg.n_layers} B={BATCH} S={SEQ}: "
+    want = half_launches(cfg, "whole")
+    print(f"{label}: {cfg.name} L={cfg.n_layers} B={BATCH} S={seq}: "
           f"last-token logits {list(logits.shape)} {str(logits.dtype)[6:]} "
-          f"finite={ok} in {ms:.2f} ms ({BATCH * SEQ / ms * 1e3:.0f} "
+          f"finite={ok} in {ms:.2f} ms ({BATCH * seq / ms * 1e3:.0f} "
           f"tokens/s); launches {launches} (expected {want})")
     if not ok or tuple(logits.shape) != (BATCH, cfg.vocab):
         raise AssertionError(f"{label}: logits not finite or of the wrong "
@@ -2457,130 +2553,6 @@ def whisper_forward_launches(cfg, encode=True, decode=True):
                                                  else 0)
 
 
-def whisper_round(torch, rounds=ROUNDS, profile=False):
-    """Phase 21: ``build_train_step`` for whisper-base whole (6 encoder
-    blocks on each client, 6 decoder blocks on the server), cohort 2,
-    batch 2 a client, 1500 frames and 448 text positions, bf16, random
-    init on the card, ``rounds`` CycleSL rounds with the launch counters
-    reset before and read after.
-
-    Expected launches per round: the encoder runs C times in the extract
-    and C times in the client VJPs (6 flash_attention each); the decoder
-    once in each of the steps = C * b / server batch server steps and C
-    times in the feature gradients (12 each: self and cross a block);
-    feature_resample gathers the encoder states, the tokens and the
-    labels once a server step (3 a step); fused_adam steps every server
-    leaf once a server step and every stacked client leaf once."""
-    from repro_torch.configs import InputShape, get_config
-    from repro_torch.core.cyclesl import CycleConfig
-    from repro_torch.launch.steps import build_train_step
-    from repro_torch.utils.tree import tree_leaves
-    cfg = get_config("whisper-base")
-    C, b = COHORT, BATCH
-    shape = InputShape("whisper round", WHISPER_TEXT, C * b, "train")
-    cycle = CycleConfig(server_epochs=1, server_batch=b)
-    bundle = build_train_step(cfg, shape, cycle, cohort=C, device="cuda")
-    free(torch)
-    torch.cuda.reset_peak_memory_stats()
-    server, clients = bundle.init_state(0)
-    n_server = sum(t.numel() for t in tree_leaves(server.params))
-    n_client = sum(t.numel() for t in tree_leaves(clients.params)) // C
-    steps = C * b // cycle.server_batch
-    enc = whisper_forward_launches(cfg, decode=False)
-    dec = whisper_forward_launches(cfg, encode=False)
-    per_round = 2 * C * enc + (steps + C) * dec
-    expect = {"flash_attention": per_round * rounds,
-              "flash_attention/wgmma": per_round * rounds,
-              "flash_attention/simt": 0,
-              "feature_resample": 3 * steps * rounds, "gather_loss": 0,
-              "topk_gating": 0, "ssd_scan": 0,
-              "fused_adam": (len(tree_leaves(server.params)) * steps
-                             + len(tree_leaves(clients.params))) * rounds}
-    batches = [bundle.make_batch(r) for r in range(rounds)]
-    torch.cuda.synchronize()
-    reset_counters()
-    stamps, metrics = [time.perf_counter()], []
-    for r in range(rounds):
-        server, clients, m = bundle.fn(server, clients, *batches[r], r)
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-        metrics.append({k: float(v) for k, v in m.items()})
-    launches = read_counters()
-    peak = torch.cuda.max_memory_allocated()
-    rps = (rounds - 1) / (stamps[-1] - stamps[1])
-    tokens = C * b * WHISPER_TEXT
-    print(f"whisper round: {cfg.name} enc {cfg.enc_layers} + dec "
-          f"{cfg.n_layers} blocks d={cfg.d_model}, params {n_client:,} a "
-          f"client, {n_server:,} the server; C={C} b={b} frames "
-          f"{WHISPER_FRAMES} text {WHISPER_TEXT} {cfg.dtype}")
-    for r, m in enumerate(metrics):
-        print(f"whisper round {r + 1}: {stamps[r + 1] - stamps[r]:.3f}s "
-              + " ".join(f"{k}={v:.6g}" for k, v in m.items()))
-    print(f"whisper round: rounds 2..{rounds} at {rps:.3f} rounds/s, "
-          f"{rps * tokens:.1f} text tokens/s ({rps * C * b * WHISPER_FRAMES:.1f}"
-          f" frames/s); peak memory {peak / 1e9:.2f} GB; launches {launches} "
-          f"(expected {expect}; a round: encoder {enc} x {2 * C}, decoder "
-          f"{dec} x {steps + C})")
-    if not all(math.isfinite(v) for m in metrics for v in m.values()):
-        raise AssertionError(f"whisper round: non-finite metrics {metrics}")
-    for k, n in expect.items():
-        if launches[k] != n:
-            raise AssertionError(f"whisper round: {k} launched {launches[k]} "
-                                 f"times, expected {n}")
-    prof = None
-    if profile:                 # one more round, after the counted ones
-        prof = device_profile(torch, "whisper round", lambda: bundle.fn(
-            server, clients, *batches[0], 0))
-    del server, clients, batches
-    free(torch)
-    return {"profile": prof, "config": {
-                "arch": cfg.name, "cohort": C, "batch": b, "frames":
-                WHISPER_FRAMES, "text": WHISPER_TEXT, "server_steps": steps,
-                "dtype": cfg.dtype},
-            "params_client": n_client, "params_server": n_server,
-            "round_s": [b - a for a, b in zip(stamps, stamps[1:])],
-            "rounds_per_s": rps, "tokens_per_s": rps * tokens,
-            "peak_bytes": peak, "metrics": metrics, "launches": launches,
-            "expected_launches": expect}
-
-
-def whisper_prefill(torch):
-    """Phase 21: ``build_prefill_step`` for whisper-base, batch 2, 1500
-    frames, 448 tokens: one encode and one decoder forward (18
-    flash_attention launches)."""
-    from repro_torch.configs import InputShape, get_config
-    from repro_torch.launch.steps import build_prefill_step
-    cfg = get_config("whisper-base")
-    bundle = build_prefill_step(cfg, InputShape("whisper prefill",
-                                                WHISPER_TEXT, BATCH,
-                                                "prefill"), device="cuda")
-    (params,), (batch,) = bundle.init_state(0), bundle.make_batch(0)
-    bundle.fn(params, batch)                       # warm
-    torch.cuda.synchronize()
-    reset_counters()
-    t0 = time.perf_counter()
-    logits = bundle.fn(params, batch)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
-    launches = read_counters()
-    want = whisper_forward_launches(cfg)
-    ok = bool(torch.isfinite(logits.float()).all())
-    print(f"whisper prefill: B={BATCH} frames {WHISPER_FRAMES} text "
-          f"{WHISPER_TEXT}: last-token logits {list(logits.shape)} "
-          f"finite={ok} in {ms:.2f} ms; launches {launches} (expected "
-          f"flash_attention {want}, all wgmma)")
-    if not ok or tuple(logits.shape) != (BATCH, cfg.vocab):
-        raise AssertionError("whisper prefill: logits not finite or of the "
-                             "wrong shape")
-    if (launches["flash_attention"], launches["flash_attention/wgmma"]) != (
-            want, want):
-        raise AssertionError(f"whisper prefill: flash_attention launched "
-                             f"{launches['flash_attention']}, expected {want}")
-    del params, batch
-    free(torch)
-    return {"ms": ms, "launches": launches}
-
-
 def whisper_decode(torch):
     """Phase 21: ``build_decode_step`` for whisper-base at batch 8 over a
     context of 448 and 1500 encoded frames: ``steps`` greedy steps timed
@@ -2718,12 +2690,20 @@ def whisper_teacher_forcing(torch, B=2, S=16, dev="cuda"):
 
 
 def whisper(torch, profile=False):
-    """Phases 21-22: the whisper round, prefill, decode and serve on the
-    card, then the round card against CPU at the smoke config (phase 9's
-    tolerances) and teacher forcing at full width."""
-    out = {"round": whisper_round(torch, profile=profile),
-           "prefill": whisper_prefill(torch), "decode": whisper_decode(torch),
-           "serve": whisper_serve(torch)}
+    """Phases 21-22: the whisper round (``split_round`` of whisper-base
+    whole: 6 encoder blocks on each client, 6 decoder blocks on the
+    server, cohort 2, batch 2, 1500 frames, 448 text positions, bf16),
+    the prefill (18 flash_attention launches), decode and serve on the
+    card, then the round card against CPU at the smoke config (phase
+    9's tolerances) and teacher forcing at full width."""
+    from repro_torch.configs import get_config
+    cfg = get_config("whisper-base")
+    free(torch)
+    out = {"round": split_round(torch, "whisper round", cfg, profile=profile)}
+    free(torch)
+    out["prefill"] = prefill(torch, "whisper prefill", cfg)
+    free(torch)
+    out.update(decode=whisper_decode(torch), serve=whisper_serve(torch))
     parity = transformer_card_against_cpu(torch, (("whisper-base", 2),))
     parity["teacher_forcing"] = whisper_teacher_forcing(torch)
     return out, parity
@@ -3304,7 +3284,7 @@ def tp_census(cfg, m, chunk=512, c_local=COHORT):
     return out
 
 
-def fsdp_census(cfg, d, m, c_local):
+def fsdp_census(cfg, d, m, c_local, cohort=COHORT):
     """{census key: {"calls", "bytes"}} of the batch axes in one round of
     ``build_train_step`` on a (d, m) mesh, d > 1, whose rank holds
     ``c_local`` slots: written down from the shapes before any run.
@@ -3314,19 +3294,22 @@ def fsdp_census(cfg, d, m, c_local):
     (``all_gather/weights``, the payload a rank's block, bf16), and the
     feature gradients' frozen server once more; its gradients are
     sliced, with no collective.  A block's bytes are its leaf's dtype's
-    (bf16, the router float32).  The pool is gathered once (the
-    features [c_local * b, S, d] in the model's dtype and the int32
-    labels, a call each) and the per-slot metrics twice (a float a
-    slot)."""
-    from repro_torch.core.split import make_transformer_task
+    (bf16, the router float32; a packed Mamba leaf's block holds its
+    whole heads' columns and B/C).  The pool is gathered once (the
+    features [c_local * b, S, d] in the model's dtype, whisper's encoder
+    states [c_local * b, 1500, d], and the int32 labels, whisper's
+    tokens with them, a call each) and the per-slot metrics twice (a
+    float a slot)."""
     from repro_torch.models.module import SHAPES
     from repro_torch.sharding.specs import shard_plan
     from repro_torch.utils.tree import tree_leaves
-    half = make_transformer_task(cfg).init_server(SHAPES)
+    half = step_task(cfg).init_server(SHAPES)
     plan = shard_plan(half, {"data": d, "model": m}, {"data": 0, "model": 0},
                       "server", cfg)
-    steps, b, elt = COHORT * BATCH // BATCH, BATCH, 2 if \
+    steps, b, elt = cohort * BATCH // BATCH, BATCH, 2 if \
         cfg.dtype == "bfloat16" else 4
+    audio = cfg.family == "audio"
+    frames, seq = (WHISPER_FRAMES, WHISPER_TEXT) if audio else (SEQ, SEQ)
     out = {}
 
     def add(key, calls, nbytes):
@@ -3335,10 +3318,14 @@ def fsdp_census(cfg, d, m, c_local):
         row["bytes"] += calls * nbytes
     for x, s in zip(tree_leaves(half), tree_leaves(plan)):
         if s.ddim is not None:
-            blk = x.numel() // d // (m if s.dim is not None else 1)
+            blk = x.numel() // d
+            if s.dim is not None:       # the rank's columns of the leaf
+                blk = blk // x.shape[s.dim] * (
+                    x.shape[s.dim] // m if s.segs is None
+                    else sum(hi - lo for lo, hi, _ in s.segs))
             add("all_gather/weights", steps + 1, blk * x.element_size())
-    add("all_gather/pool", 1, c_local * b * SEQ * cfg.d_model * elt)
-    add("all_gather/pool", 1, c_local * b * SEQ * 4)
+    add("all_gather/pool", 1, c_local * b * frames * cfg.d_model * elt)
+    add("all_gather/pool", 1, c_local * b * seq * 4 * (2 if audio else 1))
     add("all_gather/metrics", 2, c_local * 4)
     return out
 
@@ -3347,13 +3334,12 @@ def whole_step_state(mesh, cfg, server, clients):
     """The train step's state on ``mesh`` gathered whole: the server's
     params from their blocks over ``data`` and ``model``, the client
     slots' params over the batch axes and their ``model`` blocks."""
-    from repro_torch.core.split import make_transformer_task
     from repro_torch.launch.mesh import cohort_size
     from repro_torch.models.module import SHAPES
     from repro_torch.sharding.specs import Shard, gather_params, shard_plan
     from repro_torch.utils.tree import (tree_leaves, tree_map,
                                         tree_unflatten_like)
-    task = make_transformer_task(cfg)
+    task = step_task(cfg)
     sp = shard_plan(task.init_server(SHAPES), mesh.shape, mesh.coords,
                     "server", cfg)
     cp = shard_plan(task.init_client(SHAPES), mesh.shape, mesh.coords,
@@ -3523,7 +3509,8 @@ def _bf16_ulp(torch, t):
     return torch.where(t == 0, 0.0, torch.exp2(e.float() - 8))
 
 
-def tp_against_unsharded(torch, params, rows, want_rows, steps):
+def tp_against_unsharded(torch, params, rows, want_rows, steps,
+                         path=TP_PARAMS):
     """Hold a full-width bf16 run on the model axis to the unsharded run
     on one card: per-round metrics within rtol ``TP_METRIC_RTOL`` (the
     std of the feature-gradient norms against their mean); every weight
@@ -3535,9 +3522,9 @@ def tp_against_unsharded(torch, params, rows, want_rows, steps):
     gradient is near zero step the other way: the limits sit above what
     sound runs read and below what a planted backward fault reads
     (:func:`planted_backward_fault`).  ``steps`` is the most steps an
-    entity took."""
+    entity took; ``path`` holds the unsharded run's weights."""
     from repro_torch.utils.tree import tree_leaves
-    want = torch.load(TP_PARAMS, map_location="cpu", weights_only=False)
+    want = torch.load(path, map_location="cpu", weights_only=False)
     worst = max(abs(r[k] - w[k]) / max(abs(w[k]), w["feat_grad_norm_mean"]
                                        if k == "feat_grad_norm_std" else 0.0)
                 for r, w in zip(rows, want_rows) for k in w)
@@ -3632,14 +3619,17 @@ def tp_rank_runs(mesh, rounds, profile, want_rows):
     return out
 
 
-def step_census(cfg, d, m):
-    """The census of one train round on a (d, m) mesh: the model axis'
-    (:func:`tp_census`) and, where ``data`` splits the cohort and the
-    weights, the batch axes' (:func:`fsdp_census`)."""
-    c_local = COHORT // d
-    out = tp_census(cfg, m, c_local=c_local)
+def step_census(cfg, d, m, cohort=COHORT):
+    """The census of one train round of ``cohort`` slots on a (d, m)
+    mesh: the model axis' (:func:`tp_census`, :func:`ssm_tp_census` for
+    the Mamba-2, hybrid and whisper families) and, where ``data`` splits
+    the cohort and the weights, the batch axes' (:func:`fsdp_census`)."""
+    c_local = cohort // d
+    out = (ssm_tp_census(cfg, m, c_local, cohort)
+           if cfg.family in ("ssm", "hybrid", "audio")
+           else tp_census(cfg, m, c_local=c_local))
     if d > 1:
-        out.update(fsdp_census(cfg, d, m, c_local))
+        out.update(fsdp_census(cfg, d, m, c_local, cohort))
     return out
 
 
@@ -4102,6 +4092,491 @@ def run_engine_mesh_phase(out_path):
     return 0
 
 
+# phase 27: the Mamba-2, hybrid and whisper steps on the ``model`` axis
+# (whisper's FSDP over ``data`` too), in a process of its own
+# (``python3 chip_smoke.py --ssm-tp-phase OUT``)
+MAMBA_DEPTH = 8           # mamba2-2.7b on (1, 4): 8 of its 64 blocks
+SSM_TP_PARAMS = os.path.join(ROOT, "build", "chip_smoke_ssm_tp_{}.pt")
+# each world's runs: (label, arch, depth (None: whole), cohort); four
+# cards run (1, 4), (2, 2) and (4, 1), two run (1, 2)
+SSM_TP_WORLDS = {
+    4: {(1, 4): (("zamba2", "zamba2-1.2b", None, COHORT),
+                 ("whisper", "whisper-base", None, COHORT),
+                 ("mamba2", "mamba2-2.7b", MAMBA_DEPTH, COHORT)),
+        (2, 2): (("zamba2", "zamba2-1.2b", None, COHORT),
+                 ("whisper", "whisper-base", None, COHORT)),
+        # FSDP alone: a cohort of 4 gives each of the 4 ranks a slot
+        (4, 1): (("whisper", "whisper-base", None, 4),)},
+    2: {(1, 2): (("zamba2", "zamba2-1.2b", None, COHORT),
+                 ("whisper", "whisper-base", None, COHORT))}}
+
+
+def ssm_tp_config(arch, depth):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if depth is None else cfg.with_(n_layers=depth)
+
+
+def ssm_tp_key(arch, depth, cohort) -> str:
+    return f"{arch}-{depth or 'whole'}-c{cohort}"
+
+
+def step_task(cfg, mesh=None):
+    """The train step's split task of ``cfg``: whisper's encoder and
+    decoder, or the decoder-only cut."""
+    from repro_torch.core.split import make_transformer_task
+    from repro_torch.launch.steps import make_whisper_task
+    return (make_whisper_task(cfg, mesh=mesh) if cfg.family == "audio"
+            else make_transformer_task(cfg, mesh=mesh))
+
+
+def ssm_tp_census(cfg, m, c_local, cohort=COHORT, chunk=512):
+    """{census key: {"calls", "bytes"}} of the ``model`` axis in one round
+    of ``build_train_step`` for a Mamba-2, hybrid or whisper ``cfg`` on a
+    (d, m) mesh whose rank holds ``c_local`` of the ``cohort`` slots:
+    written down from the shapes, before any run.  Client blocks run
+    forward twice a slot (the extract, the VJP) and backward once; the
+    server's forward and backward once a server step and once a slot
+    (its feature gradient).  A Mamba block reduces forward its gate
+    norm's float32 sum of squares [b, S, 1] and its output [b, S, d];
+    backward its gate norm's gradient and, in one call, its input's
+    gradient with those of ``conv_b`` (whole, [conv_ch]) and of the
+    B/C branch's weights (``w_in``'s [d, 2 G N] and ``conv_w``'s [K, 2 G
+    N]), all float32.  zamba2's shared block after each of its server
+    positions reduces its attention and FFN outputs and, backward, their
+    inputs' gradients.  Whisper's encoder blocks ([b, 1500, d]) reduce
+    their attention and MLP forward and backward; its decoder blocks
+    ([b, 448, d]) their self-attention, cross-attention and MLP, the
+    cross-attention's input gradient with that of the encoder states; a
+    slot's feature gradient never asks the first self-attention's input
+    gradient (it reads frozen weights alone).  A split vocab adds the
+    embedding's reduce to each forward of the half that embeds and to
+    each server forward a logits gather (the rank's vocab / m columns in
+    the model's dtype) and the head input's reduce, per chunk of 512
+    positions (whisper: the whole 448); a split client half adds one
+    norm (a float) a slot."""
+    from repro_torch.sharding.parallel import sharded_units
+    units = sharded_units(cfg, {"model": m})
+    b, f32 = BATCH, 4
+    elt = 2 if cfg.dtype == "bfloat16" else 4
+    steps = cohort * b // b       # server batch b, one epoch
+    srv, d = steps + c_local, cfg.d_model
+    out = {}
+
+    def add(key, calls, nbytes):
+        if calls:
+            row = out.setdefault(f"model/{key}", {"calls": 0, "bytes": 0})
+            row["calls"] += calls
+            row["bytes"] += calls * nbytes
+    if cfg.family == "audio":
+        E, D, S = cfg.enc_layers, cfg.n_layers, WHISPER_TEXT
+        enc, dec = b * WHISPER_FRAMES * d * f32, b * S * d * f32
+        if units["attn"]:
+            add("all_reduce/attn", 2 * c_local * E, enc)
+            add("all_reduce/attn", 2 * srv * D, dec)
+            add("all_reduce/act_grad", c_local * E, enc)
+            add("all_reduce/act_grad", srv * D - c_local, dec)
+            add("all_reduce/act_grad", srv * D, dec + enc)
+        if units["ffn"]:
+            add("all_reduce/ffn", 2 * c_local * E, enc)
+            add("all_reduce/ffn", srv * D, dec)
+            add("all_reduce/act_grad", c_local * E, enc)
+            add("all_reduce/act_grad", srv * D, dec)
+        if units["vocab"]:
+            add("all_reduce/embed", srv, dec)
+            add("all_gather/logits", srv, b * S * cfg.vocab_padded // m * elt)
+            add("all_reduce/act_grad", srv, dec)
+    else:
+        s, S = cfg.ssm, SEQ
+        cut, L = cfg.cut_layers, cfg.n_layers
+        act, norm = b * S * d * f32, b * S * f32
+        fwd = 2 * c_local * cut + srv * (L - cut)
+        bwd = c_local * cut + srv * (L - cut)
+        if units["mamba"]:
+            gn2 = 2 * s.n_groups * s.d_state
+            conv_ch = s.expand * d + gn2
+            bc = (d + s.d_conv) * gn2 if s.n_groups == 1 else 0
+            add("all_reduce/norm", fwd, norm)
+            add("all_reduce/mamba", fwd, act)
+            add("all_reduce/norm_grad", bwd, norm)
+            add("all_reduce/mamba_grad", bwd, act + (conv_ch + bc) * f32)
+        shared = (sum(cut <= p < L for p in s.shared_attn_positions)
+                  if cfg.family == "hybrid" else 0)
+        norms = 2 * cfg.hd * f32 if cfg.attn.qk_norm else 0
+        if units["attn"]:
+            add("all_reduce/attn", srv * shared, act)
+            add("all_reduce/act_grad", srv * shared, act + norms)
+        if units["ffn"]:
+            add("all_reduce/ffn", srv * shared, act)
+            add("all_reduce/act_grad", srv * shared, act)
+        if units["vocab"]:
+            cs = min(chunk, S)
+            n_chunks = -(-S // cs)
+            add("all_reduce/embed", 2 * c_local, act)
+            add("all_gather/logits", n_chunks * srv,
+                b * cs * cfg.vocab_padded // m * elt)
+            add("all_reduce/act_grad", n_chunks * srv, b * cs * d * f32)
+    if any(units.values()):
+        add("all_reduce/grad_norm", c_local, f32)
+    return out
+
+
+@contextlib.contextmanager
+def planted_bc_fault():
+    """The control of phase 27's Mamba runs: inside, the ``B``/``C``
+    branch's weights and ``conv_b`` enter a Mamba block without
+    ``copy_to_model``, so each rank keeps its own heads' share of their
+    gradients, not the sum over the axis (the block input's gradient is
+    still summed).  The forward is untouched; the check must refuse the
+    run."""
+    from repro_torch.models import mamba2
+    real = mamba2.copy_to_model
+
+    def drop(tp, x, *rest, what="act_grad"):
+        if what != "mamba_grad":
+            return real(tp, x, *rest, what=what)
+        return (real(tp, x, what=what),) + rest
+    mamba2.copy_to_model = drop
+    try:
+        yield
+    finally:
+        mamba2.copy_to_model = real
+
+
+def replicated_digests(torch, mesh, cfg, server, clients):
+    """sha256 of what every rank of a ``model`` group must hold alike:
+    each leaf whole over the axis and the whole segments (B, C) of a
+    packed Mamba leaf, the server's (its FSDP blocks gathered over
+    ``data`` first) and the client slots'.  A gradient that is not
+    summed over the axis leaves these apart."""
+    import hashlib
+    from repro_torch.models.module import SHAPES
+    from repro_torch.sharding.specs import Shard, gather_params, shard_plan
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    task = step_task(cfg)
+    sp = shard_plan(task.init_server(SHAPES), mesh.shape, mesh.coords,
+                    "server", cfg)
+    cp = tree_map(Shard.stacked, shard_plan(task.init_client(SHAPES),
+                                            mesh.shape, mesh.coords, "full",
+                                            cfg))
+    srv = gather_params(server.params, sp, None, mesh.data_comm)
+
+    def digest(tree, plan):
+        h = hashlib.sha256()
+        for x, s in zip(tree_leaves(tree), tree_leaves(plan)):
+            if s.dim is None:
+                parts = [x]
+            elif s.segs is None:
+                continue
+            else:
+                parts = [p for p, (_, _, split) in zip(torch.split(
+                    x, [hi - lo for lo, hi, _ in s.segs], s.dim), s.segs)
+                         if not split]
+            for p in parts:
+                h.update(p.detach().contiguous().reshape(-1)
+                         .view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()
+    return {"server": digest(srv, sp), "clients": digest(clients.params, cp)}
+
+
+def ssm_tp_kernel_checks(torch, dev):
+    """The kernels of phase 27's path at a rank's shapes on a model axis
+    of 2 and 4, each against its plain version: ``ssd_scan`` on a rank's
+    SSD heads of zamba2-1.2b ([2, 2048, 32 | 16, 64], N 64) and of
+    mamba2-2.7b ([2, 2048, 40 | 20, 64], N 128), bf16, chunk 256, x whole
+    and B, C column slices of the rank's [B, L, 2 N] conv output (the
+    tensor-core design); ``flash_attention`` on a rank's heads of
+    zamba2's shared block ([2, 2048, 16 | 8, 64] causal) and of
+    whisper-base's encoder ([2, 1500, 4 | 2, 64]), causal decoder ([2,
+    448, 4 | 2, 64]) and cross-attention (448 queries over 1500 keys),
+    bf16, with SDPA's time; ``fused_adam`` on a rank's block of
+    zamba2's server ``w_in`` stack ([34, 2048, 4256 | 2192]: its heads'
+    z, x and dt columns and B, C whole), bf16 with float32 moments."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(27)
+    rows = []
+    z = ssm_tp_config("zamba2-1.2b", None)
+    for m in (2, 4):
+        s = z.ssm
+        d_in, gn = s.expand * z.d_model // m, 2 * s.n_groups * s.d_state
+        shape = (z.n_layers - z.cut_layers, z.d_model,
+                 2 * d_in + gn + d_in // s.head_dim)
+        p = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        g = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+        mm = torch.randn(shape, device=dev, generator=gen) * 0.1
+        vv = torch.rand(shape, device=dev, generator=gen) * 0.1
+        step = torch.tensor(3, dtype=torch.int32, device=dev)
+        n = p.numel()
+        rows.append(check(
+            "fused_adam", f"{list(shape)} bf16 (a rank's packed w_in, "
+            f"model axis {m})",
+            lambda: ops.fused_adam(p, g, mm, vv, step, lr=1e-3),
+            lambda: ref.fused_adam_ref(p, g, mm, vv, step, lr=1e-3),
+            1e-6, n * (3 * 2 + 4 * 4) + 4, 14 * n, dtype=torch.bfloat16,
+            ulps=1))
+        del p, g, mm, vv
+        torch.cuda.empty_cache()
+    for m in (2, 4):
+        for arch in ("zamba2-1.2b", "mamba2-2.7b"):
+            s = ssm_tp_config(arch, None).ssm
+            H = s.expand * ssm_tp_config(arch, None).d_model // s.head_dim
+            rows.append(ssd_check(
+                torch, dev, gen, f"{arch.split('-')[0]} (a rank's heads, "
+                f"model axis {m})", BATCH, SEQ, H // m, s.head_dim,
+                s.d_state, s.n_groups, torch.bfloat16, s.chunk,
+                sliced="rank"))
+        z = ssm_tp_config("zamba2-1.2b", None)
+        note = f" (a rank's heads, model axis {m})"
+        rows.append(attention_check(
+            torch, dev, gen, BATCH, SEQ, SEQ, z.n_heads // m,
+            z.n_kv_heads // m, z.hd, torch.bfloat16, library=True,
+            note=" zamba2 shared block" + note))
+        w = ssm_tp_config("whisper-base", None)
+        H = w.n_heads // m
+        for Sq, Sk, causal, what in (
+                (WHISPER_FRAMES, WHISPER_FRAMES, False, "encoder"),
+                (WHISPER_TEXT, WHISPER_TEXT, True, "decoder"),
+                (WHISPER_TEXT, WHISPER_FRAMES, False, "cross")):
+            rows.append(attention_check(
+                torch, dev, gen, BATCH, Sq, Sk, H, H, w.hd, torch.bfloat16,
+                causal=causal, library=True,
+                note=f" whisper {what}" + note))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def ssm_tp_rank_runs(mesh, runs, rounds, want_rows, profile=False):
+    """Phase 27 on a (d, m) mesh of spawned ranks, one card each: for
+    each run ``(label, arch, depth, cohort)``, ``rounds`` train rounds
+    at published widths (bf16, batch 2 a client, sequence 2048; whisper
+    1500 frames, 448 tokens) with exact launches and each round's
+    census, gathered whole and held to the unsharded run of this
+    phase's one-card part (rank 0 reads its weights from
+    ``SSM_TP_PARAMS``; :func:`tp_against_unsharded`), with the digests
+    of the weights every rank must hold alike
+    (:func:`replicated_digests`); then the same run under a planted
+    fault, which those checks must refuse: :func:`planted_bc_fault`
+    where the model has Mamba blocks, else :func:`planted_backward_fault`
+    on a model axis, :func:`planted_data_fault` without one; then the
+    prefill.  ``profile`` profiles one more round of the first run.
+    Only rank 0 prints; every rank returns its own numbers."""
+    import torch
+    rank = torch.distributed.get_rank()
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    d, m = mesh.shape["data"], mesh.shape["model"]
+    lab = f"({d}, {m})"
+    out = {}
+    for label, arch, depth, cohort in runs:
+        cfg = ssm_tp_config(arch, depth)
+        key = ssm_tp_key(arch, depth, cohort)
+        fault = (planted_bc_fault if cfg.ssm is not None and m > 1 else
+                 planted_backward_fault if m > 1 else planted_data_fault)
+        res = {"fault": fault.__name__}
+        for part, ctx in (("run", contextlib.nullcontext), ("planted", fault)):
+            torch.cuda.empty_cache()
+            with ctx():
+                run = split_round(
+                    torch, f"ssm-tp {lab} {label}"
+                    + (f" ({fault.__name__})" if part == "planted" else ""),
+                    cfg, rounds, mesh=mesh, keep_state=True, cohort=cohort,
+                    profile=(profile and part == "run"
+                             and label == runs[0][0]))
+            server, clients = run.pop("state")
+            run["replicated"] = replicated_digests(torch, mesh, cfg, server,
+                                                   clients)
+            params = whole_step_state(mesh, cfg, server, clients)
+            del server, clients
+            run["held"] = (tp_against_unsharded(
+                torch, params, run["metrics"], want_rows[key], 2 * rounds,
+                SSM_TP_PARAMS.format(key)) if rank == 0 else None)
+            del params
+            torch.cuda.empty_cache()
+            res[part] = run
+        res["prefill"] = prefill(torch, f"ssm-tp {lab} {label} prefill", cfg,
+                                 mesh=mesh)
+        res["expected_census"] = step_census(cfg, d, m, cohort)
+        out[label] = res
+    out["coords"] = dict(mesh.coords)
+    return out
+
+
+def ssm_tp_phase(torch, rounds=ROUNDS, dev="cuda", profile=False):
+    """Phase 27: the Mamba-2, hybrid and whisper steps on the ``model``
+    axis.  One card: a (1, 1) mesh through the model-axis code for
+    zamba2-1.2b whole and whisper-base whole at the protocol of phases
+    10 and 21 (bf16, cohort 2, batch 2, sequence 2048; whisper 1500
+    frames, 448 tokens), ``rounds`` rounds and the prefill, each bit for
+    bit the unsharded step (every leaf of the state, held in host
+    memory between the runs, the metrics, the logits) with the
+    unsharded launches and no collective; then the kernels at a rank's
+    shapes (:func:`ssm_tp_kernel_checks`).  With four cards
+    :func:`ssm_tp_rank_runs` on the meshes of ``SSM_TP_WORLDS`` (two
+    cards: (1, 2)), each run held to the unsharded run of this part
+    (phase 25's criteria, and the weights every rank holds alike the
+    same), its planted fault refused, its census exactly
+    :func:`step_census`, the same metrics and launches on every rank of
+    a batch coordinate, and its peak memory a card.  ``profile``
+    profiles one more round of the unsharded zamba2 run and of each
+    world's first run.  Raises on any miss."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.meshcheck import spawn_ranks
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    out, checks = {"one_card": {}, "worlds": {}}, {}
+    cards = torch.cuda.device_count()
+    worlds = SSM_TP_WORLDS[4] if cards >= 4 else (
+        SSM_TP_WORLDS[2] if cards >= 2 else {})
+    # the (1, 1) pairs, and the unsharded runs the worlds are held to
+    pairs = [("zamba2-1.2b", None, COHORT), ("whisper-base", None, COHORT)]
+    held = {ssm_tp_key(a, dp, c): (a, dp, c) for runs in worlds.values()
+            for _, a, dp, c in runs}
+    needed = {**{ssm_tp_key(*p): p for p in pairs}, **held}
+    want_rows = {}
+    mesh = make_local_mesh(dev)
+    try:
+        for key, (arch, depth, cohort) in needed.items():
+            cfg, lab = ssm_tp_config(arch, depth), arch.split("-")[0]
+            meshes = ((("unsharded", None), ("mesh (1, 1)", mesh))
+                      if (arch, depth, cohort) in pairs
+                      else (("unsharded", None),))
+            runs, logits = {}, {}
+            for label, mm in meshes:
+                free(torch)
+                r = split_round(torch, f"ssm-tp {lab} {label}", cfg, rounds,
+                                mesh=mm, keep_state=True, cohort=cohort,
+                                profile=(profile and mm is None
+                                         and key == ssm_tp_key(*pairs[0])))
+                state = r.pop("state")
+                if mm is None:       # the unsharded state, in host memory
+                    want = tree_map(lambda t: t.cpu(), state)
+                    want_rows[key] = r["metrics"]
+                    if key in held:
+                        os.makedirs(os.path.dirname(SSM_TP_PARAMS),
+                                    exist_ok=True)
+                        torch.save((want[0].params, want[1].params),
+                                   SSM_TP_PARAMS.format(key))
+                else:
+                    checks[f"{lab} (1, 1) round == unsharded"] = all(
+                        torch.equal(x, y.cpu()) for x, y in zip(
+                            tree_leaves(want), tree_leaves(state)))
+                del state
+                free(torch)
+                if len(meshes) > 1:
+                    p = prefill(torch, f"ssm-tp {lab} {label} prefill", cfg,
+                                mesh=mm, keep=True)
+                    logits[label] = p.pop("logits")
+                    runs[label] = {"round": r, "prefill": p}
+                else:
+                    runs[label] = {"round": r}
+            del want
+            if len(meshes) > 1:
+                a, b = runs["unsharded"], runs["mesh (1, 1)"]
+                checks[f"{lab} (1, 1) round == unsharded"] &= (
+                    a["round"]["metrics"] == b["round"]["metrics"])
+                checks[f"{lab} (1, 1) launches == unsharded"] = (
+                    a["round"]["launches"] == b["round"]["launches"]
+                    and a["prefill"]["launches"] == b["prefill"]["launches"])
+                checks[f"{lab} (1, 1) prefill == unsharded"] = bool(
+                    torch.equal(logits["unsharded"], logits["mesh (1, 1)"]))
+                checks[f"{lab} (1, 1) takes no collective"] = all(
+                    c == {} for c in b["round"]["census"]) and \
+                    take_census(mesh) == {}
+            del logits
+            out["one_card"][key] = runs
+        print("ssm-tp (1, 1) at full width: " + ", ".join(
+            f"{k} {v}" for k, v in checks.items()))
+    finally:
+        mesh.close()
+    free(torch)
+    out["kernel_checks"] = ssm_tp_kernel_checks(torch, torch.device(dev))
+    free(torch)
+    for (d, m), runs in worlds.items():
+        lab, n = f"({d}, {m})", d * m
+        free(torch)
+        ranks = spawn_ranks(n, ssm_tp_rank_runs,
+                            (runs, rounds, want_rows, profile), "cuda",
+                            shape=(d, m), timeout=900)
+        r0 = ranks[0]
+        world = {"n": n, "runs": {}}
+        for label, arch, depth, cohort in runs:
+            res = r0[label]
+            want = res["expected_census"]
+            groups = {}        # a batch coordinate's ranks run one slot set
+            for r in ranks:
+                groups.setdefault(r["coords"]["data"], []).append(r[label])
+
+            def alike(part, what):
+                """Every rank's digest of ``what`` the same: the server's
+                over all ranks, the clients' within a batch coordinate."""
+                sets = (([x[part]["replicated"]["server"] for r in ranks
+                          for x in [r[label]]],) if what == "server" else
+                        [[x[part]["replicated"]["clients"] for x in g]
+                         for g in groups.values()])
+                return all(len(set(s)) == 1 for s in sets)
+
+            def held(part):
+                return (res[part]["held"]["ok"] and alike(part, "server")
+                        and alike(part, "clients"))
+            name = f"{lab} {label}"
+            checks[f"{name} held to unsharded"] = held("run")
+            checks[f"{name} refuses a planted fault ({res['fault']})"] = (
+                not held("planted"))
+            checks[f"{name} census == predicted"] = all(
+                c == want for r in ranks for c in r[label]["run"]["census"])
+            checks[f"{name} same metrics and launches on every rank"] = all(
+                x["run"]["metrics"] == g[0]["run"]["metrics"]
+                and x["run"]["launches"] == res["run"]["launches"]
+                for g in groups.values() for x in g)
+            peak = max(r[label]["run"]["peak_bytes"] for r in ranks)
+            checks[f"{name} fits a card"] = peak < 80e9
+            w = res["run"]
+            print(f"ssm-tp {name} {w['config']['arch']} L "
+                  f"{w['config']['n_layers']}: {w['rounds_per_s']:.3f} "
+                  f"rounds/s, {w['tokens_per_s']:.1f} tokens/s, peak "
+                  f"{peak / 1e9:.2f} GB a card (max over ranks), entity "
+                  f"states {w['state_bytes'] / 1e9:.2f} GB a card, prefill "
+                  f"{res['prefill']['ms']:.2f} ms; census a round "
+                  f"{_census_line(w['census'][0])} (predicted "
+                  f"{_census_line(want)}); against unsharded {w['held']}; "
+                  f"with {res['fault']} {res['planted']['held']}, "
+                  "replicated weights alike "
+                  f"{alike('planted', 'server')}, "
+                  f"{alike('planted', 'clients')} (server, clients)")
+            world["runs"][label] = {
+                "rank0": res, "peak_bytes_max": peak,
+                "peak_bytes": [r[label]["run"]["peak_bytes"] for r in ranks],
+                "census_predicted": want}
+        out["worlds"][lab] = world
+    if not worlds:
+        print("ssm-tp: one card, so the (d, m) part of phase 27 did not run")
+    bad = [k for k, v in checks.items() if not v]
+    out["checks"] = checks
+    if bad:
+        raise AssertionError(f"ssm-tp: {bad}")
+    return out
+
+
+def run_ssm_tp_phase(out_path, profile=False):
+    """The entry of ``--ssm-tp-phase``: phase 27 alone, its report
+    written to ``out_path``."""
+    import torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(f"ssm-tp: {smi}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}")
+    _build.build_all()
+    res = ssm_tp_phase(torch, profile=profile)
+    res["nvidia_smi"] = smi
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    return 0
+
+
 def kernel_profile(torch, run, dev="cuda"):
     """``run()`` under the profiler: device launches (kernels and copies),
     device busy ms, wall ms."""
@@ -4181,7 +4656,9 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also profile the main path, its fused variant, "
                          "psl and ssl, one olmoe and one zamba2 round, and "
-                         "the main path unsharded and on a (1, 1) mesh")
+                         "the main path unsharded and on a (1, 1) mesh, and "
+                         "phase 27's unsharded zamba2 round and each "
+                         "world's first run")
     ap.add_argument("--mesh-phase", default=None, metavar="OUT",
                     help="run phase 24 alone (the process main() starts "
                          "for it) and write its report to OUT")
@@ -4191,6 +4668,9 @@ def main(argv=None):
     ap.add_argument("--engine-mesh-phase", default=None, metavar="OUT",
                     help="run phase 26 alone (the process main() starts "
                          "for it) and write its report to OUT")
+    ap.add_argument("--ssm-tp-phase", default=None, metavar="OUT",
+                    help="run phase 27 alone (the process main() starts "
+                         "for it) and write its report to OUT")
     args = ap.parse_args(argv)
     if args.mesh_phase:
         return run_mesh_phase(args.mesh_phase, args.profile)
@@ -4198,6 +4678,8 @@ def main(argv=None):
         return run_tp_phase(args.tp_phase, args.profile)
     if args.engine_mesh_phase:
         return run_engine_mesh_phase(args.engine_mesh_phase)
+    if args.ssm_tp_phase:
+        return run_ssm_tp_phase(args.ssm_tp_phase, args.profile)
 
     import torch
     if not torch.cuda.is_available():
@@ -4364,9 +4846,25 @@ def main(argv=None):
     with open(em_out) as f:
         engine_mesh_runs = json.load(f)
     t26 = time.perf_counter()
+
+    # 27. the Mamba-2, hybrid and whisper steps on the model axis, in a
+    # process of its own (a (1, 1) mesh on this card; with four cards and
+    # two, the meshes of SSM_TP_WORLDS in spawned ranks)
+    st_out = os.path.join(ROOT, "build", "chip_smoke_ssm_tp.json")
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--ssm-tp-phase", st_out]
+                          + (["--profile"] if args.profile else []),
+                          timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 27 (Mamba, hybrid and whisper on the "
+                           f"model axis) exited {proc.returncode}")
+    with open(st_out) as f:
+        ssm_tp_runs = json.load(f)
+    t27 = time.perf_counter()
     phase_s.update({"18": t19 - t18, "19": t20 - t19, "20": t21 - t20,
                     "21-22": t22 - t21b, "23": t23 - t22, "24": t24 - t23,
-                    "25": t25 - t24, "26": t26 - t25})
+                    "25": t25 - t24, "26": t26 - t25, "27": t27 - t26})
     print("phases took " + ", ".join(f"{k}: {v:.1f}s"
                                      for k, v in phase_s.items()))
 
@@ -4402,6 +4900,7 @@ def main(argv=None):
                        "fault_paths": fault_paths, "whisper": whisper_runs,
                        "mesh": mesh_runs, "model_axis": tp_runs,
                        "engine_mesh": engine_mesh_runs,
+                       "ssm_model_axis": ssm_tp_runs,
                        "phase_s": phase_s}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))

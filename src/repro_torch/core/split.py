@@ -2,8 +2,9 @@
 
 Port of ``repro/core/split.py``: the StageModel zoo's tasks (xent or
 mse loss) and the decoder-only transformer cut after ``cfg.cut_layers``
-blocks, dense, MoE, SSM and hybrid (whisper's encoder-decoder task is
-not ported yet).
+blocks, dense, MoE, SSM and hybrid (whisper's encoder-decoder task,
+``WhisperTask``, lives in ``launch/steps.py`` beside its step, as the
+reference's does).
 
 On a mesh a task holds its halves' placement (``sharding.specs.shard_plan``
 of the whole halves): ``tp``, the ``model`` axis the forwards split

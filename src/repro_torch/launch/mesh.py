@@ -24,7 +24,7 @@ Production meshes:
 
 The reference places a round's weights 2-D, FSDP over ``data`` and
 tensor-parallel over ``model`` (``sharding.specs.shard_plan``): the
-Engine's round and the transformer train and prefill steps hold each
+Engine's round and every family's train and prefill steps hold each
 leaf's block on a rank, gather it at use over ``data_comm`` and split
 their products over ``model_comm`` (``sharding.parallel``).
 """

@@ -16,18 +16,22 @@ The step runs on the card unless ``device="cpu"`` is passed.
 
 The train and prefill steps take a ``mesh`` (``launch.mesh.Mesh``), the
 port's counterpart of the reference's ``NamedSharding``s of the train
-state: on its ``model`` axis the dense and MoE transformers' weights are
-tensor- and expert-parallel (``sharding.parallel``; each rank holds its
-shards), over ``data`` the server's and the prefill's weights are FSDP
-blocks (``sharding.specs.shard_plan``, gathered at use, the gradient
-handed back as each rank's block), over its batch axes the train step's
+state: on its ``model`` axis every family's weights are tensor-parallel
+(``sharding.parallel``; each rank holds its shards): attention on whole
+heads, the FFNs on hidden columns, the MoE on experts, the Mamba-2
+blocks on whole SSD heads, whisper's encoder, decoder and
+cross-attention on heads, the vocab on rows; over ``data`` the server's
+and the prefill's weights are FSDP blocks (``sharding.specs.shard_plan``,
+gathered at use, the gradient handed back as each rank's block), over
+its batch axes the train step's
 cohort is split as the Engine's is (each rank its slots), and the
 server steps on the whole minibatch on every rank when its weights
 split over ``model`` (the reference's ``tp_layout``), else
 data-parallel; the prefill batch is replicated over the batch axes.
-The mesh's device is the step's.  The decode state's placement
-(``decode_state_shardings``) and the Mamba, hybrid and whisper steps on
-a model axis are ROADMAP item 9b.
+The mesh's device is the step's.  What is left of ROADMAP item 9b here
+is the decode step and serving on a mesh (``decode_state_shardings``;
+``build_decode_step`` takes no mesh), and the pipelined train steps on
+one (``build_pipelined_train_steps`` takes none).
 """
 from __future__ import annotations
 
@@ -79,13 +83,33 @@ class WhisperTask(SplitTask):
     cfg: Optional[ArchConfig] = None
 
     def server_loss(self, sp, features, y):
-        logits = EncDec.decode_train(sp, self.cfg, y["tokens"], features)
+        logits = EncDec.decode_train(sp, self.cfg, y["tokens"], features,
+                                     self.tp)
         return xent_loss(logits, y["labels"])
 
 
-def make_whisper_task(cfg: ArchConfig) -> SplitTask:
+def make_whisper_task(cfg: ArchConfig, mesh=None) -> SplitTask:
     """Whisper SplitTask: encoder = client, decoder = server.  Each side
-    draws the whole model from its own generator and keeps its half."""
+    draws the whole model from its own generator and keeps its half.
+
+    ``mesh`` places both halves as ``core.split.make_transformer_task``
+    does: the plans come from a shape-only draw, the client (the encoder,
+    role 'full': whole over ``data``) and the server (the decoder, role
+    'server': FSDP blocks over ``data``, cut where the round places its
+    state) keep their ``model`` blocks, and the forwards run over
+    ``tp``."""
+    tp = fsdp = plans = None
+    if mesh is not None:
+        tp, fsdp = mesh_placement(mesh, cfg)
+        shapes = EncDec.init(SHAPES, cfg)
+        plans = {"client": shard_plan(shapes["encoder"], mesh.shape,
+                                      mesh.coords, "full", cfg),
+                 "server": shard_plan(shapes["decoder"], mesh.shape,
+                                      mesh.coords, "server", cfg)}
+
+    def keep(half, key):
+        return half if plans is None else shard_params(half, plans[key],
+                                                       data=False)
 
     def server_apply(sp, features):
         raise NotImplementedError("the whisper server consumes (enc_out, "
@@ -93,12 +117,14 @@ def make_whisper_task(cfg: ArchConfig) -> SplitTask:
 
     return WhisperTask(
         f"{cfg.name}@encdec",
-        init_client=lambda gen: EncDec.init(gen, cfg)["encoder"],
-        init_server=lambda gen: EncDec.init(gen, cfg)["decoder"],
+        init_client=lambda gen: keep(EncDec.init(gen, cfg)["encoder"],
+                                     "client"),
+        init_server=lambda gen: keep(EncDec.init(gen, cfg)["decoder"],
+                                     "server"),
         client_forward=lambda cp, batch: EncDec.encode(cp, cfg,
-                                                       batch["frames"]),
+                                                       batch["frames"], tp),
         server_apply=server_apply, loss=lambda out, y: out,
-        metrics=lambda out, y: {}, cfg=cfg)
+        metrics=lambda out, y: {}, tp=tp, fsdp=fsdp, plans=plans, cfg=cfg)
 
 
 # ------------------------------------------------------------- train step
@@ -126,12 +152,8 @@ def _train_substrate(cfg: ArchConfig, shape: InputShape, cycle: CycleConfig,
     inputs_lib.train_batch_specs(cfg, shape, cohort)  # validates cfg, split
     dev = _mesh_device(mesh, device)
     cycle = cycle.check_ported()
-    if cfg.family == "audio":
-        if mesh is not None:
-            mesh_placement(mesh, cfg)   # whisper on a model axis: 9b
-        task = make_whisper_task(cfg)
-    else:
-        task = make_transformer_task(cfg, mesh=mesh)
+    task = (make_whisper_task(cfg, mesh=mesh) if cfg.family == "audio"
+            else make_transformer_task(cfg, mesh=mesh))
     opt_s, opt_c = adam(3e-4), adam(3e-4)
     # the cohort's split over the batch axes (none on a mesh whose batch
     # axes hold one rank: its slots are every slot)
@@ -239,12 +261,9 @@ def build_prefill_step(cfg: ArchConfig, shape: InputShape, *, device=None,
     model = EncDec if cfg.family == "audio" else Transformer
     tp = fsdp = plan = None
     if mesh is not None:
-        # whisper raises on a model axis (9b) and runs whole elsewhere
         tp, fsdp = mesh_placement(mesh, cfg)
-        if cfg.family == "audio":
-            fsdp = None
-        elif tp.size > 1 or fsdp is not None:
-            plan = shard_plan(Transformer.init(SHAPES, cfg), mesh.shape,
+        if tp.size > 1 or fsdp is not None:
+            plan = shard_plan(model.init(SHAPES, cfg), mesh.shape,
                               mesh.coords, "full", cfg)
 
     def init_state(seed: int):
@@ -264,7 +283,7 @@ def build_prefill_step(cfg: ArchConfig, shape: InputShape, *, device=None,
                 params = gather_from_data(fsdp, params, plan)
             if cfg.family == "audio":
                 logits = EncDec.forward(params, cfg, batch["frames"],
-                                        batch["tokens"])
+                                        batch["tokens"], tp=tp)
             else:
                 logits, _ = Transformer.forward(
                     params, cfg, batch["tokens"], batch.get("patch_embeds"),

@@ -17,6 +17,12 @@ plain version on the CPU).
   - decoder self-attention: ``attention.attend_full`` (causal);
   - cross-attention, in training, prefill and decode: non-causal, the
     decoder's S queries (1 in decode) against the T encoder states.
+The full-sequence functions take ``tp``, a
+``sharding.parallel.TensorParallel``: on a mesh's ``model`` axis the
+three attentions run on this rank's heads (the cross-attention computes
+K/V of ``enc_out`` for them alone), the GELU MLPs column/row-parallel,
+and the tied embedding and logits vocab-parallel; the layernorms and
+position tables stay whole on every rank.  Decode runs whole.
 The decode self-attention is ``attention.attend_decode`` (the plain
 ring-cache product), and ``decode_step`` recomputes the cross K/V of
 ``enc_out`` at every step, as the JAX package does.  As in
@@ -36,6 +42,8 @@ from repro_torch.models.layers import (embedding, embedding_init, layernorm,
                                        layernorm_init)
 from repro_torch.models.module import normal, stacked_init
 from repro_torch.models.transformer import positions_for
+from repro_torch.sharding.parallel import (copy_to_model, gather_from_model,
+                                           reduce_from_model)
 from repro_torch.utils.tree import tree_map
 
 N_AUDIO_FRAMES = 1500  # whisper: 30 s at 50 frames/s after the conv stub
@@ -68,6 +76,31 @@ def _heads(x, B, S, cfg: ArchConfig, n):
     return x.reshape(B, S, n, cfg.hd)
 
 
+def _attend(bp, cfg: ArchConfig, h, kv_in, tp=None):
+    """Non-causal attention of ``h``'s queries over ``kv_in`` (``h``
+    itself for the encoder's self-attention, ``enc_out`` for the
+    cross-attention).  Head-parallel when ``tp`` splits the attention
+    unit: both inputs enter through one ``copy_to_model``, the rank's
+    heads are projected and attended, and ``wo``'s rows give a partial
+    sum reduced over the ``model`` axis."""
+    B, S, _ = h.shape
+    T = kv_in.shape[1]
+    n_h, n_kv = cfg.n_heads, cfg.n_kv_heads
+    split = tp is not None and tp.on("attn")
+    if split:
+        if kv_in is h:
+            h = kv_in = copy_to_model(tp, h)
+        else:
+            h, kv_in = copy_to_model(tp, h, kv_in)
+        n_h, n_kv = n_h // tp.size, n_kv // tp.size
+    q = _heads(h @ bp["wq"], B, S, cfg, n_h)
+    k = _heads(kv_in @ bp["wk"], B, T, cfg, n_kv)
+    v = _heads(kv_in @ bp["wv"], B, T, cfg, n_kv)
+    a = ops.flash_attention(q, k, v, causal=False)
+    out = a.reshape(B, S, -1) @ bp["wo"]
+    return reduce_from_model(tp, out, "attn") if split else out
+
+
 class EncDec:
     """Namespace of functions for the encoder-decoder family."""
 
@@ -93,40 +126,27 @@ class EncDec:
 
     # ---------------- encoder (client part) ----------------
     @staticmethod
-    def encode(enc_params, cfg: ArchConfig, frames):
+    def encode(enc_params, cfg: ArchConfig, frames, tp=None):
         """frames [B, T, d] (the stub's conv output) -> encoder states."""
-        B, T, _ = frames.shape
+        T = frames.shape[1]
         x = frames + enc_params["pos"][:T][None]
         n = enc_params["blocks"]["norm_attn"]["scale"].shape[0]
         for i in range(n):
             bp = tree_map(lambda a: a[i], enc_params["blocks"])
             h = layernorm(bp["norm_attn"], x, cfg.norm_eps)
-            q = _heads(h @ bp["attn"]["wq"], B, T, cfg, cfg.n_heads)
-            k = _heads(h @ bp["attn"]["wk"], B, T, cfg, cfg.n_kv_heads)
-            v = _heads(h @ bp["attn"]["wv"], B, T, cfg, cfg.n_kv_heads)
-            a = ops.flash_attention(q, k, v, causal=False)
-            x = x + a.reshape(B, T, -1) @ bp["attn"]["wo"]
+            x = x + _attend(bp["attn"], cfg, h, h, tp)
             h = layernorm(bp["norm_ffn"], x, cfg.norm_eps)
-            x = x + ffn_lib.gelu_mlp(bp["ffn"], h)
+            x = x + ffn_lib.gelu_mlp(bp["ffn"], h, tp)
         return layernorm(enc_params["final_norm"], x, cfg.norm_eps)
 
     # ---------------- decoder (server part) ----------------
     @staticmethod
-    def _cross_attend(bp, cfg: ArchConfig, h, enc_out):
-        B, S, _ = h.shape
-        T = enc_out.shape[1]
-        q = _heads(h @ bp["wq"], B, S, cfg, cfg.n_heads)
-        k = _heads(enc_out @ bp["wk"], B, T, cfg, cfg.n_kv_heads)
-        v = _heads(enc_out @ bp["wv"], B, T, cfg, cfg.n_kv_heads)
-        a = ops.flash_attention(q, k, v, causal=False)
-        return a.reshape(B, S, -1) @ bp["wo"]
-
-    @staticmethod
-    def decode_train(dec_params, cfg: ArchConfig, tokens, enc_out):
+    def decode_train(dec_params, cfg: ArchConfig, tokens, enc_out,
+                     tp=None):
         """Teacher-forced decoder forward.  tokens [B, S] -> float32
         logits [B, S, vocab]."""
         B, S = tokens.shape
-        x = embedding(dec_params["embed"], tokens)
+        x = embedding(dec_params["embed"], tokens, tp)
         x = x + dec_params["pos"][:S][None]
         positions = positions_for(B, S, tokens.device)
         n = dec_params["blocks"]["norm_self"]["scale"].shape[0]
@@ -134,26 +154,34 @@ class EncDec:
             bp = tree_map(lambda a: a[i], dec_params["blocks"])
             h = layernorm(bp["norm_self"], x, cfg.norm_eps)
             a, _ = attn_lib.attend_full(bp["self_attn"], cfg, h, positions,
-                                        None)
+                                        None, tp)
             x = x + a
             h = layernorm(bp["norm_cross"], x, cfg.norm_eps)
-            x = x + EncDec._cross_attend(bp["cross_attn"], cfg, h, enc_out)
+            x = x + _attend(bp["cross_attn"], cfg, h, enc_out, tp)
             h = layernorm(bp["norm_ffn"], x, cfg.norm_eps)
-            x = x + ffn_lib.gelu_mlp(bp["ffn"], h)
+            x = x + ffn_lib.gelu_mlp(bp["ffn"], h, tp)
         x = layernorm(dec_params["final_norm"], x, cfg.norm_eps)
-        return EncDec._logits(dec_params, cfg, x)
+        return EncDec._logits(dec_params, cfg, x, tp)
 
     @staticmethod
-    def _logits(dec_params, cfg: ArchConfig, x):
+    def _logits(dec_params, cfg: ArchConfig, x, tp=None):
         """Unembed against the padded table in the model's dtype, widen to
-        float32, and slice the padded columns off."""
-        logits = (x @ dec_params["embed"]["table"].T).float()
-        return logits[..., :cfg.vocab]
+        float32, and slice the padded columns off.  When ``tp`` splits
+        the vocab, each rank's logits are its rows' columns, gathered
+        over the ``model`` axis."""
+        split = tp is not None and tp.on("vocab")
+        if split:
+            x = copy_to_model(tp, x)
+        logits = x @ dec_params["embed"]["table"].T
+        if split:
+            logits = gather_from_model(tp, logits, "logits")
+        return logits.float()[..., :cfg.vocab]
 
     @staticmethod
-    def forward(params, cfg: ArchConfig, frames, tokens):
-        enc_out = EncDec.encode(params["encoder"], cfg, frames)
-        return EncDec.decode_train(params["decoder"], cfg, tokens, enc_out)
+    def forward(params, cfg: ArchConfig, frames, tokens, tp=None):
+        enc_out = EncDec.encode(params["encoder"], cfg, frames, tp)
+        return EncDec.decode_train(params["decoder"], cfg, tokens, enc_out,
+                                   tp)
 
     @staticmethod
     def loss_fn(params, cfg: ArchConfig, frames, tokens, labels):
@@ -203,7 +231,7 @@ class EncDec:
             vs.append(nv)
             x = x + a
             h = layernorm(bp["norm_cross"], x, cfg.norm_eps)
-            x = x + EncDec._cross_attend(bp["cross_attn"], cfg, h, enc_out)
+            x = x + _attend(bp["cross_attn"], cfg, h, enc_out)
             h = layernorm(bp["norm_ffn"], x, cfg.norm_eps)
             x = x + ffn_lib.gelu_mlp(bp["ffn"], h)
         x = layernorm(dec["final_norm"], x, cfg.norm_eps)

@@ -38,7 +38,17 @@ def gelu_mlp_init(gen, d: int, f: int, dtype):
     }
 
 
-def gelu_mlp(params, x):
+def gelu_mlp(params, x, tp=None):
+    """The GELU MLP; tensor-parallel when ``tp`` splits the ``ffn`` unit
+    (``w_in`` and ``b_in`` column-parallel, ``w_out`` row-parallel, its
+    partial sums reduced over the ``model`` axis, ``b_out`` added once,
+    after the reduce)."""
+    split = tp is not None and tp.on("ffn")
+    if split:
+        x = copy_to_model(tp, x)
     # jax.nn.gelu defaults to the tanh approximation; F.gelu to erf
     h = F.gelu(x @ params["w_in"] + params["b_in"], approximate="tanh")
-    return h @ params["w_out"] + params["b_out"]
+    y = h @ params["w_out"]
+    if split:
+        y = reduce_from_model(tp, y, "ffn")
+    return y + params["b_out"]

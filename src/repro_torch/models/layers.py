@@ -9,7 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import module
-from repro_torch.sharding.parallel import reduce_from_model
+from repro_torch.sharding.parallel import copy_to_model, reduce_from_model
 
 
 # ---------------------------------------------------------------- norms
@@ -17,10 +17,23 @@ def rmsnorm_init(d: int, dtype=torch.float32, device=None):
     return {"scale": torch.ones((d,), dtype=dtype, device=device)}
 
 
-def rmsnorm(params, x, eps: float = 1e-5):
+def rmsnorm(params, x, eps: float = 1e-5, tp=None):
+    """RMS norm over the last dimension.  With ``tp`` that last dimension
+    is split over the ``model`` axis (``x`` and the scale hold this
+    rank's columns, a Mamba block's gate norm): the float32 sum of
+    squares of the rank's columns is summed over the axis before the
+    ``rsqrt`` and the mean divides by the whole width; its gradient,
+    partial on each rank, is summed the same way.  Off the axis the op
+    is the unsharded one, bit for bit."""
     dt = x.dtype
     xf = x.float()
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    if tp is None or tp.size == 1:
+        var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    else:
+        ss = torch.sum(torch.square(xf), dim=-1, keepdim=True)
+        ss = copy_to_model(tp, reduce_from_model(tp, ss, "norm"),
+                           what="norm_grad")
+        var = ss / (x.shape[-1] * tp.size)
     y = xf * torch.rsqrt(var + eps)
     return y.to(dt) * params["scale"].to(dt)
 

@@ -9,7 +9,8 @@ CUDA kernel on the card and, on the CPU, its plain version
 ``kernels.ref`` beside the kernel).  Decode (``mamba_decode``) is one
 step of the recurrence in float32 (``ssd_decode_step``) with the causal
 conv's last ``d_conv - 1`` inputs carried in ``MambaState``; no kernel
-runs there.
+runs there.  On a mesh's ``model`` axis the full-sequence block runs
+head-parallel (``mamba_forward(..., tp)``); decode runs whole.
 
 Layout: x [B, L, H, P] (heads x head_dim), B/C [B, L, G, N] (groups x
 state), dt [B, L, H], A [H] negative reals.
@@ -28,6 +29,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.ref import ssd_chunked  # noqa: F401
 from repro_torch.models import module
 from repro_torch.models.layers import rmsnorm, rmsnorm_init
+from repro_torch.sharding.parallel import (copy_to_model, packed_segments,
+                                           rank_segments, reduce_from_model,
+                                           take_segments)
 
 
 def _conv_channels(cfg: ArchConfig) -> int:
@@ -78,26 +82,79 @@ def _causal_conv(w, b, xbc):
     return F.silu(y + b)
 
 
-def mamba_forward(params, cfg: ArchConfig, x):
-    """Full-sequence forward of one mamba2 block.  x [B, L, d] ->
-    (y [B, L, d], final SSD state [B, H, N, P] float32)."""
+def _scan_gate_out(params, cfg: ArchConfig, z, xs, Bm, Cm, dt, tp=None):
+    """The block past its conv: the SSD scan of ``xs`` [B, L, H * P]
+    with ``Bm``/``Cm`` [B, L, G * N] and ``dt`` [B, L, H], the skip, the
+    gated norm and ``w_out``.  Returns (y [B, L, d], final state
+    [B, H, N, P] float32); with ``tp`` the heads are this rank's and y
+    is its partial sum."""
     s = cfg.ssm
+    Bsz, L, H = dt.shape
+    xs = xs.reshape(Bsz, L, H, s.head_dim)
+    Bm = Bm.reshape(Bsz, L, -1, s.d_state)
+    Cm = Cm.reshape(Bsz, L, -1, s.d_state)
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    A = -torch.exp(params["a_log"])
+    y, h = ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=min(s.chunk, L))
+    y = y + xs * params["D"][:, None].to(xs.dtype)
+    y = y.reshape(Bsz, L, H * s.head_dim)
+    y = rmsnorm(params["gate_norm"], y, tp=tp) * F.silu(z)
+    return y @ params["w_out"], h
+
+
+def mamba_forward(params, cfg: ArchConfig, x, tp=None):
+    """Full-sequence forward of one mamba2 block.  x [B, L, d] ->
+    (y [B, L, d], final SSD state [B, H, N, P] float32).
+
+    Head-parallel when ``tp`` splits the ``mamba`` unit: the packed
+    leaves hold this rank's whole SSD heads (``w_in``'s ``[z_r | x_r |
+    B | C | dt_r]`` columns, ``conv_w``'s ``[x_r | B | C]`` channels,
+    ``sharding.parallel.packed_segments``), the scan runs on its H / m
+    heads, the gate norm sums its squares over the axis and ``w_out``'s
+    rows give a partial sum reduced over it; the state returned is the
+    rank's heads'."""
+    if tp is not None and tp.on("mamba"):
+        return _mamba_forward_split(params, cfg, x, tp)
     zxbcdt = x @ params["w_in"]
     z, xbc, dt, d_inner, H, gN = _split_in_proj(cfg, zxbcdt)
     xbc = _causal_conv(params["conv_w"], params["conv_b"], xbc)
     # column slices of one conv output; the kernel reads them in place
     xs, Bm, Cm = torch.split(xbc, [d_inner, gN, gN], dim=-1)
-    Bsz, L = x.shape[0], x.shape[1]
-    xs = xs.reshape(Bsz, L, H, s.head_dim)
-    Bm = Bm.reshape(Bsz, L, s.n_groups, s.d_state)
-    Cm = Cm.reshape(Bsz, L, s.n_groups, s.d_state)
-    dt = F.softplus(dt.float() + params["dt_bias"])
-    A = -torch.exp(params["a_log"])
-    y, h = ops.ssd_scan(xs, dt, A, Bm, Cm, chunk=min(s.chunk, L))
-    y = y + xs * params["D"][:, None].to(xs.dtype)
-    y = y.reshape(Bsz, L, d_inner)
-    y = rmsnorm(params["gate_norm"], y) * F.silu(z)
-    return y @ params["w_out"], h
+    return _scan_gate_out(params, cfg, z, xs, Bm, Cm, dt)
+
+
+def _mamba_forward_split(params, cfg: ArchConfig, x, tp):
+    """:func:`mamba_forward` on this rank's heads.  The ``B``/``C``
+    branch of a one-group block is whole on every rank but read by each
+    rank's heads alone, so its weights (``w_in``'s and ``conv_w``'s
+    ``B``/``C`` parts) and ``conv_b`` (whole on every rank) have partial
+    gradients: they enter with ``x`` through one ``copy_to_model``,
+    which sums those gradients over the axis once, and the branch's
+    share of ``x``'s gradient is summed with the rest of it, once."""
+    s = cfg.ssm
+    m, r = tp.size, tp.rank
+    d_in = s.expand * cfg.d_model // m
+    bc_whole = s.n_groups == 1
+    gN = s.n_groups * s.d_state // (1 if bc_whole else m)
+    H = d_in // s.head_dim
+    zx_w, bc_w, dt_w = torch.split(params["w_in"], [2 * d_in, 2 * gN, H],
+                                   dim=-1)
+    cx_w, cbc_w = torch.split(params["conv_w"], [d_in, 2 * gN], dim=-1)
+    if bc_whole:
+        x, conv_b, bc_w, cbc_w = copy_to_model(
+            tp, x, params["conv_b"], bc_w, cbc_w, what="mamba_grad")
+    else:
+        x, conv_b = copy_to_model(tp, x, params["conv_b"],
+                                  what="mamba_grad")
+    conv_b = take_segments(conv_b, rank_segments(
+        packed_segments(cfg, "mamba/conv_w"), m, r))
+    cx_b, cbc_b = torch.split(conv_b, [d_in, 2 * gN])
+    z, xin = torch.split(x @ zx_w, [d_in, d_in], dim=-1)
+    xs = _causal_conv(cx_w, cx_b, xin)
+    Bm, Cm = torch.split(_causal_conv(cbc_w, cbc_b, x @ bc_w), [gN, gN],
+                         dim=-1)
+    y, h = _scan_gate_out(params, cfg, z, xs, Bm, Cm, x @ dt_w, tp)
+    return reduce_from_model(tp, y, "mamba"), h
 
 
 def ssd_decode_step(h, x, dt, A, Bm, Cm):

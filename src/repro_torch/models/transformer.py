@@ -15,9 +15,9 @@ their plain versions (``kernels.ops``), which launch no kernel.  The
 hybrid family (zamba2) applies ONE shared attention block after each
 listed mamba block.  The full-sequence functions take ``tp``, a
 ``sharding.parallel.TensorParallel``: on a mesh's ``model`` axis the
-attention, FFN and MoE blocks, the embedding and the head run on this
-rank's shards of their weights (the dense and MoE families; Mamba and
-hybrid stacks there raise).  The split-learning
+attention, FFN and MoE blocks, the Mamba-2 blocks (on whole SSD heads),
+the hybrid's shared block, the embedding and the head run on this
+rank's shards of their weights.  The split-learning
 cut is a leading-dim slice of the stacked block params, so client and
 server halves run the same code (``core.split``).
 
@@ -146,11 +146,11 @@ def dense_or_moe_block(params, cfg: ArchConfig, x, positions, window,
     return x + f, metrics
 
 
-def mamba_block(params, cfg: ArchConfig, x):
+def mamba_block(params, cfg: ArchConfig, x, tp=None):
     """One mamba2 block (pre-norm, residual); its final SSD state is
     dropped.  Returns (x, metrics)."""
     h = rmsnorm(params["norm"], x, cfg.norm_eps)
-    y, _ = mamba_lib.mamba_forward(params["mamba"], cfg, h)
+    y, _ = mamba_lib.mamba_forward(params["mamba"], cfg, h, tp)
     return x + y, _zero_metrics(x.device)
 
 
@@ -195,7 +195,7 @@ class Transformer:
         for i in range(n):
             bp = tree_map(lambda a: a[i], blocks)
             if kind in ("mamba", "hybrid"):
-                x, m = mamba_block(bp, cfg, x)
+                x, m = mamba_block(bp, cfg, x, tp)
             else:
                 slot = i % period
                 local = _is_local(cfg, (layer_offset + slot) % period
@@ -207,18 +207,20 @@ class Transformer:
 
     @staticmethod
     def _hybrid_stack(blocks, shared_attn, cfg: ArchConfig, x, positions, *,
-                      first_block: int, n_blocks: int, long_context: bool):
+                      first_block: int, n_blocks: int, long_context: bool,
+                      tp=None):
         """Mamba blocks [first, first + n) with the shared attention block
         applied after every block index listed in
         ``cfg.ssm.shared_attn_positions``."""
         window = attn_lib.layer_window(cfg, False, long_context)
         metrics = _zero_metrics(x.device)
         for i in range(n_blocks):
-            x, m = mamba_block(tree_map(lambda a: a[i], blocks), cfg, x)
+            x, m = mamba_block(tree_map(lambda a: a[i], blocks), cfg, x,
+                               tp)
             metrics = {k: metrics[k] + m[k] for k in metrics}
             if first_block + i in cfg.ssm.shared_attn_positions:
                 x, m = dense_or_moe_block(shared_attn, cfg, x, positions,
-                                          window)
+                                          window, tp)
                 metrics = {k: metrics[k] + m[k] for k in metrics}
         return x, metrics
 
@@ -241,11 +243,6 @@ class Transformer:
         """Run blocks [first, first+n) of a (possibly sliced) stack."""
         if n_blocks == 0:
             return x, _zero_metrics(x.device)
-        if tp is not None and tp.size > 1 and block_kind(cfg) in (
-                "mamba", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name}: Mamba and hybrid stacks on a 'model' axis "
-                "(ROADMAP item 9b)")
         if block_kind(cfg) == "hybrid":
             shared = params.get("shared_attn")
             if shared is None and any(
@@ -260,7 +257,7 @@ class Transformer:
             return Transformer._hybrid_stack(
                 params["blocks"], shared, cfg, x, positions,
                 first_block=first_block, n_blocks=n_blocks,
-                long_context=long_context)
+                long_context=long_context, tp=tp)
         return Transformer._run_stack(
             params["blocks"], cfg, x, positions, layer_offset=first_block,
             long_context=long_context, tp=tp)

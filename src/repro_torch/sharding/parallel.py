@@ -28,13 +28,25 @@ blocks of the sum over ranks when each rank's minibatch differs, its
 own slice when the minibatch is replicated.
 
 Which units split is the whole-unit rule (:func:`sharded_units`): an
-attention block, a dense FFN, a shared-expert FFN, an MoE expert stack
-or a vocab table splits over ``m`` ranks only where the split falls on
-whole heads, experts, hidden columns or vocab rows; otherwise the unit's
+attention block, a dense FFN (SwiGLU or whisper's GELU MLP), a
+shared-expert FFN, an MoE expert stack, a Mamba-2 block or a vocab table
+splits over ``m`` ranks only where the split falls on whole heads,
+experts, hidden columns, SSD heads or vocab rows; otherwise the unit's
 leaves stay whole on every rank and the unit runs whole there, which
 computes the same values.  A stage model's dense ``lin/w`` (the ``lin``
-unit) splits its columns wherever they divide ``m``.  (GSPMD can also split ``wk``'s columns inside
-a head, as ``shard_if_divisible`` allows; explicit code cannot.)
+unit) splits its columns wherever they divide ``m``.  (GSPMD can also
+split ``wk``'s columns inside a head, as ``shard_if_divisible`` allows;
+explicit code cannot.)
+
+A Mamba-2 block's packed leaves are cut on whole SSD heads, segment by
+segment (:func:`packed_segments`): ``w_in``'s columns ``[z | x | B | C
+| dt]`` give a rank ``[z_r | x_r | B | C | dt_r]`` and ``conv_w``'s
+channels ``[x | B | C]`` give it ``[x_r | B | C]``, with ``B`` and ``C``
+whole on every rank when the block has one group (split with their
+heads when the groups divide ``m``).  GSPMD cuts these leaves into
+contiguous blocks instead, wherever ``shard_if_divisible`` allows: the
+two cuts compute the same function, and only the cut on heads lets each
+rank run its own heads' scan.
 """
 from __future__ import annotations
 
@@ -45,17 +57,19 @@ import torch
 
 from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
 
-UNITS = ("attn", "ffn", "shared_ffn", "moe", "vocab", "lin")
+UNITS = ("attn", "ffn", "shared_ffn", "moe", "vocab", "lin", "mamba")
 
 # leaf path -> the unit it belongs to; leaves of no unit (norms, the
 # router, biases) are replicated on every rank
 _UNIT_RULES = (
     (r"attn/(wq|wk|wv|wo)$", "attn"),
     (r"shared_ffn/(w_gate|w_up|w_down)$", "shared_ffn"),
-    (r"(^|/)ffn/(w_gate|w_up|w_down)$", "ffn"),
+    (r"(^|/)ffn/(w_gate|w_up|w_down|w_in|b_in|w_out)$", "ffn"),
     (r"moe/(w_gate|w_up|w_down)$", "moe"),
     (r"(^|/)(embed/table|lm_head/w)$", "vocab"),
     (r"(^|/)lin/w$", "lin"),
+    (r"mamba/(w_in|conv_w|a_log|dt_bias|D|gate_norm/scale|w_out)$",
+     "mamba"),
 )
 
 def unit_of(path: str) -> Optional[str]:
@@ -69,10 +83,12 @@ def unit_of(path: str) -> Optional[str]:
 def sharded_units(cfg, sizes) -> dict:
     """The whole-unit rule: {unit: whether it splits over the ``model``
     axis of a mesh of ``sizes`` (axis name -> size)}.  Reads the
-    config's shapes only.  Raises for a family whose step has no model
-    axis yet.  ``cfg`` None is a stage model (``models.cnn``), which has
-    no config: its ``lin`` unit may split, and each ``lin/w`` does where
-    its columns divide the axis (:meth:`TensorParallel.splits`)."""
+    config's shapes only.  ``cfg`` None is a stage model
+    (``models.cnn``), which has no config: its ``lin`` unit may split,
+    and each ``lin/w`` does where its columns divide the axis
+    (:meth:`TensorParallel.splits`).  A Mamba-2 block splits on whole
+    SSD heads, its ``B``/``C`` groups whole on every rank (one group) or
+    split with their heads."""
     m = sizes.get("model", 1)
     out = dict.fromkeys(UNITS, False)
     if m == 1:
@@ -80,10 +96,14 @@ def sharded_units(cfg, sizes) -> dict:
     if cfg is None:
         out["lin"] = True
         return out
-    if cfg.family in ("ssm", "hybrid", "audio"):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on a 'model' axis of {m}: the "
-            "Mamba, hybrid and whisper steps there are ROADMAP item 9b")
+    out["vocab"] = cfg.vocab_padded % m == 0
+    if cfg.ssm is not None and cfg.family in ("ssm", "hybrid"):
+        s = cfg.ssm
+        heads = s.expand * cfg.d_model // s.head_dim
+        out["mamba"] = heads % m == 0 and (s.n_groups == 1
+                                           or s.n_groups % m == 0)
+        if cfg.family == "ssm":          # attention-free
+            return out
     out["attn"] = cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
     if cfg.moe is None:
         out["ffn"] = cfg.d_ff % m == 0
@@ -94,8 +114,53 @@ def sharded_units(cfg, sizes) -> dict:
         if moe.n_shared_experts:
             out["shared_ffn"] = (moe.n_shared_experts
                                  * moe.d_ff_expert) % m == 0
-    out["vocab"] = cfg.vocab_padded % m == 0
     return out
+
+
+def packed_segments(cfg, path: str) -> Optional[tuple]:
+    """The packed layout of a Mamba-2 leaf along the dimension its spec
+    puts on ``model``: ``((width, split), ...)`` in order, each segment
+    cut over the axis (``split``) or whole on every rank; None for any
+    other leaf (cut contiguously, if at all).  ``w_in``'s columns are
+    ``[z | x | B | C | dt]`` (``models/mamba2.py``), ``conv_w``'s
+    channels ``[x | B | C]``; ``B`` and ``C`` split only with more than
+    one group."""
+    if cfg is None or cfg.ssm is None:
+        return None
+    is_w_in = re.search(r"mamba/w_in$", path) is not None
+    if not is_w_in and re.search(r"mamba/conv_w$", path) is None:
+        return None
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    gn, groups = s.n_groups * s.d_state, s.n_groups > 1
+    segs = ((d_inner, True), (gn, groups), (gn, groups))
+    if is_w_in:
+        return ((d_inner, True),) + segs + ((d_inner // s.head_dim, True),)
+    return segs
+
+
+def rank_segments(segs, m: int, r: int) -> tuple:
+    """Rank ``r``'s part of a packed dimension of layout ``segs`` (see
+    :func:`packed_segments`) on a model axis of ``m``: ``((lo, hi,
+    split), ...)``, ranges of the whole dimension, concatenated in
+    order."""
+    out, off = [], 0
+    for width, split in segs:
+        if split:
+            per = width // m
+            out.append((off + r * per, off + (r + 1) * per, True))
+        else:
+            out.append((off, off + width, False))
+        off += width
+    return tuple(out)
+
+
+def take_segments(x, ranges, dim: int = -1):
+    """The ranges ``((lo, hi, split), ...)`` of ``x`` along ``dim``,
+    concatenated in order (a rank's packed part; see
+    :func:`rank_segments`)."""
+    return torch.cat([x.narrow(dim, lo, hi - lo) for lo, hi, _ in ranges],
+                     dim=dim)
 
 
 class TensorParallel:
@@ -280,22 +345,28 @@ def global_norm(grads, tp: Optional[TensorParallel] = None, plan=None,
     axis' collectives, is given).  The squares of the model-split leaves
     are summed over the model axis in one all-reduce (with those split
     over both axes beside them), those of the data-split leaves over
-    ``data`` in one more; the replicated leaves' are counted once.
-    Without a plan every leaf is whole: the unsharded arithmetic."""
+    ``data`` in one more; the replicated leaves' are counted once, and
+    so are the segments of a packed leaf that every rank holds whole
+    (a Mamba block's ``B``/``C`` columns).  Without a plan every leaf is
+    whole: the unsharded arithmetic."""
     leaves = tree_leaves(grads)
     shards = tree_leaves(plan) if plan is not None else [None] * len(leaves)
-    mflags = [s is not None and _on(tp) and s.dim is not None
-              for s in shards]
-    dflags = [s is not None and data is not None and s.ddim is not None
-              for s in shards]
     sq = lambda g: torch.sum(torch.square(g.float()))
-
-    def part(m, d):
-        return [sq(g) for g, fm, fd in zip(leaves, mflags, dflags)
-                if fm == m and fd == d]
-    norm2 = sum(part(False, False))
-    m_only, d_only, both = part(True, False), part(False, True), \
-        part(True, True)
+    parts = {(m, d): [] for m in (False, True) for d in (False, True)}
+    for g, s in zip(leaves, shards):
+        fd = s is not None and data is not None and s.ddim is not None
+        if s is None or not _on(tp) or s.dim is None:
+            parts[(False, fd)].append(sq(g))
+        elif s.segs is None:
+            parts[(True, fd)].append(sq(g))
+        else:
+            widths = [hi - lo for lo, hi, _ in s.segs]
+            for piece, (_, _, split) in zip(torch.split(g, widths, s.dim),
+                                            s.segs):
+                parts[(split, fd)].append(sq(piece))
+    norm2 = sum(parts[(False, False)])
+    m_only, d_only, both = (parts[(True, False)], parts[(False, True)],
+                            parts[(True, True)])
     if both:
         zero = torch.zeros((), dtype=torch.float32, device=both[0].device)
         red = tp.comm.all_reduce(torch.stack([sum(m_only, zero),

@@ -23,7 +23,14 @@ tree's specs into each leaf's :class:`Shard`, the dimension it splits
 over ``model`` (under the whole-unit rule of ``sharding.parallel``) and
 over ``data`` (roles 'server' and 'full'), and this rank's range of
 each; :func:`shard_params` / :func:`gather_params` move a tree between
-whole and this rank's blocks.  The round gathers the ``data`` blocks at
+whole and this rank's blocks.  A Mamba-2 block's packed ``w_in`` and
+``conv_w`` are cut over ``model`` segment by segment, on whole SSD heads
+(``sharding.parallel.packed_segments``): a rank's block of such a leaf
+is the concatenation of its part of each segment, not one contiguous
+range.  GSPMD in the reference cuts these leaves contiguously wherever
+``shard_if_divisible`` allows; the cut on heads computes the same
+function and lets each rank scan its own heads.  The round gathers the
+``data`` blocks at
 use (``sharding.parallel.gather_from_data``); the cohort's split is
 :func:`local_slots`, the port's counterpart of ``slot_shard_map``.  The
 layout pins of the JAX package (``constrain_*``) have no counterpart.
@@ -33,7 +40,11 @@ from __future__ import annotations
 import re
 from typing import Optional, Sequence
 
-from repro_torch.sharding.parallel import sharded_units, unit_of
+import torch
+
+from repro_torch.sharding.parallel import (packed_segments, rank_segments,
+                                           sharded_units, take_segments,
+                                           unit_of)
 from repro_torch.utils.tree import (map_with_path, tree_leaves, tree_map,
                                     tree_unflatten_like)
 
@@ -273,24 +284,33 @@ class Shard:
     axis, this rank holding ``[lo, hi)`` of it, and along ``ddim`` over
     ``data`` (FSDP), this rank holding ``[dlo, dhi)`` of it; a None dim
     is whole on that axis.  The two dims are never the same (an axis
-    appears once in a spec), so the cuts commute."""
-    __slots__ = ("dim", "lo", "hi", "ddim", "dlo", "dhi")
+    appears once in a spec), so the cuts commute.
+
+    A packed leaf (a Mamba block's ``w_in``, ``conv_w``) has ``segs``,
+    this rank's ranges ``((lo, hi, split), ...)`` of ``dim`` in the
+    order its block concatenates them (``sharding.parallel.
+    rank_segments``); its ``[lo, hi)`` is then the block's place in the
+    rank-order concatenation of every rank's block, what an all-gather
+    along ``dim`` returns.  ``segs`` is None for a contiguous cut."""
+    __slots__ = ("dim", "lo", "hi", "ddim", "dlo", "dhi", "segs")
 
     def __init__(self, dim: Optional[int] = None, lo: int = 0, hi: int = 0,
-                 ddim: Optional[int] = None, dlo: int = 0, dhi: int = 0):
+                 ddim: Optional[int] = None, dlo: int = 0, dhi: int = 0,
+                 segs: Optional[tuple] = None):
         self.dim, self.lo, self.hi = dim, lo, hi
         self.ddim, self.dlo, self.dhi = ddim, dlo, dhi
+        self.segs = segs
 
     def model_only(self) -> "Shard":
         """The same leaf whole over ``data`` (a cohort slot's copy)."""
-        return Shard(self.dim, self.lo, self.hi)
+        return Shard(self.dim, self.lo, self.hi, segs=self.segs)
 
     def stacked(self) -> "Shard":
         """The leaf of a [N, ...] stack of copies (role 'client': the
         cohort or the per-client store): its model split one dim on,
         whole over ``data``."""
         return Shard(None if self.dim is None else self.dim + 1,
-                     self.lo, self.hi)
+                     self.lo, self.hi, segs=self.segs)
 
 
 class _Sizes:
@@ -310,7 +330,9 @@ def shard_plan(params, sizes, coords, role: str = "full", cfg=None,
     (``cfg``, an ``ArchConfig``) splits only on whole heads, experts,
     hidden columns or vocab rows; a stage model's ``lin`` unit (``cfg``
     None) splits each ``lin/w`` whose columns divide the axis, as
-    ``shard_if_divisible`` reads its spec.  ``data`` (FSDP), for roles
+    ``shard_if_divisible`` reads its spec; a Mamba block's packed
+    ``w_in`` and ``conv_w`` are cut segment by segment
+    (:class:`Shard`'s ``segs``).  ``data`` (FSDP), for roles
     'server' and 'full' only: the spec's ``data`` dimension where it
     divides the axis ('client', a [C, ...] stack, drops ``data`` as
     :func:`param_specs` does).  ``local`` reads ``params`` as this
@@ -331,10 +353,20 @@ def shard_plan(params, sizes, coords, role: str = "full", cfg=None,
         s = Shard()
         unit = unit_of(path)
         if unit is not None and units[unit]:
-            spec = _spec_for(path, shape, on_model, rules, role)
+            # a packed leaf is cut on its segments, whatever its width
+            segs = packed_segments(cfg, path)
+            spec = _spec_for(path, shape, on_model if segs is None
+                             else _Sizes({"model": 1}), rules, role)
             if "model" in spec:
                 s.dim = spec.index("model")
                 per = shape[s.dim] if local else shape[s.dim] // m
+                if segs is not None:
+                    s.segs = rank_segments(segs, m, r)
+                    per = sum(hi - lo for lo, hi, _ in s.segs)
+                    if shape[s.dim] != (per if local else
+                                        sum(w for w, _ in segs)):
+                        raise ValueError(f"{path} {shape}: not the packed "
+                                         f"layout {segs}")
                 s.lo, s.hi = r * per, (r + 1) * per
             elif unit != "lin":
                 raise ValueError(f"{path} {shape}: its unit {unit} splits "
@@ -353,7 +385,8 @@ def shard_plan(params, sizes, coords, role: str = "full", cfg=None,
 def _cut(x, s: Shard, model: bool, data: bool):
     out = x
     if model and s.dim is not None:
-        out = out.narrow(s.dim, s.lo, s.hi - s.lo)
+        out = (out.narrow(s.dim, s.lo, s.hi - s.lo) if s.segs is None
+               else take_segments(out, s.segs, s.dim))
     if data and s.ddim is not None:
         out = out.narrow(s.ddim, s.dlo, s.dhi - s.dlo)
     return x if out is x else out.contiguous()
@@ -373,7 +406,8 @@ def gather_params(local, plan, comm=None, data_comm=None):
     ``data`` all-gathered over ``data_comm`` along their data dim in
     one call per dtype (census ``all_gather/weights``), then each leaf
     split over ``model`` all-gathered over ``comm`` (the mesh's
-    ``model_comm``) along its dimension, in rank order.  An axis whose
+    ``model_comm``) along its dimension, in rank order, a packed leaf's
+    segments put back in place (:func:`unpack_segments`).  An axis whose
     collectives are None is not gathered (a tree cut over one axis, or
     one whose blocks over an axis stay)."""
     leaves, shards = tree_leaves(local), tree_leaves(plan)
@@ -383,10 +417,28 @@ def gather_params(local, plan, comm=None, data_comm=None):
             [leaves[i].movedim(shards[i].ddim, 0) for i in idx], "weights")
         for i, g in zip(idx, got):
             leaves[i] = g.movedim(0, shards[i].ddim).contiguous()
-    leaves = [x if s.dim is None or comm is None else comm.all_gather(
-        x.movedim(s.dim, 0), "params").movedim(0, s.dim).contiguous()
-        for x, s in zip(leaves, shards)]
-    return tree_unflatten_like(local, leaves)
+
+    def whole(x, s):
+        if s.dim is None or comm is None:
+            return x
+        g = comm.all_gather(x.movedim(s.dim, 0), "params")
+        if s.segs is not None:
+            g = unpack_segments(g, s.segs, comm.size)
+        return g.movedim(0, s.dim).contiguous()
+    return tree_unflatten_like(local, [whole(x, s)
+                                       for x, s in zip(leaves, shards)])
+
+
+def unpack_segments(g, segs, m: int):
+    """The whole packed dimension (dim 0 of ``g``) from the rank-order
+    concatenation ``g`` of ``m`` ranks' blocks, each laid out as
+    ``segs`` (one rank's :class:`Shard` ranges): a split segment is every
+    rank's part in rank order, a whole one the first rank's copy."""
+    widths = [hi - lo for lo, hi, _ in segs]
+    blocks = [torch.split(b, widths) for b in torch.chunk(g, m)]
+    return torch.cat([torch.cat([b[j] for b in blocks]) if split
+                      else blocks[0][j]
+                      for j, (_, _, split) in enumerate(segs)])
 
 
 def _entity_map(fn, entity, plan):

@@ -9,7 +9,9 @@ NamedTuples ``TrainState`` and ``EntityState`` are matched by field
 name, so nothing of the JAX package is imported here.  On a mesh a rank
 holds blocks over ``model`` and ``data`` (``sharding.specs.shard_plan``):
 :func:`to_shards` carries whole weights into a rank's blocks and
-:func:`from_shards` a rank's blocks back to a whole numpy tree.
+:func:`from_shards` a rank's blocks back to a whole numpy tree, a Mamba
+block's packed leaves (cut on whole SSD heads, segment by segment) as
+any other.
 """
 from __future__ import annotations
 

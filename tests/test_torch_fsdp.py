@@ -12,7 +12,8 @@ columns divide the axis (``shard_if_divisible`` exactly), a
 transformer's unit only on whole heads, experts, hidden columns or
 vocab rows (else whole, as ``tests/test_torch_tp.py`` holds).  Held for
 every Engine task (femnist at each cut, resnet9, the LSTM, the MLP) and
-every dense, MoE or VLM arch at its published widths (shapes only: the
+every arch (whisper's encoder and decoder halves, the Mamba blocks'
+packed leaves cut on whole heads) at its published widths (shapes only: the
 reference's ``jax.eval_shape``, the port's shape-only draw), at (1, 2),
 (2, 2), (4, 1) and (1, 4), for every rank's coordinates.  The round
 trip cuts each rank's blocks from whole weights (femnist width 4, the
@@ -30,6 +31,7 @@ from repro.api.phases import init_train_state as j_init_train_state
 from repro.api.tasks import build_task as j_build_task
 from repro.configs.registry import get_config as j_get_config
 from repro.core.split import make_transformer_task as j_make_task
+from repro.launch.steps import make_whisper_task as j_make_whisper_task
 from repro.optim import adam as j_adam
 from repro.sharding import specs as js
 from repro.utils.tree import path_str
@@ -39,7 +41,9 @@ from repro_torch.configs import get_config, list_archs, smoke_config
 from repro_torch.core.split import make_transformer_task
 from repro_torch.models.module import SHAPES
 from repro_torch.optim import adam
-from repro_torch.sharding.parallel import sharded_units, unit_of
+from repro_torch.launch.steps import make_whisper_task
+from repro_torch.sharding.parallel import (packed_segments, rank_segments,
+                                           sharded_units, unit_of)
 from repro_torch.sharding.specs import Shard, shard_params, shard_plan
 from repro_torch.utils.tree import (tree_leaves, tree_leaves_with_path,
                                     tree_map)
@@ -51,8 +55,7 @@ TASK_CUTS = {"image cut 1": ("image", 1), "image cut 2": ("image", 2),
              "image cut 3": ("image", 3), "cifar cut 3": ("cifar", 3),
              "cifar cut 6": ("cifar", 6), "charlm": ("charlm", 2),
              "gaze": ("gaze", 1)}
-ARCHS = [a for a in list_archs()
-         if get_config(a).family not in ("ssm", "hybrid", "audio")]
+ARCHS = list_archs()
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -113,6 +116,12 @@ def _check(specs: dict, tree, sizes, role, cfg=None):
                 if dim is None:
                     continue
                 per = leaf.shape[dim] // sizes[ax]
+                if ax == "model" and s.segs is not None:
+                    # a packed Mamba leaf: the rank's whole heads of each
+                    # segment, its block their concatenation
+                    assert s.segs == rank_segments(packed_segments(
+                        cfg, name), sizes[ax], coords[ax]), name
+                    per = sum(h - l for l, h, _ in s.segs)
                 assert (lo, hi) == (coords[ax] * per,
                                     (coords[ax] + 1) * per), name
                 if coords == {"data": 0, "model": 0}:
@@ -169,7 +178,10 @@ def _arch_halves(arch):
     server (role 'server'), the client ('full') and a [2, ...] stack of
     clients ('client')."""
     cfg, jcfg = get_config(arch), j_get_config(arch)
-    jtask, task = j_make_task(jcfg), make_transformer_task(cfg)
+    if cfg.family == "audio":
+        jtask, task = j_make_whisper_task(jcfg), make_whisper_task(cfg)
+    else:
+        jtask, task = j_make_task(jcfg), make_transformer_task(cfg)
     key = jax.random.PRNGKey(0)
     halves = {"server": (jax.eval_shape(lambda: jtask.init_server(key)),
                          task.init_server(SHAPES)),
@@ -212,12 +224,13 @@ def _round_trip(tree, sizes, role, cfg=None):
         for o, b, s in zip(tree_leaves(out), tree_leaves(blocks),
                            tree_leaves(plan)):
             assert b.is_contiguous()
-            view = o
-            if s.dim is not None:
-                view = view.narrow(s.dim, s.lo, s.hi - s.lo)
-            if s.ddim is not None:
-                view = view.narrow(s.ddim, s.dlo, s.dhi - s.dlo)
-            view.copy_(b)
+            views = [o] if s.dim is None else _model_view(o, s)
+            pieces = torch.split(b, [v.shape[s.dim] for v in views],
+                                 s.dim) if s.dim is not None else [b]
+            for view, piece in zip(views, pieces):
+                if s.ddim is not None:
+                    view = view.narrow(s.ddim, s.dlo, s.dhi - s.dlo)
+                view.copy_(piece)
     for a, b in zip(tree_leaves(tree), tree_leaves(out)):
         assert torch.equal(a, b)
 
@@ -237,7 +250,8 @@ def whole_trees():
                           task.init_client(gen)), "client", None)]
     for arch in ARCHS:
         cfg = smoke_config(arch)
-        task = make_transformer_task(cfg)
+        task = (make_whisper_task(cfg) if cfg.family == "audio"
+                else make_transformer_task(cfg))
         out += [(task.init_server(gen), "server", cfg),
                 (task.init_client(gen), "full", cfg)]
     return out
@@ -248,6 +262,14 @@ def test_round_trip_is_exact_for_every_task_and_arch(mesh, whole_trees):
     sizes = _sizes(MESHES[mesh])
     for tree, role, cfg in whole_trees:
         _round_trip(tree, sizes, role, cfg)
+
+
+def _model_view(o, s):
+    """The places in whole leaf ``o`` of a block's ``model`` cut: one
+    view, or a packed leaf's one a segment."""
+    if s.segs is None:
+        return [o.narrow(s.dim, s.lo, s.hi - s.lo)]
+    return [o.narrow(s.dim, lo, hi - lo) for lo, hi, _ in s.segs]
 
 
 def test_stacked_shard_is_the_client_roles():

@@ -54,7 +54,8 @@ from repro_torch.launch.meshcheck import spawn_ranks
 from repro_torch.launch.steps import build_prefill_step, build_train_step
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import Transformer
-from repro_torch.sharding.parallel import sharded_units, unit_of
+from repro_torch.sharding.parallel import (packed_segments, sharded_units,
+                                           unit_of)
 from repro_torch.sharding.specs import (gather_params, param_specs,
                                         shard_params, shard_plan)
 from repro_torch.utils.tree import (tree_leaves, tree_leaves_with_path,
@@ -113,13 +114,11 @@ def test_whole_unit_rule_and_plan_at_published_shapes(arch, m, meta_init):
     """Every leaf a plan splits belongs to a unit the rule splits, sits
     where the reference's spec puts the ``model`` axis, and gives the
     rank (the last one here) its 1/m on whole heads, experts, columns or
-    vocab rows; every other leaf stays whole."""
+    vocab rows; every other leaf stays whole.  A Mamba block's packed
+    ``w_in`` and ``conv_w`` give the rank whole heads of ``z``, ``x``
+    and ``dt`` and all of ``B`` and ``C`` (one group), in that order."""
     cfg = get_config(arch)
     sizes = {"data": 1, "model": m}
-    if m > 1 and cfg.family in ("ssm", "hybrid", "audio"):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            sharded_units(cfg, sizes)
-        return
     units = sharded_units(cfg, sizes)
     params = (EncDec if cfg.family == "audio" else Transformer).init(
         MetaGen(), cfg)
@@ -138,6 +137,10 @@ def test_whole_unit_rule_and_plan_at_published_shapes(arch, m, meta_init):
             continue
         n_split += 1
         assert units[unit] and spec[s.dim] == "model", (name, spec)
+        if s.segs is not None:
+            _assert_whole_heads(cfg, name, s, m)
+            continue
+        assert packed_segments(cfg, name) is None, name
         per = leaf.shape[s.dim] // m
         assert (s.lo, s.hi) == ((m - 1) * per, m * per), name
     assert (n_split > 0) == (m > 1 and any(units.values()))
@@ -146,6 +149,36 @@ def test_whole_unit_rule_and_plan_at_published_shapes(arch, m, meta_init):
     if arch == "olmoe-1b-7b" and m == 4:
         assert units["attn"] and units["moe"] and units["vocab"]
         assert cfg.n_heads // m == 4 and cfg.moe.n_experts // m == 16
+    if cfg.family in ("ssm", "hybrid") and m > 1:
+        assert units["mamba"] and units["vocab"]
+        assert units["attn"] == units["ffn"] == (cfg.family == "hybrid")
+    if cfg.family == "audio" and m > 1:
+        assert units["attn"] and units["ffn"] and units["vocab"]
+
+
+def _assert_whole_heads(cfg, name, s, m):
+    """A packed Mamba leaf's shard on the last of ``m`` ranks: ``w_in``'s
+    ``z``, ``x`` and ``dt`` and ``conv_w``'s ``x`` the rank's whole SSD
+    heads, ``B`` and ``C`` (one group) whole, each segment in place."""
+    ssm = cfg.ssm
+    d_inner = ssm.expand * cfg.d_model
+    H, gn = d_inner // ssm.head_dim, ssm.n_groups * ssm.d_state
+    r = m - 1
+    heads = (r * d_inner // m, (r + 1) * d_inner // m, True)
+    bc = ((2 * d_inner, 2 * d_inner + gn, False),
+          (2 * d_inner + gn, 2 * d_inner + 2 * gn, False))
+    if name.endswith("w_in"):
+        want = ((heads[0], heads[1], True),
+                (d_inner + heads[0], d_inner + heads[1], True)) + bc + (
+            (2 * d_inner + 2 * gn + r * H // m,
+             2 * d_inner + 2 * gn + (r + 1) * H // m, True),)
+    else:
+        want = (heads,) + tuple((lo - d_inner, hi - d_inner, f)
+                                for lo, hi, f in bc)
+    assert ssm.n_groups == 1 and s.segs == want, (name, s.segs)
+    assert (heads[1] - heads[0]) % ssm.head_dim == 0
+    local = sum(hi - lo for lo, hi, _ in want)
+    assert (s.lo, s.hi) == (r * local, (r + 1) * local), name
 
 
 def _spec_leaves(specs) -> list:
@@ -161,6 +194,7 @@ class FakeModelComm:
 
     def __init__(self, shards, plans, rank):
         self.shards, self.plans, self.rank = shards, plans, rank
+        self.size = len(shards)
 
     def all_gather(self, t, what):
         mine = tree_leaves(self.shards[self.rank])
@@ -176,11 +210,8 @@ class FakeModelComm:
 def test_shard_and_gather_round_trip_at_smoke_width(arch, m):
     cfg = smoke_config(arch)
     sizes = {"data": 1, "model": m}
-    if cfg.family in ("ssm", "hybrid", "audio"):
-        with pytest.raises(NotImplementedError, match="item 9b"):
-            sharded_units(cfg, sizes)
-        return
-    full = Transformer.init(torch.Generator().manual_seed(0), cfg)
+    full = (EncDec if cfg.family == "audio" else Transformer).init(
+        torch.Generator().manual_seed(0), cfg)
     stacked = tree_map(lambda t: torch.stack([t, t + 1]), full)
     for tree, role in ((full, "full"), (stacked, "client")):
         plans = [shard_plan(tree, sizes, {"model": r}, role, cfg)
