@@ -127,7 +127,20 @@ Phases, each of which ends the script with a non-zero exit on failure:
     4) and (2, 2), whisper-base on (4, 1) (FSDP alone) and mamba2-2.7b
     at depth 8 on (1, 4) (two cards: (1, 2)), each held to the unsharded
     run, its planted fault (the B/C branch's gradient sum dropped in a
-    Mamba model) refused, its census held to ``ssm_tp_census``.
+    Mamba model) refused, its census held to ``ssm_tp_census``;
+28. decode and the serving slot table on a mesh, in a process of its
+    own: a (1, 1) mesh through ``ServeRuntime`` (olmoe-1b-7b whole,
+    phase 16's stream of one wave) and ``build_decode_step`` (olmoe,
+    zamba2-1.2b, whisper-base whole, mamba2-2.7b at depth 8), bit for
+    bit the unsharded runs with their launches and no collective;
+    topk_gating at a rank's serving rows; with four cards olmoe-1b-7b
+    and zamba2-1.2b whole served on (1, 4) and (2, 2) with phase 16's
+    config and stream, whisper-base and mamba2-2.7b decoding on (1, 4):
+    teacher-forced bf16 logits held to unsharded by phase 17's yardstick,
+    a served stream parting from the unsharded one only where the
+    unsharded top-2 gap lies within it, every rank alike, the census a
+    tick, ms a tick, tokens/s, TTFT and peak memory a card, and a
+    decode without its attention's (Mamba's) reduce refused.
 
 It then prints the ``kernels`` JSON line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -4577,6 +4590,583 @@ def run_ssm_tp_phase(out_path, profile=False):
     return 0
 
 
+# ---------------------------------------------------------------- phase 28
+# decode and the serving slot table on a mesh, in a process of its own
+# (``python3 chip_smoke.py --decode-mesh-phase OUT``)
+DM_ONE_CARD_REQUESTS = 8       # one wave of phase 16's stream on (1, 1)
+DM_TF = dict(batch=4, steps=16)  # teacher forcing: rows, steps (= context)
+# each world's runs: (kind, arch, depth (None: whole)); "serve" runs
+# ServeRuntime over SERVE_REQUESTS[arch] requests and teacher-forces the
+# decode step, "decode" teacher-forces the decode step alone
+# a stream may part from the unsharded one where the unsharded top-2 gap
+# lies within DM_PART_K x the rms of the bf16 gap against the float32
+# one: phase 17's 3, times sqrt(2), because a parting compares two bf16
+# runs (the mesh's and one card's), each with its own rounding
+DM_PART_K = 3 * math.sqrt(2)
+DM_WORLDS = {
+    (1, 4): (("serve", "olmoe-1b-7b", None), ("serve", "zamba2-1.2b", None),
+             ("decode", "whisper-base", None),
+             ("decode", "mamba2-2.7b", MAMBA_DEPTH)),
+    (2, 2): (("serve", "olmoe-1b-7b", None), ("serve", "zamba2-1.2b", None))}
+DM_ONE_CARD = (("olmoe-1b-7b", None), ("zamba2-1.2b", None),
+               ("whisper-base", None), ("mamba2-2.7b", MAMBA_DEPTH))
+
+
+def dm_config(arch, depth):
+    """The arch at ``depth``, its MoE at capacity factor 8 for teacher
+    forcing (as phase 17: no side drops a token, so the yardstick reads
+    rounding alone); the serving runs keep the config's (one token a
+    group never drops)."""
+    cfg = ssm_tp_config(arch, depth)
+    if cfg.moe is not None:
+        cfg = cfg.with_(moe=dataclasses.replace(cfg.moe,
+                                                capacity_factor=8.0))
+    return cfg
+
+
+def dm_teacher(torch, cfg, mesh=None, dev="cuda", f32=False, planted=False):
+    """``DM_TF["steps"]`` teacher-forced steps of ``build_decode_step`` at
+    ``DM_TF["batch"]`` rows from ``init_state(0)`` (on ``mesh``, the
+    rank's rows and shards), fed numpy tokens (seed 2): ``{"tf":
+    (logits, launches)}``, the float32 logits [B, steps, V] of every row
+    (gathered over the batch axes), on the card, and the launches; with
+    ``planted`` also ``"planted"``, the same steps from the same weights
+    and empty state under :func:`planted_decode_reduce_fault` (the
+    control).  ``f32`` (unsharded only) runs the same weights upcast in
+    float32 (the yardstick's other side; TF32 off)."""
+    import numpy as np
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import inputs as inputs_lib
+    from repro_torch.launch.steps import build_decode_step
+    from repro_torch.models.encdec import EncDec
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.sharding.specs import decode_rows, rows_comm
+    from repro_torch.utils.tree import tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dev if mesh is None else mesh.device
+    B, S = DM_TF["batch"], DM_TF["steps"]
+    shape = InputShape("decode-mesh tf", S, B, "decode")
+    bundle = build_decode_step(cfg, shape, device=dev, mesh=mesh)
+    params, state0 = bundle.init_state(0)
+    if f32:
+        cfg32 = cfg.with_(dtype="float32")
+        params = tree_map(lambda t: t.float(), params)
+        bundle = build_decode_step(cfg32, shape, device=dev)
+        if cfg.family == "audio":
+            frames = torch.from_numpy(np.random.default_rng(0).standard_normal(
+                (B, inputs_lib.WHISPER_FRAMES, cfg.enc_d_model)).astype(
+                    np.float32)).to(dev).to(cfg.torch_dtype).float()
+            with torch.no_grad():
+                state0 = EncDec.init_decode_state(params, cfg32, frames, S)
+        else:
+            state0 = Transformer.init_decode_state(cfg32, B, S, device=dev)
+    lo, hi, axes = ((0, B, None) if mesh is None
+                    else decode_rows(mesh.shape, mesh.coords, B))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(B, S), dtype=np.int32)[lo:hi]).to(dev)
+    rc = None if mesh is None else rows_comm(mesh, axes)
+    out = {}
+    for part in ("tf", "planted") if planted else ("tf",):
+        ctx = (planted_decode_reduce_fault(cfg) if part == "planted"
+               else contextlib.nullcontext())
+        state, outs = state0, []       # a decode leaves its state as it was
+        reset_counters()
+        with ctx:
+            for t in range(S):
+                lg, state = bundle.fn(params, toks[:, t:t + 1], state)
+                outs.append(lg[:, 0].float())
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_counters().items() if v}
+        logits = torch.stack(outs, 1)
+        if rc is not None:
+            logits = rc.all_gather(logits, "logits")
+        out[part] = (logits, launches)
+        del state, outs
+    del params, state0
+    return out
+
+
+def _rms(x) -> float:
+    return float(x.double().square().mean().sqrt())
+
+
+@contextlib.contextmanager
+def planted_decode_reduce_fault(cfg):
+    """The control: the decode attention's ``reduce_from_model`` dropped
+    (each rank keeps its heads' partial sum); in a model without
+    attention (mamba2-2.7b) the Mamba block's."""
+    from repro_torch.models import attention, mamba2
+    mod = attention if cfg.family != "ssm" else mamba2
+    real = mod.reduce_from_model
+    mod.reduce_from_model = lambda tp, x, what: x
+    try:
+        yield
+    finally:
+        mod.reduce_from_model = real
+
+
+class ServedGaps:
+    """The top-2 logit gap behind every token a ``ServeRuntime`` run
+    generates, read inside the run itself (no replay): while on,
+    ``Transformer.decode_step`` leaves each call's last-position gap [B]
+    on the card, and the runtime's admission and decode are wrapped to
+    note on the host which request, and which of its tokens, each row's
+    logits choose (a chunk row's first token comes from the prefill
+    position of its prompt's last token; a live slot's next from the
+    tick's decode).  :meth:`gaps` reads them once, after the run:
+    ``{(rid, j): gap}``.  The topk adds one small kernel a decode body
+    call to the run it records."""
+
+    def __init__(self, torch, rt):
+        from repro_torch.models.transformer import Transformer
+        self.torch, self.rt, self.T = torch, rt, Transformer
+        self.raw = Transformer.__dict__["decode_step"]
+        self.calls, self.marks, self.chunk = [], [], None
+        real = Transformer.decode_step
+
+        def step(*a, **k):
+            lg, st = real(*a, **k)
+            top = torch.topk(lg[:, -1].float(), 2).values
+            self.calls.append(top[:, 0] - top[:, 1])
+            return lg, st
+        Transformer.decode_step = staticmethod(step)
+        admit, prefill, decode = rt._admit_chunk, rt._prefill, rt._decode
+
+        def admit_chunk(now):
+            n = min(len(rt.queue), len(rt.free), rt.serve.prefill_batch)
+            self.chunk = [(r.rid, len(r.prompt)) for r in list(rt.queue)[:n]]
+            return admit(now)
+
+        def prefill_call(*args):
+            self.marks.append(("prefill", len(self.calls), self.chunk))
+            return prefill(*args)
+
+        def decode_call(*args):
+            self.marks.append(("decode", len(self.calls), [
+                (s, r.rid, int(rt.counts_host[s]))
+                for s, r in enumerate(rt.slot_req) if r is not None]))
+            return decode(*args)
+        rt._admit_chunk, rt._prefill, rt._decode = (admit_chunk, prefill_call,
+                                                    decode_call)
+
+    def off(self):
+        self.T.decode_step = self.raw
+
+    def gaps(self) -> dict:
+        sizes = [c.numel() for c in self.calls]
+        flat = self.torch.cat(self.calls).cpu().tolist()
+        vals, at = [], 0
+        for n in sizes:
+            vals.append(flat[at:at + n])
+            at += n
+        out = {}
+        for kind, start, rows in self.marks:
+            if kind == "prefill":
+                for i, (rid, n) in enumerate(rows):
+                    out[(rid, 0)] = vals[start + n - 1][i]
+            else:
+                for s, rid, j in rows:
+                    out[(rid, j)] = vals[start][s]
+        return out
+
+
+def dm_serve(torch, cfg, n_requests, mesh=None, dev="cuda", keep=False,
+             gaps=False):
+    """``run_closed_loop`` over phase 16's stream (``make_prompts(n, 64,
+    vocab, 1)``) at concurrency 8 through ``ServeRuntime(SERVE, seed=0,
+    mesh=)``: every request's tokens, its records without their times,
+    the stats, the census of every collective group (the host group's
+    too) over the loop, ms a tick (the decode calls' device timeline),
+    tokens/s, TTFT, peak memory and the launches, which must be phase
+    16's count: (decode calls + chunks x max_prompt_len) x layers of
+    ``topk_gating`` in an MoE model, none otherwise.  ``keep`` keeps the
+    final slot table (on the host); ``gaps`` records the top-2 logit gap
+    behind every generated token in the run (:class:`ServedGaps`), as
+    ``gaps`` [[rid, j, gap], ...]."""
+    import numpy as np
+    from repro_torch.serve import (ServeConfig, ServeRuntime, make_prompts,
+                                   run_closed_loop)
+    from repro_torch.utils.tree import tree_leaves
+    sc = ServeConfig(**SERVE)
+    free(torch)
+    rt = ServeRuntime(cfg, sc, seed=0, mesh=mesh, device=dev)
+    prompts = make_prompts(n_requests, sc.max_prompt_len, cfg.vocab, seed=1)
+    rec = ServedGaps(torch, rt) if gaps else None
+    rt._decode, rt._prefill = Timed(torch, rt._decode), Timed(torch,
+                                                             rt._prefill)
+    host = rt._host                 # the scheduler's group, on a mesh
+    take_census(mesh)
+    if host is not None:
+        host.take_census()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    t0 = time.perf_counter()
+    try:
+        row = run_closed_loop(rt, prompts, concurrency=sc.slots)
+        torch.cuda.synchronize()
+    finally:
+        if rec is not None:
+            rec.off()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counters().items() if "/" not in k}
+    census = take_census(mesh)
+    if host is not None:
+        census.update(host.take_census())
+    dec, pre = rt._decode.ms(), rt._prefill.ms()
+    want = serve_schedule(n_requests, sc)
+    expect = {k: 0 for k in counters()}
+    expect["topk_gating"] = ((len(dec) + len(pre) * sc.max_prompt_len)
+                             * cfg.n_layers if cfg.moe else 0)
+    out = {"tokens": [rt.results[r].tokens.tolist()
+                      for r in sorted(rt.results)],
+           "records": [{k: v for k, v in r.items()
+                        if k not in ("latency_s", "ttft_s")}
+                       for r in rt.records()],
+           "stats": rt.stats(), "census": census, "wall_s": wall,
+           "tick_ms": float(np.median(dec[1:])), "decode_calls": len(dec),
+           "prefill_chunks": len(pre), "ticks": row["ticks"],
+           "tokens_per_s": row["throughput_tok_s"],
+           "ttft_p50_s": row["ttft_s"]["p50"],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "expected_launches": expect,
+           "schedule_ok": ({"decode": len(dec), "prefill": len(pre),
+                            "ticks": row["ticks"]} == want),
+           "done": row["by_status"]["done"]}
+    if rec is not None:
+        got = rec.gaps()
+        out["gaps"] = {(i, j): got[(rid, j)]
+                       for i, rid in enumerate(sorted(rt.results))
+                       for j in range(len(rt.results[rid].tokens))}
+    if keep:
+        out["table"] = [t.cpu() for t in tree_leaves(rt.state)]
+    del rt
+    free(torch)
+    return out
+
+
+def _stream_digest(run) -> str:
+    import hashlib
+    return hashlib.sha256(repr((run["tokens"], run["records"],
+                                run["stats"])).encode()).hexdigest()
+
+
+def dm_rank_runs(mesh, worlds, requests):
+    """Phase 28 in spawned ranks, one card each: for each ``((d, m),
+    runs)`` of ``worlds``, in order, on ``mesh`` (the spawn's, for the
+    first) or a (d, m) mesh built over the same ranks, and for each run
+    ``(kind, arch, depth)`` the teacher-forced bf16 logits of the decode
+    step and the same under :func:`planted_decode_reduce_fault` (from
+    the same weights), and for ``"serve"`` the served
+    stream of ``requests[arch]`` requests (:func:`dm_serve`).  Rank 0
+    returns the logits; every rank returns their digests, its stream's
+    digest, its numbers and its launches, by world.  Only rank 0
+    prints."""
+    import hashlib
+    import torch
+    from repro_torch.launch.mesh import make_engine_mesh
+    rank = torch.distributed.get_rank()
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    out = {}
+    for shape, runs in worlds:
+        if (mesh.shape["data"], mesh.shape["model"]) != tuple(shape):
+            mesh = make_engine_mesh(shape, ("data", "model"), "cuda")
+        lab = f"({shape[0]}, {shape[1]})"
+        t0 = time.perf_counter()
+        res_w = {"coords": dict(mesh.coords), "s": {}}
+        for kind, arch, depth in runs:
+            cfg = dm_config(arch, depth)
+            res = {}
+            free(torch)
+            t1 = time.perf_counter()
+            for part, (logits, launches) in dm_teacher(
+                    torch, cfg, mesh, planted=True).items():
+                lg = logits.cpu()
+                res[part] = {"digest": hashlib.sha256(
+                    lg.numpy().tobytes()).hexdigest(), "launches": launches}
+                if rank == 0:
+                    res[part]["logits"] = lg
+            free(torch)
+            res_w["s"][f"{arch} teacher"] = time.perf_counter() - t1
+            if kind == "serve":
+                t1 = time.perf_counter()
+                run = dm_serve(torch, ssm_tp_config(arch, depth),
+                               requests[arch], mesh)
+                res_w["s"][f"{arch} serve"] = time.perf_counter() - t1
+                run["digest"] = _stream_digest(run)
+                res["serve"] = run
+                print(f"decode-mesh {lab} {arch}: {run['tick_ms']:.3f} ms "
+                      f"a tick, {run['tokens_per_s']:.1f} tokens/s, TTFT "
+                      f"p50 {run['ttft_p50_s']:.4f}s, peak "
+                      f"{run['peak_bytes'] / 1e9:.2f} GB; launches "
+                      f"{run['launches']}")
+            res_w[arch] = res
+        res_w["s"]["world"] = time.perf_counter() - t0
+        out[lab] = res_w
+    return out
+
+
+def dm_kernel_checks(torch, dev):
+    """``topk_gating`` against its plain version at the router rows a
+    rank's serving step gives it: olmoe's [8, 64] (a decode tick on (1,
+    4), whose slots are whole over the batch axes), [4, 64] (a prefill
+    chunk there, a decode tick on (2, 2)) and [2, 64] (a prefill chunk
+    on (2, 2)), k 8; the router is whole on every rank."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.topk_gating import topk_gating
+    gen = torch.Generator(device=dev).manual_seed(28)
+    rows = []
+    for T, where in ((8, "a decode tick on (1, 4)"),
+                     (4, "a prefill chunk on (1, 4), a decode tick on "
+                         "(2, 2)"),
+                     (2, "a prefill chunk on (2, 2)")):
+        x = torch.randn(T, 64, device=dev, generator=gen)
+        got, want = topk_gating(x, 8), ref.topk_gating_ref(x, 8)
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"topk_gating [{T}, 64]: ids differ from "
+                                 "the plain version")
+        rows.append(check(
+            "topk_gating", f"[{T}, 64] k=8 ({where})",
+            lambda: (topk_gating(x, 8)[0],),
+            lambda: (ref.topk_gating_ref(x, 8)[0],), 1e-6,
+            x.numel() * 4 + T * 8 * 8, x.numel() * (4 + 2 * 8),
+            dtype=x.dtype))
+    return rows
+
+
+def _gap_noise(bf, f32) -> float:
+    """The rms over rows and steps of the bf16 decode's top-2 logit gap
+    less the float32 decode's gap of the same two logits: the yardstick's
+    noise for a difference of two logits."""
+    import torch
+    ids = torch.topk(bf, 2).indices
+    g = lambda x: (x.gather(-1, ids[..., :1]) - x.gather(-1, ids[..., 1:]))
+    return _rms(g(bf) - g(f32))
+
+
+def decode_mesh_phase(torch, dev="cuda"):
+    """Phase 28: decode and the serving slot table on a mesh.  One card:
+    a (1, 1) mesh through ``ServeRuntime`` (olmoe-1b-7b whole, one wave
+    of phase 16's stream) and ``build_decode_step`` (``DM_ONE_CARD``,
+    teacher forcing), each bit for bit the unsharded run (the served
+    tokens, records and stats, the final slot table, the logits) with
+    the unsharded launches and no collective; then ``topk_gating`` at a
+    rank's serving rows.  With four cards, the runs of ``DM_WORLDS`` in
+    one spawn of four ranks, each held to the unsharded runs of this
+    process: teacher-forced bf16 logits within phase 17's yardstick (3x
+    the rms of the bf16 decode against a float32 decode), the same
+    decode without its reduce refused by it, every served request's
+    tokens the unsharded ones up to a step whose unsharded top-2 gap,
+    read in the unsharded served run itself, lies within the yardstick
+    of a parting (:data:`DM_PART_K` x the rms of the bf16 top-2 gap
+    against the float32 one,
+    :func:`_gap_noise`), every rank alike, phase 16's launches on every
+    rank.  Raises on any miss."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.meshcheck import spawn_ranks
+    t_phase = time.perf_counter()
+    out, checks = {"one_card": {}, "worlds": {}, "s": {}}, {}
+    cards = torch.cuda.device_count()
+    worlds = DM_WORLDS if cards >= 4 else {}
+    mesh = make_local_mesh(dev)
+    unsharded = {}                  # arch: its unsharded bf16 teacher run
+    try:
+        cfg = ssm_tp_config("olmoe-1b-7b", None)
+        runs = {}
+        for label, mm in (("unsharded", None), ("mesh (1, 1)", mesh)):
+            runs[label] = dm_serve(torch, cfg, DM_ONE_CARD_REQUESTS, mm,
+                                   dev, keep=True)
+        a, b = runs["unsharded"], runs["mesh (1, 1)"]
+        checks["olmoe (1, 1) serving == unsharded"] = (
+            a["tokens"] == b["tokens"] and a["records"] == b["records"]
+            and a["stats"] == b["stats"] and all(
+                torch.equal(x, y) for x, y in zip(a.pop("table"),
+                                                  b.pop("table"))))
+        checks["olmoe (1, 1) serving launches == unsharded"] = (
+            a["launches"] == b["launches"] == a["expected_launches"]
+            and a["launches"]["topk_gating"] > 0)
+        checks["olmoe (1, 1) serving takes no collective"] = (
+            b["census"] == {})
+        print(f"decode-mesh (1, 1) olmoe serving: {b['tick_ms']:.3f} ms a "
+              f"tick ({a['tick_ms']:.3f} unsharded), {b['tokens_per_s']:.1f} "
+              f"tokens/s ({a['tokens_per_s']:.1f}); launches {b['launches']}")
+        out["one_card"]["serve olmoe-1b-7b"] = runs
+        out["s"]["one card serving"] = time.perf_counter() - t_phase
+        for arch, depth in DM_ONE_CARD:
+            cfg = dm_config(arch, depth)
+            free(torch)
+            want, wl = dm_teacher(torch, cfg, None, dev)["tf"]
+            want = want.cpu()
+            unsharded[arch] = want
+            free(torch)
+            got, gl = dm_teacher(torch, cfg, mesh, dev)["tf"]
+            lab = arch.split("-")[0]
+            checks[f"{lab} (1, 1) decode == unsharded"] = bool(
+                torch.equal(want, got.cpu()))
+            checks[f"{lab} (1, 1) decode launches == unsharded"] = wl == gl
+            checks[f"{lab} (1, 1) decode takes no collective"] = (
+                take_census(mesh) == {})
+            out["one_card"][f"decode {arch}"] = {"launches": gl}
+            del got
+        print("decode-mesh (1, 1) at full width: " + ", ".join(
+            f"{k} {v}" for k, v in checks.items()))
+    finally:
+        mesh.close()
+    free(torch)
+    out["kernel_checks"] = dm_kernel_checks(torch, torch.device(dev))
+    out["s"]["one card"] = time.perf_counter() - t_phase
+    if not worlds:
+        print("decode-mesh: fewer than four cards, so the (d, m) part of "
+              "phase 28 did not run")
+    # the unsharded runs every world is held to (the bf16 teacher runs
+    # are the one-card check's)
+    want = {}
+    arch_runs = {(kind, arch, depth) for runs in worlds.values()
+                 for kind, arch, depth in runs}
+    for kind, arch, depth in sorted(arch_runs, key=str):
+        cfg = dm_config(arch, depth)
+        bf = unsharded[arch]
+        free(torch)
+        f32 = dm_teacher(torch, cfg, None, dev, f32=True)["tf"][0].cpu()
+        w = {"logits": bf, "noise": _rms(bf - f32), "scale": _rms(bf),
+             "gap_noise": _gap_noise(bf, f32)}
+        del f32
+        if kind == "serve":
+            w["serve"] = dm_serve(torch, ssm_tp_config(arch, depth),
+                                  SERVE_REQUESTS[arch], None, dev,
+                                  gaps=True)
+        want[arch] = w
+    out["s"]["unsharded references"] = time.perf_counter() - t_phase
+    # one spawn of four ranks runs every world
+    plan = list(worlds.items())
+    ranks = []
+    if plan:
+        free(torch)
+        ranks = spawn_ranks(4, dm_rank_runs, (plan, SERVE_REQUESTS), "cuda",
+                            shape=plan[0][0], timeout=900)
+    out["s"]["worlds"] = time.perf_counter() - t_phase
+    for (d, m), runs in plan:
+        lab = f"({d}, {m})"
+        world = {"n": d * m, "s": ranks[0][lab]["s"], "runs": {}}
+        for kind, arch, depth in runs:
+            w = want[arch]
+            per = [r[lab][arch] for r in ranks]
+            r0 = per[0]
+            name = f"{lab} {arch.split('-')[0]}"
+            tol = 3 * w["noise"]
+            err = _rms(r0["tf"]["logits"] - w["logits"])
+            bad = _rms(r0["planted"]["logits"] - w["logits"])
+            checks[f"{name} decode held to unsharded"] = err <= tol
+            checks[f"{name} refuses the decode without its reduce"] = (
+                bad > tol)
+            checks[f"{name} decode alike on every rank"] = all(
+                len({r[p]["digest"] for r in per}) == 1
+                for p in ("tf", "planted"))
+            rec = {"rms_err": err, "rms_planted": bad, "rms_bf16_noise":
+                   w["noise"], "rms_gap_noise": w["gap_noise"],
+                   "rms_logits": w["scale"], "launches": r0["tf"]["launches"]}
+            line = (f"decode-mesh {name}: teacher forcing rms {err:.4e} "
+                    f"(tol 3 x {w['noise']:.4e} = {tol:.4e}, logits rms "
+                    f"{w['scale']:.4e}); without its reduce {bad:.4e}; "
+                    f"launches {r0['tf']['launches']}")
+            if kind == "serve":
+                s, u = r0["serve"], w["serve"]
+                cfg = ssm_tp_config(arch, depth)
+                checks[f"{name} serving alike on every rank"] = len(
+                    {r["serve"]["digest"] for r in per}) == 1
+                checks[f"{name} serving launches on every rank"] = all(
+                    r["serve"]["launches"] == r["serve"]["expected_launches"]
+                    and r["serve"]["schedule_ok"] for r in per) and (
+                    cfg.moe is None or s["launches"]["topk_gating"] > 0)
+                checks[f"{name} serving all done"] = (
+                    s["done"] == SERVE_REQUESTS[arch]
+                    and s["stats"]["traces"] == {"prefill": 1, "admit": 1,
+                                                 "decode": 1})
+                # where each stream first parts, and the unsharded top-2
+                # gap the unsharded run itself chose that token by
+                parted = [(i, next(j for j, (x, y) in enumerate(zip(a, b))
+                                   if x != y))
+                          for i, (a, b) in enumerate(zip(s["tokens"],
+                                                         u["tokens"]))
+                          if a != b]
+                gaps = [(i, j, u["gaps"][(i, j)]) for i, j in parted]
+                ks = {"bound": DM_PART_K * w["gap_noise"],
+                      "3 x gap noise": 3 * w["gap_noise"],
+                      "3 x logit noise": tol}
+                within = {k: sum(g <= v for *_, g in gaps)
+                          for k, v in ks.items()}
+                checks[f"{name} streams part only within the yardstick"] = (
+                    within["bound"] == len(gaps))
+                rec.update(gaps=gaps, gap_bounds=ks, gaps_within=within)
+                rec["serve"] = {k: s[k] for k in (
+                    "tick_ms", "tokens_per_s", "ttft_p50_s", "peak_bytes",
+                    "wall_s", "ticks", "decode_calls", "prefill_chunks",
+                    "launches")}
+                rec["peak_bytes_max"] = max(r["serve"]["peak_bytes"]
+                                            for r in per)
+                rec["census"] = s["census"]
+                rec["unsharded"] = {k: u[k] for k in (
+                    "tick_ms", "tokens_per_s", "ttft_p50_s", "peak_bytes",
+                    "wall_s")}
+                per_tick = {k: {"calls": v["calls"] / s["ticks"],
+                                "bytes": v["bytes"] / s["ticks"]}
+                            for k, v in s["census"].items()}
+                rec["census_per_tick"] = per_tick
+                first = min(gaps, key=lambda g: (g[1], g[0]), default=None)
+                line += (f"; served {len(s['tokens'])} requests: "
+                         f"{s['tick_ms']:.3f} ms a tick ({u['tick_ms']:.3f} "
+                         f"on one card), {s['tokens_per_s']:.1f} tokens/s "
+                         f"({u['tokens_per_s']:.1f}), TTFT p50 "
+                         f"{s['ttft_p50_s']:.4f}s ({u['ttft_p50_s']:.4f}), "
+                         f"peak {rec['peak_bytes_max'] / 1e9:.2f} GB a card "
+                         f"({u['peak_bytes'] / 1e9:.2f}); {len(gaps)} "
+                         f"streams part from unsharded, first at (request, "
+                         f"step, unsharded top-2 gap) {first}, the widest "
+                         f"gap {max((g for *_, g in gaps), default=0):.4e}; "
+                         f"within " + ", ".join(
+                             f"{k} {v:.4e}: {within[k]}"
+                             for k, v in ks.items())
+                         + "; census a tick "
+                         + ", ".join(f"{k} {v['calls']:.2f}x "
+                                     f"{v['bytes']:.0f}B"
+                                     for k, v in sorted(per_tick.items())))
+            world["runs"][arch] = rec
+            print(line)
+        out["worlds"][lab] = world
+    bad = [k for k, v in checks.items() if not v]
+    out["checks"] = checks
+    print("decode-mesh: seconds " + json.dumps(
+        {k: round(v, 1) for k, v in out["s"].items()}))
+    if bad:
+        raise AssertionError(f"decode-mesh: {bad}")
+    return out
+
+
+def run_decode_mesh_phase(out_path):
+    """The entry of ``--decode-mesh-phase``: phase 28 alone, its report
+    written to ``out_path``."""
+    import torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(f"decode-mesh: {smi}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}")
+    _build.build_all()
+    t0 = time.perf_counter()
+    res = decode_mesh_phase(torch)
+    res["s"] = time.perf_counter() - t0
+    res["nvidia_smi"] = smi
+    print(f"decode-mesh: phase 28 took {res['s']:.1f}s")
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    return 0
+
+
 def kernel_profile(torch, run, dev="cuda"):
     """``run()`` under the profiler: device launches (kernels and copies),
     device busy ms, wall ms."""
@@ -4671,6 +5261,9 @@ def main(argv=None):
     ap.add_argument("--ssm-tp-phase", default=None, metavar="OUT",
                     help="run phase 27 alone (the process main() starts "
                          "for it) and write its report to OUT")
+    ap.add_argument("--decode-mesh-phase", default=None, metavar="OUT",
+                    help="run phase 28 alone (the process main() starts "
+                         "for it) and write its report to OUT")
     args = ap.parse_args(argv)
     if args.mesh_phase:
         return run_mesh_phase(args.mesh_phase, args.profile)
@@ -4680,6 +5273,8 @@ def main(argv=None):
         return run_engine_mesh_phase(args.engine_mesh_phase)
     if args.ssm_tp_phase:
         return run_ssm_tp_phase(args.ssm_tp_phase, args.profile)
+    if args.decode_mesh_phase:
+        return run_decode_mesh_phase(args.decode_mesh_phase)
 
     import torch
     if not torch.cuda.is_available():
@@ -4862,9 +5457,24 @@ def main(argv=None):
     with open(st_out) as f:
         ssm_tp_runs = json.load(f)
     t27 = time.perf_counter()
+
+    # 28. decode and the serving slot table on a mesh, in a process of its
+    # own (a (1, 1) mesh on this card; with four cards the meshes of
+    # DM_WORLDS in spawned ranks)
+    dm_out = os.path.join(ROOT, "build", "chip_smoke_decode_mesh.json")
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--decode-mesh-phase", dm_out], timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 28 (decode and serving on a mesh) "
+                           f"exited {proc.returncode}")
+    with open(dm_out) as f:
+        decode_mesh_runs = json.load(f)
+    t28 = time.perf_counter()
     phase_s.update({"18": t19 - t18, "19": t20 - t19, "20": t21 - t20,
                     "21-22": t22 - t21b, "23": t23 - t22, "24": t24 - t23,
-                    "25": t25 - t24, "26": t26 - t25, "27": t27 - t26})
+                    "25": t25 - t24, "26": t26 - t25, "27": t27 - t26,
+                    "28": t28 - t27})
     print("phases took " + ", ".join(f"{k}: {v:.1f}s"
                                      for k, v in phase_s.items()))
 
@@ -4901,6 +5511,7 @@ def main(argv=None):
                        "mesh": mesh_runs, "model_axis": tp_runs,
                        "engine_mesh": engine_mesh_runs,
                        "ssm_model_axis": ssm_tp_runs,
+                       "decode_mesh": decode_mesh_runs,
                        "phase_s": phase_s}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -34,7 +34,6 @@ MESH_9B = {
     "resilience": lambda c: c.resilience != ResilienceConfig(),
     "ckpt_dir": lambda c: c.ckpt_dir is not None,
     "scenario": lambda c: c.scenario.kind != "none",
-    "serve": lambda c: c.serve != ServeConfig(),
 }
 
 

@@ -28,8 +28,9 @@ from repro_torch.models.cnn import StageModel
 from repro_torch.models.module import SHAPES
 from repro_torch.models.transformer import (Transformer, block_kind,
                                             positions_for)
-from repro_torch.sharding.parallel import TensorParallel, gather_from_model
-from repro_torch.sharding.specs import shard_params, shard_plan
+from repro_torch.sharding.parallel import gather_from_model
+from repro_torch.sharding.specs import (mesh_placement, shard_params,
+                                        shard_plan)
 from repro_torch.utils.tree import tree_leaves, tree_slice
 
 
@@ -91,15 +92,6 @@ def mse_metrics(pred, y):
     t = y / (torch.linalg.vector_norm(y, dim=-1, keepdim=True) + 1e-8)
     cos = torch.clamp(torch.sum(p * t, dim=-1), -1, 1)
     return {"angular_deg": torch.mean(torch.rad2deg(torch.arccos(cos)))}
-
-
-def mesh_placement(mesh, cfg=None):
-    """``(tp, fsdp)`` of a task on ``mesh``: its ``model`` axis (the
-    whole-unit rule of ``cfg``, or a stage model's for ``cfg`` None) and
-    the ``data`` axis' collectives where that axis has more than one
-    rank (None otherwise)."""
-    fsdp = mesh.data_comm if mesh.shape.get("data", 1) > 1 else None
-    return TensorParallel.from_mesh(mesh, cfg), fsdp
 
 
 def make_stage_task(model: StageModel, cut: int, kind: str = "xent",

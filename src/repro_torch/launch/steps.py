@@ -28,10 +28,14 @@ cohort is split as the Engine's is (each rank its slots), and the
 server steps on the whole minibatch on every rank when its weights
 split over ``model`` (the reference's ``tp_layout``), else
 data-parallel; the prefill batch is replicated over the batch axes.
+The decode step takes a mesh too: its weights are placed as the
+prefill's, and its state by ``sharding.specs.decode_state_plan`` (the
+port's counterpart of ``decode_state_shardings``: the batch rows over
+the batch axes, the cache's and the SSM state's heads over ``model``),
+which ``decode_state_zeros`` allocates.
 The mesh's device is the step's.  What is left of ROADMAP item 9b here
-is the decode step and serving on a mesh (``decode_state_shardings``;
-``build_decode_step`` takes no mesh), and the pipelined train steps on
-one (``build_pipelined_train_steps`` takes none).
+is the pipelined train steps on a mesh (``build_pipelined_train_steps``
+takes none).
 """
 from __future__ import annotations
 
@@ -56,7 +60,10 @@ from repro_torch.models.module import SHAPES
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import adam
 from repro_torch.sharding.parallel import gather_from_data
-from repro_torch.sharding.specs import shard_entity, shard_params, shard_plan
+from repro_torch.sharding.specs import (decode_rows, decode_state_zeros,
+                                        rows_comm, shard_entity,
+                                        shard_params, shard_plan,
+                                        step_placement)
 
 
 @dataclass
@@ -261,10 +268,7 @@ def build_prefill_step(cfg: ArchConfig, shape: InputShape, *, device=None,
     model = EncDec if cfg.family == "audio" else Transformer
     tp = fsdp = plan = None
     if mesh is not None:
-        tp, fsdp = mesh_placement(mesh, cfg)
-        if tp.size > 1 or fsdp is not None:
-            plan = shard_plan(model.init(SHAPES, cfg), mesh.shape,
-                              mesh.coords, "full", cfg)
+        tp, fsdp, plan = step_placement(mesh, cfg, model.init(SHAPES, cfg))
 
     def init_state(seed: int):
         params = model.init(torch.Generator(device=dev).manual_seed(seed),
@@ -295,42 +299,69 @@ def build_prefill_step(cfg: ArchConfig, shape: InputShape, *, device=None,
 
 # ------------------------------------------------------------ decode step
 def build_decode_step(cfg: ArchConfig, shape: InputShape,
-                      long_context: bool = False, *, device=None
-                      ) -> StepBundle:
+                      long_context: bool = False, *, device=None,
+                      mesh=None) -> StepBundle:
     """``fn(params, token, state) -> (logits [B, 1, vocab] float32,
     state')``: one ``decode_step`` at a context of ``shape.seq_len`` (no
     gradient).  ``init_state(seed)`` gives (params, state) with an empty
     cache; for audio the state also holds the encoder's states of
     ``WHISPER_FRAMES`` frames drawn from numpy under ``seed``.
-    ``make_batch(seed)`` gives (token,) [B, 1] int32 from numpy."""
+    ``make_batch(seed)`` gives (token,) [B, 1] int32 from numpy.
+
+    On ``mesh`` the params are this rank's blocks of the whole draw, as
+    :func:`build_prefill_step` places them (over ``model`` and, FSDP,
+    over ``data``: gathered over ``data`` once a call), the state is this
+    rank's block under ``sharding.specs.decode_state_plan`` (its rows of
+    the batch, :func:`decode_rows`, and its heads), the token is its
+    rows, and the step returns its rows' logits, whole over ``model``."""
     spec = inputs_lib.decode_token_spec(cfg, shape)
-    dev = resolve_device(device)
+    dev = _mesh_device(mesh, device)
     audio = cfg.family == "audio"
     model = EncDec if audio else Transformer
+    B = spec.shape[0]
+    tp = fsdp = plan = rows = None
+    lo, hi = 0, B
+    if mesh is not None:
+        tp, fsdp, plan = step_placement(mesh, cfg, model.init(SHAPES, cfg))
+        lo, hi, axes = decode_rows(mesh.shape, mesh.coords, B)
+        rows = rows_comm(mesh, axes)
+
+    def whole_over_data(params):
+        return params if fsdp is None else gather_from_data(fsdp, params,
+                                                            plan)
 
     def init_state(seed: int):
         params = model.init(torch.Generator(device=dev).manual_seed(seed),
                             cfg)
+        if plan is not None:
+            params = shard_params(params, plan)
+        empty = (EncDec.decode_cache if audio
+                 else Transformer.init_decode_state)
+        state = decode_state_zeros(empty(cfg, B, shape.seq_len,
+                                         long_context, device="meta"),
+                                   mesh, cfg, dev)
         if not audio:
-            return params, Transformer.init_decode_state(
-                cfg, spec.shape[0], shape.seq_len, long_context, device=dev)
+            return params, state
         frames = np.random.default_rng(seed).standard_normal(
-            (spec.shape[0], inputs_lib.WHISPER_FRAMES, cfg.enc_d_model))
+            (B, inputs_lib.WHISPER_FRAMES, cfg.enc_d_model))[lo:hi]
         frames = torch.from_numpy(frames.astype(np.float32)).to(
             device=dev, dtype=cfg.torch_dtype)
         with torch.no_grad():
-            return params, EncDec.init_decode_state(
-                params, cfg, frames, shape.seq_len, long_context)
+            enc_out = EncDec.encode(whole_over_data(params)["encoder"], cfg,
+                                    frames, tp)
+        return params, {"enc_out": enc_out, **state}
 
     def make_batch(seed: int):
         tok = np.random.default_rng(seed).integers(
-            0, cfg.vocab, size=spec.shape, dtype=np.int32)
+            0, cfg.vocab, size=spec.shape, dtype=np.int32)[lo:hi]
         return (torch.from_numpy(tok).to(dev),)
 
     def decode(params, token, state):
+        extra = {} if audio else {"rows": rows}
         with torch.no_grad():
-            return model.decode_step(params, cfg, token, state,
-                                     long_context=long_context)
+            return model.decode_step(whole_over_data(params), cfg, token,
+                                     state, long_context=long_context, tp=tp,
+                                     **extra)
 
     return StepBundle("decode", decode, init_state, make_batch, dev)
 
@@ -339,13 +370,14 @@ def build_step(cfg: ArchConfig, shape: InputShape,
                cycle: CycleConfig = CycleConfig(), *,
                cohort: Optional[int] = None,
                long_context: Optional[bool] = None,
-               device=None) -> StepBundle:
+               device=None, mesh=None) -> StepBundle:
     lc = shape.name == "long_500k" if long_context is None else long_context
     if shape.kind == "train":
         if cohort is None:
             raise ValueError("a train step needs the cohort size")
         return build_train_step(cfg, shape, cycle, cohort=cohort,
-                                device=device)
+                                device=device, mesh=mesh)
     if shape.kind == "prefill":
-        return build_prefill_step(cfg, shape, device=device)
-    return build_decode_step(cfg, shape, long_context=lc, device=device)
+        return build_prefill_step(cfg, shape, device=device, mesh=mesh)
+    return build_decode_step(cfg, shape, long_context=lc, device=device,
+                             mesh=mesh)

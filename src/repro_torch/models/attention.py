@@ -11,7 +11,9 @@ JAX package computes it outside any Pallas kernel.  Its position is one
 per row: where the JAX package ``vmap``s a scalar position over the
 serving runtime's slots, ``attend_decode`` takes ``pos`` as a [B]
 tensor (a scalar broadcasts), so rows at different positions advance in
-one call.
+one call.  Both halves run head-parallel on a mesh's ``model`` axis
+(``tp``); decode is inference only, so its inputs enter without
+``copy_to_model`` (no gradient sum to take).
 """
 from __future__ import annotations
 
@@ -131,7 +133,7 @@ def kv_cache_init(cfg: ArchConfig, n_layers: int, batch: int, capacity: int,
 
 
 def attend_decode(params, cfg: ArchConfig, x, layer_k, layer_v, pos,
-                  window: Optional[int]):
+                  window: Optional[int], tp=None):
     """One-token decode against a ring-buffer cache slice.
 
     x: [B, 1, D]; layer_k/v: [B, C, Hkv, Dh]; pos: int32 scalar or [B],
@@ -139,13 +141,22 @@ def attend_decode(params, cfg: ArchConfig, x, layer_k, layer_v, pos,
     and value to ring slot ``pos[b] % C`` and attends to the slots that
     hold positions in ``(pos[b] - window, pos[b]]``.  Returns (out
     [B, 1, D], new_k, new_v); the inputs are left as they were.
+
+    Head-parallel when ``tp`` splits the attention unit, as
+    :func:`attend_full` is: ``wq``/``wk``/``wv`` hold this rank's heads'
+    columns, the cache slices are its [B, C, Hkv / m, Dh], and ``wo``'s
+    rows give a partial sum reduced over the ``model`` axis.
     """
     a: AttnConfig = cfg.attn
     hd = cfg.hd
     B, C = x.shape[0], layer_k.shape[1]
-    q = _split_heads(x @ params["wq"], cfg.n_heads, hd)
-    k = _split_heads(x @ params["wk"], cfg.n_kv_heads, hd)
-    v = _split_heads(x @ params["wv"], cfg.n_kv_heads, hd)
+    split = tp is not None and tp.on("attn")
+    n_h, n_kv = cfg.n_heads, cfg.n_kv_heads
+    if split:
+        n_h, n_kv = n_h // tp.size, n_kv // tp.size
+    q = _split_heads(x @ params["wq"], n_h, hd)
+    k = _split_heads(x @ params["wk"], n_kv, hd)
+    v = _split_heads(x @ params["wv"], n_kv, hd)
     if "q_norm" in params:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
@@ -165,7 +176,10 @@ def attend_decode(params, cfg: ArchConfig, x, layer_k, layer_v, pos,
         valid &= (posb[:, None] - k_pos) < window
     bias = torch.where(valid, 0.0, NEG_INF)[:, None, :]         # [B, 1, C]
     out = sdpa(q, layer_k, layer_v, bias, a.logit_softcap)
-    return _merge_heads(out) @ params["wo"], layer_k, layer_v
+    out = _merge_heads(out) @ params["wo"]
+    if split:
+        out = reduce_from_model(tp, out, "attn")
+    return out, layer_k, layer_v
 
 
 def layer_window(cfg: ArchConfig, layer_idx_is_local: bool,

@@ -22,7 +22,10 @@ The full-sequence functions take ``tp``, a
 three attentions run on this rank's heads (the cross-attention computes
 K/V of ``enc_out`` for them alone), the GELU MLPs column/row-parallel,
 and the tied embedding and logits vocab-parallel; the layernorms and
-position tables stay whole on every rank.  Decode runs whole.
+position tables stay whole on every rank.  Decode takes ``tp`` too: the
+self-attention's cache holds the rank's heads (its block under
+``sharding.specs.decode_state_plan``), and ``enc_out`` is whole on
+every rank (the cross-attention reads all of its width).
 The decode self-attention is ``attention.attend_decode`` (the plain
 ring-cache product), and ``decode_step`` recomputes the cross K/V of
 ``enc_out`` at every step, as the JAX package does.  As in
@@ -192,30 +195,44 @@ class EncDec:
 
     # ---------------- serving ----------------
     @staticmethod
-    def init_decode_state(params, cfg: ArchConfig, frames, seq_len: int,
-                          long_context: bool = False):
-        """Encode once; allocate the self-attention ring cache (windowed
-        in long-context mode) on the frames' device."""
-        enc_out = EncDec.encode(params["encoder"], cfg, frames)
+    def decode_cache(cfg: ArchConfig, batch: int, seq_len: int,
+                     long_context: bool = False, device=None):
+        """The empty self-attention ring cache (windowed in long-context
+        mode) and position of a decode at ``batch`` rows, on
+        ``device``."""
         cap = (seq_len if not long_context
                else min(seq_len, cfg.long_context_window))
-        kv = kv_cache_init(cfg, cfg.n_layers, frames.shape[0], cap,
-                           cfg.torch_dtype, device=frames.device)
-        return {"enc_out": enc_out, "kv": kv,
-                "pos": torch.zeros((), dtype=torch.int32,
-                                   device=frames.device)}
+        kv = kv_cache_init(cfg, cfg.n_layers, batch, cap, cfg.torch_dtype,
+                           device=device)
+        return {"kv": kv, "pos": torch.zeros((), dtype=torch.int32,
+                                             device=device)}
+
+    @staticmethod
+    def init_decode_state(params, cfg: ArchConfig, frames, seq_len: int,
+                          long_context: bool = False):
+        """Encode once; allocate the self-attention ring cache
+        (:meth:`decode_cache`) on the frames' device.  On a mesh,
+        ``launch.steps.build_decode_step`` encodes on the rank's shards
+        and allocates the rank's block of the cache."""
+        enc_out = EncDec.encode(params["encoder"], cfg, frames)
+        return {"enc_out": enc_out,
+                **EncDec.decode_cache(cfg, frames.shape[0], seq_len,
+                                      long_context, frames.device)}
 
     @staticmethod
     def decode_step(params, cfg: ArchConfig, token, state,
-                    long_context: bool = False):
+                    long_context: bool = False, tp=None):
         """One-token decode.  token [B, 1] -> (float32 logits [B, 1,
         vocab], state').  ``state["pos"]`` is a scalar or one position a
         row; the learned position is clamped to the table's last row.
-        ``state`` is left as it was."""
+        ``state`` is left as it was.  With ``tp`` the self-attention
+        (``attention.attend_decode``), the cross-attention, the MLPs
+        and the logits run on this rank's shards, as in
+        :meth:`decode_train`, and the logits come back whole."""
         dec = params["decoder"]
         pos, kv, enc_out = state["pos"], state["kv"], state["enc_out"]
         B = token.shape[0]
-        x = embedding(dec["embed"], token)
+        x = embedding(dec["embed"], token, tp)
         row = torch.clamp(torch.broadcast_to(pos, (B,)),
                           max=dec["pos"].shape[0] - 1).long()
         x = x + dec["pos"][row][:, None]
@@ -226,16 +243,16 @@ class EncDec:
             h = layernorm(bp["norm_self"], x, cfg.norm_eps)
             a, nk, nv = attn_lib.attend_decode(bp["self_attn"], cfg, h,
                                                kv.k[li], kv.v[li], pos,
-                                               window)
+                                               window, tp)
             ks.append(nk)
             vs.append(nv)
             x = x + a
             h = layernorm(bp["norm_cross"], x, cfg.norm_eps)
-            x = x + _attend(bp["cross_attn"], cfg, h, enc_out)
+            x = x + _attend(bp["cross_attn"], cfg, h, enc_out, tp)
             h = layernorm(bp["norm_ffn"], x, cfg.norm_eps)
-            x = x + ffn_lib.gelu_mlp(bp["ffn"], h)
+            x = x + ffn_lib.gelu_mlp(bp["ffn"], h, tp)
         x = layernorm(dec["final_norm"], x, cfg.norm_eps)
-        logits = EncDec._logits(dec, cfg, x)
+        logits = EncDec._logits(dec, cfg, x, tp)
         state = dict(state, kv=KVCache(torch.stack(ks), torch.stack(vs),
                                        kv.idx + 1), pos=pos + 1)
         return logits, state

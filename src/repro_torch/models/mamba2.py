@@ -9,8 +9,8 @@ CUDA kernel on the card and, on the CPU, its plain version
 ``kernels.ref`` beside the kernel).  Decode (``mamba_decode``) is one
 step of the recurrence in float32 (``ssd_decode_step``) with the causal
 conv's last ``d_conv - 1`` inputs carried in ``MambaState``; no kernel
-runs there.  On a mesh's ``model`` axis the full-sequence block runs
-head-parallel (``mamba_forward(..., tp)``); decode runs whole.
+runs there.  On a mesh's ``model`` axis both run head-parallel
+(``mamba_forward(..., tp)``, ``mamba_decode(..., tp)``).
 
 Layout: x [B, L, H, P] (heads x head_dim), B/C [B, L, G, N] (groups x
 state), dt [B, L, H], A [H] negative reals.
@@ -178,29 +178,51 @@ class MambaState(NamedTuple):
     conv: torch.Tensor
 
 
-def mamba_decode(params, cfg: ArchConfig, x, h, conv_state):
+def mamba_decode(params, cfg: ArchConfig, x, h, conv_state, tp=None):
     """One-token decode.  x [B, 1, d]; h [B, H, N, P]; conv_state
-    [B, d_conv - 1, conv_ch].  Returns (y [B, 1, d], h', conv_state')."""
+    [B, d_conv - 1, conv_ch].  Returns (y [B, 1, d], h', conv_state').
+
+    Head-parallel when ``tp`` splits the ``mamba`` unit, as
+    :func:`_mamba_forward_split` reads the packed leaves: ``w_in`` gives
+    this rank's ``[z_r | x_r | B | C | dt_r]``, the conv runs over its
+    ``[x_r | B | C]`` channels (``conv_state`` holds those, and
+    ``conv_b``, whole on every rank, is taken at them), the recurrence
+    on its ``H / m`` heads (``B``/``C`` whole with one group), ``D``,
+    ``dt_bias`` and ``a_log`` are its heads', the gate norm sums its
+    squares over the axis and ``w_out``'s rows give a partial sum
+    reduced over it.  Inference only: no gradient sum is taken."""
     s = cfg.ssm
+    split = tp is not None and tp.on("mamba")
+    m = tp.size if split else 1
+    d_inner = s.expand * cfg.d_model // m
+    gN = s.n_groups * s.d_state // (1 if s.n_groups == 1 else m)
+    H = d_inner // s.head_dim
     zxbcdt = x[:, 0] @ params["w_in"]                       # [B, d_in_proj]
-    z, xbc, dt, d_inner, H, gN = _split_in_proj(cfg, zxbcdt)
+    z, xbc, dt = torch.split(zxbcdt, [d_inner, d_inner + 2 * gN, H], dim=-1)
+    conv_b = params["conv_b"]
+    if split:
+        conv_b = take_segments(conv_b, rank_segments(
+            packed_segments(cfg, "mamba/conv_w"), m, tp.rank))
     # the conv over [conv_state; xbc], then shift the window by one
     full = torch.cat([conv_state, xbc[:, None, :]], dim=1)        # [B, K, C]
     y_conv = F.silu(torch.einsum("bkc,kc->bc", full, params["conv_w"])
-                    + params["conv_b"])
+                    + conv_b)
     conv_state = full[:, 1:]
     xs, Bm, Cm = torch.split(y_conv, [d_inner, gN, gN], dim=-1)
     Bsz = x.shape[0]
     xs = xs.reshape(Bsz, H, s.head_dim)
-    Bm = Bm.reshape(Bsz, s.n_groups, s.d_state)
-    Cm = Cm.reshape(Bsz, s.n_groups, s.d_state)
+    Bm = Bm.reshape(Bsz, gN // s.d_state, s.d_state)
+    Cm = Cm.reshape(Bsz, gN // s.d_state, s.d_state)
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["a_log"])
     y, h = ssd_decode_step(h, xs, dt, A, Bm, Cm)
     y = y + xs * params["D"][:, None].to(xs.dtype)
     y = y.reshape(Bsz, d_inner)
-    y = rmsnorm(params["gate_norm"], y) * F.silu(z)
-    return (y @ params["w_out"])[:, None, :], h, conv_state
+    y = rmsnorm(params["gate_norm"], y, tp=tp if split else None) * F.silu(z)
+    y = y @ params["w_out"]
+    if split:
+        y = reduce_from_model(tp, y, "mamba")
+    return y[:, None, :], h, conv_state
 
 
 def mamba_state_init(cfg: ArchConfig, n_blocks: int, batch: int, dtype,

@@ -26,7 +26,11 @@ the same blocks against a ring-buffer KV cache (attention blocks) and
 the carried SSM state (mamba blocks), in plain torch but for the MoE
 router's ``topk_gating``.  The decode position is one per row, a scalar
 or [B] ``state["pos"]``, so the serving runtime advances slots at
-different positions in one call.
+different positions in one call.  Decode takes ``tp`` as the
+full-sequence functions do: each rank holds its heads of the cache and
+the SSM state (its block under ``sharding.specs.decode_state_plan``)
+and its shards of the weights, and every rank returns the whole logits
+of its rows.
 """
 from __future__ import annotations
 
@@ -152,6 +156,27 @@ def mamba_block(params, cfg: ArchConfig, x, tp=None):
     h = rmsnorm(params["norm"], x, cfg.norm_eps)
     y, _ = mamba_lib.mamba_forward(params["mamba"], cfg, h, tp)
     return x + y, _zero_metrics(x.device)
+
+
+def _moe_decode(params, cfg: ArchConfig, h, group_size, tp, rows):
+    """The MoE of one decode step over ``h`` [B_r, 1, d], this rank's
+    rows.  A dispatch group holds ``group_size`` rows in batch order
+    (default the config's), with a capacity of its own: where a group of
+    the whole batch would span the ranks of ``rows`` (the batch axes'
+    collectives, None when the rows are whole), the rows are gathered
+    over them first (census ``all_gather/moe_rows``), every rank routes
+    and runs them all, and keeps its own, so the step computes the
+    unsharded batch's function.  Where the groups fall inside a rank's
+    rows (the serving runtime's group of 1), no row moves."""
+    gs = cfg.moe.group_size if group_size is None else group_size
+    n = h.shape[0]
+    if rows is None or n % min(gs, n * rows.size) == 0:
+        return moe_lib.moe_apply(params, cfg.moe, h, group_size=group_size,
+                                 tp=tp)[0]
+    every = rows.all_gather(h, "moe_rows")
+    f, _ = moe_lib.moe_apply(params, cfg.moe, every, group_size=group_size,
+                             tp=tp)
+    return f[rows.rank * n:(rows.rank + 1) * n]
 
 
 # --------------------------------------------------------------- the model
@@ -359,7 +384,8 @@ class Transformer:
                           long_context: bool = False, device=None):
         """KV caches / SSM state for decode at a given context, on
         ``device``; ``pos`` (and the cache's ``idx``) is a scalar, which
-        the caller may replace by one per row."""
+        the caller may replace by one per row.  Whole: on a mesh a rank
+        holds its block of it (``sharding.specs.decode_state_zeros``)."""
         dtype = cfg.torch_dtype
         kind = block_kind(cfg)
         state = {}
@@ -377,19 +403,26 @@ class Transformer:
 
     @staticmethod
     def decode_step(params, cfg: ArchConfig, token, state,
-                    long_context: bool = False, moe_group_size=None):
+                    long_context: bool = False, moe_group_size=None,
+                    tp=None, rows=None):
         """One-token decode.  token [B, 1] -> (logits [B, 1, V], state').
 
         ``moe_group_size`` is the MoE dispatch group (default the
         config's): ``launch.serve`` routes the batch as one group, as the
         JAX package does, and the serving runtime passes 1, the group its
         ``vmap`` over slots gives each slot.  ``state`` is left as it
-        was."""
-        x = Transformer.embed_inputs(params, cfg, token)
+        was.  With ``tp`` (see the module's docstring) the embedding and
+        the head run vocab-parallel (the logits gathered whole), the
+        attention and the Mamba blocks head-parallel, the FFNs on hidden
+        columns and the MoE on experts, its router whole on every
+        rank.  ``rows`` (the batch axes' collectives, where the rows
+        split over them) lets an MoE dispatch group span the ranks'
+        rows: see :func:`_moe_decode`."""
+        x = Transformer.embed_inputs(params, cfg, token, tp=tp)
         kind = block_kind(cfg)
         if kind in ("mamba", "hybrid"):
             return Transformer._ssm_decode(params, cfg, x, state,
-                                           long_context)
+                                           long_context, tp)
         pos, kv = state["pos"], state["kv"]
         ks, vs = [], []
         for li in range(cfg.n_layers):
@@ -398,7 +431,7 @@ class Transformer:
                                            long_context)
             h = rmsnorm(bp["norm_attn"], x, cfg.norm_eps)
             a, nk, nv = attn_lib.attend_decode(bp["attn"], cfg, h, kv.k[li],
-                                               kv.v[li], pos, window)
+                                               kv.v[li], pos, window, tp)
             ks.append(nk)
             vs.append(nv)
             if cfg.sandwich_norm:
@@ -406,21 +439,23 @@ class Transformer:
             x = x + a
             h = rmsnorm(bp["norm_ffn"], x, cfg.norm_eps)
             if "moe" in bp:
-                f, _ = moe_lib.moe_apply(bp["moe"], cfg.moe, h,
-                                         group_size=moe_group_size)
+                f = _moe_decode(bp["moe"], cfg, h, moe_group_size, tp,
+                                rows)
                 if "shared_ffn" in bp:
-                    f = f + ffn_lib.swiglu(bp["shared_ffn"], h)
+                    f = f + ffn_lib.swiglu(bp["shared_ffn"], h, tp,
+                                           "shared_ffn")
             else:
-                f = ffn_lib.swiglu(bp["ffn"], h)
+                f = ffn_lib.swiglu(bp["ffn"], h, tp)
                 if cfg.sandwich_norm:
                     f = rmsnorm(bp["post_ffn"], f, cfg.norm_eps)
             x = x + f
         state = dict(state, kv=attn_lib.KVCache(
             torch.stack(ks), torch.stack(vs), kv.idx + 1), pos=pos + 1)
-        return Transformer.head(params, cfg, x), state
+        return Transformer.head(params, cfg, x, tp=tp), state
 
     @staticmethod
-    def _ssm_decode(params, cfg: ArchConfig, x, state, long_context):
+    def _ssm_decode(params, cfg: ArchConfig, x, state, long_context,
+                    tp=None):
         """The mamba stack, and for the hybrid family the shared attention
         block after each listed block, each application with its own
         cache (``kv.k[i]`` for the i-th position)."""
@@ -434,7 +469,7 @@ class Transformer:
             bp = tree_map(lambda a: a[li], params["blocks"])
             hn = rmsnorm(bp["norm"], x[:, 0], cfg.norm_eps)[:, None]
             y, h2, cv2 = mamba_lib.mamba_decode(bp["mamba"], cfg, hn,
-                                                ms.h[li], ms.conv[li])
+                                                ms.h[li], ms.conv[li], tp)
             x = x + y
             hs.append(h2)
             cvs.append(cv2)
@@ -443,16 +478,17 @@ class Transformer:
                 bp = params["shared_attn"]
                 h = rmsnorm(bp["norm_attn"], x, cfg.norm_eps)
                 a, nk, nv = attn_lib.attend_decode(
-                    bp["attn"], cfg, h, kv.k[app], kv.v[app], pos, window)
+                    bp["attn"], cfg, h, kv.k[app], kv.v[app], pos, window,
+                    tp)
                 ks.append(nk)
                 vs.append(nv)
                 x = x + a
                 h = rmsnorm(bp["norm_ffn"], x, cfg.norm_eps)
-                x = x + ffn_lib.swiglu(bp["ffn"], h)
+                x = x + ffn_lib.swiglu(bp["ffn"], h, tp)
         state = dict(state, mamba=mamba_lib.MambaState(torch.stack(hs),
                                                        torch.stack(cvs)),
                      pos=pos + 1)
         if kv is not None:
             state["kv"] = attn_lib.KVCache(torch.stack(ks), torch.stack(vs),
                                            kv.idx + 1)
-        return Transformer.head(params, cfg, x), state
+        return Transformer.head(params, cfg, x, tp=tp), state

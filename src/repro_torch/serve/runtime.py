@@ -45,8 +45,28 @@ Robustness: every dispatch runs under a retry budget with exponential
 backoff; exhaustion evicts the affected slots and the runtime keeps
 serving (see :class:`~repro_torch.serve.config.ServeConfig`).
 ``clock`` / ``sleep`` / ``fault_hook`` are injectable so the deadline
-and backoff paths are deterministic under test.  There is no mesh: one
-card holds the slot table.
+and backoff paths are deterministic under test.
+
+On a mesh (``mesh=``, a ``launch.mesh.Mesh``; one process a rank) the
+weights are placed as the prefill step's (``sharding.specs.step_placement``:
+tensor- and expert-parallel over ``model``, FSDP blocks over ``data``,
+gathered once a dispatch, never once a prefill position), and the slot
+table, the prefill chunk and the per-slot vectors by the decode state's
+plan (``sharding.specs.decode_state_plan``, allocated by
+``decode_state_zeros``): a rank holds its slots of each over the batch
+axes, where they divide (``decode_rows``), and its heads over
+``model``.  Every rank runs the scheduler and takes the same
+decisions: the clock is rank 0's, broadcast (once a tick, once an
+admitted chunk, once a submit), and a fault the ``fault_hook`` raises on
+any rank is agreed by all of them before the step runs (a host
+all-reduce of a flag), so every rank retries or evicts together.  These
+two go over a host (gloo) group, so the card's queue is never drained
+for them.  A prefilled chunk's rows and first tokens are gathered over
+the batch axes and each rank keeps the rows of its own slots; a tick's
+retired rows are gathered the same way, so every rank's ``results``,
+``stats()`` and ``records()`` are the same.  A fault raised inside a
+step's collectives on one rank alone cannot be agreed on: the others
+wait in the collective.
 """
 from __future__ import annotations
 
@@ -59,10 +79,16 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.module import SHAPES
 from repro_torch.models.transformer import Transformer
 from repro_torch.serve.config import ServeConfig
+from repro_torch.sharding.collectives import Collectives
+from repro_torch.sharding.parallel import gather_from_data
+from repro_torch.sharding.specs import (decode_rows, decode_state_zeros,
+                                        rows_comm, shard_params,
+                                        step_placement)
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten_like
 
 # request terminal states
 STATUS_QUEUED = "queued"
@@ -136,9 +162,23 @@ def _slot_ax(t: torch.Tensor) -> int:
     return 0 if t.dim() == 1 else 1
 
 
+def _host_comm(mesh) -> Optional[Collectives]:
+    """The scheduler's collectives over a host group of the whole world
+    (the default group on a CPU mesh, a gloo group beside NCCL's on the
+    card), census keys ``"host/..."``; None for a world of one."""
+    import torch.distributed as dist
+    if dist.get_world_size() == 1:
+        return None
+    group = None if mesh.device.type == "cpu" else dist.new_group(
+        backend="gloo")
+    return Collectives(group, axis="host")
+
+
 class ServeRuntime:
     """Fixed-slot continuous-batching server for decoder-only archs, on
-    the card unless ``device="cpu"`` is passed."""
+    the card unless ``device="cpu"`` is passed (on ``mesh``, on the
+    mesh's device).  ``params`` are whole; on a mesh each rank keeps its
+    blocks of them."""
 
     def __init__(self, arch: ArchConfig, serve: ServeConfig, *,
                  params=None, seed: int = 0, mesh=None,
@@ -149,13 +189,11 @@ class ServeRuntime:
         if arch.family == "audio":
             raise ValueError("ServeRuntime serves decoder-only archs; "
                              "audio (enc-dec) uses launch.serve.serve_whisper")
-        if mesh is not None:
-            raise NotImplementedError(
-                "ServeRuntime(mesh=...): the slot table's mesh placement "
-                "is not ported yet (ROADMAP.md queue 1 item 9b)")
         self.arch = arch
         self.serve = serve.validate()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh.device)
         self.clock = clock
         self.sleep = sleep
         self.fault_hook = fault_hook
@@ -164,18 +202,33 @@ class ServeRuntime:
         self.max_new = serve.max_new_tokens
         self.cap = serve.max_prompt_len + serve.max_new_tokens
 
+        # ---- placement: whole on one card; on a mesh the weights as a
+        # prefill step's, the slots and the chunk's rows by the decode
+        # state's plan (this rank's rows [lo, hi) of each)
+        self.tp = self.fsdp = self._plan = self._host = None
+        self._rows = (0, self.slots, None)
+        self._chunk_rows = (0, serve.prefill_batch, None)
+        if mesh is not None:
+            self.tp, self.fsdp, self._plan = step_placement(
+                mesh, arch, Transformer.init(SHAPES, arch))
+            self._rows = decode_rows(mesh.shape, mesh.coords, self.slots)
+            self._chunk_rows = decode_rows(mesh.shape, mesh.coords,
+                                           serve.prefill_batch)
+            self._host = _host_comm(mesh)
         if params is None:
             params = Transformer.init(
                 torch.Generator(device=self.device).manual_seed(seed), arch)
-        self.params = params
+        self.params = (params if self._plan is None
+                       else shard_params(params, self._plan))
 
         dev = self.device
+        lo, hi, _ = self._rows
         self.state = self._zero_slot_state(self.slots)
-        self.cur_tok = torch.zeros((self.slots,), dtype=torch.int32,
+        self.cur_tok = torch.zeros((hi - lo,), dtype=torch.int32,
                                    device=dev)
-        self.counts = torch.zeros((self.slots,), dtype=torch.int32,
+        self.counts = torch.zeros((hi - lo,), dtype=torch.int32,
                                   device=dev)
-        self.out_buf = torch.zeros((self.slots, self.max_new),
+        self.out_buf = torch.zeros((hi - lo, self.max_new),
                                    dtype=torch.int32, device=dev)
         self._chunk_zero = self._zero_slot_state(serve.prefill_batch)
 
@@ -198,11 +251,12 @@ class ServeRuntime:
 
     # ------------------------------------------------------------ build
     def _zero_slot_state(self, n: int):
-        """A decode state at batch ``n`` with one position per row."""
+        """A decode state at batch ``n`` with one position per row (on a
+        mesh, this rank's block of it: its rows and heads)."""
         st = Transformer.init_decode_state(self.arch, n, self.cap,
-                                           device=self.device)
-        return tree_map(lambda t: t.new_zeros((n,)) if t.dim() == 0 else t,
-                        st)
+                                           device="meta")
+        st = tree_map(lambda t: t.new_zeros((n,)) if t.dim() == 0 else t, st)
+        return decode_state_zeros(st, self.mesh, self.arch, self.device)
 
     def _where_slot(self, mask, new, old):
         """Per-slot select over a slot-table tree (mask [S] bool)."""
@@ -236,24 +290,32 @@ class ServeRuntime:
 
         return call
 
+    def _whole_over_data(self, params):
+        """The weights gathered over ``data`` (FSDP), once a dispatch."""
+        if self.fsdp is None:
+            return params
+        return gather_from_data(self.fsdp, params, self._plan)
+
     def _build_steps(self):
-        arch = self.arch
-        S, M, Pb = self.slots, self.max_new, self.serve.prefill_batch
-        P = self.serve.max_prompt_len
+        arch, tp = self.arch, self.tp
+        M, P = self.max_new, self.serve.max_prompt_len
+        chunk_comm = (None if self.mesh is None
+                      else rows_comm(self.mesh, self._chunk_rows[2]))
 
         def vstep(params, tok, state):
             # every row is its own sequence: its own position, its own
             # MoE group (the JAX package's vmap over slots)
             return Transformer.decode_step(params, arch, tok, state,
-                                           moe_group_size=1)
+                                           moe_group_size=1, tp=tp)
 
         def decode_fn(params, state, cur_tok, live, counts, out_buf):
+            params = self._whole_over_data(params)
             lg, st2 = vstep(params, cur_tok[:, None], state)
             state = self._where_slot(live, st2, state)
             tok = torch.argmax(lg[:, -1], dim=-1).to(torch.int32)
             tok = torch.where(live, tok, cur_tok)
             idx = torch.clamp(counts, 0, M - 1).long()
-            rows = torch.arange(S, device=out_buf.device)
+            rows = torch.arange(out_buf.shape[0], device=out_buf.device)
             out_buf = out_buf.index_put(
                 (rows, idx), torch.where(live, tok, out_buf[rows, idx]))
             counts = counts + live.to(torch.int32)
@@ -265,8 +327,9 @@ class ServeRuntime:
             # their length — bit-equal to per-token stepping by
             # construction (torch.where passes the active rows' bits
             # through untouched)
-            logits = torch.zeros((Pb, 1, arch.vocab), dtype=torch.float32,
-                                 device=tokens.device)
+            params = self._whole_over_data(params)
+            logits = torch.zeros((tokens.shape[0], 1, arch.vocab),
+                                 dtype=torch.float32, device=tokens.device)
             for i in range(P):
                 lg, st2 = vstep(params, tokens[:, i:i + 1], state)
                 state = self._where_slot(i < lens, st2, state)
@@ -275,26 +338,35 @@ class ServeRuntime:
             first = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
             return state, first
 
-        def admit_fn(state, cur_tok, counts, out_buf, cstate, first,
-                     slot_ids, admit):
-            # scatter a prefilled chunk into its (host-chosen, distinct)
-            # slots; non-admitted rows carry unused slot ids and write
-            # their targets' own values back (a structural no-op)
-            def sc(leaf, cleaf):
+        def admit_fn(state, cur_tok, counts, out_buf, cstate, first, src,
+                     take):
+            # each slot that takes a prefilled chunk row (``take``) takes
+            # row ``src`` of the chunk; every other slot keeps its own.
+            # On a mesh the chunk's rows are first gathered over the
+            # batch axes, and each rank selects into its own slots
+            if chunk_comm is not None:
+                leaves = tree_leaves(cstate)
+                got = chunk_comm.all_gather_tree(
+                    [t.movedim(_slot_ax(t), 0) for t in leaves] + [first],
+                    "admit")
+                cstate = tree_unflatten_like(cstate, [
+                    g.movedim(0, _slot_ax(t))
+                    for t, g in zip(leaves, got[:-1])])
+                first = got[-1]
+
+            def sel(leaf, cleaf):
                 ax = _slot_ax(leaf)
                 shape = [1] * leaf.dim()
                 shape[ax] = -1
-                old = leaf.index_select(ax, slot_ids)
-                upd = torch.where(admit.reshape(shape), cleaf, old)
-                return leaf.index_copy(ax, slot_ids, upd)
+                return torch.where(take.reshape(shape),
+                                   cleaf.index_select(ax, src), leaf)
 
-            state = tree_map(sc, state, cstate)
-            cur_tok = sc(cur_tok, first)
-            counts = sc(counts, torch.ones_like(first))
-            col = torch.zeros_like(slot_ids)
-            out_buf = out_buf.index_put(
-                (slot_ids, col),
-                torch.where(admit, first, out_buf[slot_ids, col]))
+            state = tree_map(sel, state, cstate)
+            mine = first.index_select(0, src)
+            cur_tok = torch.where(take, mine, cur_tok)
+            counts = torch.where(take, torch.ones_like(counts), counts)
+            col = torch.where(take, mine, out_buf[:, 0])
+            out_buf = torch.cat([col[:, None], out_buf[:, 1:]], dim=1)
             return state, cur_tok, counts, out_buf
 
         self._decode = self._built("decode", decode_fn)
@@ -302,13 +374,39 @@ class ServeRuntime:
         self._admit = self._built("admit", admit_fn)
 
     # --------------------------------------------------------- dispatch
+    def _now(self) -> float:
+        """The clock; on a mesh of more than one rank, rank 0's reading,
+        broadcast over the host group (census ``host/broadcast/clock``)."""
+        t = self.clock()
+        if self._host is None:
+            return t
+        return float(self._host.broadcast(
+            torch.tensor([t], dtype=torch.float64), "clock")[0])
+
+    def _fault_check(self, site: str, attempt: int) -> None:
+        """Run the fault hook; on a mesh of more than one rank, raise on
+        every rank when it raised on any (a host all-reduce of the
+        flag, census ``host/all_reduce/fault``), before any rank starts
+        the step's collectives."""
+        err = None
+        if self.fault_hook is not None:
+            try:
+                self.fault_hook(site, self._tick, attempt)
+            except Exception as e:      # noqa: BLE001 — any planted fault
+                err = e
+        if self._host is not None:
+            flag = torch.tensor([int(err is not None)], dtype=torch.int32)
+            if int(self._host.all_reduce(flag, "fault")[0]) and err is None:
+                err = RuntimeError(f"{site} failed on another rank")
+        if err is not None:
+            raise err
+
     def _dispatch(self, site: str, fn, *args):
         """Run one dispatch under the retry/backoff budget."""
         last = None
         for attempt in range(self.serve.max_retries + 1):
             try:
-                if self.fault_hook is not None:
-                    self.fault_hook(site, self._tick, attempt)
+                self._fault_check(site, attempt)
                 out = fn(*args)
             except Exception as e:      # noqa: BLE001 — any dispatch fault
                 last = e
@@ -343,7 +441,7 @@ class ServeRuntime:
         req = Request(rid=self._next_rid, prompt=toks, max_new=mn,
                       deadline_s=(self.serve.deadline_s if deadline_s is None
                                   else float(deadline_s)),
-                      submitted=self.clock())
+                      submitted=self._now())
         self._next_rid += 1
         self.queue.append(req)
         self.results[req.rid] = req
@@ -378,16 +476,31 @@ class ServeRuntime:
             self.evictions["failure"] += 1
         self.free.extend(slots)
 
+    def _out_rows(self) -> np.ndarray:
+        """Every slot's ``out_buf`` row on the host: on a mesh whose
+        slots split over the batch axes, gathered over them first
+        (census ``all_gather/retire``)."""
+        comm = (None if self.mesh is None
+                else rows_comm(self.mesh, self._rows[2]))
+        buf = (self.out_buf if comm is None
+               else comm.all_gather(self.out_buf, "retire"))
+        return buf.cpu().numpy()
+
+    def _upload_rows(self, a: np.ndarray, rows) -> torch.Tensor:
+        """This rank's rows ``[lo, hi)`` of a host array, on the device."""
+        lo, hi, _ = rows
+        return self._upload(np.ascontiguousarray(a[lo:hi]))
+
     def step(self) -> None:
         """One scheduler tick: retire / expire / admit / decode."""
-        now = self.clock()
+        now = self._now()
         self._tick += 1
         out = None                      # out_buf on the host, read once
 
         def host_out():
             nonlocal out
             if out is None:
-                out = self.out_buf.cpu().numpy()
+                out = self._out_rows()
             return out
 
         # 1. retire slots whose generation budget is met
@@ -421,7 +534,8 @@ class ServeRuntime:
         try:
             (self.state, self.cur_tok, self.counts, self.out_buf), att = \
                 self._dispatch("decode", self._decode, self.params,
-                               self.state, self.cur_tok, self._upload(live),
+                               self.state, self.cur_tok,
+                               self._upload_rows(live, self._rows),
                                self.counts, self.out_buf)
         except ServeDispatchError:
             # decode failures carry no per-slot blame — evict every live
@@ -443,15 +557,14 @@ class ServeRuntime:
         n = min(len(self.queue), len(self.free), Pb)
         chunk = [self.queue.popleft() for _ in range(n)]
         slots = [self.free.pop() for _ in range(n)]
-        # pad the chunk's scatter targets with DISTINCT unused slots so
-        # the scatter never sees duplicate indices (Pb <= slots
-        # guarantees enough spares among free + live-but-untouched)
-        spare = [s for s in self.free if s not in slots]
-        spare += [s for s in range(self.slots)
-                  if s not in slots and s not in spare]
-        slot_ids = np.asarray(slots + spare[:Pb - n], np.int64)
-        admit = np.zeros(Pb, bool)
-        admit[:n] = True
+        # each of this rank's slots [lo, hi): the chunk row it takes, if
+        # one was admitted to it
+        lo, hi, _ = self._rows
+        src = np.zeros(hi - lo, np.int64)
+        take = np.zeros(hi - lo, bool)
+        for i, s in enumerate(slots):
+            if lo <= s < hi:
+                src[s - lo], take[s - lo] = i, True
         tokens = np.zeros((Pb, self.serve.max_prompt_len), np.int32)
         lens = np.zeros(Pb, np.int32)
         for i, r in enumerate(chunk):
@@ -459,8 +572,9 @@ class ServeRuntime:
             lens[i] = len(r.prompt)
         try:
             (cstate, first), att = self._dispatch(
-                "prefill", self._prefill, self.params, self._upload(tokens),
-                self._upload(lens), self._chunk_zero)
+                "prefill", self._prefill, self.params,
+                self._upload_rows(tokens, self._chunk_rows),
+                self._upload_rows(lens, self._chunk_rows), self._chunk_zero)
         except ServeDispatchError:
             self.log(f"[serve] prefill dispatch exhausted at tick "
                      f"{self._tick}; evicting {n} queued requests")
@@ -469,9 +583,9 @@ class ServeRuntime:
         (self.state, self.cur_tok, self.counts, self.out_buf), _ = \
             self._dispatch("admit", self._admit, self.state, self.cur_tok,
                            self.counts, self.out_buf, cstate, first,
-                           self._upload(slot_ids), self._upload(admit))
+                           self._upload(src), self._upload(take))
         first.cpu()                     # the first tokens exist: TTFT
-        t_first = self.clock()
+        t_first = self._now()
         for i, r in enumerate(chunk):
             r.status = STATUS_RUNNING
             r.slot = slots[i]

@@ -42,9 +42,9 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.sharding.parallel import (packed_segments, rank_segments,
-                                           sharded_units, take_segments,
-                                           unit_of)
+from repro_torch.sharding.parallel import (TensorParallel, packed_segments,
+                                           rank_segments, sharded_units,
+                                           take_segments, unit_of)
 from repro_torch.utils.tree import (map_with_path, tree_leaves, tree_map,
                                     tree_unflatten_like)
 
@@ -461,3 +461,144 @@ def gather_entity(entity, plan, comm=None, data_comm=None):
     moments."""
     return _entity_map(lambda t, p: gather_params(t, p, comm, data_comm),
                        entity, plan)
+
+
+# ------------------------------------------------- a step's placement
+def mesh_placement(mesh, cfg=None):
+    """``(tp, fsdp)`` of a task on ``mesh``: its ``model`` axis (the
+    whole-unit rule of ``cfg``, or a stage model's for ``cfg`` None) and
+    the ``data`` axis' collectives where that axis has more than one
+    rank (None otherwise)."""
+    fsdp = mesh.data_comm if mesh.shape.get("data", 1) > 1 else None
+    return TensorParallel.from_mesh(mesh, cfg), fsdp
+
+
+def step_placement(mesh, cfg, shapes):
+    """``(tp, fsdp, plan)`` of a whole model's inference step (prefill,
+    decode, serving) on ``mesh``: :func:`mesh_placement`, and the plan of
+    the weights ``shapes`` (a shape-only draw) under role 'full' where
+    the ``model`` axis or FSDP cuts them (None where every leaf stays
+    whole)."""
+    tp, fsdp = mesh_placement(mesh, cfg)
+    plan = None
+    if tp.size > 1 or fsdp is not None:
+        plan = shard_plan(shapes, mesh.shape, mesh.coords, "full", cfg)
+    return tp, fsdp, plan
+
+
+# ------------------------------------------------------- the decode state
+# (regex over a decode-state leaf's path, its kind): the reference's
+# ``_DECODE_RULES`` (``repro/launch/steps.py``)
+DECODE_RULES: list[tuple[str, str]] = [
+    (r"kv/(k|v)$", "kvcache"),           # [L, B, C, Hkv, Dh]
+    (r"mamba/h$", "mamba_h"),            # [L, B, H, N, P]
+    (r"mamba/conv$", "mamba_conv"),      # [L, B, K-1, ch]
+    (r"enc_out$", "enc_out"),            # [B, T, d]
+]
+
+
+class _Grid:
+    def __init__(self, sizes: dict, coords: dict):
+        self.shape, self.coords = sizes, coords
+
+
+def decode_rows(sizes, coords, n: int
+                ) -> tuple[int, int, Optional[tuple[str, ...]]]:
+    """``(lo, hi, axes)``: the rows of a decode state's batch (or the
+    serving runtime's slot) axis of ``n`` that the rank at ``coords`` of
+    a mesh of ``sizes`` holds, and the batch axes they split over (None:
+    every row on every rank).  The rows split as a batch spec does
+    (``batch_spec``: over ('pod', 'data') where ``n`` divides their
+    size, else over 'data' where it divides that), and stay whole where
+    it divides neither, as ``shard_if_divisible`` leaves them, or where
+    the axes hold one rank."""
+    grid = _Grid(sizes, coords)
+    axes = _batch_axes_for(grid, n)
+    if axes is None or _axes_size(grid, axes) == 1:
+        return 0, n, None
+    lo, hi = shard_range(grid, axes, n)
+    return lo, hi, axes
+
+
+def rows_comm(mesh, axes):
+    """The collectives of the ranks among which ``decode_rows``' ``axes``
+    split the rows (the ranks of this rank's ``model`` coordinate):
+    ``mesh.comm`` for every batch axis, ``mesh.data_comm`` for 'data'
+    alone; None for rows whole on every rank."""
+    if axes is None:
+        return None
+    return mesh.comm if tuple(axes) == batch_axes(mesh) else mesh.data_comm
+
+
+def decode_state_plan(state, sizes, coords, cfg):
+    """For each leaf of a decode state (or of the serving runtime's slot
+    table, its slot axis in the batch position; whole leaves, on any
+    device, the ``meta`` one included): a :class:`Shard`, the placement
+    of the reference's ``decode_state_shardings`` for the rank at
+    ``coords`` of a mesh of ``sizes``, the port's counterpart of its
+    ``_DECODE_RULES`` (:data:`DECODE_RULES`).
+
+    The batch axis (the slots) splits over the batch axes where it
+    divides (:func:`decode_rows`), as ``ddim`` (over the batch axes
+    here, not 'data' alone); over ``model``, as ``dim``, under the
+    whole-unit rule of ``sharding.parallel.sharded_units``, so that the
+    state meets the weights it is read with:
+
+      ``kv/k``, ``kv/v`` [L, B, C, Hkv, Dh]: the rank's heads, where the
+        attention unit splits (``n_kv_heads % m == 0``), else whole (the
+        reference then cuts the cache's length C, or at batch 1 puts C
+        over 'data': the port keeps C whole, ROADMAP item 9b part 3);
+      ``mamba/h`` [L, B, H, N, P]: the rank's ``H / m`` SSD heads;
+      ``mamba/conv`` [L, B, K-1, ch]: the rank's ``[x_r | B | C]``
+        channels, the segmented cut of ``conv_w`` (``Shard.segs``), so
+        the carried inputs and the weight they meet hold the same
+        columns (the reference cuts ``ch`` evenly, which is a layout of
+        the same values, not a cut on heads);
+      ``enc_out`` [B, T, d]: whole over ``model`` (the cross-attention
+        is head-parallel and reads all of ``d``; the reference's cut of
+        ``d`` is a layout);
+      ``pos``, ``kv/idx``: over the batch axes where they are one per
+        row, else whole.
+
+    :func:`shard_params` cuts a whole state by the plan, and
+    :func:`gather_params` with the mesh's ``model_comm`` and
+    :func:`rows_comm` puts it back whole."""
+    m, r = sizes.get("model", 1), coords.get("model", 0)
+    units = sharded_units(cfg, sizes)
+
+    def one(path, leaf):
+        shape = tuple(leaf.shape)
+        kind = next((k for pat, k in DECODE_RULES if re.search(pat, path)),
+                    None)
+        s = Shard()
+        bdim = 0 if kind == "enc_out" or len(shape) == 1 else (
+            1 if kind is not None else None)
+        if bdim is not None:
+            lo, hi, axes = decode_rows(sizes, coords, shape[bdim])
+            if axes is not None:
+                s.ddim, s.dlo, s.dhi = bdim, lo, hi
+        split = {"kvcache": "attn", "mamba_h": "mamba",
+                 "mamba_conv": "mamba"}.get(kind)
+        if split is not None and units[split]:
+            s.dim = {"kvcache": 3, "mamba_h": 2, "mamba_conv": 3}[kind]
+            per = shape[s.dim] // m
+            if kind == "mamba_conv":
+                s.segs = rank_segments(packed_segments(cfg, "mamba/conv_w"),
+                                       m, r)
+                per = sum(hi - lo for lo, hi, _ in s.segs)
+            s.lo, s.hi = r * per, (r + 1) * per
+        return s
+    return map_with_path(one, state)
+
+
+def decode_state_zeros(state, mesh, cfg, device):
+    """An empty decode state (or slot table) on ``device``: zeros of this
+    rank's block of ``state``, a whole state's shapes (the ``meta`` one
+    will do), under :func:`decode_state_plan`; off a mesh (``mesh``
+    None) zeros of the whole.  The one place a decode's state is given
+    its placement."""
+    if mesh is not None:
+        state = shard_params(state, decode_state_plan(state, mesh.shape,
+                                                      mesh.coords, cfg))
+    return tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                          device=device), state)

@@ -114,10 +114,11 @@ def test_config_round_trips_from_reference_dict(jcfg):
 
 
 # what the port still refuses: a mesh with the pipeline, staleness,
-# checkpoint, serve, scenario and resilience knobs (ROADMAP item 9b;
-# those knobs are ported off the mesh).  A 'model' axis > 1 is ported
-# (the "mesh" cases): the config takes it, and one process without a
-# group of the mesh's size asks for torchrun instead
+# checkpoint, scenario and resilience knobs (ROADMAP item 9b; those
+# knobs are ported off the mesh).  A 'model' axis > 1 is ported (the
+# "mesh" cases), and so is a serve config on a mesh ("serve"): the
+# config takes it, and one process without a group of the mesh's size
+# asks for torchrun instead
 OUT_OF_SLICE = {
     "pipeline": dict(pipeline_depth=1, mesh_shape=(2, 1)),
     "mesh": dict(mesh_shape=(1, 2)),
@@ -141,8 +142,9 @@ def test_out_of_slice_knobs_raise(kw):
     for k, v in kw.items():
         d[k] = {**d[k], **v} if isinstance(v, dict) else v
     cfg = ExperimentConfig.from_dict(d)
-    if cfg.mesh_shape is not None and dict(
-            zip(cfg.mesh_axes, cfg.mesh_shape)).get("model", 1) > 1:
+    if cfg.mesh_shape is not None and (dict(
+            zip(cfg.mesh_axes, cfg.mesh_shape)).get("model", 1) > 1
+            or "serve" in kw):
         assert cfg.validate() is cfg
         with pytest.raises(RuntimeError, match="torchrun"):
             Engine(cfg, device="cpu")

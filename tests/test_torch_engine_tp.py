@@ -60,6 +60,7 @@ import torch
 from repro_torch.api import Engine, ExperimentConfig
 from repro_torch.core.cyclesl import CycleConfig
 from repro_torch.launch.meshcheck import spawn_ranks
+from repro_torch.serve import ServeConfig
 from repro_torch.utils.tree import tree_leaves
 
 import torch_fsdp_ranks as ranks
@@ -465,15 +466,19 @@ def test_step_server_holds_only_its_blocks(name, world2, world4):
 
 
 def test_config_takes_a_model_axis_and_refuses_the_rest():
-    """``(1, 2)`` and ``(2, 2)`` validate; each ``MESH_9B`` combination
-    still raises naming item 9b."""
+    """``(1, 2)`` and ``(2, 2)`` validate, and so does a mesh with a serve
+    config; each ``MESH_9B`` combination still raises naming item 9b."""
     from repro_torch.api.config import MESH_9B
     for shape in ((1, 2), (2, 2)):
         cfg = ExperimentConfig(mesh_shape=shape)
         assert cfg.validate() is cfg
+        cfg = ExperimentConfig.from_dict({
+            **ExperimentConfig().to_dict(), "mesh_shape": shape,
+            "serve": {**ServeConfig().to_dict(), "slots": 4}})
+        assert cfg.validate() is cfg
     bad = {"pipeline_depth": 1, "ckpt_dir": "ck",
            "resilience": {"guard": True},
-           "scenario": {"kind": "diurnal-churn"}, "serve": {"slots": 4}}
+           "scenario": {"kind": "diurnal-churn"}}
     assert set(bad) == set(MESH_9B)
     for k, v in bad.items():
         d = {**ExperimentConfig().to_dict(), "mesh_shape": (2, 2), k: v}

@@ -1,7 +1,9 @@
 """The port's continuous-batching runtime, held against ``repro.serve``.
 
 Every case of ``tests/test_serving.py`` but the mesh placement (which
-waits for the multi-GPU port) runs here on the port's ``ServeRuntime``
+needs 8 devices there; the port's mesh runtime is held in
+``tests/test_torch_decode_mesh.py`` and ``tests/test_torch_serve_mesh.py``)
+runs here on the port's ``ServeRuntime``
 and on the JAX package's, side by side: the weights of one JAX init
 carried across, one ``FakeClock`` each (so every time is the fake
 clock's), the same submissions and the same ``fault_hook``.  Their
@@ -430,7 +432,23 @@ def test_submit_rejects_over_budget(pair):
 
 
 def test_mesh_raises():
-    """The slot table's mesh placement waits for the multi-GPU port."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ServeRuntime(smoke_config("gemma2-2b"), SC, mesh=object(),
-                     device="cpu")
+    """A mesh no longer raises: a (1, 1) mesh in this process serves, and
+    gives the unsharded runtime's records and stats exactly."""
+    from repro_torch.launch.mesh import make_local_mesh
+    cfg = smoke_config("gemma2-2b")
+    params = Transformer.init(torch.Generator().manual_seed(0), cfg)
+    prompts = make_prompts(6, SC.max_prompt_len, cfg.vocab, seed=3)
+    mesh = make_local_mesh("cpu")
+    try:
+        runs = []
+        for m in (None, mesh):
+            rt = ServeRuntime(cfg, SC, params=params, mesh=m,
+                              clock=lambda: 0.0, device="cpu")
+            run_closed_loop(rt, prompts, concurrency=3)
+            runs.append((rt.records(), rt.stats(),
+                         [rt.results[r].tokens.tolist()
+                          for r in sorted(rt.results)]))
+        assert runs[0] == runs[1]
+        assert runs[1][1]["by_status"]["done"] == len(prompts)
+    finally:
+        mesh.close()

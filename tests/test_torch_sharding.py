@@ -316,9 +316,19 @@ MESH_WITH = {"pipeline": dict(pipeline_depth=1),
 
 @pytest.mark.parametrize("kw", list(MESH_WITH.values()), ids=list(MESH_WITH))
 def test_mesh_with_an_unported_path_raises_naming_9b(kw):
+    """Each path item 9b has left raises naming it; a serve config, whose
+    mesh placement is ported, builds the Engine on a (1, 1) mesh."""
     d = {**ExperimentConfig().to_dict(), "mesh_shape": (1, 1)}
     for k, v in kw.items():
         d[k] = {**d[k], **v} if isinstance(v, dict) else v
+    if "serve" in kw:
+        eng = Engine(ExperimentConfig.from_dict(d), device="cpu")
+        try:
+            assert eng.mesh.shape == {"data": 1, "model": 1}
+            assert eng.cfg.serve.slots == 4
+        finally:
+            eng.close()
+        return
     with pytest.raises(NotImplementedError, match="item 9b"):
         Engine(ExperimentConfig.from_dict(d), device="cpu")
 

@@ -102,7 +102,12 @@ def engine_run(kw: dict, mode=None) -> dict:
     with ctx():
         eng = Engine(ExperimentConfig(**kw), device="cpu",
                      callbacks=[Rec()], log=lambda *a: None)
-        res = eng.run()
+        try:
+            res = eng.run()
+        finally:
+            # a (1, 1) mesh in the test's own process starts a group of
+            # one, which would outlive the test: end it
+            eng.close()
     out.update(rows=rows, census=census, history=res["history"])
     return out
 
