@@ -140,7 +140,22 @@ Phases, each of which ends the script with a non-zero exit on failure:
     a served stream parting from the unsharded one only where the
     unsharded top-2 gap lies within it, every rank alike, the census a
     tick, ms a tick, tokens/s, TTFT and peak memory a card, and a
-    decode without its attention's (Mamba's) reduce refused.
+    decode without its attention's (Mamba's) reduce refused;
+29. the Engine's pipelined rounds, health guard and recovery,
+    checkpoints and scenarios on a mesh, in a process of its own: the
+    Engine at its defaults (femnist width 16, cut 2) pipelined sync at
+    depth 2, guarded under phase 19's fault rates with torn checkpoints,
+    at cut 3 with ``fused_gather_loss`` guarded and pipelined async at
+    depth 1, and cyclepsl under diurnal churn checkpointed and resumed: on a
+    (1, 1) mesh bit for bit the unsharded Engine with its launches as
+    counted and no collective of its own; the kernels of the pipelined
+    olmoe steps at a rank's shapes on (2, 2); with four cards every run
+    on (2, 2) and (4, 1) held to unsharded, every rank's host outcomes
+    the unsharded run's, a resume bit for bit the unbroken run on its
+    mesh, the census a round, rounds/s beside unsharded, the guard's
+    flag left unsummed over ``model`` refused, and olmoe-1b-7b at depth
+    4 through ``build_pipelined_train_steps(mesh=)`` on (2, 2) bit for
+    bit ``build_train_step(mesh=)``.
 
 It then prints the ``kernels`` JSON line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -5167,6 +5182,566 @@ def run_decode_mesh_phase(out_path):
     return 0
 
 
+# phase 29: the Engine's pipelined rounds, health guard and recovery,
+# checkpoints and scenarios on a mesh, and the pipelined transformer
+# steps on one, in a process of its own
+# (``python3 chip_smoke.py --engine-paths-mesh-phase OUT``)
+PATHS_ROUNDS = 6
+PATHS_TIMED_ROUNDS = 10
+PATHS_WORLDS = ((2, 2), (4, 1))
+PATHS_ROOT = os.path.join(ROOT, "build", "chip_smoke_paths")
+
+
+def paths_cases(root, rounds=None):
+    """Phase 29's runs of the Engine at its defaults (femnist width 16,
+    cut 2, 100 clients, cohort 5, batch 16), ``rounds`` rounds, in the
+    order they run: name -> (ExperimentConfig, launches a round at a
+    capacity of ``cap`` slots, as ``engine_mesh_variants`` counts them).
+    The guard runs phase 19's fault rates (NaN and dispatch errors at
+    0.3) with torn checkpoints at 0.5, NaN quarantined and a dispatch
+    error rolled back (escalated to a retry while the snapshot ring is
+    empty), at cut 2 and at cut 3 with ``fused_gather_loss``, and on the
+    async pipelined run at cut 3 fused (a recovered round extracts its
+    ring again; on a mesh its extract, on the side stream, gathers the
+    client's ``lin`` blocks over ``data`` and its columns over
+    ``model``); the checkpointed runs are cyclepsl (a per-client store) under phase 20's
+    diurnal churn with a dropout of 0.15, checkpointed at half time and
+    resumed from there by a fresh Engine.  Checkpoints go under
+    ``root``."""
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.core.cyclesl import CycleConfig
+    from repro_torch.resilience import FaultConfig, ResilienceConfig
+    from repro_torch.scenario import ScenarioConfig
+    rounds = rounds or PATHS_ROUNDS
+    half = rounds // 2
+    guard = ResilienceConfig(
+        guard=True, on_nonfinite="quarantine", on_error="rollback",
+        faults=FaultConfig(nan_rate=0.3, error_rate=0.3, ckpt_rate=0.5))
+    churn = dict(algo="cyclepsl", eval_every=half, scenario=ScenarioConfig(
+        kind="diurnal-churn", dropout=0.15))
+    part = os.path.join(root, "part")
+    kw = {"sync2": dict(pipeline_depth=2),
+          "async1 cut3 fused": dict(
+              pipeline_depth=1, pipeline_staleness="async",
+              staleness_weighting="inverse", resilience=guard, cut=3,
+              cycle=CycleConfig(fused_gather_loss=True)),
+          "guard": dict(resilience=guard, eval_every=2,
+                        ckpt_dir=os.path.join(root, "guard")),
+          "guard cut3 fused": dict(resilience=guard, cut=3,
+                                   cycle=CycleConfig(fused_gather_loss=True)),
+          "ckpt": dict(churn, ckpt_dir=os.path.join(root, "ckpt")),
+          "partial": dict(churn, rounds=half, ckpt_dir=part),
+          "resume": dict(churn, resume=True, ckpt_dir=part)}
+
+    def cut2(cap):
+        return {"feature_resample": 2 * cap, "fused_adam": 2 * cap + 4,
+                "gather_loss": 0}
+
+    def cut3(cap):
+        return {"feature_resample": 0, "fused_adam": cap + 5,
+                "gather_loss": cap}
+    return {name: (ExperimentConfig(**{"rounds": rounds,
+                                       "eval_every": rounds, **k}),
+                   cut3 if "cut3" in name else cut2)
+            for name, k in kw.items()}
+
+
+@contextlib.contextmanager
+def drawn_cohorts(out: list):
+    """Inside, every Engine appends each sampled round's cohort ids and
+    attendance mask to ``out``."""
+    from repro_torch.api import Engine
+    real = Engine.sample_round
+
+    def sample(self, rng):
+        got = real(self, rng)
+        out.append((got[0].tolist(),
+                    None if got[3] is None else got[3].tolist()))
+        return got
+    Engine.sample_round = sample
+    try:
+        yield out
+    finally:
+        Engine.sample_round = real
+
+
+def paths_run(torch, cfg, dev):
+    """``run_engine`` with each round's cohort and mask (the sampler's
+    capacity of them), the host group's census, the padded capacity and
+    the host-side outcomes that must agree with the unsharded run's
+    exactly (``host``)."""
+    drawn = []
+    with drawn_cohorts(drawn):
+        run = run_engine(torch, cfg, dev)
+    eng, res = run["engine"], run["res"]
+    run["host_census"] = ({} if eng.host is None
+                          else eng.host.take_census())
+    run["capacity"] = eng.padded_capacity
+    # a mesh pads the cohort past the sampler's capacity with dead slots
+    cap = eng.cohort_capacity
+    drawn = [(ids[:cap], mask if mask is None else mask[:cap])
+             for ids, mask in drawn]
+    run["host"] = {"drawn": drawn, "history": strip_elapsed(res["history"]),
+                   **{k: res.get(k) for k in ("telemetry", "resilience",
+                                              "pipeline",
+                                              "resumed_from_round")}}
+    return run
+
+
+def paths_expected(cfg, res, per_round, cap) -> dict:
+    """Launches of a run of ``cfg``: ``per_round(cap)`` for each round it
+    ran, a resumed run from its resume round, a round the guard rejected
+    once more for each NaN verdict (a dispatch fault raises before the
+    round runs)."""
+    ran = cfg.rounds - res.get("resumed_from_round", 0)
+    ran += (res.get("resilience") or {}).get("faults", {}).get(
+        "nonfinite", 0)
+    return {k: n * ran for k, n in per_round(cap).items()}
+
+
+def paths_guard_control(torch, mesh, cfg):
+    """The guard's check at a round's end on this rank's part of a state
+    whose ``model`` block of the server's first split leaf holds a NaN
+    on the world's last rank alone (its slots' features finite): the
+    health vector as the port agrees it, and with the flag left unsummed
+    over ``model`` (the planted control)."""
+    from repro_torch.api import Engine
+    from repro_torch.api.phases import guard_axes, slot_split
+    from repro_torch.resilience import guards
+    from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
+    eng = Engine(cfg, device=mesh.device, log=lambda *a: None)
+    state = eng.init_state()
+    plan = tree_leaves(eng.algo.task.plans["server"])
+    i = next(j for j, s in enumerate(plan) if s.dim is not None)
+    leaves = [t.clone() for t in tree_leaves(state.server.params)]
+    dist = torch.distributed
+    if dist.get_rank() == dist.get_world_size() - 1:
+        leaves[i].view(-1)[0] = float("nan")
+    bad = state._replace(server=state.server._replace(
+        params=tree_unflatten_like(state.server.params, leaves)))
+    split = slot_split(eng.algo.mesh, eng.padded_capacity)
+    feats = torch.zeros(split.hi - split.lo, 2, 3, device=mesh.device)
+    axes = guard_axes(eng.mesh, eng.algo.mesh, eng.algo.task)
+    loss = torch.ones((), device=mesh.device)
+    out = {}
+    for name, used in (("agreed", axes), ("unreduced over model", tuple(
+            a for a in axes if a.axis != "model"))):
+        h, _ = guards.health_vector(bad, loss, feats, None, None, None,
+                                    0.1, 4.0, split, used)
+        out[name] = h.tolist()
+    return out
+
+
+def pipelined_olmoe(torch, mesh):
+    """olmoe-1b-7b at depth ``OLMOE_DEPTH`` (cut 2, bf16, random init) on
+    ``mesh``: one round of ``build_train_step(mesh=)`` and one of
+    ``build_pipelined_train_steps(mesh=)`` (extract, then tail) from the
+    same init and batch (cohort 2, batch 2 a client, sequence 2048), the
+    launch counters reset before each: whether they are bit for bit the
+    same (state and metrics), and each one's launches against
+    ``split_round``'s count of one round."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.core.cyclesl import CycleConfig
+    from repro_torch.launch.mesh import cohort_size
+    from repro_torch.launch.steps import (build_pipelined_train_steps,
+                                          build_train_step)
+    from repro_torch.utils.tree import tree_leaves
+    cfg = get_config("olmoe-1b-7b").with_(n_layers=OLMOE_DEPTH)
+    C, b = COHORT, BATCH
+    shape = InputShape("paths olmoe", SEQ, C * b, "train")
+    cycle = CycleConfig(server_epochs=1, server_batch=b)
+    whole = build_train_step(cfg, shape, cycle, cohort=C, device="cuda",
+                             mesh=mesh)
+    ext, tail = build_pipelined_train_steps(cfg, shape, cycle, cohort=C,
+                                            device="cuda", mesh=mesh)
+    server, clients = whole.init_state(0)
+    xs, ys = whole.make_batch(0)
+    c_local, steps = C // cohort_size(mesh), C
+    client, srv = half_launches(cfg, "client"), half_launches(cfg, "server")
+    expect = {k: 2 * c_local * client[k] + (steps + c_local) * srv[k]
+              for k in client}
+    expect.update(feature_resample=2 * steps, gather_loss=0,
+                  fused_adam=len(tree_leaves(server.params)) * steps
+                  + len(tree_leaves(clients.params)))
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    s1, c1, m1 = whole.fn(server, clients, xs, ys, 0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    l1 = read_counters()
+    reset_counters()
+    feats, store = ext.fn(clients, xs, ys)
+    s2, c2, m2 = tail.fn(server, clients, xs, ys, 0, feats, store)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    l2 = read_counters()
+    m1 = {k: float(v) for k, v in m1.items()}
+    m2 = {k: float(v) for k, v in m2.items()}
+    same = (state_diff(torch, (s1, c1), (s2, c2)) == 0.0 and m1 == m2)
+    got = [{k: ls[k] for k in expect} for ls in (l1, l2)]
+    del server, clients, s1, c1, s2, c2, feats, store
+    torch.cuda.empty_cache()
+    return {"same": same, "launches": got, "expected": expect,
+            "metrics": m2, "round_s": t1 - t0, "pipelined_s": t2 - t1,
+            "launches_ok": all(g == expect for g in got)}
+
+
+def engine_paths_world_runs(mesh, shapes, timed_rounds):
+    """Phase 29 on the spawned ranks, one card each: for each mesh shape
+    of ``shapes`` (over this world) every run of :func:`paths_cases`
+    (metrics, launches, census, host outcomes, digests; on rank 0 the
+    state), each again at ``MESH_CHECK_ROUNDS`` rounds (``short``:
+    metrics, the last evaluation, on rank 0 the state), and
+    ``timed_rounds`` timed rounds of the async pipelined run without
+    the guard (which syncs the host every round), the mesh and the
+    unsharded Engine on this rank's card in turns; then the guard's
+    planted control and the pipelined olmoe steps on the spawned (2, 2)
+    mesh.  Only rank 0 prints."""
+    import torch
+    from repro_torch.resilience import ResilienceConfig
+    from repro_torch.utils.tree import tree_map
+    lead = torch.distributed.get_rank() == 0
+    if not lead:
+        sys.stdout = open(os.devnull, "w")
+    out = {}
+    for shape in shapes:
+        rec = out[str(tuple(shape))] = {}
+        root = os.path.join(PATHS_ROOT, "x".join(map(str, shape)))
+        for name, (cfg, _) in paths_cases(root).items():
+            run = paths_run(torch, dataclasses.replace(
+                cfg, mesh_shape=tuple(shape)), mesh.device)
+            rec[name] = {k: run[k] for k in ("rows", "launches", "census",
+                                             "host", "host_census",
+                                             "capacity")}
+            rec[name]["last"] = run["res"]["history"][-1]
+            rec[name]["digest"] = _digest(torch, run["state"], [])
+            if lead:
+                rec[name]["state"] = tree_map(lambda t: t.cpu(),
+                                              run["state"])
+            del run
+        rec["short"] = {}
+        for name, (cfg, _) in paths_cases(os.path.join(root, "short"),
+                                          MESH_CHECK_ROUNDS).items():
+            run = run_engine(torch, dataclasses.replace(
+                cfg, mesh_shape=tuple(shape)), mesh.device)
+            rec["short"][name] = {"rows": run["rows"],
+                                  "last": run["res"]["history"][-1]}
+            if lead:
+                rec["short"][name]["state"] = tree_map(lambda t: t.cpu(),
+                                                       run["state"])
+            del run
+        timed = dataclasses.replace(
+            paths_cases(root, timed_rounds)["async1 cut3 fused"][0],
+            collect_timing=True, resilience=ResilienceConfig())
+        rps = {}
+        for label in ("mesh", "unsharded", "unsharded", "mesh"):
+            cfg = (dataclasses.replace(timed, mesh_shape=tuple(shape))
+                   if label == "mesh" else timed)
+            t = run_engine(torch, cfg, mesh.device)["res"]["round_time_s"]
+            rps.setdefault(label, []).append(1.0 / t)
+        rec["rounds/s"] = rps
+    guard = paths_cases(os.path.join(PATHS_ROOT, "control"))["guard"][0]
+    out["control"] = paths_guard_control(torch, mesh, dataclasses.replace(
+        guard, mesh_shape=tuple(mesh.shape.values()), ckpt_dir=None))
+    torch.cuda.empty_cache()
+    out["olmoe"] = pipelined_olmoe(torch, mesh)
+    return out
+
+
+def paths_kernel_checks(torch, dev):
+    """The kernels of the pipelined olmoe steps on (2, 2) at a rank's
+    shapes against their plain versions: ``flash_attention`` on the
+    rank's 8 of 16 heads ([2, 2048, 8, 128] bf16 causal, the
+    tensor-core design), ``topk_gating`` on the router's [4096, 64] k 8
+    (whole on every rank), ``fused_adam`` on the rank's expert block of a
+    server layer ([32, 1024, 1024] bf16: 32 of 64 experts over
+    ``model``, half the rows over ``data``; float32 moments), and
+    ``feature_resample`` on the rank's pool slice (its one slot's two
+    [2048, 2048] bf16 rows, the server batch 2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import design, flash_attention
+    from repro_torch.kernels.topk_gating import topk_gating
+    import torch.nn.functional as F
+    gen = torch.Generator(device=dev).manual_seed(29)
+    cfg = get_config("olmoe-1b-7b")
+    rows = []
+    B, S, H, D = BATCH, SEQ, cfg.n_heads // 2, cfg.hd
+    q, k, v = (torch.randn(B, S, H, D, device=dev, generator=gen
+                           ).to(torch.bfloat16) for _ in range(3))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pairs = S * (S + 1) // 2
+    row = check("flash_attention", f"[{B}, {S}, {H}, {D}] bf16 causal "
+                f"design={design(q.dtype, D)} (a rank's heads on (2, 2))",
+                lambda: (flash_attention(q, k, v, causal=True),),
+                lambda: (ref.flash_attention_ref(q, k, v, causal=True),),
+                2e-2, 4 * q.numel() * q.element_size(), 4 * B * H * D * pairs,
+                library=lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True), dtype=q.dtype)
+    row["design"] = design(q.dtype, D)
+    rows.append(row)
+    del q, k, v, qt, kt, vt
+    mo = cfg.moe
+    x = torch.randn(BATCH * SEQ, mo.n_experts, device=dev, generator=gen)
+    got, want = topk_gating(x, mo.top_k), ref.topk_gating_ref(x, mo.top_k)
+    if not torch.equal(got[1], want[1]):
+        raise AssertionError("topk_gating: ids differ from the plain version")
+    rows.append(check(
+        "topk_gating", f"[{BATCH * SEQ}, {mo.n_experts}] k={mo.top_k} (the "
+        "router, whole on every rank)",
+        lambda: (topk_gating(x, mo.top_k)[0],),
+        lambda: (ref.topk_gating_ref(x, mo.top_k)[0],), 1e-6,
+        x.numel() * 4 + x.shape[0] * mo.top_k * 8,
+        x.numel() * (4 + 2 * mo.top_k), dtype=x.dtype))
+    shape = (mo.n_experts // 2, cfg.d_model // 2, mo.d_ff_expert)
+    p = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+    g = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
+    mm = torch.randn(shape, device=dev, generator=gen) * 0.1
+    vv = torch.rand(shape, device=dev, generator=gen) * 0.1
+    step = torch.tensor(3, dtype=torch.int32, device=dev)
+    n = p.numel()
+    rows.append(check(
+        "fused_adam", f"{list(shape)} bf16 (a rank's expert block on (2, 2))",
+        lambda: ops.fused_adam(p, g, mm, vv, step, lr=1e-3),
+        lambda: ref.fused_adam_ref(p, g, mm, vv, step, lr=1e-3),
+        1e-6, n * (3 * 2 + 4 * 4) + 4, 14 * n, dtype=torch.bfloat16, ulps=1))
+    del p, g, mm, vv
+    src = torch.randn(BATCH, SEQ, cfg.d_model, device=dev,
+                      generator=gen).bfloat16()
+    idx = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    flat = src.reshape(src.shape[0], -1)
+    rows.append(check(
+        "feature_resample", f"{list(src.shape)} bf16 idx[2] (a rank's pool "
+        "slice on (2, 2))",
+        lambda: (ops.resample_rows(src, idx),),
+        lambda: (ref.feature_resample_ref(flat, idx).reshape(src.shape),),
+        0.0, 2 * flat.numel() * 2 + 8, 0,
+        library=lambda: torch.index_select(src, 0, idx)))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def engine_paths_phase(torch, dev="cuda"):
+    """Phase 29: the Engine's pipelined rounds, health guard and
+    recovery, checkpoints and scenarios on a mesh (:func:`paths_cases`).
+    One card: each run unsharded and on a (1, 1) mesh, bit for bit the
+    same (state, metrics, history, telemetry, recovery summary, pipeline
+    stats, resume round, every round's cohort and mask), with equal
+    launches, each as counted from the schedule (:func:`paths_expected`),
+    and no collective of its own: every census key is one the plain
+    (1, 1) round of its program takes (a world of one's calls), none on
+    the host group; then the kernels of the pipelined olmoe steps at a
+    rank's shapes on (2, 2) (:func:`paths_kernel_checks`).  Four cards:
+    every run on (2, 2) and (4, 1) in one spawned world, its host
+    outcomes equal to the unsharded run's on every rank, its launches as
+    counted at the mesh's capacity on every rank, every rank the same
+    bits, and each run again over ``MESH_CHECK_ROUNDS`` rounds held to
+    the unsharded run by phase 26's criteria (``compare_runs``: at
+    femnist's widths the ranks' other summation order flips Adam's
+    near-sign steps, which compound over more rounds, as phase 26
+    found); the resume bit for bit the unbroken run on the same mesh, the
+    host group's census a checkpoint one flag (and the resume's step),
+    the guard's agreement census as counted; rounds/s of the async
+    pipelined run beside unsharded in turns; the planted control (the
+    guard's flag left unsummed over ``model``) refused; olmoe-1b-7b at
+    depth 4 through ``build_pipelined_train_steps(mesh=)`` on (2, 2) bit
+    for bit ``build_train_step(mesh=)``, launches as counted.  Raises on
+    any miss."""
+    import shutil
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.core.cyclesl import CycleConfig
+    from repro_torch.launch.meshcheck import spawn_ranks
+    from repro_torch.utils.tree import tree_map
+    checks, out = {}, {"one_card": {}, "worlds": {}}
+    shutil.rmtree(PATHS_ROOT, ignore_errors=True)
+    t0 = time.perf_counter()
+    print(f"engine paths: on {torch.cuda.get_device_name(0)}, "
+          f"{torch.cuda.device_count()} card(s)")
+    plain = {}
+    for prog, kw in (("cut2", {}), ("cyclepsl", dict(algo="cyclepsl")),
+                     ("cut3", dict(cut=3, cycle=CycleConfig(
+                         fused_gather_loss=True)))):
+        r = run_engine(torch, ExperimentConfig(
+            rounds=2, eval_every=2, mesh_shape=(1, 1), **kw), dev)
+        plain[prog] = set().union(*r["census"])
+    cases = paths_cases(os.path.join(PATHS_ROOT, "unsharded"))
+    ones = paths_cases(os.path.join(PATHS_ROOT, "one"))
+    base = {}
+    for name, (cfg, per_round) in cases.items():
+        b = base[name] = paths_run(torch, cfg, dev)
+        one = paths_run(torch, dataclasses.replace(ones[name][0],
+                                                   mesh_shape=(1, 1)), dev)
+        prog = ("cut3" if "cut3" in name else
+                "cyclepsl" if cfg.algo == "cyclepsl" else "cut2")
+        want = paths_expected(cfg, b["res"], per_round, b["capacity"])
+        got = {k: one["launches"][k] for k in want}
+        keys = set().union(*one["census"])
+        checks[f"(1, 1) {name} == unsharded"] = (
+            _same(torch, one, b) and one["host"] == b["host"])
+        checks[f"(1, 1) {name} launches"] = (
+            one["launches"] == b["launches"] and got == want)
+        checks[f"(1, 1) {name} adds no collective"] = (
+            keys <= plain[prog] and not one["host_census"])
+        out["one_card"][name] = {"launches": got, "expected": want,
+                                 "census": one["census"][-1],
+                                 "resilience": b["res"].get("resilience")}
+        res = b["res"].get("resilience") or {}
+        print(f"engine paths (1, 1) {name}: bit for bit the unsharded "
+              f"Engine {checks[f'(1, 1) {name} == unsharded']}; launches "
+              f"{got} (expected {want}); census keys {sorted(keys)}"
+              + (f"; faults {res['faults']}, quarantined "
+                 f"{res['quarantined_clients']}, rollbacks "
+                 f"{res['rollbacks']}, retries {res['retries']}, torn "
+                 f"checkpoints {res['ckpt_corruptions']}" if res else ""))
+    out["kernel_checks"] = paths_kernel_checks(torch, torch.device(dev))
+    out["one_card_s"] = time.perf_counter() - t0
+    print(f"engine paths: the one-card part took {out['one_card_s']:.1f}s")
+    if torch.cuda.device_count() < 4:
+        print("engine paths: fewer than four cards, so the meshes of phase "
+              "29 did not run")
+    else:
+        t1 = time.perf_counter()
+        short = {name: run_engine(torch, cfg, dev) for name, (cfg, _) in
+                 paths_cases(os.path.join(PATHS_ROOT, "unsharded short"),
+                             MESH_CHECK_ROUNDS).items()}
+        torch.cuda.empty_cache()
+        ranks = spawn_ranks(4, engine_paths_world_runs,
+                            (PATHS_WORLDS, PATHS_TIMED_ROUNDS), dev,
+                            shape=(2, 2), timeout=900)
+        r0 = ranks[0]
+        half = PATHS_ROUNDS // 2
+        for shape in PATHS_WORLDS:
+            key = str(tuple(shape))
+            lab = f"({shape[0]}, {shape[1]})"
+            rec = out["worlds"][key] = {"rounds/s": r0[key]["rounds/s"]}
+            for name, (cfg, per_round) in cases.items():
+                got, b = r0[key][name], base[name]
+                cap = got["capacity"]
+                s, sb = r0[key]["short"][name], short[name]
+                try:
+                    compare_runs(torch, f"{lab} {name} against unsharded "
+                                 f"({MESH_CHECK_ROUNDS} rounds)", {
+                                     "cpu": (sb["rows"], tree_map(
+                                         lambda t: t.cpu(), sb["state"]),
+                                         sb["res"]["history"][-1],
+                                         sb["engine"]),
+                                     "cuda": (s["rows"], s["state"],
+                                              s["last"], None)},
+                                 what="paths")
+                    held = True
+                except AssertionError:
+                    held = False
+                checks[f"{lab} {name} held to unsharded"] = held
+                want_host = dict(b["host"], history=None)
+                checks[f"{lab} {name} host outcomes == unsharded on "
+                       "every rank"] = all(
+                    dict(r[key][name]["host"], history=None) == want_host
+                    for r in ranks)
+                checks[f"{lab} {name} launches"] = all(
+                    {k: r[key][name]["launches"][k] for k in per_round(cap)}
+                    == paths_expected(cfg, b["res"], per_round, cap)
+                    for r in ranks)
+                checks[f"{lab} {name} every rank the same"] = all(
+                    r[key][name]["digest"] == got["digest"]
+                    and r[key][name]["rows"] == got["rows"] for r in ranks)
+                rec[name] = {"capacity": cap, "census": got["census"][1],
+                             "launches": got["launches"],
+                             "host_census": got["host_census"]}
+                print(f"engine paths {lab} {name}: capacity {cap}; census a "
+                      f"round {_census_line(got['census'][1])}; host "
+                      f"{_census_line(got['host_census']) or 'none'}")
+            for r in ranks:
+                a, u = r[key]["resume"], r[key]["ckpt"]
+                checks[f"{lab} resume == the unbroken run there"] = (
+                    checks.get(f"{lab} resume == the unbroken run there",
+                               True) and a["digest"] == u["digest"]
+                    and a["rows"] == u["rows"][half:])
+                checks[f"{lab} host group's census"] = (
+                    checks.get(f"{lab} host group's census", True)
+                    and r[key]["partial"]["host_census"] == {
+                        "host/all_reduce/ckpt": {"calls": 1, "bytes": 4}}
+                    and a["host_census"] == {
+                        "host/broadcast/ckpt_step": {"calls": 1, "bytes": 8},
+                        "host/all_reduce/ckpt": {"calls": 1, "bytes": 4}})
+            g = r0[key]["guard"]
+            faults = base["guard"]["res"]["resilience"]["faults"]
+            ran = PATHS_ROUNDS + faults["nonfinite"]
+            c_local = g["capacity"] // shape[0]
+            want = {"all_gather/health": {"calls": ran, "bytes":
+                                          ran * (c_local + 1) * 4}}
+            if shape[1] > 1:
+                want["model/all_reduce/health"] = {"calls": ran,
+                                                   "bytes": ran * 4}
+            for r in ranks:
+                tot = {}
+                for c in r[key]["guard"]["census"]:
+                    for k, v in c.items():
+                        if "health" in k:
+                            t = tot.setdefault(k, {"calls": 0, "bytes": 0})
+                            t["calls"] += v["calls"]
+                            t["bytes"] += v["bytes"]
+                checks[f"{lab} guard census == counted"] = (
+                    checks.get(f"{lab} guard census == counted", True)
+                    and tot == want)
+            print(f"engine paths {lab} async1 cut3 fused (no guard): rank "
+                  "0's rounds/s in turns "
+                  + ", ".join(f"{k} {v}" for k, v in
+                              r0[key]["rounds/s"].items()))
+        agreed = [r["control"]["agreed"] for r in ranks]
+        parted = [r["control"]["unreduced over model"] for r in ranks]
+        checks["control: agreed guard reads non-finite on every rank"] = (
+            all(h == agreed[0] for h in agreed) and agreed[0][0] == 1.0)
+        checks["control: flag unsummed over model refused"] = not all(
+            h == parted[0] for h in parted)
+        ol = [r["olmoe"] for r in ranks]
+        checks["olmoe (2, 2) pipelined == train step"] = all(
+            o["same"] for o in ol)
+        checks["olmoe (2, 2) launches"] = all(o["launches_ok"] for o in ol)
+        out["worlds"]["olmoe (2, 2)"] = ol[0]
+        print(f"engine paths olmoe-1b-7b depth {OLMOE_DEPTH} on (2, 2): "
+              f"pipelined bit for bit the train step on every rank "
+              f"{checks['olmoe (2, 2) pipelined == train step']}; launches "
+              f"{ol[0]['launches']} (expected {ol[0]['expected']}); round "
+              f"{ol[0]['round_s']:.3f}s, pipelined {ol[0]['pipelined_s']:.3f}s "
+              f"(first calls); control {agreed[0]} agreed, "
+              f"{[h[0] for h in parted]} unsummed over model")
+        out["worlds_s"] = time.perf_counter() - t1
+        print(f"engine paths: the four-card part took {out['worlds_s']:.1f}s")
+    shutil.rmtree(PATHS_ROOT, ignore_errors=True)
+    bad = [k for k, v in checks.items() if not v]
+    print(f"engine paths checks: {len(checks) - len(bad)} of {len(checks)} "
+          "held" + (f"; failed {bad}" if bad else ""))
+    out["checks"] = checks
+    if bad:
+        raise AssertionError(f"engine paths: {bad}")
+    return out
+
+
+def run_engine_paths_phase(out_path):
+    """The entry of ``--engine-paths-mesh-phase``: phase 29 alone, its
+    report written to ``out_path``."""
+    import torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(f"engine paths: {smi}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}")
+    _build.build_all()
+    t0 = time.perf_counter()
+    res = engine_paths_phase(torch)
+    res["s"] = time.perf_counter() - t0
+    res["nvidia_smi"] = smi
+    print(f"engine paths: phase 29 took {res['s']:.1f}s")
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    return 0
+
+
 def kernel_profile(torch, run, dev="cuda"):
     """``run()`` under the profiler: device launches (kernels and copies),
     device busy ms, wall ms."""
@@ -5264,6 +5839,9 @@ def main(argv=None):
     ap.add_argument("--decode-mesh-phase", default=None, metavar="OUT",
                     help="run phase 28 alone (the process main() starts "
                          "for it) and write its report to OUT")
+    ap.add_argument("--engine-paths-mesh-phase", default=None, metavar="OUT",
+                    help="run phase 29 alone (the process main() starts "
+                         "for it) and write its report to OUT")
     args = ap.parse_args(argv)
     if args.mesh_phase:
         return run_mesh_phase(args.mesh_phase, args.profile)
@@ -5275,6 +5853,8 @@ def main(argv=None):
         return run_ssm_tp_phase(args.ssm_tp_phase, args.profile)
     if args.decode_mesh_phase:
         return run_decode_mesh_phase(args.decode_mesh_phase)
+    if args.engine_paths_mesh_phase:
+        return run_engine_paths_phase(args.engine_paths_mesh_phase)
 
     import torch
     if not torch.cuda.is_available():
@@ -5471,10 +6051,24 @@ def main(argv=None):
     with open(dm_out) as f:
         decode_mesh_runs = json.load(f)
     t28 = time.perf_counter()
+
+    # 29. the Engine's pipelined rounds, guard, checkpoints and scenarios
+    # on a mesh, in a process of its own (a (1, 1) mesh on this card; with
+    # four cards the meshes of PATHS_WORLDS in spawned ranks)
+    ep_out = os.path.join(ROOT, "build", "chip_smoke_engine_paths.json")
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--engine-paths-mesh-phase", ep_out], timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 29 (the Engine's paths on a mesh) exited "
+                           f"{proc.returncode}")
+    with open(ep_out) as f:
+        engine_paths_runs = json.load(f)
+    t29 = time.perf_counter()
     phase_s.update({"18": t19 - t18, "19": t20 - t19, "20": t21 - t20,
                     "21-22": t22 - t21b, "23": t23 - t22, "24": t24 - t23,
                     "25": t25 - t24, "26": t26 - t25, "27": t27 - t26,
-                    "28": t28 - t27})
+                    "28": t28 - t27, "29": t29 - t28})
     print("phases took " + ", ".join(f"{k}: {v:.1f}s"
                                      for k, v in phase_s.items()))
 
@@ -5512,6 +6106,7 @@ def main(argv=None):
                        "engine_mesh": engine_mesh_runs,
                        "ssm_model_axis": ssm_tp_runs,
                        "decode_mesh": decode_mesh_runs,
+                       "engine_paths_mesh": engine_paths_runs,
                        "phase_s": phase_s}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -5,10 +5,9 @@ output unchanged, so one dict drives both packages.  Every field the
 JAX package has is kept with its default.  The mesh knobs run the round
 on a ``torch.distributed`` mesh, ``(data, model)`` or ``(pod, data,
 model)``, whose weights lie as the reference places them (FSDP over
-``data``, the dense stages' columns over ``model``); ``validate``
-raises ``NotImplementedError``, naming ROADMAP item 9b, for a mesh with
-the pipelined rounds, resilience, checkpoints, a scenario or a serve
-config.  ``scenario`` and
+``data``, the dense stages' columns over ``model``); every other knob
+combines with them (the pipelined rounds, resilience, checkpoints and
+resume, a scenario, a serve config).  ``scenario`` and
 ``resilience`` are the port's ``ScenarioConfig`` and
 ``ResilienceConfig`` (their dict forms load too); ``serve`` is the
 port's ``ServeConfig``, which ``repro_torch.launch.serve --continuous``
@@ -26,16 +25,6 @@ from repro_torch.core.cyclesl import CycleConfig
 from repro_torch.resilience.config import ResilienceConfig
 from repro_torch.scenario.profiles import ScenarioConfig
 from repro_torch.serve.config import ServeConfig
-
-# what a mesh does not combine with yet (ROADMAP queue 1, item 9b): the
-# field, and whether a config sets it
-MESH_9B = {
-    "pipeline_depth": lambda c: c.pipeline_depth > 0,
-    "resilience": lambda c: c.resilience != ResilienceConfig(),
-    "ckpt_dir": lambda c: c.ckpt_dir is not None,
-    "scenario": lambda c: c.scenario.kind != "none",
-}
-
 
 @dataclass(frozen=True)
 class ExperimentConfig:
@@ -143,16 +132,11 @@ class ExperimentConfig:
 
     def validate(self) -> "ExperimentConfig":
         """Raise on a combination the port lacks, then check the fields."""
-        if self.mesh_shape is not None:
-            if len(self.mesh_shape) != len(self.mesh_axes):
-                raise ValueError(f"mesh_shape {self.mesh_shape} and "
-                                 f"mesh_axes {self.mesh_axes} must have "
-                                 "equal length")
-            for name, used in MESH_9B.items():
-                if used(self):
-                    raise NotImplementedError(
-                        f"mesh_shape with {name}={getattr(self, name)!r}: "
-                        "not ported yet (ROADMAP item 9b)")
+        if self.mesh_shape is not None and \
+                len(self.mesh_shape) != len(self.mesh_axes):
+            raise ValueError(f"mesh_shape {self.mesh_shape} and "
+                             f"mesh_axes {self.mesh_axes} must have "
+                             "equal length")
         self.cycle.check_ported()
         self.serve.validate()
         get_program(self.algo)

@@ -14,6 +14,31 @@ Every rank samples the same cohort from the seed and copies only its
 own slots' batches to its device; metrics and evaluations come out the
 same on every rank.
 
+Every path runs on the mesh as off it.  The host-side streams (cohort
+draws, scenario events, the fault stream) are seeded and the same on
+every rank; the guard's verdict is agreed over the ranks inside the
+round (``resilience.guards.agree``), so every rank takes the same
+recovery path; a checkpoint is the whole state, gathered from every
+rank and written by rank 0 alone, and a restore cuts each rank's blocks
+out of it (the file is the unsharded run's: it loads off the mesh, on
+any mesh and in the reference).  Host decisions that must agree
+otherwise (the step to resume, a finished write) go over a host group
+(``launch.mesh.host_comm``, census ``host/...``).
+
+The async pipelined extract runs on a side stream (on the card), and on
+a mesh it issues collectives of its own (the store rows' read, the
+shared client's FSDP gather, a ``model`` axis' activation gathers).  It
+shares each group's communicator with the tail, which cannot deadlock:
+every rank issues the same host calls in one order (the extract of
+cohort k + L wholly before the tail of cohort k), NCCL runs one
+communicator's calls in that order, and every call waits only on work
+issued before it (the side stream waits on the main stream's work up to
+the prefetch; the main stream waits on the side stream only through a
+stage's ``ready`` event, recorded before any later call).  So the
+earliest call not yet finished on some rank has what it waits on done
+on every rank, and runs.  The cost is that a tail's first collective
+queues behind the extract's on that communicator.
+
     eng = Engine(ExperimentConfig(algo="cyclesfl", rounds=100))
     result = eng.run()           # {"history": [...], "grad_stability": ...}
 
@@ -51,6 +76,7 @@ from repro_torch.core.drift import GradStabilityTracker
 from repro_torch.core.feature_store import StaleFeatureRing
 from repro_torch.core.split import SplitTask
 from repro_torch.data.federated import FederatedDataset, sample_cohort
+from repro_torch.launch.mesh import host_comm
 from repro_torch.optim import adam
 from repro_torch.resilience import (HEALTH_EMA, HEALTH_NONFINITE,
                                     HEALTH_SPIKE, FaultInjectedError,
@@ -156,7 +182,9 @@ class Engine:
     its dense stages split their columns, and where the round splits the
     cohort the server and the shared client model hold FSDP blocks over
     ``data`` (the reference's ``train_state_shardings``).  Callbacks see
-    this rank's state; :meth:`whole_state` gathers it whole.
+    this rank's state; :meth:`whole_state` gathers it whole.  ``host`` is
+    the host group's collectives a checkpointing run on more than one
+    rank agrees over (None otherwise).
     """
 
     def __init__(self, cfg: ExperimentConfig, *, device=None,
@@ -253,13 +281,19 @@ class Engine:
                 program, task, opt_s, opt_c, cfg.cycle, plan_fn=plan_fn,
                 device=self.device, resilience=cfg.resilience,
                 staleness_weighting=cfg.staleness_weighting,
-                staleness_lambda=cfg.staleness_lambda)
+                staleness_lambda=cfg.staleness_lambda, mesh=self.mesh,
+                shard_data=cfg.shard_cohort, n_clients=fed.n_clients)
         if self.pipeline is None:
             # whole rounds deliver fresh params whatever depth says
             self._sched_lag = 0
         self._side = (torch.cuda.Stream(self.device)
                       if side_stream and self._sched_lag
                       and self.device.type == "cuda" else None)
+        # the host group a mesh's checkpoints agree over (None off the
+        # mesh, at one rank and without checkpoints); rank 0 alone writes
+        self.host = (host_comm(self.mesh)
+                     if self.mesh is not None and cfg.ckpt_dir else None)
+        self._lead = self.host is None or self.host.rank == 0
 
     @property
     def ring_depth(self) -> int:
@@ -466,12 +500,24 @@ class Engine:
         unbroken run would have drawn.
         """
         cfg = self.cfg
-        step = latest_step(cfg.ckpt_dir) if cfg.ckpt_dir else None
+        step = (latest_step(cfg.ckpt_dir) if cfg.ckpt_dir and self._lead
+                else None)
+        if self.host is not None:
+            # rank 0's choice, so every rank resumes from one step even
+            # past a step torn while the others looked
+            step = int(self.host.broadcast(torch.tensor(
+                [-1 if step is None else step]), "ckpt_step")[0])
+            step = None if step < 0 else step
         if step is None:
             return None, 0
-        # the fresh state is the template: structure, dtypes, device
+        # the fresh state is the template: structure, dtypes, device (the
+        # leaves come back whole, in the file's shapes); on a mesh each
+        # rank then cuts out its blocks, the model blocks too
         state, _ = load_checkpoint(cfg.ckpt_dir, self.init_state(),
                                    step=step)
+        if self.mesh is not None:
+            state = place_state(state, self.algo.store_rows, self.algo.task,
+                                model=True)
         if self.recovery is not None:
             # restore the recovery carry BEFORE replaying the sampling
             # stream: the replay rebuilds each round's quarantine set
@@ -498,7 +544,11 @@ class Engine:
 
     def _save(self, step: int, state: TrainState):
         """Checkpoint ``state`` as ``step`` with the run's metadata; the
-        fault stream may then tear the write."""
+        fault stream may then tear the write.  On a mesh every rank takes
+        part in gathering the whole state, rank 0 alone writes (and
+        tears), and the ranks meet on the host group after it, so none
+        reads a step that is half written; a failed write raises on
+        every rank."""
         cfg = self.cfg
         meta = {"algo": self.algo.name}
         if self.recovery is not None:
@@ -507,11 +557,26 @@ class Engine:
             # spike-EMA scalar (fp32 -> python float -> fp32 is exact)
             meta["resilience"] = {**self.recovery.export_state(),
                                   "ema": float(self._ema)}
-        save_checkpoint(cfg.ckpt_dir, step, state, metadata=meta)
-        if self.faults is not None and self.faults.ckpt_corrupt(step):
-            # tear the just-written step: restore must fall back past it
-            # to the newest valid one
-            self.faults.corrupt_checkpoint(cfg.ckpt_dir, step)
+        whole = self.whole_state(state)
+        torn = self.faults is not None and self.faults.ckpt_corrupt(step)
+        err = None
+        if self._lead:
+            try:
+                save_checkpoint(cfg.ckpt_dir, step, whole, metadata=meta)
+                if torn:
+                    # tear the just-written step: restore must fall back
+                    # past it to the newest valid one
+                    self.faults.corrupt_checkpoint(cfg.ckpt_dir, step)
+            except Exception as e:      # noqa: BLE001 — raised below
+                err = e
+        if self.host is not None:
+            flag = torch.tensor([int(err is not None)], dtype=torch.int32)
+            if int(self.host.all_reduce(flag, "ckpt")[0]) and err is None:
+                err = RuntimeError(f"checkpoint step {step} failed on "
+                                   "rank 0")
+        if err is not None:
+            raise err
+        if torn:
             self._ckpt_corruptions += 1
             self.log(f"[resilience] injected torn checkpoint at step {step}")
 
@@ -581,10 +646,14 @@ class Engine:
         slots = self.faults.nan_slots_for(rnd, attempt, live)
         if slots.size == 0:
             return inputs
-        xs = xs.clone()
-        xs[torch.from_numpy(slots).to(xs.device)] = float("nan")
         self.log(f"[resilience] round {rnd} attempt {attempt}: injected "
                  f"NaN features in slots {slots.tolist()}")
+        split = slot_split(self.algo.mesh, cohort.shape[0])
+        if split is not None:
+            # the slots of the whole cohort this rank holds, in its frame
+            slots = slots[(slots >= split.lo) & (slots < split.hi)] - split.lo
+        xs = xs.clone()
+        xs[torch.from_numpy(slots).to(xs.device)] = float("nan")
         return (cohort, xs, ys, mask)
 
     def _verdict(self, metrics) -> Optional[str]:

@@ -27,7 +27,8 @@ runs the same ops as it always did.
 ExtractFeatures head into two calls, ``extract`` and ``tail``, whose
 composition is the round: the Engine's pipelined schedule runs the
 extract of cohort k + L before (async) or after (sync) the tail of
-cohort k.
+cohort k.  The pair takes the mesh as the round does, and the health
+guard runs on a mesh with its verdict agreed over every rank.
 
 On a mesh (``build_algorithm(..., mesh=)``) each rank runs the round on
 its own cohort slots (a ``SlotSplit``: ``xs``/``ys`` hold those slots,
@@ -148,6 +149,9 @@ class RoundVars:
                                       # gradients
     split: Optional[SlotSplit] = None  # this rank's slots on a mesh,
     store_rows: Optional[StoreRows] = None  # and its per-client store rows
+    shared_client: Optional[EntityState] = None  # the shared θ_C whole
+                                      # over data, as ExtractFeatures
+                                      # broadcast it (SFL family)
     metrics: dict = field(default_factory=dict)
 
 
@@ -227,13 +231,14 @@ class ExtractFeatures(Phase):
 
     def __call__(self, ctx, v):
         state = v.state
-        v.cohort_clients = (
-            broadcast_entity(whole_entity(ctx.task, state.client_global,
-                                          "client"),
-                             v.ys.shape[0])
-            if state.clients is None
-            else take_entities(state.clients, v.cohort, v.store_rows,
-                               v.split))
+        if state.clients is None:
+            v.shared_client = whole_entity(ctx.task, state.client_global,
+                                           "client")
+            v.cohort_clients = broadcast_entity(v.shared_client,
+                                                v.ys.shape[0])
+        else:
+            v.cohort_clients = take_entities(state.clients, v.cohort,
+                                             v.store_rows, v.split)
         v.server_prev = state.server.params
         v.feats = extract_features(ctx.task, v.cohort_clients.params, v.xs)
 
@@ -405,9 +410,15 @@ class HealthGuard(Phase):
     scalar the Engine threads round to round) — and reads nothing back
     to the host; the Engine pays one host read of ``metrics['health']``.
     See :mod:`repro_torch.resilience.guards` for the vector layout.
+
+    On a mesh each rank checks its slots and its shards, and the verdict
+    is agreed over ``axes`` (the mesh axes the round's slots do not
+    split, :func:`guard_axes`) and the slots' split: the vector is the
+    same on every rank and the blame whole [C].
     """
     alpha: float = 0.1
     spike_factor: float = 4.0
+    axes: tuple = ()
 
     def __call__(self, ctx, v):
         loss = v.metrics.get("server_loss")
@@ -415,7 +426,7 @@ class HealthGuard(Phase):
             loss = torch.zeros((), device=v.state.server.step.device)
         health, slot_bad = health_vector(
             v.state, loss, v.feats, v.fgrads, v.mask, v.ema,
-            self.alpha, self.spike_factor)
+            self.alpha, self.spike_factor, v.split, self.axes)
         v.metrics["health"] = health
         v.metrics["health_slot_bad"] = slot_bad
 
@@ -591,12 +602,24 @@ def _cut_data(entity: Optional[EntityState], plan) -> Optional[EntityState]:
 
 
 def place_state(state: TrainState, rows: Optional[StoreRows],
-                task: Optional[SplitTask] = None) -> TrainState:
+                task: Optional[SplitTask] = None, model: bool = False
+                ) -> TrainState:
     """A whole TrainState cut to this rank's rows of the per-client store
     and, where ``task`` (the round's, ``SLAlgorithm.task``) holds FSDP
     blocks, to this rank's blocks of the server and the shared client
     model (a state already cut passes through).  The ``model`` blocks
-    are the task's own: its ``init_*`` keep them."""
+    are the task's own: its ``init_*`` keep them, and a state whole over
+    ``model`` too (a restored checkpoint) is cut to them with
+    ``model``, by the task's plans."""
+    if model and task is not None and task.tp is not None \
+            and task.tp.size > 1:
+        sp, cp = task_plan(task, "server"), task_plan(task, "client")
+        state = TrainState(
+            shard_entity(state.server, sp, data=False),
+            None if state.clients is None else shard_entity(
+                state.clients, tree_map(Shard.stacked, cp), data=False),
+            None if state.client_global is None else shard_entity(
+                state.client_global, cp, data=False))
     if task is not None and task.fsdp is not None:
         state = state._replace(
             server=_cut_data(state.server, task_plan(task, "server")),
@@ -647,6 +670,52 @@ def whole_state(state: TrainState, rows: Optional[StoreRows], comm,
     return state
 
 
+def round_placement(program: RoundProgram, task: SplitTask, mesh: Any,
+                    shard_data: bool, n_clients: Optional[int]
+                    ) -> tuple[Any, SplitTask, Optional[StoreRows]]:
+    """``(ctx_mesh, task, rows)`` of a program on ``mesh``, decided once
+    for the whole round and its pipelined pair alike: the mesh the
+    phases split the cohort over (None for the programs that chain
+    along the cohort and with ``shard_data`` off: every rank runs them
+    whole), the task without ``fsdp`` where the cohort does not split
+    (weights whole over ``data``), and this rank's rows of the
+    per-client store of ``n_clients`` rows (None for the SFL family and
+    off the split)."""
+    ctx_mesh = mesh if shard_data and shards_cohort(program) else None
+    if ctx_mesh is None and task.fsdp is not None:
+        task = replace(task, fsdp=None)
+    rows = None
+    if ctx_mesh is not None and not program.uses_global_client:
+        if n_clients is None:
+            raise ValueError("a per-client program on a mesh needs "
+                             "n_clients, the store's rows")
+        rows = StoreRows(*store_rows(ctx_mesh, n_clients), n_clients)
+    return ctx_mesh, task, rows
+
+
+def guard_axes(mesh: Any, ctx_mesh: Any, task: SplitTask) -> tuple:
+    """The collectives the health guard sums its non-finite flag over
+    beyond the slots' split: the ``model`` axis where the task's weights
+    split over it, and the batch axes where every rank runs the whole
+    cohort (``ctx_mesh`` None).  Empty off the mesh and at one rank."""
+    if mesh is None:
+        return ()
+    axes = []
+    if ctx_mesh is None and mesh.comm.size > 1:
+        axes.append(mesh.comm)
+    if task.tp is not None and task.tp.size > 1:
+        axes.append(task.tp.comm)
+    return tuple(axes)
+
+
+def _guard(resilience: Any, mesh: Any, ctx_mesh: Any, task: SplitTask
+           ) -> Optional[HealthGuard]:
+    if resilience is None or not resilience.guard:
+        return None
+    return HealthGuard(resilience.ema_alpha, resilience.spike_factor,
+                       guard_axes(mesh, ctx_mesh, task))
+
+
 def build_algorithm(program: RoundProgram, task: SplitTask,
                     opt_server: Optimizer, opt_client: Optimizer,
                     cycle: CycleConfig = CycleConfig(),
@@ -667,32 +736,15 @@ def build_algorithm(program: RoundProgram, task: SplitTask,
     row-sharded unless ``shard_data`` is off, which also keeps the
     phases whole on every rank, as for the programs that chain along
     the cohort; such a round holds its weights whole over ``data`` (the
-    algorithm's ``task`` has no ``fsdp``).
+    algorithm's ``task`` has no ``fsdp``).  On a mesh the guard's
+    verdict is agreed over every rank (:class:`HealthGuard`).
     """
-    if mesh is not None and resilience is not None and resilience.guard:
-        raise NotImplementedError(
-            "the health guard on a mesh is not ported yet (ROADMAP item 9b)")
-    ctx_mesh = mesh if shard_data and shards_cohort(program) else None
-    if ctx_mesh is None and task.fsdp is not None:
-        task = replace(task, fsdp=None)
-    rows = None
-    if ctx_mesh is not None and not program.uses_global_client:
-        if n_clients is None:
-            raise ValueError("a per-client program on a mesh needs "
-                             "n_clients, the store's rows")
-        rows = StoreRows(*store_rows(ctx_mesh, n_clients), n_clients)
+    ctx_mesh, task, rows = round_placement(program, task, mesh, shard_data,
+                                           n_clients)
     ctx = PhaseContext(task, opt_server, opt_client, cycle.check_ported(),
                        plan_fn)
-    guard = (HealthGuard(resilience.ema_alpha, resilience.spike_factor)
-             if resilience is not None and resilience.guard else None)
-
-    def init(seed: int, n_clients: int) -> TrainState:
-        if rows is not None and n_clients != rows.n:
-            raise ValueError(f"built for {rows.n} clients, asked for "
-                             f"{n_clients}")
-        return init_train_state(seed, n_clients, task, opt_server,
-                                opt_client, program.uses_global_client,
-                                device, rows)
+    guard = _guard(resilience, mesh, ctx_mesh, task)
+    init = _init_fn(program, task, opt_server, opt_client, device, rows)
 
     def round_fn(state, cohort, xs, ys, key, mask=None, ema=None):
         v = RoundVars(state=state, cohort=cohort, xs=xs, ys=ys, key=key,
@@ -709,6 +761,19 @@ def build_algorithm(program: RoundProgram, task: SplitTask,
                        program.uses_global_client, ctx_mesh, rows, task)
 
 
+def _init_fn(program, task, opt_server, opt_client, device, rows):
+    """``init(seed, n_clients)`` of a program: the fresh state, this
+    rank's rows of the per-client store when ``rows`` is given."""
+    def init(seed: int, n_clients: int) -> TrainState:
+        if rows is not None and n_clients != rows.n:
+            raise ValueError(f"built for {rows.n} clients, asked for "
+                             f"{n_clients}")
+        return init_train_state(seed, n_clients, task, opt_server,
+                                opt_client, program.uses_global_client,
+                                device, rows)
+    return init
+
+
 # ------------------------------------------------------ pipelined rounds
 class PipelineStage(NamedTuple):
     """Everything the extract call hands to the in-flight tail.
@@ -719,8 +784,9 @@ class PipelineStage(NamedTuple):
     server phase starts on the handoff without pooling again.
 
     ``clients`` is the [C, ...] gathered stack for per-client programs,
-    but the single shared θ_C entity for global-client programs: the
-    tail broadcasts it, as the sequential round's ExtractFeatures does.
+    but the single shared θ_C entity (whole over ``data`` where the
+    state holds FSDP blocks) for global-client programs: the tail
+    broadcasts it, as the sequential round's ExtractFeatures does.
     ``feats`` is None for cycle programs: the pooled store holds the same
     values and the tail rebuilds the [C, b, ...] view by a reshape.
     """
@@ -765,7 +831,9 @@ def build_pipelined_algorithm(program: RoundProgram, task: SplitTask,
                               plan_fn: Optional[PlanFn] = None,
                               device="cpu", resilience: Any = None,
                               staleness_weighting: str = "none",
-                              staleness_lambda: float = 0.5
+                              staleness_lambda: float = 0.5,
+                              mesh: Any = None, shard_data: bool = True,
+                              n_clients: Optional[int] = None
                               ) -> Optional[PipelinedAlgorithm]:
     """Split a RoundProgram into the (extract, tail) pair.
 
@@ -779,28 +847,35 @@ def build_pipelined_algorithm(program: RoundProgram, task: SplitTask,
     feature gradients by w(lag): ``1 / (1 + lag)`` ('inverse') or
     ``exp(-staleness_lambda * lag)`` ('exp'), computed in float32 on the
     device from the tail's ``lag``; w(0) is exactly 1.
+
+    ``mesh``, ``shard_data`` and ``n_clients`` place the pair as
+    :func:`build_algorithm` places the round (:func:`round_placement`,
+    decided once): both calls take this rank's slots of ``xs``/``ys``
+    and the whole ``cohort`` and ``mask``.  The stage then holds this
+    rank's part: the cohort's client rows of its slots, or the shared
+    θ_C whole over ``data`` (gathered once, in the extract), and the
+    pool of its slots' rows with the whole [T] validity, which the
+    tail's server phase reads through the shard-local route or the
+    gathered pool, as the whole round does.
     """
     split = split_program(program)
     if split is None:
         return None
     head, tail_phases = split
+    ctx_mesh, task, rows = round_placement(program, task, mesh, shard_data,
+                                           n_clients)
     ctx = PhaseContext(task, opt_server, opt_client, cycle.check_ported(),
                        plan_fn)
     pools = any(getattr(p, "mode", None) == "cycle" for p in tail_phases)
-    guard = (HealthGuard(resilience.ema_alpha, resilience.spike_factor)
-             if resilience is not None and resilience.guard else None)
-
-    def init(seed: int, n_clients: int) -> TrainState:
-        return init_train_state(seed, n_clients, task, opt_server,
-                                opt_client, program.uses_global_client,
-                                device)
+    guard = _guard(resilience, mesh, ctx_mesh, task)
 
     def extract(state, cohort, xs, ys, mask=None) -> PipelineStage:
         v = RoundVars(state=state, cohort=cohort, xs=xs, ys=ys, key=None,
-                      mask=mask)
+                      mask=mask, split=slot_split(ctx_mesh, cohort.shape[0]),
+                      store_rows=rows)
         head(ctx, v)
         store = pool_store(v.feats, ys, mask=mask) if pools else None
-        clients = (state.client_global if program.uses_global_client
+        clients = (v.shared_client if program.uses_global_client
                    else v.cohort_clients)
         return PipelineStage(clients, v.server_prev,
                              None if pools else v.feats, store)
@@ -814,7 +889,7 @@ def build_pipelined_algorithm(program: RoundProgram, task: SplitTask,
             stale_w = (1.0 / (1.0 + lg) if staleness_weighting == "inverse"
                        else torch.exp(-staleness_lambda * lg))
         cohort_clients = stage.clients
-        if program.uses_global_client:
+        if program.uses_global_client:     # to this rank's slots
             cohort_clients = broadcast_entity(stage.clients, ys.shape[0])
         feats = stage.feats
         if feats is None:                 # rebuild the [C, b, ...] view
@@ -824,7 +899,9 @@ def build_pipelined_algorithm(program: RoundProgram, task: SplitTask,
         v = RoundVars(state=state, cohort=cohort, xs=xs, ys=ys, key=key,
                       mask=mask, ema=ema, cohort_clients=cohort_clients,
                       server_prev=stage.server_prev, feats=feats,
-                      store=stage.store, stale_w=stale_w)
+                      store=stage.store, stale_w=stale_w,
+                      split=slot_split(ctx_mesh, cohort.shape[0]),
+                      store_rows=rows)
         for phase in tail_phases:
             phase(ctx, v)
         if guard is not None:
@@ -833,5 +910,7 @@ def build_pipelined_algorithm(program: RoundProgram, task: SplitTask,
             v.metrics["stale_weight"] = stale_w
         return v.state, v.metrics
 
-    return PipelinedAlgorithm(program.name, init, extract, tail,
-                              program.uses_global_client)
+    return PipelinedAlgorithm(
+        program.name, _init_fn(program, task, opt_server, opt_client, device,
+                               rows),
+        extract, tail, program.uses_global_client)

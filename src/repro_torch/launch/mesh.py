@@ -184,6 +184,20 @@ def _model_comm(dm, sizes) -> Optional[Collectives]:
     return Collectives(dm["model"].get_group(), axis="model")
 
 
+def host_comm(mesh) -> Optional[Collectives]:
+    """Collectives over a host group of ``mesh``'s whole world, for the
+    host decisions every rank must share (a clock, a fault flag, a
+    checkpoint's step): the default group on a CPU mesh, a gloo group
+    beside NCCL's on the card, census keys ``"host/..."``; None for a
+    world of one.  Every rank calls it at the same point (a new group
+    is collective)."""
+    if dist.get_world_size() == 1:
+        return None
+    group = None if mesh.device.type == "cpu" else dist.new_group(
+        backend="gloo")
+    return Collectives(group, axis="host")
+
+
 def make_local_mesh(device=None) -> Mesh:
     """Degenerate (1, 1) mesh of one rank."""
     return make_engine_mesh((1, 1), ("data", "model"), device)

@@ -32,10 +32,10 @@ The decode step takes a mesh too: its weights are placed as the
 prefill's, and its state by ``sharding.specs.decode_state_plan`` (the
 port's counterpart of ``decode_state_shardings``: the batch rows over
 the batch axes, the cache's and the SSM state's heads over ``model``),
-which ``decode_state_zeros`` allocates.
-The mesh's device is the step's.  What is left of ROADMAP item 9b here
-is the pipelined train steps on a mesh (``build_pipelined_train_steps``
-takes none).
+which ``decode_state_zeros`` allocates.  The pipelined train steps
+take the train step's mesh and placement (their extract and tail on the
+rank's slots and shards compose to its round).
+The mesh's device is the step's.
 """
 from __future__ import annotations
 
@@ -228,15 +228,18 @@ def build_train_step(cfg: ArchConfig, shape: InputShape,
 def build_pipelined_train_steps(cfg: ArchConfig, shape: InputShape,
                                 cycle: CycleConfig = CycleConfig(), *,
                                 cohort: int, device=None,
-                                plan_fn: Optional[PlanFn] = None
+                                plan_fn: Optional[PlanFn] = None,
+                                mesh=None
                                 ) -> tuple[StepBundle, StepBundle]:
     """The CycleSL round as two calls, the launcher-side mirror of the
     Engine's pipelined schedule: ``train_extract(clients, xs, ys) ->
     (feats, store)`` and ``train_tail(server, clients, xs, ys, key,
     feats, store) -> (server', clients', metrics)``, which compose to
-    :func:`build_train_step`'s round exactly.  Both bundles share
-    ``init_state`` and ``make_batch``."""
-    sub = _train_substrate(cfg, shape, cycle, cohort, device)
+    :func:`build_train_step`'s round exactly, on ``mesh`` too (placed
+    as that step is: the extract's pool holds the rank's slots' rows,
+    and the tail's server phase reads it over the cohort's split).
+    Both bundles share ``init_state`` and ``make_batch``."""
+    sub = _train_substrate(cfg, shape, cycle, cohort, device, mesh)
 
     def extract_step(clients, xs, ys):
         return cyclesl_extract(sub.task, clients, xs, ys)
@@ -244,7 +247,7 @@ def build_pipelined_train_steps(cfg: ArchConfig, shape: InputShape,
     def tail_step(server, clients, xs, ys, key: int, feats, store):
         return cyclesl_tail(sub.task, server, clients, sub.opt_s, sub.opt_c,
                             xs, ys, key, sub.cycle, feats, store,
-                            plan_fn=plan_fn)
+                            plan_fn=plan_fn, split=sub.split)
 
     return (StepBundle("train_extract", extract_step, sub.init_state,
                        sub.make_batch, sub.device),

@@ -19,6 +19,9 @@ dense stages' columns over ``model``; d * m = N):
       --mesh-shape N,1 --rounds 200 --clients 100 --width 32
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
       --mesh-shape 2,2 --rounds 200 --clients 100 --width 32
+Every other flag combines with ``--mesh-shape`` (``--pipeline-depth``,
+``--ckpt-dir``/``--resume``, the guard's and the scenario's): rank 0
+writes the checkpoints, and every rank resumes from the step it chose.
 """
 from __future__ import annotations
 

@@ -13,6 +13,16 @@ The whole-tree check takes one max-abs pass over all leaves
 card; a NaN propagates through the max) rather than an ``isfinite``
 launch or two a leaf.
 
+On a mesh each rank checks only its part: its cohort slots' features
+and feature gradients, and its shards of the state (its rows of the
+per-client store, its FSDP blocks, its ``model`` blocks).  The slot
+blame is then gathered to the whole [C] over the batch axes, and the
+rank's non-finite flag rides in the same gather and is summed over
+every other axis of the mesh (:func:`agree`), so the packed vector
+holds the same bits on every rank: every rank reaches the same verdict
+and takes the same recovery path, whose collectives would otherwise
+part.  The loss and the EMA carry are the same on every rank already.
+
 Layout of the packed ``metrics['health']`` vector (float32 [4]):
 
     [0] nonfinite — 1.0 when the loss, the committed params/opt state,
@@ -115,8 +125,33 @@ def ema_update(ema, loss, alpha: float) -> torch.Tensor:
     return torch.where(torch.isfinite(loss), seeded, ema)
 
 
+def agree(slot_bad, part_ok, split=None, axes=()
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(slot_bad [C], ok)`` of the whole mesh from this rank's part:
+    ``slot_bad`` its slots' blame (``split``, a ``core.protocol.SlotSplit``
+    of the cohort, None when the rank holds every slot) and ``part_ok``
+    whether its shards are finite.  The blame and the rank's flag go
+    over the batch axes in one ``all_gather`` (census
+    ``all_gather/health``); the flag is then summed over each of
+    ``axes`` (the ``Collectives`` of the mesh's axes the slots do not
+    split: the ``model`` axis, and the batch axes when every rank runs
+    the whole cohort; census ``{axis/}all_reduce/health``).  Off the
+    mesh and at one rank: the inputs, with no collective."""
+    gather = split is not None and not split.whole
+    if not gather and not axes:
+        return slot_bad, part_ok
+    flag = (~part_ok).float().reshape(1)
+    if gather:
+        rows = split.comm.all_gather(torch.cat([slot_bad, flag]),
+                                     "health").reshape(split.comm.size, -1)
+        slot_bad, flag = rows[:, :-1].reshape(-1), rows[:, -1:].amax(0)
+    for comm in axes:
+        flag = comm.all_reduce(flag, "health")
+    return slot_bad, flag[0] == 0
+
+
 def health_vector(state, loss, feats, fgrads, mask, ema,
-                  alpha: float, spike_factor: float
+                  alpha: float, spike_factor: float, split=None, axes=()
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """The packed [4] health vector + the [C] slot-blame array.
 
@@ -132,16 +167,23 @@ def health_vector(state, loss, feats, fgrads, mask, ema,
     culprit).  ``fgrads`` still feeds the round-level nonfinite check —
     on LIVE slots only, so a freshly-quarantined slot's inert NaN
     gradient cannot re-flag the round it was just excised from.
+
+    On a mesh (``split``, ``axes``: see :func:`agree`) ``feats``,
+    ``fgrads`` and ``state`` are this rank's parts, ``mask`` the whole
+    [C] one; the blame comes back whole and the vector the same on
+    every rank.
     """
     loss = loss.float()
     dev = loss.device
+    local = mask if split is None or mask is None else split.local(mask)
     n_slots = feats.shape[0] if feats is not None else 1
-    slot_bad = slot_nonfinite([feats], n_slots, mask=mask, device=dev)
-    fgrads_ok = (masked_tree_all_finite(fgrads, mask, dev)
+    slot_bad = slot_nonfinite([feats], n_slots, mask=local, device=dev)
+    fgrads_ok = (masked_tree_all_finite(fgrads, local, dev)
                  if fgrads is not None else _true([], dev))
+    slot_bad, part_ok = agree(slot_bad, tree_all_finite(state, dev)
+                              & fgrads_ok, split, axes)
     bad_any = slot_bad.max() > 0
-    finite = (tree_all_finite(state, dev) & torch.isfinite(loss)
-              & fgrads_ok & ~bad_any)
+    finite = part_ok & torch.isfinite(loss) & ~bad_any
     ema = (torch.zeros((), dtype=torch.float32, device=dev) if ema is None
            else ema.float())
     spike = (ema != 0.0) & torch.isfinite(loss) & (loss > spike_factor * ema)

@@ -79,10 +79,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.launch.mesh import host_comm
 from repro_torch.models.module import SHAPES
 from repro_torch.models.transformer import Transformer
 from repro_torch.serve.config import ServeConfig
-from repro_torch.sharding.collectives import Collectives
 from repro_torch.sharding.parallel import gather_from_data
 from repro_torch.sharding.specs import (decode_rows, decode_state_zeros,
                                         rows_comm, shard_params,
@@ -162,18 +162,6 @@ def _slot_ax(t: torch.Tensor) -> int:
     return 0 if t.dim() == 1 else 1
 
 
-def _host_comm(mesh) -> Optional[Collectives]:
-    """The scheduler's collectives over a host group of the whole world
-    (the default group on a CPU mesh, a gloo group beside NCCL's on the
-    card), census keys ``"host/..."``; None for a world of one."""
-    import torch.distributed as dist
-    if dist.get_world_size() == 1:
-        return None
-    group = None if mesh.device.type == "cpu" else dist.new_group(
-        backend="gloo")
-    return Collectives(group, axis="host")
-
-
 class ServeRuntime:
     """Fixed-slot continuous-batching server for decoder-only archs, on
     the card unless ``device="cpu"`` is passed (on ``mesh``, on the
@@ -214,7 +202,7 @@ class ServeRuntime:
             self._rows = decode_rows(mesh.shape, mesh.coords, self.slots)
             self._chunk_rows = decode_rows(mesh.shape, mesh.coords,
                                            serve.prefill_batch)
-            self._host = _host_comm(mesh)
+            self._host = host_comm(mesh)
         if params is None:
             params = Transformer.init(
                 torch.Generator(device=self.device).manual_seed(seed), arch)

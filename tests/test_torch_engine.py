@@ -113,12 +113,12 @@ def test_config_round_trips_from_reference_dict(jcfg):
     assert cfg.to_dict() == jcfg.to_dict()
 
 
-# what the port still refuses: a mesh with the pipeline, staleness,
-# checkpoint, scenario and resilience knobs (ROADMAP item 9b; those
-# knobs are ported off the mesh).  A 'model' axis > 1 is ported (the
-# "mesh" cases), and so is a serve config on a mesh ("serve"): the
-# config takes it, and one process without a group of the mesh's size
-# asks for torchrun instead
+# the knobs on a mesh: the pipeline, staleness, checkpoint, scenario and
+# resilience knobs combine with one since ROADMAP item 9b's part on
+# them, and a (1, 1) case builds the Engine and runs one round; a
+# 'model' axis > 1 (the "mesh" cases), a serve config ("serve") and a
+# (2, 1) mesh validate, and one process without a group of the mesh's
+# size asks for torchrun instead.  A kernel override still raises
 OUT_OF_SLICE = {
     "pipeline": dict(pipeline_depth=1, mesh_shape=(2, 1)),
     "mesh": dict(mesh_shape=(1, 2)),
@@ -142,15 +142,24 @@ def test_out_of_slice_knobs_raise(kw):
     for k, v in kw.items():
         d[k] = {**d[k], **v} if isinstance(v, dict) else v
     cfg = ExperimentConfig.from_dict(d)
-    if cfg.mesh_shape is not None and (dict(
-            zip(cfg.mesh_axes, cfg.mesh_shape)).get("model", 1) > 1
-            or "serve" in kw):
-        assert cfg.validate() is cfg
+    if cfg.mesh_shape is None:
+        with pytest.raises(NotImplementedError):
+            Engine(cfg, device="cpu")
+        return
+    assert cfg.validate() is cfg
+    if cfg.mesh_shape != (1, 1):
         with pytest.raises(RuntimeError, match="torchrun"):
             Engine(cfg, device="cpu")
         return
-    with pytest.raises(NotImplementedError):
-        Engine(cfg, device="cpu")
+    eng = Engine(ExperimentConfig.from_dict({
+        **cfg.to_dict(), **SMALL, "rounds": 1, "eval_every": 1}),
+        device="cpu", log=lambda *a: None)
+    try:
+        assert eng.mesh.shape == {"data": 1, "model": 1}
+        res = eng.run()
+    finally:
+        eng.close()
+    assert res["history"][-1]["round"] == 1
 
 
 PORTED = {"resume": dict(resume=True, ckpt_dir="ckpt"),
@@ -165,15 +174,15 @@ PORTED = {"resume": dict(resume=True, ckpt_dir="ckpt"),
 @pytest.mark.parametrize("kw", list(PORTED.values()), ids=list(PORTED))
 def test_ported_knobs_are_accepted(kw):
     """The reference's dict form of each knob this port has loads and
-    validates; the Engine builds with it.  With a mesh it still raises."""
+    validates; the Engine builds with it.  With a mesh it validates too."""
     d = JConfig().to_dict()
     for k, v in kw.items():
         d[k] = {**d[k], **v} if isinstance(d[k], dict) else v
     cfg = ExperimentConfig.from_dict(d).validate()
     assert cfg.to_dict() == JConfig.from_dict(d).to_dict()
     Engine(cfg, device="cpu", log=lambda *a: None)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        ExperimentConfig.from_dict({**d, "mesh_shape": (2, 1)}).validate()
+    on_mesh = ExperimentConfig.from_dict({**d, "mesh_shape": (2, 1)})
+    assert on_mesh.validate() is on_mesh
 
 
 def test_engine_and_cli_refuse_the_cpu_unless_asked():

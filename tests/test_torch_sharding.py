@@ -8,6 +8,8 @@ on the reference side and from the ``meta`` device on the port's (full
 configs, grok-1-314b included, never touch memory).  Specs must be
 equal, leaf by leaf.
 """
+import os
+
 import jax
 import numpy as np
 import pytest
@@ -297,9 +299,8 @@ def test_cuda_mesh_wider_than_the_cards_raises(monkeypatch):
                                                      "model"))])
 def test_model_axis_raises_naming_9b(shape, axes):
     """The mesh takes a model axis (here it asks for the world of ranks it
-    needs), and the Engine's config now takes one too: item 9b's first
-    two parts (the model axis, FSDP over data) are ported, and only the
-    combinations in ``MESH_9B`` still raise naming it."""
+    needs), and the Engine's config takes one too: item 9b's first
+    two parts (the model axis, FSDP over data) are ported."""
     from repro_torch.launch.mesh import make_engine_mesh
     with pytest.raises(RuntimeError, match="torchrun"):
         make_engine_mesh(shape, axes, "cpu")
@@ -315,22 +316,30 @@ MESH_WITH = {"pipeline": dict(pipeline_depth=1),
 
 
 @pytest.mark.parametrize("kw", list(MESH_WITH.values()), ids=list(MESH_WITH))
-def test_mesh_with_an_unported_path_raises_naming_9b(kw):
-    """Each path item 9b has left raises naming it; a serve config, whose
-    mesh placement is ported, builds the Engine on a (1, 1) mesh."""
-    d = {**ExperimentConfig().to_dict(), "mesh_shape": (1, 1)}
+def test_mesh_with_an_unported_path_raises_naming_9b(kw, tmp_path):
+    """Each path item 9b had left runs on a mesh now: the Engine builds on
+    a (1, 1) mesh and runs one round (a serve config, which training
+    ignores, only builds)."""
+    d = {**ExperimentConfig().to_dict(), "mesh_shape": (1, 1),
+         "n_clients": 10, "attendance": 0.3, "batch": 8, "width": 4,
+         "rounds": 1, "eval_every": 1}
     for k, v in kw.items():
         d[k] = {**d[k], **v} if isinstance(v, dict) else v
-    if "serve" in kw:
-        eng = Engine(ExperimentConfig.from_dict(d), device="cpu")
-        try:
-            assert eng.mesh.shape == {"data": 1, "model": 1}
+    if "ckpt_dir" in kw:
+        d["ckpt_dir"] = str(tmp_path / "ckpt")
+    eng = Engine(ExperimentConfig.from_dict(d), device="cpu",
+                 log=lambda *a: None)
+    try:
+        assert eng.mesh.shape == {"data": 1, "model": 1}
+        if "serve" in kw:
             assert eng.cfg.serve.slots == 4
-        finally:
-            eng.close()
-        return
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        Engine(ExperimentConfig.from_dict(d), device="cpu")
+            return
+        res = eng.run()
+    finally:
+        eng.close()
+    assert res["history"][-1]["round"] == 1
+    if "ckpt_dir" in kw:
+        assert os.path.isdir(os.path.join(d["ckpt_dir"], "step_1"))
 
 
 def test_mesh_shape_must_be_the_world_size():

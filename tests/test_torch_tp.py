@@ -238,9 +238,10 @@ def test_shard_and_gather_round_trip_at_smoke_width(arch, m):
 
 
 # ------------------------------------------------------ carried states
-def _reference_round(arch, depth):
-    """The reference's init (both halves, carried), its plans and its
-    ROUNDS rounds: (port state0, plans, JAX rows, JAX final state)."""
+def _reference_init(arch, depth):
+    """The reference's init (both halves, carried) and its plans, and a
+    function that runs its ROUNDS rounds from them: (port state0, plans,
+    rounds() -> (JAX rows, JAX final state))."""
     jcfg = j_smoke(arch).with_(n_layers=depth)
     jtask, jopt = j_make_task(jcfg), j_adam(LR)
     jserver = jp.init_entity(jtask.init_server(jax.random.PRNGKey(0)), jopt)
@@ -251,17 +252,26 @@ def _reference_round(arch, depth):
     jkeys = [jax.random.PRNGKey(10 + r) for r in range(ROUNDS)]
     plans = {r: (torch.from_numpy(np.array(j_plan(jkeys[r], C * 2, 1, 2))),
                  None) for r in range(ROUNDS)}
-    step = jax.jit(lambda s, c, xs, ys, key: jc.cyclesl_round(
-        jtask, s, c, jopt, jopt, xs, ys, key, jc.CycleConfig()))
-    tcfg = ranks.config(arch, depth)
-    rows = []
-    for r in range(ROUNDS):
-        xs, ys = t_inputs.make_train_batch(tcfg, SHAPE, C, r)
-        jserver, jclients, jm = step(
-            jserver, jclients, {"tokens": jnp.asarray(xs["tokens"])},
-            jnp.asarray(ys), jkeys[r])
-        rows.append({k: float(v) for k, v in jm.items()})
-    return state0, plans, rows, jax.device_get((jserver, jclients))
+
+    def rounds():
+        step = jax.jit(lambda s, c, xs, ys, key: jc.cyclesl_round(
+            jtask, s, c, jopt, jopt, xs, ys, key, jc.CycleConfig()))
+        tcfg = ranks.config(arch, depth)
+        srv, cl, rows = jserver, jclients, []
+        for r in range(ROUNDS):
+            xs, ys = t_inputs.make_train_batch(tcfg, SHAPE, C, r)
+            srv, cl, jm = step(srv, cl, {"tokens": jnp.asarray(xs["tokens"])},
+                               jnp.asarray(ys), jkeys[r])
+            rows.append({k: float(v) for k, v in jm.items()})
+        return rows, jax.device_get((srv, cl))
+    return state0, plans, rounds
+
+
+def _reference_round(arch, depth):
+    """The reference's init (both halves, carried), its plans and its
+    ROUNDS rounds: (port state0, plans, JAX rows, JAX final state)."""
+    state0, plans, rounds = _reference_init(arch, depth)
+    return (state0, plans, *rounds())
 
 
 def _port_init(arch, depth):
