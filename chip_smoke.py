@@ -155,7 +155,17 @@ Phases, each of which ends the script with a non-zero exit on failure:
     mesh, the census a round, rounds/s beside unsharded, the guard's
     flag left unsummed over ``model`` refused, and olmoe-1b-7b at depth
     4 through ``build_pipelined_train_steps(mesh=)`` on (2, 2) bit for
-    bit ``build_train_step(mesh=)``.
+    bit ``build_train_step(mesh=)``;
+30. the tooling (``utils.profiling``, ``utils.cost``, ``launch.dryrun``,
+    ``launch.roofline``): the Engine at the main path's width (cut 2,
+    and cut 3 fused) with a ``RoundProfiler``, bit for bit the
+    unprofiled run, its sections and call counts a CPU run's,
+    ``phase_costs`` by phase; the olmoe and zamba2 rounds of phases 7
+    and 10 against the dry run of the same step on ``meta``: state bytes
+    exactly, the peak estimate within 25%, ``count`` on the card equal
+    to ``count`` on meta, the round at 0.95 or more of its roofline
+    time, and its MFU.  Phase 3's bounds come from
+    ``utils.cost.kernel_cost`` and ``launch.roofline``'s peaks.
 
 It then prints the ``kernels`` JSON line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -175,12 +185,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the full 700 W limit):
-# HBM, float32 on the CUDA cores (the port keeps TF32 off), and bf16 /
-# fp16 on the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
 MAIN = dict(n_clients=100, attendance=0.05, batch=16, width=32)
 # the transformer rounds: cohort 2, batch 2 a client, sequence 2048, 3
 # rounds; olmoe-1b-7b at full width with its 16 layers cut to 4, and
@@ -246,16 +250,11 @@ def device_ms(fn, iters=20, replays=10):
     return start.elapsed_time(end) / (iters * replays)
 
 
-def bound(nbytes, flops, dtype=None):
-    """Least time (ms) for the work: bytes over the memory rate against
-    operations over the card's peak for the operands' type (bf16 and
-    fp16 on the tensor cores, else float32); the larger bounds it."""
-    import torch
-    rate = (BF16_FLOPS_PER_S if dtype in (torch.bfloat16, torch.float16)
-            else FP32_FLOPS_PER_S)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def kernel_cost(name, *args, **kw):
+    """``utils.cost.kernel_cost``: a kernel call's (flops, bytes, dtype),
+    the one source of the checks' bounds."""
+    from repro_torch.utils.cost import kernel_cost as cost
+    return cost(name, *args, **kw)
 
 
 def within(got, want, tol, ulps=None):
@@ -273,10 +272,11 @@ def within(got, want, tol, ulps=None):
     return bool((d <= torch.clamp(ulps * ulp, min=tol)).all())
 
 
-def check(name, shape, kernel, plain, tol, nbytes, flops, library=None,
-          dtype=None, ulps=None):
+def check(name, shape, kernel, plain, tol, cost, library=None, ulps=None):
     """Run ``kernel`` and ``plain`` once on the same inputs, compare,
     time both (and ``library``) on the device, and print one line.
+    ``cost`` is the call's ``utils.cost.kernel_cost`` (flops, bytes,
+    dtype), read against ``launch.roofline``'s peaks for the bound.
     Raises when the kernel disagrees with its plain version beyond
     ``tol`` (beyond ``ulps`` bfloat16 ulps for a bfloat16 output, when
     given)."""
@@ -289,6 +289,8 @@ def check(name, shape, kernel, plain, tol, nbytes, flops, library=None,
     ms, plain_ms = device_ms(kernel), device_ms(plain)
     lib_ms = device_ms(library) if library is not None else None
     eager = eager_ms(kernel)
+    from repro_torch.launch.roofline import bound
+    flops, nbytes, dtype = cost
     b_ms, b_by = bound(nbytes, flops, dtype)
     row = {"name": name, "shape": shape, "max_abs_err": err, "tol": tol,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -318,13 +320,11 @@ def kernel_checks(torch, dev):
         idx = torch.randint(0, src.shape[0], (m,), generator=gen,
                             device=dev, dtype=torch.int32)
         flat = src.reshape(src.shape[0], -1)
-        row_b = flat.shape[1] * src.element_size()
-        nbytes = (len(set(idx.tolist())) + m) * row_b + 4 * m
         return check(name, f"{list(src.shape)} {str(src.dtype)[6:]} idx[{m}]",
                      lambda: (ops.resample_rows(src, idx),),
                      lambda: (ref.feature_resample_ref(flat, idx)
                               .reshape((m,) + tuple(src.shape[1:])),),
-                     0.0, nbytes, 0,
+                     0.0, kernel_cost("feature_resample", flat, idx),
                      library=lambda: torch.index_select(src, 0, idx))
 
     feats = torch.relu(torch.randn(80, 7, 7, 64, device=dev, generator=gen))
@@ -377,8 +377,6 @@ def kernel_checks(torch, dev):
         m = torch.randn(shape, device=dev, generator=gen) * 0.1
         v = torch.rand(shape, device=dev, generator=gen) * 0.1
         step = torch.tensor(steps, dtype=torch.int32, device=dev)
-        n = p.numel()
-        nbytes = n * (3 * p.element_size() + 4 * 4) + 4 * step.numel()
         lib = None
         if library:
             q = p.clone().requires_grad_(True)
@@ -392,7 +390,8 @@ def kernel_checks(torch, dev):
                      + (f" wd {wd}" if wd else ""),
                      lambda: ops.fused_adam(p, g, m, v, step, **kw),
                      lambda: ref.fused_adam_ref(p, g, m, v, step, **kw),
-                     1e-6, nbytes, 14 * n, library=lib, dtype=dtype, ulps=1)
+                     1e-6, kernel_cost("fused_adam", p, g, m, v, step),
+                     library=lib, ulps=1)
 
     rows["fused_adam"] = adam((3136, 2048), 3, library=True)
     adam((2048, 10), 3)
@@ -456,9 +455,6 @@ def gather_loss_checks(torch, dev, gen):
              labels=torch.int64, bias=False):
         w_dtype = w_dtype or dtype
         src, lab, w, idx, b = inputs(t, d, k, m, dtype, w_dtype, labels, bias)
-        nbytes = (len(set(idx.tolist())) * d * src.element_size()
-                  + d * k * w.element_size() + m * lab.element_size()
-                  + m * 4 + m * 4 + (4 * k if bias else 0))
         shape = gl.card_shape(src, w, m)
         row = check("gather_loss", f"[{t}, {d}] w[{d}, {k}] idx[{m}] "
                     f"{str(dtype)[6:]}" + (f" w {str(w_dtype)[6:]}"
@@ -469,7 +465,7 @@ def gather_loss_checks(torch, dev, gen):
                     lambda: (ops.gather_loss_microbatch(src, lab, idx, w, b),),
                     lambda: (ref.gather_loss_microbatch_ref(src, lab, idx, w,
                                                             b),),
-                    1e-4, nbytes, 2 * m * d * k + 6 * m * k, dtype=dtype)
+                    1e-4, kernel_cost("gather_loss", src, lab, idx, w, b))
         row["launch"] = {"row_tile": gl.ROW_TILE, **shape}
         return row
 
@@ -532,7 +528,6 @@ def gating_checks(torch, dev, gen):
         else:
             x = torch.randn(T, E, device=dev, generator=gen)
         x = x.to(dtype)
-        nbytes = x.numel() * x.element_size() + T * k * 8
         got, want = topk_gating(x, k), ref.topk_gating_ref(x, k)
         if not torch.equal(got[1], want[1]):
             raise AssertionError(f"topk_gating [{T}, {E}] k={k} {kind}: ids "
@@ -545,7 +540,7 @@ def gating_checks(torch, dev, gen):
                     f"{32 // lanes} row{'s' if lanes < 32 else ''} a warp)",
                     lambda: (topk_gating(x, k)[0],),
                     lambda: (ref.topk_gating_ref(x, k)[0],),
-                    1e-6, nbytes, T * E * (4 + 2 * k), dtype=x.dtype)
+                    1e-6, kernel_cost("topk_gating", x, k))
         row["launch"] = {"lanes_per_row": lanes}
         return row
 
@@ -633,16 +628,6 @@ def attention_check(torch, dev, gen, B, Sq, Sk, H, Hkv, D, dtype,
     from repro_torch.kernels.flash_attention import design, flash_attention
     q, k, v = _qkv(torch, dev, gen, B, Sq, Sk, H, Hkv, D, dtype, fused)
     kw = dict(causal=causal, window=window, softcap=cap)
-    # the (query, key) pairs this mask keeps: the work the call does
-    i = torch.arange(Sq, device=dev)[:, None]
-    j = torch.arange(Sk, device=dev)[None, :]
-    keep = torch.ones(Sq, Sk, dtype=torch.bool, device=dev)
-    if causal:
-        keep &= j <= i
-    if window is not None:
-        keep &= i - j < window
-    pairs = int(keep.sum())
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     lib = None
     if main or library:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -658,8 +643,8 @@ def attention_check(torch, dev, gen, B, Sq, Sk, H, Hkv, D, dtype,
                 + f" design={kind}" + note,
                 lambda: (flash_attention(q, k, v, **kw),),
                 lambda: (ref.flash_attention_ref(q, k, v, **kw),),
-                2e-2 if dtype == torch.bfloat16 else 2e-5, nbytes,
-                4 * B * H * D * pairs, library=lib, dtype=dtype)
+                2e-2 if dtype == torch.bfloat16 else 2e-5,
+                kernel_cost("flash_attention", q, k, v, **kw), library=lib)
     row["design"] = kind
     return row
 
@@ -799,13 +784,6 @@ def ssd_check(torch, dev, gen, label, B, L, H, P, N, G, dtype, chunk,
         if not SSD_F32_REL <= 0.1 * min(drop_diag, no_carry):
             raise AssertionError("ssd_scan: the f32 tolerance would not "
                                  "catch a dropped term or carry")
-    el = x.element_size()
-    # the function's least work, independent of the chunk: the
-    # recurrence's decay and dt B x^T update of h (3 N P a row and
-    # head) and y = C h (2 N P); a chunked form does more
-    flops = 5 * B * L * H * N * P
-    nbytes = (2 * x.numel() * el + (bm.numel() + cm.numel()) * el
-              + 4 * (dt.numel() + A.numel() + B * H * N * P))
     kind = design(dtype, N, P)
     row = check("ssd_scan", f"{label} x[{B}, {L}, {H}, {P}] "
                 f"B/C[{B}, {L}, {G}, {N}] {str(dtype)[6:]} chunk {chunk}"
@@ -813,7 +791,8 @@ def ssd_check(torch, dev, gen, label, B, L, H, P, N, G, dtype, chunk,
                    "slices"}[sliced] + f" design={kind}",
                 lambda: ssd_scan(x, dt, A, bm, cm, chunk=chunk),
                 lambda: ref.ssd_chunked(x, dt, A, bm, cm, chunk),
-                SSD_F32_REL * scale, nbytes, flops, dtype=dtype,
+                SSD_F32_REL * scale,
+                kernel_cost("ssd_scan", x, dt, A, bm, cm, chunk=chunk),
                 ulps=1 if dtype == torch.bfloat16 else None)
     row["max_rel_err"] = row["max_abs_err"] / scale
     row["design"] = kind
@@ -1147,13 +1126,10 @@ def take_census(mesh) -> dict:
     """The census of every collective group of ``mesh`` (its ``model``
     axis', its batch axes', its ``data`` axis' where that is a group of
     its own) since the last take, and a fresh one; {} off the mesh."""
-    if mesh is None:
-        return {}
-    out, seen = {}, []
-    for comm in (mesh.model_comm, mesh.comm, mesh.data_comm):
-        if comm is not None and all(comm is not c for c in seen):
-            seen.append(comm)
-            out.update(comm.take_census())
+    from repro_torch.utils.profiling import mesh_comms
+    out = {}
+    for comm in mesh_comms(mesh) if mesh is not None else ():
+        out.update(comm.take_census())
     return out
 
 
@@ -3425,16 +3401,14 @@ def tp_kernel_checks(torch, dev):
         q, k, v = (torch.randn(B, S, H, D, device=dev, generator=gen
                                ).to(torch.bfloat16) for _ in range(3))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        pairs = S * (S + 1) // 2
         row = check("flash_attention", f"[{B}, {S}, {H}, {D}] bf16 causal "
                     f"design={design(q.dtype, D)} (a rank's heads, model "
                     f"axis {m})",
                     lambda: (flash_attention(q, k, v, causal=True),),
                     lambda: (ref.flash_attention_ref(q, k, v, causal=True),),
-                    2e-2, 4 * q.numel() * q.element_size(),
-                    4 * B * H * D * pairs,
+                    2e-2, kernel_cost("flash_attention", q, k, v),
                     library=lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True), dtype=q.dtype)
+                        qt, kt, vt, is_causal=True))
         row["design"] = design(q.dtype, D)
         rows.append(row)
         del q, k, v, qt, kt, vt
@@ -3449,14 +3423,12 @@ def tp_kernel_checks(torch, dev):
         mm = torch.randn(shape, device=dev, generator=gen) * 0.1
         vv = torch.rand(shape, device=dev, generator=gen) * 0.1
         step = torch.tensor(steps, dtype=torch.int32, device=dev)
-        n = p.numel()
         rows.append(check(
             "fused_adam", f"{list(shape)} bf16 step{list(step.shape)} (a "
             f"rank's experts, model axis {m})",
             lambda: ops.fused_adam(p, g, mm, vv, step, lr=1e-3),
             lambda: ref.fused_adam_ref(p, g, mm, vv, step, lr=1e-3),
-            1e-6, n * (3 * 2 + 4 * 4) + 4 * step.numel(), 14 * n,
-            dtype=torch.bfloat16, ulps=1))
+            1e-6, kernel_cost("fused_adam", p, g, mm, vv, step), ulps=1))
         del p, g, mm, vv
         torch.cuda.empty_cache()
     x = torch.randn(BATCH * SEQ, mo.n_experts, device=dev, generator=gen)
@@ -3468,8 +3440,7 @@ def tp_kernel_checks(torch, dev):
         "router, whole on every rank)",
         lambda: (topk_gating(x, mo.top_k)[0],),
         lambda: (ref.topk_gating_ref(x, mo.top_k)[0],), 1e-6,
-        x.numel() * 4 + x.shape[0] * mo.top_k * 8,
-        x.numel() * (4 + 2 * mo.top_k), dtype=x.dtype))
+        kernel_cost("topk_gating", x, mo.top_k)))
     return rows
 
 
@@ -4334,14 +4305,12 @@ def ssm_tp_kernel_checks(torch, dev):
         mm = torch.randn(shape, device=dev, generator=gen) * 0.1
         vv = torch.rand(shape, device=dev, generator=gen) * 0.1
         step = torch.tensor(3, dtype=torch.int32, device=dev)
-        n = p.numel()
         rows.append(check(
             "fused_adam", f"{list(shape)} bf16 (a rank's packed w_in, "
             f"model axis {m})",
             lambda: ops.fused_adam(p, g, mm, vv, step, lr=1e-3),
             lambda: ref.fused_adam_ref(p, g, mm, vv, step, lr=1e-3),
-            1e-6, n * (3 * 2 + 4 * 4) + 4, 14 * n, dtype=torch.bfloat16,
-            ulps=1))
+            1e-6, kernel_cost("fused_adam", p, g, mm, vv, step), ulps=1))
         del p, g, mm, vv
         torch.cuda.empty_cache()
     for m in (2, 4):
@@ -4945,8 +4914,7 @@ def dm_kernel_checks(torch, dev):
             "topk_gating", f"[{T}, 64] k=8 ({where})",
             lambda: (topk_gating(x, 8)[0],),
             lambda: (ref.topk_gating_ref(x, 8)[0],), 1e-6,
-            x.numel() * 4 + T * 8 * 8, x.numel() * (4 + 2 * 8),
-            dtype=x.dtype))
+            kernel_cost("topk_gating", x, 8)))
     return rows
 
 
@@ -5471,14 +5439,13 @@ def paths_kernel_checks(torch, dev):
     q, k, v = (torch.randn(B, S, H, D, device=dev, generator=gen
                            ).to(torch.bfloat16) for _ in range(3))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    pairs = S * (S + 1) // 2
     row = check("flash_attention", f"[{B}, {S}, {H}, {D}] bf16 causal "
                 f"design={design(q.dtype, D)} (a rank's heads on (2, 2))",
                 lambda: (flash_attention(q, k, v, causal=True),),
                 lambda: (ref.flash_attention_ref(q, k, v, causal=True),),
-                2e-2, 4 * q.numel() * q.element_size(), 4 * B * H * D * pairs,
+                2e-2, kernel_cost("flash_attention", q, k, v),
                 library=lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True), dtype=q.dtype)
+                    qt, kt, vt, is_causal=True))
     row["design"] = design(q.dtype, D)
     rows.append(row)
     del q, k, v, qt, kt, vt
@@ -5492,20 +5459,18 @@ def paths_kernel_checks(torch, dev):
         "router, whole on every rank)",
         lambda: (topk_gating(x, mo.top_k)[0],),
         lambda: (ref.topk_gating_ref(x, mo.top_k)[0],), 1e-6,
-        x.numel() * 4 + x.shape[0] * mo.top_k * 8,
-        x.numel() * (4 + 2 * mo.top_k), dtype=x.dtype))
+        kernel_cost("topk_gating", x, mo.top_k)))
     shape = (mo.n_experts // 2, cfg.d_model // 2, mo.d_ff_expert)
     p = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
     g = torch.randn(shape, device=dev, generator=gen).to(torch.bfloat16)
     mm = torch.randn(shape, device=dev, generator=gen) * 0.1
     vv = torch.rand(shape, device=dev, generator=gen) * 0.1
     step = torch.tensor(3, dtype=torch.int32, device=dev)
-    n = p.numel()
     rows.append(check(
         "fused_adam", f"{list(shape)} bf16 (a rank's expert block on (2, 2))",
         lambda: ops.fused_adam(p, g, mm, vv, step, lr=1e-3),
         lambda: ref.fused_adam_ref(p, g, mm, vv, step, lr=1e-3),
-        1e-6, n * (3 * 2 + 4 * 4) + 4, 14 * n, dtype=torch.bfloat16, ulps=1))
+        1e-6, kernel_cost("fused_adam", p, g, mm, vv, step), ulps=1))
     del p, g, mm, vv
     src = torch.randn(BATCH, SEQ, cfg.d_model, device=dev,
                       generator=gen).bfloat16()
@@ -5516,7 +5481,7 @@ def paths_kernel_checks(torch, dev):
         "slice on (2, 2))",
         lambda: (ops.resample_rows(src, idx),),
         lambda: (ref.feature_resample_ref(flat, idx).reshape(src.shape),),
-        0.0, 2 * flat.numel() * 2 + 8, 0,
+        0.0, kernel_cost("feature_resample", flat, idx),
         library=lambda: torch.index_select(src, 0, idx)))
     torch.cuda.empty_cache()
     return rows
@@ -5812,6 +5777,207 @@ def fault_path_profiles(torch, dev="cuda"):
                                  "wall_ms": wall}}
 
 
+# ------------------------------------------------------------- phase 30
+TOOLING_ROUNDS = 4
+
+
+def profiled_runs(torch, cfg, dev="cuda"):
+    """``Engine.run()`` of ``cfg`` on ``dev`` without a profiler and with
+    one, and with one on the CPU: each run's per-round metrics (read
+    after the run, so no callback syncs), result, wall seconds and
+    Engine."""
+    from repro_torch.api import Engine
+    from repro_torch.utils.profiling import RoundProfiler
+    runs = {}
+    for where, d, prof in (("plain", dev, None),
+                           ("profiled", dev, RoundProfiler()),
+                           ("cpu", "cpu", RoundProfiler())):
+        rows = []
+
+        class Rec:
+            def on_round(self, engine, rnd, state, metrics):
+                rows.append({k: v.clone() for k, v in metrics.items()})
+
+        eng = Engine(cfg, device=d, profiler=prof, callbacks=[Rec()],
+                     log=lambda msg: None)
+        _sync(torch, d)
+        t0 = time.perf_counter()
+        res = eng.run()
+        _sync(torch, d)
+        wall = time.perf_counter() - t0
+        rows = [{k: v.cpu() for k, v in r.items()} for r in rows]
+        runs[where] = (rows, res, wall, eng)
+    return runs
+
+
+def profiler_check(torch, label, cfg, dev="cuda"):
+    """Phase 30a for one config: the profiled run bit for bit the
+    unprofiled one, its sections and call counts those of a profiled
+    CPU run, the sections' total within the run's wall time, and
+    ``phase_costs`` keyed by the program's phases."""
+    from repro_torch.api.registry import get_program
+    from repro_torch.utils.profiling import phase_costs, phase_names
+    runs = profiled_runs(torch, cfg, dev)
+    (plain, res0, _, _), (prof, res1, wall, eng) = runs["plain"], \
+        runs["profiled"]
+    same = (len(plain) == len(prof) and all(
+        a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+        for a, b in zip(plain, prof))
+        and strip_elapsed(res0["history"]) == strip_elapsed(res1["history"]))
+    profile, cpu = res1["profile"], runs["cpu"][1]["profile"]
+    calls = {k: v["calls"] for k, v in profile.items()}
+    want = {k: v["calls"] for k, v in cpu.items()}
+    total = sum(v["total_s"] for v in profile.values())
+    costs = phase_costs(eng)
+    names = phase_names(get_program(cfg.algo))
+    print(f"profiler {label}: metrics of {len(prof)} rounds bit for bit the "
+          f"unprofiled run's: {same}; sections "
+          + ", ".join(f"{k} {v['calls']}x {v['mean_ms']:.3f}ms"
+                      for k, v in profile.items())
+          + f" (CPU calls {want}); sections {total:.4f}s of {wall:.4f}s wall")
+    print(f"profiler {label}: phase_costs "
+          + ", ".join(f"{k} {v['cum_ms']:.3f}/{v['delta_ms']:+.3f}ms"
+                      for k, v in costs.items()))
+    if not same:
+        raise AssertionError(f"profiler {label}: the profiled run's metrics "
+                             "differ from the unprofiled run's")
+    if calls != want:
+        raise AssertionError(f"profiler {label}: sections {calls}, the CPU "
+                             f"run's {want}")
+    if total > wall:
+        raise AssertionError(f"profiler {label}: sections {total}s exceed "
+                             f"the wall {wall}s")
+    if list(costs) != names:
+        raise AssertionError(f"profiler {label}: phase_costs keys "
+                             f"{list(costs)}, the program's {names}")
+    return {"profile": profile, "cpu_calls": want, "wall_s": wall,
+            "phase_costs": costs, "bit_for_bit": same}
+
+
+def _cost_diff(a, b) -> dict:
+    """The rows of two ``StepCost.summary()``'s by_op and by_kernel that
+    differ."""
+    out = {}
+    for part in ("by_op", "by_kernel"):
+        for k in sorted(set(a[part]) | set(b[part])):
+            if a[part].get(k) != b[part].get(k):
+                out[f"{part}/{k}"] = (a[part].get(k), b[part].get(k))
+    return out
+
+
+def counted_round(torch, label, cfg, rounds=3):
+    """Phase 30b for one transformer round (phase 7's protocol): the dry
+    run's record of the step on ``meta`` against the card: state bytes
+    exactly, the peak estimate within 25% of the card's peak, ``count``
+    on the card equal to ``count`` on meta in FLOPs, bytes and kernel
+    calls, the measured round at 0.95 or more of the roofline's time,
+    and the round's MFU."""
+    import gc
+    from repro_torch.configs import InputShape
+    from repro_torch.core.cyclesl import CycleConfig
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import dry_run, state_bytes
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.utils.cost import count
+    shape = InputShape(label, SEQ, COHORT * BATCH, "train")
+    cycle = CycleConfig(server_epochs=1, server_batch=BATCH)
+    t0 = time.perf_counter()
+    rec = dry_run(cfg, shape, None, cohort=COHORT, cycle=cycle)
+    meta_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    bundle = build_train_step(cfg, shape, cycle, cohort=COHORT, device="cuda")
+    server, clients = bundle.init_state(0)
+    card_state = state_bytes((server, clients), "train")
+    batches = [bundle.make_batch(r) for r in range(rounds + 1)]
+    server, clients, _ = bundle.fn(server, clients, *batches[0], 0)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for r in range(1, rounds + 1):
+        t0 = time.perf_counter()
+        server, clients, m = bundle.fn(server, clients, *batches[r], r)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    metrics = {k: float(v) for k, v in m.items()}
+    card = count(bundle.fn, server, clients, *batches[0], 0)
+    torch.cuda.synchronize()
+    del server, clients, batches, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card.summary()
+    meta = rec["cost"]
+    round_s = sorted(times)[len(times) // 2]
+    terms = roofline.terms(meta)
+    roof = max(terms.values())
+    mf = roofline.model_flops(cfg, shape)
+    mfu = roofline.mfu(mf, round_s)
+    peak_err = (rec["peak_bytes"] - peak) / peak
+    same = (card["flops"] == meta["flops"]
+            and card["traffic_bytes"] == meta["traffic_bytes"]
+            and {k: v["calls"] for k, v in card["by_kernel"].items()}
+            == {k: v["calls"] for k, v in meta["by_kernel"].items()})
+    print(f"{label}: dry run on meta {meta_s:.2f}s: state "
+          f"{rec['state_bytes']:,} B (card {card_state:,}), peak estimate "
+          f"{rec['peak_bytes'] / 1e9:.3f} GB against the card's "
+          f"{peak / 1e9:.3f} GB ({peak_err:+.2%}); count on meta and on the "
+          f"card equal: {same} (flops {meta['flops']:.6e}, bytes "
+          f"{meta['traffic_bytes']:.6e}, kernels "
+          f"{ {k: v['calls'] for k, v in meta['by_kernel'].items()} })")
+    print(f"{label}: rounds {[round(t, 4) for t in times]} s, median "
+          f"{round_s:.4f} s; roofline "
+          + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in terms.items())
+          + f" -> {roof * 1e3:.2f} ms ({max(terms, key=terms.get)}); "
+          f"measured/roofline {round_s / roof:.3f}; model_flops {mf:.4e}, "
+          f"mfu {mfu:.4f} (bf16 peak); metrics {metrics}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"{label}: non-finite metrics {metrics}")
+    if rec["state_bytes"] != card_state:
+        raise AssertionError(f"{label}: the dry run's state "
+                             f"{rec['state_bytes']} B, the card's "
+                             f"{card_state} B")
+    if abs(peak_err) > 0.25:
+        raise AssertionError(f"{label}: peak estimate off by {peak_err:.2%}")
+    if not same:
+        raise AssertionError(f"{label}: count on the card differs from "
+                             f"count on meta: {_cost_diff(card, meta)}")
+    if round_s / roof < 0.95:
+        raise AssertionError(f"{label}: the card beat the roofline "
+                             f"({round_s} s against {roof} s): the count "
+                             "is wrong")
+    return {"state_bytes": card_state, "peak_estimate": rec["peak_bytes"],
+            "peak_bytes": peak, "peak_err": peak_err, "meta_s": meta_s,
+            "round_s": times, "roofline_terms_s": terms, "roofline_s": roof,
+            "measured_over_roofline": round_s / roof, "model_flops": mf,
+            "mfu": mfu, "cost": {k: meta[k] for k in (
+                "flops", "traffic_bytes", "flops_by_dtype", "by_kernel")}}
+
+
+def tooling(torch, dev="cuda"):
+    """Phase 30: the profiler on the main path (cut 2, and cut 3 fused),
+    the olmoe and zamba2 rounds against their dry runs and the
+    roofline."""
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.configs import get_config
+    r = TOOLING_ROUNDS
+    out = {"profiler": {}, "rounds": {}}
+    for cut in (2, 3):
+        cfg = ExperimentConfig(rounds=r, eval_every=r, cut=cut,
+                               collect_timing=True, sync_every=2, **MAIN
+                               ).with_cycle(fused_gather_loss=cut == 3)
+        out["profiler"][f"cut{cut}"] = profiler_check(torch, f"cut{cut}",
+                                                      cfg, dev)
+    out["rounds"]["olmoe-1b-7b"] = counted_round(
+        torch, "olmoe counted round",
+        get_config("olmoe-1b-7b").with_(n_layers=OLMOE_DEPTH))
+    out["rounds"]["zamba2-1.2b"] = counted_round(
+        torch, "zamba2 counted round", get_config("zamba2-1.2b"))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=10,
@@ -6065,10 +6231,15 @@ def main(argv=None):
     with open(ep_out) as f:
         engine_paths_runs = json.load(f)
     t29 = time.perf_counter()
+
+    # 30. the tooling: the profiler on the main path, the olmoe and zamba2
+    # rounds against their dry runs on meta and the roofline
+    tooling_runs = tooling(torch)
+    t30 = time.perf_counter()
     phase_s.update({"18": t19 - t18, "19": t20 - t19, "20": t21 - t20,
                     "21-22": t22 - t21b, "23": t23 - t22, "24": t24 - t23,
                     "25": t25 - t24, "26": t26 - t25, "27": t27 - t26,
-                    "28": t28 - t27, "29": t29 - t28})
+                    "28": t28 - t27, "29": t29 - t28, "30": t30 - t29})
     print("phases took " + ", ".join(f"{k}: {v:.1f}s"
                                      for k, v in phase_s.items()))
 
@@ -6107,6 +6278,7 @@ def main(argv=None):
                        "ssm_model_axis": ssm_tp_runs,
                        "decode_mesh": decode_mesh_runs,
                        "engine_paths_mesh": engine_paths_runs,
+                       "tooling": tooling_runs,
                        "phase_s": phase_s}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))

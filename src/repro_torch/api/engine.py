@@ -86,6 +86,7 @@ from repro_torch.resilience import (HEALTH_EMA, HEALTH_NONFINITE,
 from repro_torch.scenario.profiles import build_profile_stream
 from repro_torch.sharding.specs import shard_aligned_capacity
 from repro_torch.utils.device import resolve_device  # noqa: F401
+from repro_torch.utils.profiling import NULL_SECTION
 from repro_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -185,6 +186,12 @@ class Engine:
     this rank's state; :meth:`whole_state` gathers it whole.  ``host`` is
     the host group's collectives a checkpointing run on more than one
     rank agrees over (None otherwise).
+
+    ``profiler`` (a ``utils.profiling.RoundProfiler``) times the run
+    loop's host sections, ``sample``, ``dispatch``, ``sync`` and
+    ``eval``, where the reference's Engine opens them, and ``run()``
+    returns its summary as ``result["profile"]``; the run is otherwise
+    the unprofiled one.
     """
 
     def __init__(self, cfg: ExperimentConfig, *, device=None,
@@ -194,8 +201,10 @@ class Engine:
                  callbacks: Sequence = (),
                  plan_fn: Optional[PlanFn] = None,
                  side_stream: bool = True,
+                 profiler=None,
                  log=print):
         cfg.validate()
+        self.profiler = profiler
         self.mesh = None
         if cfg.mesh_shape is not None:
             from repro_torch.launch.mesh import make_engine_mesh
@@ -791,6 +800,9 @@ class Engine:
         tracker = GradStabilityTracker()
         history = []
         t0 = time.time()
+        prof = self.profiler
+        sec = (prof.section if prof is not None
+               else (lambda name: NULL_SECTION))
         # timing windows: the host syncs every sync_k rounds and at the
         # last; the first round (first launches, cuBLAS/cuDNN set-up) is
         # synced out of the first window and not timed.  The guard reads
@@ -807,6 +819,7 @@ class Engine:
         ring_depth = self.ring_depth
         ring = StaleFeatureRing(ring_depth) if pipelined else None
         max_lag, cur_lag = 0, 0
+        nxt_inputs = None                # the sequential double buffer
         if pipelined:
             for i in range(min(ring_depth, cfg.rounds - start_round)):
                 p_inputs = self.sample_round(rng)
@@ -825,8 +838,9 @@ class Engine:
                 inputs, inj_inputs = entry.inputs, entry.inj_inputs
                 cur_lag = rnd - entry.src_round
                 max_lag = max(max_lag, cur_lag)
-                nxt = (self.sample_round(rng)
-                       if rnd + ring_depth < cfg.rounds else None)
+                with sec("sample"):
+                    nxt = (self.sample_round(rng)
+                           if rnd + ring_depth < cfg.rounds else None)
                 nxt_inj = (self._inject_nan(nxt, rnd + ring_depth, 0)
                            if nxt is not None else None)
                 t_round = time.perf_counter()
@@ -840,9 +854,11 @@ class Engine:
                     ring.push(rnd + ring_depth, rnd, stage, nxt, nxt_inj,
                               ready)
                 if self.recovery is None:
-                    state, metrics = self._tail(
-                        state, inj_inputs, entry.stage, self.round_key(rnd),
-                        lag=cur_lag, ready=entry.ready)
+                    with sec("dispatch"):
+                        state, metrics = self._tail(
+                            state, inj_inputs, entry.stage,
+                            self.round_key(rnd), lag=cur_lag,
+                            ready=entry.ready)
                 else:
                     state, metrics, attempts, healthy = self._recover_round(
                         state, inputs, inj_inputs, rnd, stage=entry.stage,
@@ -860,12 +876,26 @@ class Engine:
                     ring.push(rnd + 1, rnd + 1, self._extract(state, nxt_inj),
                               nxt, nxt_inj)
             else:
-                inputs = self.sample_round(rng)
+                with sec("sample"):
+                    # double buffer: the round before drew this round's
+                    # cohort and copied it to the device while its own
+                    # work was in flight
+                    inputs = (nxt_inputs if nxt_inputs is not None
+                              else self.sample_round(rng))
+                    nxt_inputs = None
                 t_round = time.perf_counter()
                 if self.recovery is None:
-                    state, metrics = self._round_call(state, inputs,
-                                                      self.round_key(rnd))
+                    with sec("dispatch"):
+                        state, metrics = self._round_call(
+                            state, inputs, self.round_key(rnd))
+                    if rnd + 1 < cfg.rounds:
+                        # the next cohort behind the queued round (the
+                        # draws are the same, in the same order)
+                        with sec("sample"):
+                            nxt_inputs = self.sample_round(rng)
                 else:
+                    # recovery may quarantine clients mid-round, so the
+                    # faulted path draws strictly round by round
                     inj = self._inject_nan(inputs, rnd, 0)
                     state, metrics, _, healthy = self._recover_round(
                         state, inputs, inj, rnd)
@@ -883,27 +913,32 @@ class Engine:
                 self._telemetry[ti]["realized_lag"] = cur_lag
             if cfg.collect_timing:
                 if sync_k == 1:
-                    self.sync(metrics)
+                    with sec("sync"):
+                        self.sync(metrics)
                     if rnd > start_round:
                         round_time += time.perf_counter() - t_round
                         timed_rounds += 1
                 elif rnd == start_round:
-                    self.sync(metrics)
+                    with sec("sync"):
+                        self.sync(metrics)
                     t_mark, r_mark = time.perf_counter(), rnd + 1
                 elif (rnd == cfg.rounds - 1
                       or (rnd + 1 - start_round) % sync_k == 0):
                     # one sync closes the window; its time is averaged
                     # over the window's rounds
-                    self.sync(metrics)
+                    with sec("sync"):
+                        self.sync(metrics)
                     round_time += time.perf_counter() - t_mark
                     timed_rounds += rnd + 1 - r_mark
                     t_mark, r_mark = time.perf_counter(), rnd + 1
             tracker.update(metrics)
             self._emit("on_round", rnd, state, metrics)
             if (rnd + 1) % cfg.eval_every == 0 or rnd == cfg.rounds - 1:
-                loss, mets = evaluate(self.task,
-                                      self.whole_state(state, model=False),
-                                      self.fed)
+                with sec("eval"):
+                    loss, mets = evaluate(self.task,
+                                          self.whole_state(state,
+                                                           model=False),
+                                          self.fed)
                 history.append({"round": rnd + 1, "test_loss": loss, **mets,
                                 "train_loss": float(metrics["server_loss"]),
                                 "elapsed_s": round(time.time() - t0, 1)})
@@ -949,4 +984,6 @@ class Engine:
                                   if ring is not None else []),
             }
             result["pipeline"] = self.pipeline_stats
+        if prof is not None:
+            result["profile"] = prof.summary()
         return result

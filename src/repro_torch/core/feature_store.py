@@ -215,7 +215,7 @@ class _ShardLocalFusedLoss(torch.autograd.Function):
         logits = f @ w.float()
         y = torch.index_select(labels, 0, local).long()
         p = torch.softmax(logits, dim=-1)
-        onehot = torch.nn.functional.one_hot(y, w.shape[1]).float()
+        onehot = ops.one_hot(y, w.shape[1])
         dlogits = (p - onehot) * (g / local.shape[0])
         # rows other ranks own contribute exact zeros to dw
         dlogits = torch.where(ok[:, None], dlogits, 0.0)

@@ -4,6 +4,7 @@ Layout:
   csrc/<name>.cu — CUDA C++ for sm_90a with a plain C entry point
   <name>.py      — the ctypes-bound wrapper and its launch counter
   _build.py      — builds csrc/ with nvcc at first use
+  _count.py      — the plain versions' devices and the work count's hook
   ops.py         — public entry points (device-dispatched)
   ref.py         — plain PyTorch versions the tests hold the kernels to
 

@@ -2,7 +2,8 @@
 
 Port of ``repro/kernels/feature_resample.py``.  On a CUDA tensor the
 wrapper launches the hand-written kernel in ``csrc/feature_resample.cu``;
-on a CPU tensor it runs the plain version, ``ref.feature_resample_ref``.
+on a CPU or ``meta`` tensor it runs the plain version,
+``ref.feature_resample_ref``.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from ctypes import c_int64, c_void_p
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels._count import (PLAIN_DEVICES, counted,
+                                        kernel_layout)
 
 launches = 0          # kernel launches since the last reset
 
@@ -18,6 +21,7 @@ _ARGTYPES = [c_void_p, c_void_p, c_void_p, c_int64, c_int64, c_int64,
              c_void_p]
 
 
+@counted("feature_resample")
 def feature_resample(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[i] = src[idx[i]].  src [T, D] of any dtype, idx [M] int32 ->
     [M, D].  An index outside [0, T) gives a zero row on the card."""
@@ -28,8 +32,8 @@ def feature_resample(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"idx must be int32, got {idx.dtype}")
     if src.device != idx.device:
         raise ValueError(f"src on {src.device} but idx on {idx.device}")
-    if src.device.type == "cpu":
-        return ref.feature_resample_ref(src, idx)
+    if src.device.type in PLAIN_DEVICES:
+        return kernel_layout(ref.feature_resample_ref(src, idx))
     if src.device.type != "cuda":
         raise ValueError(f"no feature_resample kernel for {src.device}")
     if not (src.is_contiguous() and idx.is_contiguous()):

@@ -5,7 +5,7 @@ wrapper launches one of the two hand-written kernels in
 ``csrc/flash_attention.cu``, as ``design`` routes the call: bf16 at
 head_dim 64 and 128 on the tensor cores (``wgmma``), float32, and bf16
 at 32, 96 and 256, on the CUDA cores (``simt``, float32 products).  On CPU
-tensors it runs the plain version, ``ref.flash_attention_ref``.
+or ``meta`` tensors it runs the plain version, ``ref.flash_attention_ref``.
 ``ops.flash_attention`` is the differentiable entry point.
 """
 from __future__ import annotations
@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels._count import (PLAIN_DEVICES, counted,
+                                        kernel_layout)
 
 launches = 0          # kernel launches since the last reset
 design_launches = {"wgmma": 0, "simt": 0}    # the same, by design
@@ -57,6 +59,7 @@ def check_wgmma_layout(name: str, t: torch.Tensor) -> None:
     _build.check_16b_rows("flash_attention", name, t, "[B, S, H]")
 
 
+@counted("flash_attention")
 def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
@@ -84,9 +87,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise ValueError(f"window must be >= 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be > 0, got {softcap}")
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                       softcap=softcap)
+    if q.device.type in PLAIN_DEVICES:
+        return kernel_layout(ref.flash_attention_ref(
+            q, k, v, causal=causal, window=window, softcap=softcap))
     if q.device.type != "cuda":
         raise ValueError(f"no flash_attention kernel for {q.device}")
     kind = design(q.dtype, D)

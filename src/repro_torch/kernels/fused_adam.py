@@ -2,7 +2,7 @@
 
 Port of ``repro/kernels/fused_adam.py``.  On CUDA tensors the wrapper
 launches the hand-written kernel in ``csrc/fused_adam.cu``; on CPU
-tensors it runs the plain version, ``ref.fused_adam_ref``.
+or ``meta`` tensors it runs the plain version, ``ref.fused_adam_ref``.
 """
 from __future__ import annotations
 
@@ -11,6 +11,8 @@ from ctypes import c_double, c_int, c_int64, c_void_p
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels._count import (PLAIN_DEVICES, counted,
+                                        kernel_layout)
 
 launches = 0          # kernel launches since the last reset
 
@@ -19,6 +21,7 @@ _ARGTYPES = [c_void_p] * 8 + [c_int64, c_int64, c_int] + [c_double] * 5 + [
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+@counted("fused_adam")
 def fused_adam(p, g, m, v, step, *, lr: float, b1: float = 0.9,
                b2: float = 0.999, eps: float = 1e-8,
                weight_decay: float = 0.0):
@@ -43,8 +46,8 @@ def fused_adam(p, g, m, v, step, *, lr: float, b1: float = 0.9,
     if len({t.device for t in (p, g, m, v, step)}) != 1:
         raise ValueError("p, g, m, v and step must lie on one device")
     kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
-    if p.device.type == "cpu":
-        return ref.fused_adam_ref(p, g, m, v, step, **kw)
+    if p.device.type in PLAIN_DEVICES:
+        return kernel_layout(ref.fused_adam_ref(p, g, m, v, step, **kw))
     if p.device.type != "cuda":
         raise ValueError(f"no fused_adam kernel for {p.device}")
     if not all(t.is_contiguous() for t in (p, g, m, v, step)):

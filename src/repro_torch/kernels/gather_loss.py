@@ -2,7 +2,8 @@
 
 Port of ``repro/kernels/gather_loss.py``.  On CUDA tensors the wrapper
 launches the hand-written kernel in ``csrc/gather_loss.cu``; on CPU
-tensors it runs the plain version, ``ref.gather_loss_microbatch_ref``.
+or ``meta`` tensors it runs the plain version,
+``ref.gather_loss_microbatch_ref``.
 """
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels._count import (PLAIN_DEVICES, counted,
+                                        kernel_layout)
 
 launches = 0          # kernel launches since the last reset
 
@@ -89,6 +92,7 @@ def card_shape(src: torch.Tensor, w: torch.Tensor, M: int) -> dict:
     return launch_shape(M, src.shape[1], K, _SMS[card], max_clusters)
 
 
+@counted("gather_loss")
 def gather_loss_microbatch(src, labels, idx, w,
                            b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out[i] = xent(src[idx[i]] @ w (+ b), labels[idx[i]])``.
@@ -114,8 +118,9 @@ def gather_loss_microbatch(src, labels, idx, w,
     ts = [t for t in (src, labels, idx, w, b) if t is not None]
     if len({t.device for t in ts}) != 1:
         raise ValueError("src, labels, idx, w and b must lie on one device")
-    if src.device.type == "cpu":
-        return ref.gather_loss_microbatch_ref(src, labels, idx, w, b)
+    if src.device.type in PLAIN_DEVICES:
+        return kernel_layout(ref.gather_loss_microbatch_ref(src, labels,
+                                                            idx, w, b))
     if src.device.type != "cuda":
         raise ValueError(f"no gather_loss kernel for {src.device}")
     if not all(t.is_contiguous() for t in ts):

@@ -1,8 +1,8 @@
 """Public entry points over the kernels, mirroring ``repro/kernels/ops.py``.
 
 Every function here takes its kernel on CUDA tensors and the kernel's
-plain version on CPU tensors; the choice follows the tensors' device
-and nothing else.
+plain version on CPU and ``meta`` tensors; the choice follows the
+tensors' device and nothing else.
 """
 from __future__ import annotations
 
@@ -26,6 +26,15 @@ def resample_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     flat = src.reshape(src.shape[0], -1)
     out = _fr.feature_resample(flat, idx)
     return out.reshape((idx.shape[0],) + tuple(src.shape[1:]))
+
+
+def one_hot(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """float32 one-hot rows of ``ids`` over ``n`` classes, by one
+    comparison against ``arange(n)``: the same ops on every device
+    (``F.one_hot`` reads its input back to check it on the CPU alone and
+    takes another path on ``meta``), so a work count sees one step on
+    each."""
+    return (ids.unsqueeze(-1) == torch.arange(n, device=ids.device)).float()
 
 
 def gather_loss_microbatch(src, labels, idx, w, b=None) -> torch.Tensor:
@@ -55,7 +64,7 @@ class _FusedGatherLossMean(torch.autograd.Function):
         logits = f @ w.float()
         y = torch.index_select(labels, 0, idx).long()
         p = torch.softmax(logits, dim=-1)
-        onehot = torch.nn.functional.one_hot(y, w.shape[1]).float()
+        onehot = one_hot(y, w.shape[1])
         dlogits = (p - onehot) * (g / idx.shape[0])
         return None, None, None, (f.T @ dlogits).to(w.dtype)
 

@@ -4,8 +4,8 @@ Port of ``repro/kernels/ssd_scan.py``.  On CUDA tensors the wrapper
 launches one of the two hand-written kernels in ``csrc/ssd_scan.cu``, as
 ``design`` routes the call: bf16 at state size 64 or 128 and head dim 64
 on the tensor cores (``wgmma``, split-bf16 products), everything else on
-the CUDA cores (``simt``, float32 products).  On CPU tensors it runs the
-plain version, ``ref.ssd_chunked``.  ``ops.ssd_scan`` is the
+the CUDA cores (``simt``, float32 products).  On CPU or ``meta``
+tensors it runs the plain version, ``ref.ssd_chunked``.  ``ops.ssd_scan`` is the
 differentiable entry point.
 """
 from __future__ import annotations
@@ -15,6 +15,8 @@ from ctypes import POINTER, byref, c_int, c_int64, c_void_p
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels._count import (PLAIN_DEVICES, counted,
+                                        kernel_layout)
 
 launches = 0          # kernel launches since the last reset
 design_launches = {"wgmma": 0, "simt": 0}    # the same, by design
@@ -69,6 +71,7 @@ def segments(device: torch.device, Bsz: int, L: int, H: int, N: int,
     return _segments[key]
 
 
+@counted("ssd_scan")
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
     """The SSD scan of ``ref.ssd_chunked``: x [B, L, H, P], dt [B, L, H],
     A [H], B/C [B, L, G, N] with head h reading group h // (H / G) ->
@@ -82,8 +85,8 @@ def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int):
         raise ValueError(f"L={L} not divisible by chunk={chunk}")
     if len({x.device, dt.device, A.device, Bm.device, Cm.device}) != 1:
         raise ValueError("x, dt, A, B and C must lie on one device")
-    if x.device.type == "cpu":
-        return ref.ssd_chunked(x, dt, A, Bm, Cm, chunk)
+    if x.device.type in PLAIN_DEVICES:
+        return kernel_layout(ref.ssd_chunked(x, dt, A, Bm, Cm, chunk))
     if x.device.type != "cuda":
         raise ValueError(f"no ssd_scan kernel for {x.device}")
     if x.dtype not in _DTYPES or not (x.dtype == Bm.dtype == Cm.dtype):

@@ -2,7 +2,7 @@
 
 Port of ``repro/kernels/topk_gating.py``.  On CUDA tensors the wrapper
 launches the hand-written kernel in ``csrc/topk_gating.cu``; on CPU
-tensors it runs the plain version, ``ref.topk_gating_ref``.
+or ``meta`` tensors it runs the plain version, ``ref.topk_gating_ref``.
 ``ops.topk_gating`` is the differentiable entry point.
 """
 from __future__ import annotations
@@ -12,6 +12,8 @@ from ctypes import c_int, c_int64, c_void_p
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels._count import (PLAIN_DEVICES, counted,
+                                        kernel_layout)
 
 launches = 0          # kernel launches since the last reset
 
@@ -34,6 +36,7 @@ def lanes_per_row(E: int) -> int:
     return lanes
 
 
+@counted("topk_gating")
 def topk_gating(logits: torch.Tensor, k: int):
     """logits [T, E] -> (weights [T, k] float32, ids [T, k] int32): the
     k largest softmax probabilities of each row (a tie goes to the lower
@@ -43,8 +46,8 @@ def topk_gating(logits: torch.Tensor, k: int):
     T, E = logits.shape
     if not 1 <= k <= E:
         raise ValueError(f"k must lie in [1, E={E}], got {k}")
-    if logits.device.type == "cpu":
-        return ref.topk_gating_ref(logits, k)
+    if logits.device.type in PLAIN_DEVICES:
+        return kernel_layout(ref.topk_gating_ref(logits, k))
     if logits.device.type != "cuda":
         raise ValueError(f"no topk_gating kernel for {logits.device}")
     if logits.dtype not in _DTYPES:

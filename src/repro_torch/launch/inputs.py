@@ -110,10 +110,22 @@ def make_prefill_batch(cfg: ArchConfig, shape: InputShape, seed: int):
     return _draw(np.random.default_rng(seed), cfg, prefill_specs(cfg, shape))
 
 
+def meta_batch(specs):
+    """Empty ``meta`` tensors of a spec tree (a Spec, a dict or a tuple
+    of them): the shapes a dry run traces, with no draw."""
+    if isinstance(specs, Spec):
+        return torch.empty(specs.shape, dtype=specs.dtype, device="meta")
+    if isinstance(specs, dict):
+        return {k: meta_batch(v) for k, v in specs.items()}
+    return tuple(meta_batch(v) for v in specs)
+
+
 def to_device(batch, cfg: ArchConfig, device):
     """A numpy batch tree -> tensors on ``device``: token ids int32,
     patch embeddings and frames in the model's dtype."""
     def one(a):
+        if isinstance(a, torch.Tensor):        # a meta batch: as it is
+            return a
         t = torch.from_numpy(np.ascontiguousarray(a))
         if t.is_floating_point():
             t = t.to(cfg.torch_dtype)

@@ -15,7 +15,10 @@ The process group comes from ``torchrun`` (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``), or from a caller that
 spawns the ranks and initializes the group itself.  A world of 1 with
 no group starts its own over a ``file://`` store.  The backend follows
-the device: NCCL for ``cuda``, gloo for ``cpu``.
+the device: NCCL for ``cuda``, gloo for ``cpu``, and for ``meta`` (which
+holds no data: ``launch.dryrun`` traces a rank's step on it) torch's
+fake group, which the caller starts and whose collectives move
+nothing.
 
 Production meshes:
 
@@ -44,7 +47,7 @@ from repro_torch.sharding.collectives import Collectives
 from repro_torch.sharding.specs import BATCH_AXES, batch_axes
 from repro_torch.utils.device import resolve_device
 
-BACKEND = {"cuda": "nccl", "cpu": "gloo"}
+BACKEND = {"cuda": "nccl", "cpu": "gloo", "meta": "fake"}
 
 
 @dataclass
@@ -130,6 +133,9 @@ def make_engine_mesh(shape, axes, device=None) -> Mesh:
     backend = BACKEND.get(dev.type)
     if backend is None:
         raise ValueError(f"no mesh backend for device {dev}")
+    if dev.type == "meta" and not dist.is_initialized():
+        raise RuntimeError("a meta mesh runs over a fake process group the "
+                           "caller starts (see launch.dryrun)")
     owns, store_dir = _start_group(backend, n)
     if dist.get_backend() != backend:
         raise RuntimeError(f"a {dev.type} mesh runs over {backend}, but the "

@@ -150,6 +150,14 @@ class _TrainSubstrate:
     split: Optional[SlotSplit] = None
 
 
+def _generator(dev: torch.device, seed: int):
+    """The generator a step draws its state from: seeded on ``dev``, or on
+    ``meta`` (which draws nothing) the shapes-only stand-in."""
+    if dev.type == "meta":
+        return SHAPES
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
 def _mesh_device(mesh, device) -> torch.device:
     return resolve_device(device) if mesh is None else mesh.device
 
@@ -169,8 +177,7 @@ def _train_substrate(cfg: ArchConfig, shape: InputShape, cycle: CycleConfig,
     lo, hi = (0, cohort) if split is None else (split.lo, split.hi)
 
     def init_state(seed: int):
-        gen_s = torch.Generator(device=dev).manual_seed(seed)
-        gen_c = torch.Generator(device=dev).manual_seed(seed + 1)
+        gen_s, gen_c = _generator(dev, seed), _generator(dev, seed + 1)
         server = init_entity(task.init_server(gen_s), opt_s)
         if task.fsdp is not None:
             # FSDP: the server keeps its blocks over data (the cohort's
@@ -181,7 +188,11 @@ def _train_substrate(cfg: ArchConfig, shape: InputShape, cycle: CycleConfig,
         return server, clients
 
     def make_batch(seed: int):
-        xs, ys = inputs_lib.make_train_batch(cfg, shape, cohort, seed)
+        if dev.type == "meta":           # shapes alone: nothing to draw
+            xs, ys = inputs_lib.meta_batch(
+                inputs_lib.train_batch_specs(cfg, shape, cohort))
+        else:
+            xs, ys = inputs_lib.make_train_batch(cfg, shape, cohort, seed)
         if split is not None:
             xs = {k: v[lo:hi] for k, v in xs.items()}
             ys = (ys[lo:hi] if not isinstance(ys, dict)
@@ -274,13 +285,15 @@ def build_prefill_step(cfg: ArchConfig, shape: InputShape, *, device=None,
         tp, fsdp, plan = step_placement(mesh, cfg, model.init(SHAPES, cfg))
 
     def init_state(seed: int):
-        params = model.init(torch.Generator(device=dev).manual_seed(seed),
-                            cfg)
+        params = model.init(_generator(dev, seed), cfg)
         if plan is not None:
             params = shard_params(params, plan)
         return (params,)
 
     def make_batch(seed: int):
+        if dev.type == "meta":
+            return (inputs_lib.meta_batch(inputs_lib.prefill_specs(cfg,
+                                                                   shape)),)
         return (inputs_lib.to_device(
             inputs_lib.make_prefill_batch(cfg, shape, seed), cfg, dev),)
 
@@ -334,8 +347,7 @@ def build_decode_step(cfg: ArchConfig, shape: InputShape,
                                                             plan)
 
     def init_state(seed: int):
-        params = model.init(torch.Generator(device=dev).manual_seed(seed),
-                            cfg)
+        params = model.init(_generator(dev, seed), cfg)
         if plan is not None:
             params = shard_params(params, plan)
         empty = (EncDec.decode_cache if audio
@@ -345,10 +357,15 @@ def build_decode_step(cfg: ArchConfig, shape: InputShape,
                                    mesh, cfg, dev)
         if not audio:
             return params, state
-        frames = np.random.default_rng(seed).standard_normal(
-            (B, inputs_lib.WHISPER_FRAMES, cfg.enc_d_model))[lo:hi]
-        frames = torch.from_numpy(frames.astype(np.float32)).to(
-            device=dev, dtype=cfg.torch_dtype)
+        fshape = (B, inputs_lib.WHISPER_FRAMES, cfg.enc_d_model)
+        if dev.type == "meta":
+            frames = torch.empty(fshape, dtype=cfg.torch_dtype,
+                                 device=dev)[lo:hi]
+        else:
+            frames = np.random.default_rng(seed).standard_normal(
+                fshape)[lo:hi]
+            frames = torch.from_numpy(frames.astype(np.float32)).to(
+                device=dev, dtype=cfg.torch_dtype)
         with torch.no_grad():
             enc_out = EncDec.encode(whole_over_data(params)["encoder"], cfg,
                                     frames, tp)

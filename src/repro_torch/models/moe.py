@@ -124,7 +124,7 @@ def _dispatch_groups(params, mcfg: MoEConfig, xg, tp=None):
     # ---- router losses (per group; averaged by the caller) ----
     probs, logits = probs.reshape(G, S, E), logits.reshape(G, S, E)
     me = torch.mean(probs, dim=1)                                 # [G, E]
-    one_hot = F.one_hot(top_e.long(), E).float().reshape(G, S, k, E)
+    one_hot = ops.one_hot(top_e.long(), E).reshape(G, S, k, E)
     ce = torch.mean(torch.sum(one_hot, dim=2), dim=1) / k         # [G, E]
     aux = E * torch.sum(me * ce, dim=-1)
     z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)), dim=1)

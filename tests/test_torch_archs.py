@@ -35,6 +35,7 @@ from repro_torch.launch.steps import build_prefill_step, build_train_step
 from repro_torch.models.transformer import Transformer
 from repro_torch.utils.tree import tree_leaves
 from repro_torch.utils.weights import entity_from_reference, to_torch
+from torch_threads import one_thread  # noqa: F401
 
 ARCHS = ["glm4-9b", "phi3-mini-3.8b", "moonshot-v1-16b-a3b", "grok-1-314b",
          "pixtral-12b"]

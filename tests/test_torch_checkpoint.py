@@ -31,6 +31,7 @@ from torch_parity import Recorder, assert_rows_close, reference_plan_fn
 from torch_runtime_parity import (assert_history_close, config, port_setup,
                                   reference_setup, run_port, states_equal,
                                   strip)
+from torch_threads import one_thread  # noqa: F401
 
 
 def _tree(v=0.0):

@@ -36,6 +36,7 @@ from repro_torch.models.cnn import femnist_cnn
 from repro_torch.optim import adam
 from repro_torch.utils.tree import tree_leaves
 from repro_torch.utils.weights import to_torch
+from torch_threads import one_thread  # noqa: F401
 
 LR = 1e-3
 WIDTH, C, B = 4, 4, 8

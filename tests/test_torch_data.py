@@ -8,6 +8,7 @@ from repro.data.synthetic import SyntheticImageTask as JImageTask
 from repro_torch.data import federated as tfed
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.synthetic import SyntheticImageTask
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("kw", [dict(n_clients=10, seed=0),

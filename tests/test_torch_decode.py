@@ -32,6 +32,7 @@ from repro_torch.launch.serve import serve_decoder_only
 from repro_torch.models.transformer import Transformer
 from repro_torch.utils.tree import tree_leaves_with_path, tree_map
 from repro_torch.utils.weights import to_numpy, to_torch
+from torch_threads import one_thread  # noqa: F401
 
 ARCHS = ["gemma2-2b", "olmoe-1b-7b", "phi3-mini-3.8b", "mamba2-2.7b",
          "zamba2-1.2b"]

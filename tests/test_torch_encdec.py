@@ -46,6 +46,7 @@ from repro_torch.models import layers as tl
 from repro_torch.models.encdec import EncDec
 from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
 from repro_torch.utils.weights import entity_from_reference, to_torch
+from torch_threads import one_thread  # noqa: F401
 
 ARCH = "whisper-base"
 RNG = np.random.default_rng(22)

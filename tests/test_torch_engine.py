@@ -27,6 +27,7 @@ from repro.core.feature_store import masked_resample_plan as j_masked_plan
 from repro.core.feature_store import resample_plan as j_plan
 from repro_torch.api import Engine, ExperimentConfig
 from repro_torch.utils.weights import train_state_from_reference
+from torch_threads import one_thread  # noqa: F401
 
 SMALL = dict(n_clients=10, attendance=0.3, batch=8, width=4)
 METRICS = ("server_loss", "feat_grad_norm_mean", "feat_grad_norm_std",

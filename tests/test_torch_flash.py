@@ -17,6 +17,7 @@ import torch
 from repro_torch.configs import get_config, list_archs
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("dtype,head_dim,want", [

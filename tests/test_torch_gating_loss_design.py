@@ -33,6 +33,7 @@ import torch
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels import gather_loss as gl
 from repro_torch.kernels import topk_gating as tk
+from torch_threads import one_thread  # noqa: F401
 
 RNG = np.random.default_rng(17)
 LANE = 8                 # experts a lane owns (csrc/topk_gating.cu)

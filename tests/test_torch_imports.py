@@ -13,6 +13,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -69,7 +70,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                 "repro_torch.sharding", "repro_torch.sharding.specs",
                 "repro_torch.sharding.collectives",
                 "repro_torch.sharding.parallel",
-                "repro_torch.launch.mesh", "repro_torch.launch.meshcheck"):
+                "repro_torch.launch.mesh", "repro_torch.launch.meshcheck",
+                "repro_torch.utils.profiling", "repro_torch.utils.cost",
+                "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+                "repro_torch.kernels._count"):
         assert mod in out["modules"]
 
 

@@ -26,6 +26,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.fused_adam import fused_adam
 from repro_torch.kernels.gather_loss import gather_loss_microbatch
 from repro_torch.kernels.topk_gating import topk_gating
+from torch_threads import one_thread  # noqa: F401
 
 RNG = np.random.default_rng(7)
 
@@ -276,21 +277,30 @@ def test_clip_by_global_norm_matches_reference():
 
 # ------------------------------------------------- wrapper contracts
 def test_wrappers_take_plain_version_only_on_cpu():
-    """A tensor on neither the CPU nor a card is refused, never computed
-    some other way; so is a device mismatch."""
+    """The plain version serves the CPU and ``meta`` (shapes alone, which
+    a dry run asks for) and no other device: a CUDA tensor launches the
+    kernel or raises.  On meta each wrapper gives its outputs' shapes and
+    dtypes; a device mismatch is refused."""
+    from repro_torch.kernels._count import PLAIN_DEVICES
+    assert PLAIN_DEVICES == ("cpu", "meta")
     meta = torch.empty((8, 4), device="meta")
     idx = torch.zeros((2,), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError):
-        feature_resample(meta, idx)
+    out = feature_resample(meta, idx)
+    assert out.is_meta and out.shape == (2, 4)
     with pytest.raises(ValueError):
         feature_resample(torch.zeros(8, 4), idx)
     lab = torch.zeros((8,), dtype=torch.int64, device="meta")
     w = torch.empty((4, 3), device="meta")
+    out = gather_loss_microbatch(meta, lab, idx, w)
+    assert out.is_meta and out.shape == (2,) and out.dtype == torch.float32
     with pytest.raises(ValueError):
-        gather_loss_microbatch(meta, lab, idx, w)
+        gather_loss_microbatch(torch.zeros(8, 4), lab, idx, w)
     s = torch.zeros((), dtype=torch.int32, device="meta")
+    outs = fused_adam(meta, meta, meta, meta, s, lr=1e-3)
+    assert all(o.is_meta and o.shape == (8, 4) for o in outs)
     with pytest.raises(ValueError):
-        fused_adam(meta, meta, meta, meta, s, lr=1e-3)
+        fused_adam(meta, meta, meta, meta, torch.zeros((), dtype=torch.int32),
+                   lr=1e-3)
 
 
 def test_wrappers_check_dtypes_and_shapes():
@@ -428,8 +438,10 @@ def test_flash_attention_wrapper_contract():
     with pytest.raises(ValueError):
         flash_attention(q, q, q, window=0)
     meta = torch.empty(1, 8, 4, 64, device="meta")
+    out = flash_attention(meta, meta, meta)      # the plain version's shapes
+    assert out.is_meta and out.shape == meta.shape
     with pytest.raises(ValueError):
-        flash_attention(meta, meta, meta)
+        flash_attention(meta, q, q)
 
 
 # ----------------------------------------------------------- topk gating
@@ -507,5 +519,5 @@ def test_topk_gating_wrapper_contract():
         topk_gating(torch.zeros(4, 8), 9)
     with pytest.raises(ValueError):
         topk_gating(torch.zeros(4, 8, 2), 2)
-    with pytest.raises(ValueError):
-        topk_gating(torch.empty(4, 8, device="meta"), 2)
+    w, ids = topk_gating(torch.empty(4, 8, device="meta"), 2)
+    assert w.is_meta and w.shape == ids.shape == (4, 2)

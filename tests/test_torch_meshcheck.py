@@ -11,6 +11,7 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

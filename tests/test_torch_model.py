@@ -20,6 +20,7 @@ from repro_torch.core.split import make_stage_task, xent_loss, xent_metrics
 from repro_torch.models.cnn import femnist_cnn
 from repro_torch.utils.tree import tree_leaves
 from repro_torch.utils.weights import to_numpy, to_torch
+from torch_threads import one_thread  # noqa: F401
 
 WIDTH = 4
 

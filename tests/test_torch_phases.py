@@ -32,6 +32,7 @@ from repro_torch.data import federated as tfed
 from repro_torch.optim import adam
 from repro_torch.utils.tree import tree_leaves, tree_map
 from repro_torch.utils.weights import to_numpy, train_state_from_reference
+from torch_threads import one_thread  # noqa: F401
 
 LR = 1e-3
 WIDTH, C, B, N = 4, 4, 8, 6

@@ -36,6 +36,7 @@ from repro_torch.utils.tree import tree_leaves
 from torch_parity import Recorder, check_program
 from torch_runtime_parity import (assert_pair_close, config, port_setup,
                                   run_pair, run_port, states_equal, strip)
+from torch_threads import one_thread  # noqa: F401
 
 QUIET = dict(log=lambda *a, **k: None)
 

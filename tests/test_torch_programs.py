@@ -14,6 +14,7 @@ from repro.api.registry import get_program as j_get_program
 from repro_torch.api import (PROGRAMS, algorithm_names, get_program,
                              register_program)
 from torch_parity import MODES, check_program
+from torch_threads import one_thread  # noqa: F401
 
 PARALLEL = ("psl", "sflv1", "sglr", "cyclepsl", "cyclesfl", "cyclesglr")
 

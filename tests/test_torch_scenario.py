@@ -28,6 +28,7 @@ from repro_torch.scenario.population import (PopulationFed, PopulationSpec,
                                              run_population)
 from torch_runtime_parity import (N, assert_pair_close, config, port_setup,
                                   run_pair, run_port, states_equal, strip)
+from torch_threads import one_thread  # noqa: F401
 
 CHURN = dict(dropout=0.3, straggler=1.0, staleness_bound=1, amplitude=0.6,
              period=8)

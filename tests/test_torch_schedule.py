@@ -23,6 +23,7 @@ from repro_torch.api import Engine, ExperimentConfig
 from repro_torch.optim import adam, schedule, sgd
 from repro_torch.utils.tree import tree_leaves
 from repro_torch.utils.weights import to_torch
+from torch_threads import one_thread  # noqa: F401
 
 SCHEDULES = {
     "constant": lambda m: m.constant(3e-4),

@@ -15,6 +15,7 @@ from repro_torch.api import PROGRAMS, TrainState
 from repro_torch.api.tasks import build_task
 from repro_torch.optim import adam
 from torch_parity import MODES, check_program
+from torch_threads import one_thread  # noqa: F401
 
 SEQUENTIAL = ("ssl", "sflv2", "fedavg", "cyclessl")
 

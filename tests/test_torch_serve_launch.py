@@ -30,6 +30,7 @@ from repro_torch.launch import serve as serve_mod
 from repro_torch.launch.steps import build_step
 from repro_torch.serve import ServeConfig, ServeRuntime
 from repro_torch.utils.weights import to_torch
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

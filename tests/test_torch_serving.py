@@ -37,6 +37,7 @@ from repro_torch.serve import (ServeConfig, ServeRuntime, STATUS_DONE,
                                make_prompts, run_closed_loop)
 from repro_torch.utils.tree import tree_leaves_with_path
 from repro_torch.utils.weights import to_torch
+from torch_threads import one_thread  # noqa: F401
 
 
 class FakeClock:

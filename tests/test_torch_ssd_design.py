@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.configs import get_config
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as ssd
+from torch_threads import one_thread  # noqa: F401
 
 QT = 64                 # the kernel's rows per tile
 REL = 1e-4              # chip_smoke.SSD_F32_REL

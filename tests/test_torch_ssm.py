@@ -38,6 +38,7 @@ from repro_torch.models.transformer import positions_for
 from repro_torch.utils.tree import (tree_leaves, tree_map, tree_slice,
                                     tree_unflatten_like)
 from repro_torch.utils.weights import to_torch
+from torch_threads import one_thread  # noqa: F401
 
 ARCHS = ["mamba2-2.7b", "zamba2-1.2b"]
 B, S = 2, 64                    # two SSD chunks of the smoke configs' 32
@@ -167,8 +168,8 @@ def test_ssd_scan_wrapper_contract():
     with pytest.raises(ValueError):
         ssd_scan(x, dt[:, :32], A, Bm, Bm, chunk=32)
     meta = lambda t: torch.empty(t.shape, device="meta")
-    with pytest.raises(ValueError):
-        ssd_scan(*map(meta, (x, dt, A, Bm, Bm)), chunk=32)
+    y, h = ssd_scan(*map(meta, (x, dt, A, Bm, Bm)), chunk=32)
+    assert y.is_meta and y.shape == x.shape and h.shape == (1, 4, 8, 8)
     with pytest.raises(ValueError):
         ssd_scan(meta(x), dt, A, Bm, Bm, chunk=32)
 

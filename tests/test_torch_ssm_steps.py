@@ -40,6 +40,7 @@ from repro_torch.launch import inputs as t_inputs
 from repro_torch.launch.steps import build_prefill_step, build_train_step
 from repro_torch.utils.tree import tree_leaves
 from repro_torch.utils.weights import entity_from_reference, to_torch
+from torch_threads import one_thread  # noqa: F401
 
 ARCHS = ["mamba2-2.7b", "zamba2-1.2b"]
 LR = 3e-4

@@ -34,6 +34,7 @@ from repro_torch.models.moe import moe_apply
 from repro_torch.models.transformer import Transformer, positions_for
 from repro_torch.utils.tree import tree_leaves, tree_map
 from repro_torch.utils.weights import to_torch
+from torch_threads import one_thread  # noqa: F401
 
 ARCHS = ["olmoe-1b-7b", "gemma2-2b"]
 PORTED = ["moonshot-v1-16b-a3b", "grok-1-314b", "pixtral-12b", "gemma2-2b",

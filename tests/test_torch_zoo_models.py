@@ -33,6 +33,7 @@ from repro_torch.models import cnn, lstm
 from repro_torch.utils.tree import tree_leaves, tree_unflatten_like
 from repro_torch.utils.weights import to_numpy, to_torch
 from torch_parity import plain_path
+from torch_threads import one_thread  # noqa: F401
 
 
 def _inputs(name, rng):
