@@ -165,7 +165,16 @@ Phases, each of which ends the script with a non-zero exit on failure:
     exactly, the peak estimate within 25%, ``count`` on the card equal
     to ``count`` on meta, the round at 0.95 or more of its roofline
     time, and its MFU.  Phase 3's bounds come from
-    ``utils.cost.kernel_cost`` and ``launch.roofline``'s peaks.
+    ``utils.cost.kernel_cost`` and ``launch.roofline``'s peaks;
+31. the attention split over kv head groups (glm4-9b's 2 kv heads on a
+    model axis of 4), in a process of its own: a (1, 1) mesh through
+    the same code at depth 4, bit for bit the unsharded run; with four
+    cards, on (1, 4), depth 4 held to one card by phase 25's criteria
+    with each kv group's copies bit-equal and the group's gradient sum
+    dropped refused, glm4-9b whole for 3 rounds with its census as
+    predicted and a card's peak under 80 GB and within 5% of the dry
+    run's, and its teacher-forced and served decode held to one card by
+    phase 28's criteria.
 
 It then prints the ``kernels`` JSON line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -631,8 +640,9 @@ def attention_check(torch, dev, gen, B, Sq, Sk, H, Hkv, D, dtype,
     lib = None
     if main or library:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        gqa = {"enable_gqa": True} if H != Hkv else {}
         lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                     is_causal=causal)
+                                                     is_causal=causal, **gqa)
     if main and dtype == torch.bfloat16:
         _attention_sensitivity(f"[{B}, {Sq}, {H}, {D}]", q, k, v)
     kind = design(dtype, D)
@@ -663,7 +673,9 @@ def flash_checks(torch, dev, gen):
     64] non-causal (a ragged last key tile of 92), its cross-attention
     (448 queries over 1500 keys), its causal decoder [2, 448] and its
     decode cross-attention (one query a row, batch 8), with SDPA's time,
-    and its smoke config's heads of 32.  Each case runs in float32 too (the
+    and its smoke config's heads of 32, and glm4-9b's [2, 2048, 32 | 2,
+    128] whole and a rank's [2, 2048, 8 | 1, 128] on a model axis of 4
+    (GQA, with SDPA's time).  Each case runs in float32 too (the
     CUDA-core design), where 2e-5 would catch a key dropped, doubled or
     off by one at a mask's edge.  Before the checks it prints how far
     the plain bf16 output moves when the last key tile is dropped and
@@ -685,6 +697,16 @@ def flash_checks(torch, dev, gen):
     for dtype in (torch.bfloat16, torch.float32):
         attention(BATCH, SEQ, SEQ, phi3.n_heads, phi3.n_kv_heads, phi3.hd,
                   dtype, main=True)
+    # glm4-9b: its 32 query heads of 128 over 2 kv heads (GQA 16), whole,
+    # and a rank's 8 over its group's one kv head on a model axis of 4
+    # (GQA 8, phase 31's path)
+    glm4 = get_config("glm4-9b")
+    for H, Hkv, note in ((glm4.n_heads, glm4.n_kv_heads, " (glm4-9b)"),
+                         (glm4.n_heads // 4, 1, " (a rank's heads of glm4-9b "
+                          "over its kv group's head, model axis 4)")):
+        for dtype in (torch.bfloat16, torch.float32):
+            attention(BATCH, SEQ, SEQ, H, Hkv, glm4.hd, dtype, main=True,
+                      note=note)
     # whisper-base (8 heads of 64): the encoder's self-attention over 1500
     # frames (11 key tiles of 128 and a ragged 92), the decoder's
     # cross-attention (448 queries, 1500 keys), its causal self-attention
@@ -5978,6 +6000,411 @@ def tooling(torch, dev="cuda"):
     return out
 
 
+# phase 31: the attention split over kv head groups (glm4-9b's 2 kv heads
+# on a model axis of 4), in a process of its own
+# (``python3 chip_smoke.py --kv-groups-phase OUT``)
+KV_ARCH, KV_DEPTH = "glm4-9b", 4
+KV_PARAMS = os.path.join(ROOT, "build", "chip_smoke_kv_unsharded.pt")
+KV_SERVE_REQUESTS = 8          # one wave of SERVE's 8 slots
+KV_PEAK_RTOL = 0.05            # a card's peak against the dry run's
+
+
+def kv_census(cfg, m):
+    """The kv groups' census of one train round of ``build_train_step``
+    on a (1, m) mesh (every rank all ``COHORT`` slots), written down
+    from the shapes before any run: a
+    weight-gradient pass of a block sums its ``wk`` and ``wv`` gradients
+    (float32 [d, hd] each, the group's one kv head) over the group in
+    one call: the server blocks in each server step, the client blocks
+    in each slot's VJP; the feature gradients' pass holds the server
+    frozen and sums nothing.  Empty where the attention does not split
+    over kv head groups."""
+    from repro_torch.sharding.parallel import kv_replicas, sharded_units
+    if not (sharded_units(cfg, {"model": m})["attn"]
+            and kv_replicas(cfg, m) > 1):
+        return {}
+    steps = COHORT * BATCH // BATCH
+    calls = (steps * (cfg.n_layers - cfg.cut_layers)
+             + COHORT * cfg.cut_layers)
+    return {"kv/all_reduce/kv_grad": {
+        "calls": calls, "bytes": calls * 2 * cfg.d_model * cfg.hd * 4}}
+
+
+@contextlib.contextmanager
+def dropped_group_sum():
+    """The control of phase 31's depth-4 check: the kv group's gradient
+    sum dropped, so each rank steps its copy of the group's kv head by
+    its own query heads' part of the gradient.  The forward is
+    untouched; the check must refuse the run.  (The function inherits
+    its backward from ``_CopyToModel``: the plant shadows it on the
+    subclass alone.)"""
+    from repro_torch.sharding import parallel
+    cls = parallel._KVGroupSum
+    if "backward" in vars(cls):
+        raise RuntimeError("_KVGroupSum has a backward of its own")
+    cls.backward = staticmethod(lambda ctx, *gs: (None, None) + gs)
+    try:
+        yield
+    finally:
+        del cls.backward
+
+
+def kv_group_digest(torch, mesh, cfg, server, clients) -> str:
+    """sha256 of the leaves the plan gives to a kv group (``Shard.rep`` >
+    1: the group's ``wk`` and ``wv``), the server's and the client
+    slots': every rank of a group must hold the same bits, and a
+    gradient not summed over the group leaves them apart."""
+    import hashlib
+    from repro_torch.models.module import SHAPES
+    from repro_torch.sharding.specs import Shard, shard_plan
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    task = step_task(cfg)
+    sp = shard_plan(task.init_server(SHAPES), mesh.shape, mesh.coords,
+                    "server", cfg)
+    cp = tree_map(Shard.stacked, shard_plan(task.init_client(SHAPES),
+                                            mesh.shape, mesh.coords, "full",
+                                            cfg))
+    h = hashlib.sha256()
+    for tree, plan in ((server.params, sp), (clients.params, cp)):
+        for x, s in zip(tree_leaves(tree), tree_leaves(plan)):
+            if s.rep > 1:
+                h.update(x.detach().contiguous().reshape(-1)
+                         .view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def kv_rank_runs(mesh, rounds, want_rows):
+    """Phase 31 on (1, 4), one card a rank: (1) glm4-9b at depth 4, bf16,
+    ``rounds`` rounds gathered whole and held to this phase's one-card
+    run (rank 0 reads its weights from ``KV_PARAMS``;
+    :func:`tp_against_unsharded`), with each rank's digest of its kv
+    group's leaves and of its whole-over-the-axis leaves, then again
+    under :func:`dropped_group_sum`; (2) glm4-9b whole, ``rounds`` timed
+    rounds with exact launches, each round's census and the card's
+    peak above what it held before; (3) teacher forcing (with its
+    control) and a serving wave of glm4-9b whole (:func:`dm_teacher`,
+    :func:`dm_serve`).  Only rank 0 prints; every rank returns its own
+    numbers."""
+    import hashlib
+    import torch
+    from repro_torch.configs import get_config
+    rank = torch.distributed.get_rank()
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    t0 = time.perf_counter()
+    full = get_config(KV_ARCH)
+    cfg4 = full.with_(n_layers=KV_DEPTH)
+    out = {"s": {}}
+
+    def depth4(label, fault):
+        with dropped_group_sum() if fault else contextlib.nullcontext():
+            run = split_round(torch, f"kv (1, 4) depth {KV_DEPTH}" + label,
+                              cfg4, rounds, mesh=mesh, keep_state=True)
+        server, clients = run.pop("state")
+        run["group_digest"] = kv_group_digest(torch, mesh, cfg4, server,
+                                              clients)
+        run["replicated"] = replicated_digests(torch, mesh, cfg4, server,
+                                               clients)
+        params = whole_step_state(mesh, cfg4, server, clients)
+        del server, clients
+        held = (tp_against_unsharded(torch, params, run["metrics"],
+                                     want_rows, 2 * rounds, path=KV_PARAMS)
+                if rank == 0 else None)
+        del params
+        free(torch)
+        return run, held
+
+    out["depth4"], out["against_unsharded"] = depth4("", False)
+    out["planted"], out["planted_against_unsharded"] = depth4(
+        " (the group sum dropped)", True)
+    out["s"]["depth 4"] = time.perf_counter() - t0
+    free(torch)
+    base = torch.cuda.memory_allocated()
+    out["whole"] = split_round(torch, "kv (1, 4) whole", full, rounds,
+                               mesh=mesh)
+    out["whole"]["base_bytes"] = base
+    out["s"]["whole"] = time.perf_counter() - t0
+    free(torch)
+    tf = {}
+    for part, (logits, launches) in dm_teacher(torch, dm_config(KV_ARCH,
+                                                                None),
+                                               mesh, planted=True).items():
+        lg = logits.cpu()
+        tf[part] = {"digest": hashlib.sha256(lg.numpy().tobytes()
+                                             ).hexdigest(),
+                    "launches": launches}
+        if rank == 0:
+            tf[part]["logits"] = lg
+    out["tf"] = tf
+    free(torch)
+    run = dm_serve(torch, full, KV_SERVE_REQUESTS, mesh)
+    run["digest"] = _stream_digest(run)
+    out["serve"] = run
+    out["s"]["world"] = time.perf_counter() - t0
+    print(f"kv (1, 4) serving {KV_ARCH}: {run['tick_ms']:.3f} ms a tick, "
+          f"{run['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+          f"{run['ttft_p50_s']:.4f}s, peak {run['peak_bytes'] / 1e9:.2f} "
+          f"GB; launches {run['launches']}")
+    return out
+
+
+def kv_dry_run(torch, cfg, m):
+    """The dry run's record of ``cfg``'s train step at phase 25's protocol
+    (cohort 2, batch 2 a client, sequence 2048, server batch 2) as rank 0
+    of a (1, m) mesh on ``meta``, over torch's fake process group, which
+    it ends after."""
+    from repro_torch.configs import InputShape
+    from repro_torch.core.cyclesl import CycleConfig
+    from repro_torch.launch.dryrun import dry_run
+    shape = InputShape("kv dry run", SEQ, COHORT * BATCH, "train")
+    cycle = CycleConfig(server_epochs=1, server_batch=BATCH)
+    try:
+        return dry_run(cfg, shape, (1, m), cohort=COHORT, cycle=cycle)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def kv_groups_phase(torch, rounds=ROUNDS, dev="cuda"):
+    """Phase 31: the attention split over kv head groups, glm4-9b (32
+    query heads, 2 kv heads of 128) on a model axis of 4: a rank runs 8
+    query heads against its group's one kv head, held alike by the 2
+    ranks of the group, which sum its weights' gradients.  One card: a
+    (1, 1) mesh through the same code at depth 4 (bf16, cohort 2, batch
+    2, sequence 2048), bit for bit the unsharded run with its launches
+    and no collective.  With four cards: the dry run of glm4-9b whole on
+    (1, 4) on ``meta``; one spawn of four ranks on (1, 4)
+    (:func:`kv_rank_runs`); then the unsharded references (teacher
+    forcing in bf16 and float32 and a served wave of
+    ``KV_SERVE_REQUESTS``, phase 28's criteria), and the ranks' runs held
+    to them: depth 4 to the unsharded run by
+    phase 25's criteria and each group's copies bit-equal, the run
+    without the group sum refused; glm4-9b whole with every census as
+    predicted, exact launches, and a card's peak under 80 GB and within
+    ``KV_PEAK_RTOL`` of the dry run's estimate; the teacher-forced and
+    served decode by phase 28's criteria.  Raises on any miss."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    out, checks = {"s": {}}, {}
+    cards = torch.cuda.device_count()
+    full = get_config(KV_ARCH)
+    cfg4 = full.with_(n_layers=KV_DEPTH)
+    mesh = make_local_mesh(dev)
+    try:
+        runs = {}
+        for label, mm in (("unsharded", None), ("mesh (1, 1)", mesh)):
+            free(torch)
+            r = split_round(torch, f"kv {label} depth {KV_DEPTH}", cfg4,
+                            rounds, mesh=mm, keep_state=True)
+            state = r.pop("state")
+            if mm is None:
+                want = tree_map(lambda t: t.cpu(), state)
+                if cards >= 4:
+                    os.makedirs(os.path.dirname(KV_PARAMS), exist_ok=True)
+                    torch.save((want[0].params, want[1].params), KV_PARAMS)
+            else:
+                checks["(1, 1) depth 4 == unsharded"] = all(
+                    torch.equal(x, y.cpu()) for x, y in zip(
+                        tree_leaves(want), tree_leaves(state))) and (
+                    runs["unsharded"]["metrics"] == r["metrics"])
+                del want
+            del state
+            runs[label] = r
+        checks["(1, 1) depth 4 launches == unsharded"] = (
+            runs["unsharded"]["launches"] == runs["mesh (1, 1)"]["launches"])
+        checks["(1, 1) depth 4 takes no collective"] = all(
+            c == {} for c in runs["mesh (1, 1)"]["census"])
+        print("kv (1, 1) at full width (depth 4): " + ", ".join(
+            f"{k} {v}" for k, v in checks.items()))
+        out["one_card"] = runs
+    finally:
+        mesh.close()
+    free(torch)
+    out["s"]["one card"] = time.perf_counter() - t_phase
+    if cards < 4:
+        print("kv: fewer than four cards, so the (1, 4) part of phase 31 "
+              "did not run")
+    else:
+        kv_world(torch, out, checks, runs["unsharded"]["metrics"], full,
+                 rounds, dev)
+    out["s"]["phase"] = time.perf_counter() - t_phase
+    bad = [k for k, v in checks.items() if not v]
+    out["checks"] = checks
+    print("kv: seconds " + json.dumps({k: round(v, 1)
+                                       for k, v in out["s"].items()}))
+    if bad:
+        raise AssertionError(f"kv: {bad}")
+    return out
+
+
+def kv_world(torch, out, checks, want_rows, full, rounds, dev):
+    """The (1, 4) part of :func:`kv_groups_phase`, into ``out`` and
+    ``checks``."""
+    from repro_torch.launch.meshcheck import spawn_ranks
+    t0 = time.perf_counter()
+    dry = kv_dry_run(torch, full, 4)
+    print(f"kv dry run of {KV_ARCH} whole on (1, 4): state "
+          f"{dry['state_bytes'] / 1e9:.2f} GB, peak "
+          f"{dry['peak_bytes'] / 1e9:.2f} GB, fits {dry['fits']}; census "
+          f"{_census_line(dry['census'])}")
+    out["dry_run"] = {k: dry[k] for k in ("state_bytes", "peak_bytes",
+                                          "fits", "census")}
+    out["s"]["dry run"] = time.perf_counter() - t0
+    # the whole model's peak is ~68 of the card's 79 GiB: the ranks'
+    # allocator maps memory in expandable segments, so that blocks freed
+    # across the round do not strand GiBs in fragments (a run with the
+    # default allocator held 10 GiB reserved but unallocated at the peak
+    # and ran out); rank 0 shares its card with this process
+    free(torch)
+    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = spawn_ranks(4, kv_rank_runs, (rounds, want_rows), "cuda",
+                            shape=(1, 4), timeout=600)
+    finally:
+        if env is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+    out["s"]["world"] = time.perf_counter() - t0
+    # the unsharded references, on this process's card once the ranks
+    # are gone
+    cfg = dm_config(KV_ARCH, None)
+    free(torch)
+    bf = dm_teacher(torch, cfg, None, dev)["tf"][0].cpu()
+    free(torch)
+    f32 = dm_teacher(torch, cfg, None, dev, f32=True)["tf"][0].cpu()
+    noise, gap_noise = _rms(bf - f32), _gap_noise(bf, f32)
+    del f32
+    free(torch)
+    u = dm_serve(torch, full, KV_SERVE_REQUESTS, None, dev, gaps=True)
+    out["s"]["unsharded references"] = time.perf_counter() - t0
+    r0 = ranks[0]
+    rep = 2
+    for part, label in (("depth4", "sound"), ("planted", "planted")):
+        d = [r[part]["group_digest"] for r in ranks]
+        same = all(d[i] == d[i - i % rep] for i in range(4))
+        out[f"{label}_groups_alike"] = same
+        out[f"{label}_replicated_alike"] = all(
+            r[part]["replicated"] == r0[part]["replicated"] for r in ranks)
+    held = r0["against_unsharded"]
+    checks["(1, 4) depth 4 against unsharded"] = held["ok"]
+    checks["(1, 4) depth 4 kv group copies bit-equal"] = \
+        out["sound_groups_alike"]
+    checks["(1, 4) depth 4 whole-over-the-axis leaves alike"] = \
+        out["sound_replicated_alike"]
+    checks["(1, 4) depth 4 check refuses the dropped group sum"] = not (
+        r0["planted_against_unsharded"]["ok"]
+        and out["planted_groups_alike"])
+    want4 = {**step_census(full.with_(n_layers=KV_DEPTH), 1, 4),
+             **kv_census(full.with_(n_layers=KV_DEPTH), 4)}
+    want = {**step_census(full, 1, 4), **kv_census(full, 4)}
+    checks["(1, 4) depth 4 census == predicted"] = all(
+        c == want4 for r in ranks for c in r["depth4"]["census"])
+    checks["(1, 4) whole census == predicted"] = all(
+        c == want for r in ranks for c in r["whole"]["census"])
+    for part in ("depth4", "whole"):
+        checks[f"(1, 4) {part} same metrics and launches on every rank"] = \
+            all(r[part]["metrics"] == r0[part]["metrics"]
+                and r[part]["launches"] == r0[part]["launches"]
+                for r in ranks)
+    peak = max(r["whole"]["peak_bytes"] - r["whole"]["base_bytes"]
+               for r in ranks)
+    peak_err = (peak - dry["peak_bytes"]) / dry["peak_bytes"]
+    checks["(1, 4) whole fits a card"] = peak < 80e9
+    checks["(1, 4) whole peak within 5% of the dry run's"] = \
+        abs(peak_err) <= KV_PEAK_RTOL
+    w = r0["whole"]
+    print(f"kv (1, 4) {KV_ARCH} whole: {w['rounds_per_s']:.3f} rounds/s, "
+          f"{w['tokens_per_s']:.1f} tokens/s, peak {peak / 1e9:.2f} GB a "
+          f"card (max over ranks, above {w['base_bytes'] / 1e9:.2f} GB held "
+          f"before; the dry run's {dry['peak_bytes'] / 1e9:.2f} GB, "
+          f"{peak_err:+.2%}), entity states {w['state_bytes'] / 1e9:.2f} GB "
+          f"a card; census a round {_census_line(w['census'][0])} "
+          f"(predicted {_census_line(want)}); depth 4 against unsharded "
+          f"{held}; with the group sum dropped "
+          f"{r0['planted_against_unsharded']}, kv group copies alike "
+          f"{out['planted_groups_alike']}")
+    tol = 3 * noise
+    err = _rms(r0["tf"]["tf"]["logits"] - bf)
+    bad = _rms(r0["tf"]["planted"]["logits"] - bf)
+    checks["(1, 4) decode held to unsharded"] = err <= tol
+    checks["(1, 4) refuses the decode without its reduce"] = bad > tol
+    checks["(1, 4) decode alike on every rank"] = all(
+        len({r["tf"][p]["digest"] for r in ranks}) == 1
+        for p in ("tf", "planted"))
+    s = r0["serve"]
+    checks["(1, 4) serving alike on every rank"] = len(
+        {r["serve"]["digest"] for r in ranks}) == 1
+    checks["(1, 4) serving launches on every rank"] = all(
+        r["serve"]["launches"] == r["serve"]["expected_launches"]
+        and r["serve"]["schedule_ok"] for r in ranks)
+    checks["(1, 4) serving all done"] = (
+        s["done"] == KV_SERVE_REQUESTS
+        and s["stats"]["traces"] == {"prefill": 1, "admit": 1, "decode": 1})
+    parted = [(i, next(j for j, (x, y) in enumerate(zip(a, b)) if x != y))
+              for i, (a, b) in enumerate(zip(s["tokens"], u["tokens"]))
+              if a != b]
+    gaps = [(i, j, u["gaps"][(i, j)]) for i, j in parted]
+    bound = DM_PART_K * gap_noise
+    checks["(1, 4) streams part only within the yardstick"] = all(
+        g <= bound for *_, g in gaps)
+    per_tick = {k: {"calls": v["calls"] / s["ticks"],
+                    "bytes": v["bytes"] / s["ticks"]}
+                for k, v in s["census"].items()}
+    print(f"kv (1, 4) decode: teacher forcing rms {err:.4e} (tol 3 x "
+          f"{noise:.4e} = {tol:.4e}, logits rms {_rms(bf):.4e}); without "
+          f"its reduce {bad:.4e}; served {len(s['tokens'])} requests: "
+          f"{s['tick_ms']:.3f} ms a tick ({u['tick_ms']:.3f} on one card), "
+          f"{s['tokens_per_s']:.1f} tokens/s ({u['tokens_per_s']:.1f}), "
+          f"peak {max(r['serve']['peak_bytes'] for r in ranks) / 1e9:.2f} "
+          f"GB a card ({u['peak_bytes'] / 1e9:.2f}); {len(gaps)} streams "
+          f"part from unsharded (bound {bound:.4e}: {gaps}); census a tick "
+          + ", ".join(f"{k} {v['calls']:.2f}x {v['bytes']:.0f}B"
+                      for k, v in sorted(per_tick.items())))
+    out["world"] = {
+        "rank0": {k: r0[k] for k in ("depth4", "against_unsharded",
+                                     "planted", "planted_against_unsharded",
+                                     "whole", "s")},
+        "peak_bytes_max": peak, "peak_err": peak_err,
+        "census_predicted": want, "census_predicted_depth4": want4,
+        "decode": {"rms_err": err, "rms_planted": bad,
+                   "rms_bf16_noise": noise, "rms_gap_noise": gap_noise,
+                   "launches": r0["tf"]["tf"]["launches"]},
+        "serve": {k: s[k] for k in ("tick_ms", "tokens_per_s", "ttft_p50_s",
+                                    "peak_bytes", "wall_s", "ticks",
+                                    "decode_calls", "prefill_chunks",
+                                    "launches", "census")},
+        "serve_per_tick_census": per_tick, "gaps": gaps,
+        "serve_unsharded": {k: u[k] for k in ("tick_ms", "tokens_per_s",
+                                              "ttft_p50_s", "peak_bytes",
+                                              "wall_s")}}
+
+
+def run_kv_groups_phase(out_path):
+    """The entry of ``--kv-groups-phase``: phase 31 alone, its report
+    written to ``out_path``."""
+    import torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(f"kv: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    _build.build_all()
+    t0 = time.perf_counter()
+    res = kv_groups_phase(torch)
+    res["s"]["total"] = time.perf_counter() - t0
+    res["nvidia_smi"] = smi
+    print(f"kv: phase 31 took {res['s']['total']:.1f}s")
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=10,
@@ -6008,6 +6435,9 @@ def main(argv=None):
     ap.add_argument("--engine-paths-mesh-phase", default=None, metavar="OUT",
                     help="run phase 29 alone (the process main() starts "
                          "for it) and write its report to OUT")
+    ap.add_argument("--kv-groups-phase", default=None, metavar="OUT",
+                    help="run phase 31 alone (the process main() starts "
+                         "for it) and write its report to OUT")
     args = ap.parse_args(argv)
     if args.mesh_phase:
         return run_mesh_phase(args.mesh_phase, args.profile)
@@ -6021,6 +6451,8 @@ def main(argv=None):
         return run_decode_mesh_phase(args.decode_mesh_phase)
     if args.engine_paths_mesh_phase:
         return run_engine_paths_phase(args.engine_paths_mesh_phase)
+    if args.kv_groups_phase:
+        return run_kv_groups_phase(args.kv_groups_phase)
 
     import torch
     if not torch.cuda.is_available():
@@ -6236,10 +6668,25 @@ def main(argv=None):
     # rounds against their dry runs on meta and the roofline
     tooling_runs = tooling(torch)
     t30 = time.perf_counter()
+
+    # 31. the attention split over kv head groups, in a process of its own
+    # (a (1, 1) mesh on this card; with four cards glm4-9b on (1, 4) in
+    # spawned ranks)
+    kv_out = os.path.join(ROOT, "build", "chip_smoke_kv_groups.json")
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--kv-groups-phase", kv_out], timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 31 (kv head groups) exited "
+                           f"{proc.returncode}")
+    with open(kv_out) as f:
+        kv_group_runs = json.load(f)
+    t31 = time.perf_counter()
     phase_s.update({"18": t19 - t18, "19": t20 - t19, "20": t21 - t20,
                     "21-22": t22 - t21b, "23": t23 - t22, "24": t24 - t23,
                     "25": t25 - t24, "26": t26 - t25, "27": t27 - t26,
-                    "28": t28 - t27, "29": t29 - t28, "30": t30 - t29})
+                    "28": t28 - t27, "29": t29 - t28, "30": t30 - t29,
+                    "31": t31 - t30})
     print("phases took " + ", ".join(f"{k}: {v:.1f}s"
                                      for k, v in phase_s.items()))
 
@@ -6279,6 +6726,7 @@ def main(argv=None):
                        "decode_mesh": decode_mesh_runs,
                        "engine_paths_mesh": engine_paths_runs,
                        "tooling": tooling_runs,
+                       "kv_groups": kv_group_runs,
                        "phase_s": phase_s}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))

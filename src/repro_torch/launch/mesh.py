@@ -9,7 +9,10 @@ group plus what the round needs of it: the axis sizes, this rank's
 coordinates and two :class:`~repro_torch.sharding.collectives.Collectives`,
 ``comm`` over the batch axes (the cohort's split) and ``model_comm``
 over the ``model`` axis (the weights' tensor- and expert-parallel
-split, ``sharding.parallel``).
+split, ``sharding.parallel``), and one more for each size of a group of
+consecutive ``model`` ranks (``kv_comms``: the ranks that hold a kv
+head alike where an attention block has fewer kv heads than the axis
+has ranks, ``sharding.parallel.kv_replicas``).
 
 The process group comes from ``torchrun`` (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``), or from a caller that
@@ -37,7 +40,7 @@ import math
 import os
 import shutil
 import tempfile
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Optional
 
 import torch
@@ -63,7 +66,11 @@ class Mesh:
     gathers and gradient reduce-scatters): ``comm`` itself unless a
     ``pod`` axis > 1 shares the batch axes, then the group of the ranks
     that differ only in their ``data`` coordinate (census keys
-    ``"data/..."``).  ``owns_group`` is True when
+    ``"data/..."``).  ``kv_comms`` maps each divisor k > 1 of the
+    ``model`` axis' size to the collectives of this rank's group of k
+    consecutive ``model`` ranks (census keys ``"kv/..."``; at k = m the
+    model axis' own group), built once with the mesh.  ``owns_group`` is
+    True when
     :func:`make_engine_mesh` started the process group, so :meth:`close`
     ends it (and removes the file store of a world of 1)."""
     device_mesh: Any
@@ -73,6 +80,7 @@ class Mesh:
     comm: Collectives
     model_comm: Optional[Collectives]
     data_comm: Optional[Collectives] = None
+    kv_comms: dict = field(default_factory=dict)
     owns_group: bool = False
     store_dir: Optional[str] = None
 
@@ -158,8 +166,9 @@ def make_engine_mesh(shape, axes, device=None) -> Mesh:
         raise RuntimeError(f"the data axis' group ranks this rank "
                            f"{data_comm.rank}, its coordinate is "
                            f"{coords['data']}")
-    return Mesh(dm, sizes, coords, dev, comm, _model_comm(dm, sizes),
-                data_comm, owns, store_dir)
+    model_comm = _model_comm(dm, sizes)
+    return Mesh(dm, sizes, coords, dev, comm, model_comm, data_comm,
+                _kv_comms(dm, sizes, model_comm), owns, store_dir)
 
 
 def _batch_comm(dm, sizes) -> Collectives:
@@ -188,6 +197,30 @@ def _model_comm(dm, sizes) -> Optional[Collectives]:
     if "model" not in sizes:
         return None
     return Collectives(dm["model"].get_group(), axis="model")
+
+
+def _kv_comms(dm, sizes, model_comm) -> dict:
+    """{k: the collectives of this rank's group of k consecutive ``model``
+    ranks} for each divisor k > 1 of the axis' size, counted under
+    ``"kv/..."``: the groups whose ranks hold one kv head alike
+    (``sharding.parallel.kv_replicas``).  The group of the whole axis is
+    the model axis' own; every rank builds every smaller group, in one
+    order, off the mesh's rank grid."""
+    m = sizes.get("model", 1)
+    out = {}
+    if m == 1:
+        return out
+    grid = dm.mesh.movedim(list(sizes).index("model"), -1).reshape(-1, m)
+    for k in range(2, m + 1):
+        if m % k:
+            continue
+        if k == m:
+            group = model_comm.group
+        else:
+            group, _ = dist.new_subgroups_by_enumeration(
+                grid.reshape(-1, k).tolist())
+        out[k] = Collectives(group, axis="kv")
+    return out
 
 
 def host_comm(mesh) -> Optional[Collectives]:

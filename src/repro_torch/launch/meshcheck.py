@@ -41,9 +41,11 @@ from __future__ import annotations
 import argparse
 import json
 import multiprocessing as mp
+from multiprocessing import connection
 import os
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
@@ -150,7 +152,9 @@ def spawn_ranks(world: int, fn, args=(), device="cpu", workdir=None,
     ``device`` (gloo for ``cpu``, NCCL for ``cuda``, one card a rank),
     its process group started from a ``file://`` store under
     ``workdir``.  Returns every rank's result, in rank order; raises if
-    a rank fails or outlives ``timeout``."""
+    a rank fails or outlives ``timeout``.  When one rank fails the
+    others are ended at once: they would wait in a collective with it
+    until the backend's own timeout."""
     shape = (world, 1) if shape is None else tuple(shape)
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(dir=workdir) as d:
@@ -162,8 +166,12 @@ def spawn_ranks(world: int, fn, args=(), device="cpu", workdir=None,
         for p in procs:
             p.start()
         try:
-            for p in procs:
-                p.join(timeout)
+            deadline = time.monotonic() + timeout
+            while (any(p.is_alive() for p in procs)
+                   and not any(p.exitcode for p in procs)
+                   and time.monotonic() < deadline):
+                connection.wait([p.sentinel for p in procs
+                                 if p.is_alive()], timeout=1.0)
         finally:
             for p in procs:
                 if p.is_alive():

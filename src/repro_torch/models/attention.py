@@ -13,7 +13,10 @@ serving runtime's slots, ``attend_decode`` takes ``pos`` as a [B]
 tensor (a scalar broadcasts), so rows at different positions advance in
 one call.  Both halves run head-parallel on a mesh's ``model`` axis
 (``tp``); decode is inference only, so its inputs enter without
-``copy_to_model`` (no gradient sum to take).
+``copy_to_model`` (no gradient sum to take).  A block with fewer kv
+heads than ranks splits over kv head groups
+(``sharding.parallel.kv_replicas``): a rank runs its query heads against
+the one kv head they read, which the ranks of its group hold alike.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ from repro_torch.kernels.ref import mask_bias as _mask_bias  # noqa: F401
 from repro_torch.kernels.ref import sdpa, sdpa_qchunked  # noqa: F401
 from repro_torch.models import module
 from repro_torch.models.layers import apply_rope, rmsnorm, rmsnorm_init
-from repro_torch.sharding.parallel import copy_to_model, reduce_from_model
+from repro_torch.sharding.parallel import (copy_to_model, kv_group_sum,
+                                           reduce_from_model)
 
 
 def attn_init(gen, cfg: ArchConfig, dtype):
@@ -76,13 +80,17 @@ def attend_full(params, cfg: ArchConfig, x, positions, window: Optional[int],
     and ``wv`` hold this rank's whole heads (columns), the norms, RoPE
     and the kernel run on them, and ``wo`` (its rows) gives a partial sum
     that is reduced over the ``model`` axis; ``x`` and the q/k norms'
-    scales enter through one ``copy_to_model``."""
+    scales enter through one ``copy_to_model``.  Over kv head groups
+    (``tp.kv_rep`` > 1) ``wk`` and ``wv`` hold the group's one kv head,
+    and their gradients, each rank's from its own query heads, are
+    summed over the group (``kv_group_sum``); ``x``'s sum over the axis
+    already holds every rank's part."""
     a: AttnConfig = cfg.attn
     hd = cfg.hd
     split = tp is not None and tp.on("attn")
-    n_h, n_kv = cfg.n_heads, cfg.n_kv_heads
     norms = ([params["q_norm"], params["k_norm"]] if "q_norm" in params
              else [])
+    wk, wv = params["wk"], params["wv"]
     if split:
         # the norms' scales are whole on every rank but meet only this
         # rank's heads: their gradients are partial, as x's is
@@ -91,10 +99,12 @@ def attend_full(params, cfg: ArchConfig, x, positions, window: Optional[int],
             norms = [{"scale": s} for s in scales]
         else:
             x = copy_to_model(tp, x)
-        n_h, n_kv = n_h // tp.size, n_kv // tp.size
+        wk, wv = kv_group_sum(tp, wk, wv)
+    n_h, n_kv = (cfg.n_heads, cfg.n_kv_heads) if tp is None else \
+        tp.heads(cfg)
     q = _split_heads(x @ params["wq"], n_h, hd)
-    k = _split_heads(x @ params["wk"], n_kv, hd)
-    v = _split_heads(x @ params["wv"], n_kv, hd)
+    k = _split_heads(x @ wk, n_kv, hd)
+    v = _split_heads(x @ wv, n_kv, hd)
     if norms:
         q = rmsnorm(norms[0], q)
         k = rmsnorm(norms[1], k)
@@ -145,15 +155,16 @@ def attend_decode(params, cfg: ArchConfig, x, layer_k, layer_v, pos,
     Head-parallel when ``tp`` splits the attention unit, as
     :func:`attend_full` is: ``wq``/``wk``/``wv`` hold this rank's heads'
     columns, the cache slices are its [B, C, Hkv / m, Dh], and ``wo``'s
-    rows give a partial sum reduced over the ``model`` axis.
+    rows give a partial sum reduced over the ``model`` axis.  Over kv
+    head groups the cache slices hold the group's one head, [B, C, 1,
+    Dh], which every rank of the group writes alike.
     """
     a: AttnConfig = cfg.attn
     hd = cfg.hd
     B, C = x.shape[0], layer_k.shape[1]
     split = tp is not None and tp.on("attn")
-    n_h, n_kv = cfg.n_heads, cfg.n_kv_heads
-    if split:
-        n_h, n_kv = n_h // tp.size, n_kv // tp.size
+    n_h, n_kv = (cfg.n_heads, cfg.n_kv_heads) if tp is None else \
+        tp.heads(cfg)
     q = _split_heads(x @ params["wq"], n_h, hd)
     k = _split_heads(x @ params["wk"], n_kv, hd)
     v = _split_heads(x @ params["wv"], n_kv, hd)

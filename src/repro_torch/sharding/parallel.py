@@ -34,9 +34,22 @@ splits over ``m`` ranks only where the split falls on whole heads,
 experts, hidden columns, SSD heads or vocab rows; otherwise the unit's
 leaves stay whole on every rank and the unit runs whole there, which
 computes the same values.  A stage model's dense ``lin/w`` (the ``lin``
-unit) splits its columns wherever they divide ``m``.  (GSPMD can also
-split ``wk``'s columns inside a head, as ``shard_if_divisible`` allows;
-explicit code cannot.)
+unit) splits its columns wherever they divide ``m``.
+
+An attention unit with fewer kv heads than ranks (``n_kv_heads < m``,
+``m % n_kv_heads == 0``, the query heads dividing ``m``) splits over kv
+head groups (:func:`kv_replicas`): rank ``r`` holds its ``n_heads / m``
+query heads (its columns of ``wq``, its rows of ``wo``) and the one kv
+head they read, ``g = r // (m / n_kv_heads)``, whole: that head's
+columns of ``wk`` and ``wv``.  Each kv head is held alike by the ``m /
+n_kv_heads`` ranks of its group, and since each rank's ``dk``/``dv``
+hold only its own query heads' part, the group sums those weights'
+gradients (:func:`kv_group_sum`, over the mesh's kv group, census keys
+``"kv/..."``).  GSPMD cuts ``wk``'s columns contiguously instead,
+wherever ``shard_if_divisible`` allows, which splits a kv head across
+ranks; as with the Mamba blocks below, the two cuts compute the same
+function, and only the cut on whole heads lets each rank run its own
+heads' attention.
 
 A Mamba-2 block's packed leaves are cut on whole SSD heads, segment by
 segment (:func:`packed_segments`): ``w_in``'s columns ``[z | x | B | C
@@ -80,6 +93,20 @@ def unit_of(path: str) -> Optional[str]:
     return None
 
 
+def kv_replicas(cfg, m: int) -> int:
+    """How many ranks of a ``model`` axis of ``m`` hold each kv head alike:
+    ``m / n_kv_heads`` where the attention unit splits over kv head
+    groups (``n_heads % m == 0``, ``n_kv_heads < m`` and ``m %
+    n_kv_heads == 0``), else 1 (the heads split evenly, or the unit
+    stays whole)."""
+    if cfg is None or m == 1:
+        return 1
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if h % m == 0 and kv < m and m % kv == 0:
+        return m // kv
+    return 1
+
+
 def sharded_units(cfg, sizes) -> dict:
     """The whole-unit rule: {unit: whether it splits over the ``model``
     axis of a mesh of ``sizes`` (axis name -> size)}.  Reads the
@@ -88,7 +115,9 @@ def sharded_units(cfg, sizes) -> dict:
     and each ``lin/w`` does where its columns divide the axis
     (:meth:`TensorParallel.splits`).  A Mamba-2 block splits on whole
     SSD heads, its ``B``/``C`` groups whole on every rank (one group) or
-    split with their heads."""
+    split with their heads.  An attention unit splits on whole query
+    heads where its kv heads split evenly or fall into groups of ranks
+    (:func:`kv_replicas`)."""
     m = sizes.get("model", 1)
     out = dict.fromkeys(UNITS, False)
     if m == 1:
@@ -104,7 +133,8 @@ def sharded_units(cfg, sizes) -> dict:
                                            or s.n_groups % m == 0)
         if cfg.family == "ssm":          # attention-free
             return out
-    out["attn"] = cfg.n_heads % m == 0 and cfg.n_kv_heads % m == 0
+    out["attn"] = cfg.n_heads % m == 0 and (cfg.n_kv_heads % m == 0
+                                            or m % cfg.n_kv_heads == 0)
     if cfg.moe is None:
         out["ffn"] = cfg.d_ff % m == 0
     else:
@@ -166,23 +196,43 @@ def take_segments(x, ranges, dim: int = -1):
 class TensorParallel:
     """What the model code needs of the ``model`` axis: its collectives
     (``comm``, None off the mesh), this rank's place on it and which
-    units split (:func:`sharded_units`)."""
+    units split (:func:`sharded_units`).  Where the attention splits
+    over kv head groups, ``kv_rep`` ranks hold each kv head
+    (:func:`kv_replicas`), ``kv_comm`` is the collectives of this
+    rank's group and ``kv_group`` the kv head it holds."""
 
-    def __init__(self, comm, units: dict):
+    def __init__(self, comm, units: dict, kv_comm=None, kv_rep: int = 1):
         self.comm = comm
         self.units = dict(units)
         self.size = 1 if comm is None else comm.size
         self.rank = 0 if comm is None else comm.rank
+        self.kv_comm, self.kv_rep = kv_comm, kv_rep
+        self.kv_group = self.rank // kv_rep
 
     @classmethod
     def from_mesh(cls, mesh, cfg=None) -> "TensorParallel":
         """The mesh's model axis for a transformer of ``cfg``, or for a
-        stage model (``cfg`` None)."""
-        return cls(mesh.model_comm, sharded_units(cfg, mesh.shape))
+        stage model (``cfg`` None), with the kv group's collectives the
+        mesh built (``Mesh.kv_comms``) where the attention splits over
+        kv head groups."""
+        units = sharded_units(cfg, mesh.shape)
+        rep = kv_replicas(cfg, mesh.shape.get("model", 1)) \
+            if units["attn"] else 1
+        return cls(mesh.model_comm, units,
+                   mesh.kv_comms[rep] if rep > 1 else None, rep)
 
     def on(self, unit: str) -> bool:
         """Whether ``unit`` runs split over more than one rank."""
         return self.size > 1 and self.units[unit]
+
+    def heads(self, cfg) -> tuple[int, int]:
+        """This rank's (query heads, kv heads) of an attention block of
+        ``cfg``: all of them where the unit runs whole, else its
+        ``n_heads / m`` and its ``n_kv_heads / m``, or with fewer kv heads
+        than ranks the one kv head of its group (:func:`kv_replicas`)."""
+        if not self.on("attn"):
+            return cfg.n_heads, cfg.n_kv_heads
+        return cfg.n_heads // self.size, max(cfg.n_kv_heads // self.size, 1)
 
     def splits(self, n_out: int) -> bool:
         """Whether a stage model's ``lin/w`` of ``n_out`` columns is split
@@ -210,6 +260,11 @@ class _CopyToModel(torch.autograd.Function):
         summed = ctx.comm.all_reduce_tree(gs, ctx.what)
         return (None, None) + tuple(
             s.to(dt) for s, (_, dt, _) in zip(summed, ctx.meta))
+
+
+class _KVGroupSum(_CopyToModel):
+    """:class:`_CopyToModel` over a kv head group: identity forward, the
+    gradients' float32 sum over the group's ranks backward."""
 
 
 class _ReduceFromModel(torch.autograd.Function):
@@ -318,6 +373,23 @@ def copy_to_model(tp: Optional[TensorParallel], *xs,
     return xs[0] if len(xs) == 1 else tuple(xs)
 
 
+def kv_group_sum(tp: Optional[TensorParallel], *ws):
+    """Each of ``ws`` (a rank's ``wk``, ``wv``: its group's whole kv head)
+    as it is, whose gradients, each rank's part from its own query heads,
+    are summed over the kv group in one float32 all-reduce (census
+    ``kv/all_reduce/kv_grad``), so every rank of the group steps its copy
+    alike.  Where each rank holds its own kv heads (``kv_rep`` 1) the
+    weights pass as they are.  Returns one tensor for one input, else a
+    tuple."""
+    if tp is not None and tp.kv_rep > 1:
+        if tp.kv_comm is None:
+            raise RuntimeError(f"kv heads held by groups of {tp.kv_rep} "
+                               "ranks need the mesh's kv group "
+                               "(Mesh.kv_comms)")
+        ws = _KVGroupSum.apply(tp.kv_comm, "kv_grad", *ws)
+    return ws[0] if len(ws) == 1 else tuple(ws)
+
+
 def reduce_from_model(tp: Optional[TensorParallel], x, what: str):
     """The sum over the ``model`` axis of each rank's partial ``x``, taken
     in float32 and rounded to ``x``'s dtype once; the gradient passes
@@ -347,8 +419,10 @@ def global_norm(grads, tp: Optional[TensorParallel] = None, plan=None,
     over both axes beside them), those of the data-split leaves over
     ``data`` in one more; the replicated leaves' are counted once, and
     so are the segments of a packed leaf that every rank holds whole
-    (a Mamba block's ``B``/``C`` columns).  Without a plan every leaf is
-    whole: the unsharded arithmetic."""
+    (a Mamba block's ``B``/``C`` columns), and a kv head held alike by
+    the ranks of its group (``Shard.rep``) by the group's first rank
+    alone.  Without a plan every leaf is whole: the unsharded
+    arithmetic."""
     leaves = tree_leaves(grads)
     shards = tree_leaves(plan) if plan is not None else [None] * len(leaves)
     sq = lambda g: torch.sum(torch.square(g.float()))
@@ -358,7 +432,10 @@ def global_norm(grads, tp: Optional[TensorParallel] = None, plan=None,
         if s is None or not _on(tp) or s.dim is None:
             parts[(False, fd)].append(sq(g))
         elif s.segs is None:
-            parts[(True, fd)].append(sq(g))
+            part = sq(g)
+            if tp.rank % s.rep:        # the group's first rank counts it
+                part = torch.zeros_like(part)
+            parts[(True, fd)].append(part)
         else:
             widths = [hi - lo for lo, hi, _ in s.segs]
             for piece, (_, _, split) in zip(torch.split(g, widths, s.dim),

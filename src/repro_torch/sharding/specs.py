@@ -29,8 +29,14 @@ whole and this rank's blocks.  A Mamba-2 block's packed ``w_in`` and
 is the concatenation of its part of each segment, not one contiguous
 range.  GSPMD in the reference cuts these leaves contiguously wherever
 ``shard_if_divisible`` allows; the cut on heads computes the same
-function and lets each rank scan its own heads.  The round gathers the
-``data`` blocks at
+function and lets each rank scan its own heads.  Likewise an attention
+block with fewer kv heads than ``model`` ranks (``sharding.parallel.
+kv_replicas``): GSPMD cuts ``wk``'s and ``wv``'s columns contiguously,
+inside a kv head; the port gives each rank its group's kv head whole
+(:class:`Shard`'s ``rep``), held alike by the ``m / n_kv_heads`` ranks
+of the group, which computes the same function and lets each rank run
+its query heads against the one kv head they read.  The round gathers
+the ``data`` blocks at
 use (``sharding.parallel.gather_from_data``); the cohort's split is
 :func:`local_slots`, the port's counterpart of ``slot_shard_map``.  The
 layout pins of the JAX package (``constrain_*``) have no counterpart.
@@ -42,9 +48,10 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.sharding.parallel import (TensorParallel, packed_segments,
-                                           rank_segments, sharded_units,
-                                           take_segments, unit_of)
+from repro_torch.sharding.parallel import (TensorParallel, kv_replicas,
+                                           packed_segments, rank_segments,
+                                           sharded_units, take_segments,
+                                           unit_of)
 from repro_torch.utils.tree import (map_with_path, tree_leaves, tree_map,
                                     tree_unflatten_like)
 
@@ -291,26 +298,34 @@ class Shard:
     order its block concatenates them (``sharding.parallel.
     rank_segments``); its ``[lo, hi)`` is then the block's place in the
     rank-order concatenation of every rank's block, what an all-gather
-    along ``dim`` returns.  ``segs`` is None for a contiguous cut."""
-    __slots__ = ("dim", "lo", "hi", "ddim", "dlo", "dhi", "segs")
+    along ``dim`` returns.  ``segs`` is None for a contiguous cut.
+
+    A kv head held by a group of ranks (an attention block's ``wk``,
+    ``wv`` and its cache, where ``sharding.parallel.kv_replicas`` is
+    above 1) has ``rep``, the group's size: ``rep`` consecutive ranks of
+    the axis hold the same block, ``[lo, hi)`` of the whole ``dim``, so
+    the whole leaf is the first rank of each group's block, in group
+    order.  ``rep`` is 1 for every other cut."""
+    __slots__ = ("dim", "lo", "hi", "ddim", "dlo", "dhi", "segs", "rep")
 
     def __init__(self, dim: Optional[int] = None, lo: int = 0, hi: int = 0,
                  ddim: Optional[int] = None, dlo: int = 0, dhi: int = 0,
-                 segs: Optional[tuple] = None):
+                 segs: Optional[tuple] = None, rep: int = 1):
         self.dim, self.lo, self.hi = dim, lo, hi
         self.ddim, self.dlo, self.dhi = ddim, dlo, dhi
-        self.segs = segs
+        self.segs, self.rep = segs, rep
 
     def model_only(self) -> "Shard":
         """The same leaf whole over ``data`` (a cohort slot's copy)."""
-        return Shard(self.dim, self.lo, self.hi, segs=self.segs)
+        return Shard(self.dim, self.lo, self.hi, segs=self.segs,
+                     rep=self.rep)
 
     def stacked(self) -> "Shard":
         """The leaf of a [N, ...] stack of copies (role 'client': the
         cohort or the per-client store): its model split one dim on,
         whole over ``data``."""
         return Shard(None if self.dim is None else self.dim + 1,
-                     self.lo, self.hi, segs=self.segs)
+                     self.lo, self.hi, segs=self.segs, rep=self.rep)
 
 
 class _Sizes:
@@ -332,7 +347,10 @@ def shard_plan(params, sizes, coords, role: str = "full", cfg=None,
     None) splits each ``lin/w`` whose columns divide the axis, as
     ``shard_if_divisible`` reads its spec; a Mamba block's packed
     ``w_in`` and ``conv_w`` are cut segment by segment
-    (:class:`Shard`'s ``segs``).  ``data`` (FSDP), for roles
+    (:class:`Shard`'s ``segs``); where the attention splits over kv head
+    groups (``sharding.parallel.kv_replicas``), ``wk`` and ``wv`` give
+    the rank its group's kv head whole (:class:`Shard`'s ``rep``).
+    ``data`` (FSDP), for roles
     'server' and 'full' only: the spec's ``data`` dimension where it
     divides the axis ('client', a [C, ...] stack, drops ``data`` as
     :func:`param_specs` does).  ``local`` reads ``params`` as this
@@ -341,6 +359,7 @@ def shard_plan(params, sizes, coords, role: str = "full", cfg=None,
     m, r = sizes.get("model", 1), coords.get("model", 0)
     d, q = sizes.get("data", 1), coords.get("data", 0)
     units = sharded_units(cfg, sizes)
+    rep = kv_replicas(cfg, m) if units["attn"] else 1
     mode = (cfg.moe.shard_mode if cfg is not None and cfg.moe is not None
             else "expert")
     rules = MOE_FFN_MODE_RULES + RULES if mode == "ffn" else RULES
@@ -353,11 +372,18 @@ def shard_plan(params, sizes, coords, role: str = "full", cfg=None,
         s = Shard()
         unit = unit_of(path)
         if unit is not None and units[unit]:
-            # a packed leaf is cut on its segments, whatever its width
+            # a packed leaf is cut on its segments and a grouped kv head
+            # whole, whatever the leaf's width
             segs = packed_segments(cfg, path)
+            grouped = rep > 1 and re.search(r"attn/(wk|wv)$", path)
             spec = _spec_for(path, shape, on_model if segs is None
-                             else _Sizes({"model": 1}), rules, role)
-            if "model" in spec:
+                             and not grouped else _Sizes({"model": 1}),
+                             rules, role)
+            if "model" in spec and grouped:
+                s.dim, s.rep = spec.index("model"), rep
+                per = shape[s.dim] if local else shape[s.dim] // (m // rep)
+                s.lo, s.hi = r // rep * per, (r // rep + 1) * per
+            elif "model" in spec:
                 s.dim = spec.index("model")
                 per = shape[s.dim] if local else shape[s.dim] // m
                 if segs is not None:
@@ -407,7 +433,9 @@ def gather_params(local, plan, comm=None, data_comm=None):
     one call per dtype (census ``all_gather/weights``), then each leaf
     split over ``model`` all-gathered over ``comm`` (the mesh's
     ``model_comm``) along its dimension, in rank order, a packed leaf's
-    segments put back in place (:func:`unpack_segments`).  An axis whose
+    segments put back in place (:func:`unpack_segments`) and a kv head
+    held by a group of ranks taken once, from the group's first rank
+    (``Shard.rep``).  An axis whose
     collectives are None is not gathered (a tree cut over one axis, or
     one whose blocks over an axis stay)."""
     leaves, shards = tree_leaves(local), tree_leaves(plan)
@@ -424,6 +452,8 @@ def gather_params(local, plan, comm=None, data_comm=None):
         g = comm.all_gather(x.movedim(s.dim, 0), "params")
         if s.segs is not None:
             g = unpack_segments(g, s.segs, comm.size)
+        if s.rep > 1:
+            g = torch.cat(torch.chunk(g, comm.size)[::s.rep])
         return g.movedim(0, s.dim).contiguous()
     return tree_unflatten_like(local, [whole(x, s)
                                        for x, s in zip(leaves, shards)])
@@ -545,9 +575,16 @@ def decode_state_plan(state, sizes, coords, cfg):
     state meets the weights it is read with:
 
       ``kv/k``, ``kv/v`` [L, B, C, Hkv, Dh]: the rank's heads, where the
-        attention unit splits (``n_kv_heads % m == 0``), else whole (the
-        reference then cuts the cache's length C, or at batch 1 puts C
-        over 'data': the port keeps C whole, ROADMAP item 9b part 3);
+        attention unit splits on them (``n_kv_heads % m == 0``); where it
+        splits over kv head groups (``sharding.parallel.kv_replicas``)
+        the group's one head ``[g, g + 1)``, held alike by the group's
+        ranks (``Shard.rep``), with the length C whole, so that a rank
+        reads only the head its queries use and no softmax partials are
+        merged across ranks at each layer and step: 1 / ``n_kv_heads``
+        of the cache a card, where the reference's
+        ``_decode_state_spec`` cuts C over ``model`` (1 / m a card; at
+        batch 1 C over 'data' too, ROADMAP item 9b); whole where the unit
+        stays whole;
       ``mamba/h`` [L, B, H, N, P]: the rank's ``H / m`` SSD heads;
       ``mamba/conv`` [L, B, K-1, ch]: the rank's ``[x_r | B | C]``
         channels, the segmented cut of ``conv_w`` (``Shard.segs``), so
@@ -565,6 +602,7 @@ def decode_state_plan(state, sizes, coords, cfg):
     :func:`rows_comm` puts it back whole."""
     m, r = sizes.get("model", 1), coords.get("model", 0)
     units = sharded_units(cfg, sizes)
+    rep = kv_replicas(cfg, m) if units["attn"] else 1
 
     def one(path, leaf):
         shape = tuple(leaf.shape)
@@ -582,6 +620,9 @@ def decode_state_plan(state, sizes, coords, cfg):
         if split is not None and units[split]:
             s.dim = {"kvcache": 3, "mamba_h": 2, "mamba_conv": 3}[kind]
             per = shape[s.dim] // m
+            if kind == "kvcache" and rep > 1:     # the group's one head
+                s.rep, s.lo, s.hi = rep, r // rep, r // rep + 1
+                return s
             if kind == "mamba_conv":
                 s.segs = rank_segments(packed_segments(cfg, "mamba/conv_w"),
                                        m, r)

@@ -174,10 +174,11 @@ def round_census(eng) -> dict:
 
 def mesh_comms(mesh) -> list:
     """The distinct collective groups of ``mesh``: its ``model`` axis',
-    its batch axes' and its ``data`` axis' where that is a group of its
-    own."""
+    its batch axes', its ``data`` axis' where that is a group of its own
+    and its kv head groups' (``Mesh.kv_comms``, census ``"kv/..."``)."""
     out: list = []
-    for comm in (mesh.model_comm, mesh.comm, mesh.data_comm):
+    kv = [c for _, c in sorted(mesh.kv_comms.items())]
+    for comm in (mesh.model_comm, mesh.comm, mesh.data_comm, *kv):
         if comm is not None and all(comm is not c for c in out):
             out.append(comm)
     return out

@@ -7,8 +7,9 @@ halves at m = 2.
   runtime's form (one position a row) gets the block
   ``sharding.specs.decode_state_plan`` gives it on (d, m) = (1, 2),
   (2, 2), (1, 4) and (4, 1): its rows of the batch, its heads of the KV
-  cache where the attention unit splits (gemma2's 2 kv heads do not at
-  m = 4: whole there), its ``H / m`` SSD heads, its ``[x_r | B | C]``
+  cache where the attention unit splits (gemma2's 2 kv heads at m = 4
+  over kv head groups: the group's one head), its ``H / m`` SSD heads,
+  its ``[x_r | B | C]``
   conv channels, ``enc_out`` whole over ``model``; the blocks, put back
   by the test's own placement, are the whole state, and each block has
   the shape of the empty state the program allocates
@@ -104,10 +105,15 @@ def _columns(cfg, path, m, r):
     if m == 1:
         return None
     if path.startswith("kv/") and path != "kv/idx":
-        if cfg.n_heads % m or cfg.n_kv_heads % m:
+        if cfg.n_heads % m:
             return None
-        per = cfg.n_kv_heads // m
-        return 3, [(r * per, (r + 1) * per)]
+        if cfg.n_kv_heads % m == 0:
+            per = cfg.n_kv_heads // m
+            return 3, [(r * per, (r + 1) * per)]
+        if m % cfg.n_kv_heads == 0:       # the group's one kv head
+            g = r // (m // cfg.n_kv_heads)
+            return 3, [(g, g + 1)]
+        return None
     s = cfg.ssm
     if path == "mamba/h":
         per = s.expand * cfg.d_model // s.head_dim // m

@@ -10,7 +10,9 @@ plan gives each leaf the dimension its spec puts on ``data`` (roles
 ``model`` where its unit splits: a stage model's ``lin/w`` wherever its
 columns divide the axis (``shard_if_divisible`` exactly), a
 transformer's unit only on whole heads, experts, hidden columns or
-vocab rows (else whole, as ``tests/test_torch_tp.py`` holds).  Held for
+vocab rows (else whole, as ``tests/test_torch_tp.py`` holds), an
+attention block's ``wk``/``wv`` with fewer kv heads than ranks on its
+group's whole kv head (``kv_replicas``).  Held for
 every Engine task (femnist at each cut, resnet9, the LSTM, the MLP) and
 every arch (whisper's encoder and decoder halves, the Mamba blocks'
 packed leaves cut on whole heads) at its published widths (shapes only: the
@@ -42,8 +44,9 @@ from repro_torch.core.split import make_transformer_task
 from repro_torch.models.module import SHAPES
 from repro_torch.optim import adam
 from repro_torch.launch.steps import make_whisper_task
-from repro_torch.sharding.parallel import (packed_segments, rank_segments,
-                                           sharded_units, unit_of)
+from repro_torch.sharding.parallel import (kv_replicas, packed_segments,
+                                           rank_segments, sharded_units,
+                                           unit_of)
 from repro_torch.sharding.specs import Shard, shard_params, shard_plan
 from repro_torch.utils.tree import (tree_leaves, tree_leaves_with_path,
                                     tree_map)
@@ -122,8 +125,14 @@ def _check(specs: dict, tree, sizes, role, cfg=None):
                     assert s.segs == rank_segments(packed_segments(
                         cfg, name), sizes[ax], coords[ax]), name
                     per = sum(h - l for l, h, _ in s.segs)
-                assert (lo, hi) == (coords[ax] * per,
-                                    (coords[ax] + 1) * per), name
+                rep = s.rep if ax == "model" else 1
+                if rep > 1:
+                    # a kv head held by the rank's group of ``rep``
+                    assert rep == kv_replicas(cfg, sizes[ax]), name
+                    assert name.endswith(("attn/wk", "attn/wv")), name
+                    per = leaf.shape[dim] // (sizes[ax] // rep)
+                assert (lo, hi) == (coords[ax] // rep * per,
+                                    (coords[ax] // rep + 1) * per), name
                 if coords == {"data": 0, "model": 0}:
                     n[ax] += 1
     return n

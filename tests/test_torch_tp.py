@@ -21,8 +21,10 @@ unsharded ``cyclesl_round`` on carried weights and plans:
   census exactly as counted below, and metrics and state against the
   reference's round (rtol 1e-4, the same Adam rule);
 - one spawned world of 4: olmoe on (2, 2), the cohort split over
-  ``data`` too, and glm4 on (1, 4), whose ``n_kv_heads`` 2 < 4 keeps
-  attention whole on every rank while the FFN and the vocab split.
+  ``data`` too, and glm4 on (1, 4), whose ``n_kv_heads`` 2 < 4 splits
+  the attention over kv head groups (one query head a rank, each kv
+  head held by a group of 2; ``tests/test_torch_kv_groups.py`` holds
+  the groups' own checks) while the FFN and the vocab split.
 
 Adam's near-sign rule (``tests/test_torch_steps.py``, ``chip_smoke.py``
 ``compare_runs``): a first Adam step moves a weight by about lr *
@@ -54,8 +56,8 @@ from repro_torch.launch.meshcheck import spawn_ranks
 from repro_torch.launch.steps import build_prefill_step, build_train_step
 from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import Transformer
-from repro_torch.sharding.parallel import (packed_segments, sharded_units,
-                                           unit_of)
+from repro_torch.sharding.parallel import (kv_replicas, packed_segments,
+                                           sharded_units, unit_of)
 from repro_torch.sharding.specs import (gather_params, param_specs,
                                         shard_params, shard_plan)
 from repro_torch.utils.tree import (tree_leaves, tree_leaves_with_path,
@@ -114,7 +116,9 @@ def test_whole_unit_rule_and_plan_at_published_shapes(arch, m, meta_init):
     """Every leaf a plan splits belongs to a unit the rule splits, sits
     where the reference's spec puts the ``model`` axis, and gives the
     rank (the last one here) its 1/m on whole heads, experts, columns or
-    vocab rows; every other leaf stays whole.  A Mamba block's packed
+    vocab rows, or, where the attention splits over kv head groups
+    (``kv_replicas``), its group's whole kv head of ``wk`` and ``wv``;
+    every other leaf stays whole.  A Mamba block's packed
     ``w_in`` and ``conv_w`` give the rank whole heads of ``z``, ``x``
     and ``dt`` and all of ``B`` and ``C`` (one group), in that order."""
     cfg = get_config(arch)
@@ -141,11 +145,17 @@ def test_whole_unit_rule_and_plan_at_published_shapes(arch, m, meta_init):
             _assert_whole_heads(cfg, name, s, m)
             continue
         assert packed_segments(cfg, name) is None, name
-        per = leaf.shape[s.dim] // m
-        assert (s.lo, s.hi) == ((m - 1) * per, m * per), name
+        rep = kv_replicas(cfg, m) if name.endswith(("attn/wk", "attn/wv")) \
+            else 1
+        per = leaf.shape[s.dim] // (m // rep)
+        g = (m - 1) // rep
+        assert s.rep == rep and (s.lo, s.hi) == (g * per, (g + 1) * per), \
+            name
+        if rep > 1:                      # the group's one whole kv head
+            assert per == cfg.hd, name
     assert (n_split > 0) == (m > 1 and any(units.values()))
     if arch == "glm4-9b" and m == 4:
-        assert not units["attn"] and units["ffn"] and units["vocab"]
+        assert units["attn"] and units["ffn"] and units["vocab"]
     if arch == "olmoe-1b-7b" and m == 4:
         assert units["attn"] and units["moe"] and units["vocab"]
         assert cfg.n_heads // m == 4 and cfg.moe.n_experts // m == 16
