@@ -174,7 +174,20 @@ Phases, each of which ends the script with a non-zero exit on failure:
     dropped refused, glm4-9b whole for 3 rounds with its census as
     predicted and a card's peak under 80 GB and within 5% of the dry
     run's, and its teacher-forced and served decode held to one card by
-    phase 28's criteria.
+    phase 28's criteria;
+32. the donated TrainState, in a process of its own: the in-place Adam
+    entry (``fused_adam_``) bit-equal to the out-of-place kernel at the
+    femnist, olmoe client and olmoe rank shapes, a slot whose ``keep``
+    flag is 0 untouched, against its plain version, both entries' device
+    ms; the Engine at its defaults (donated) bit-equal to
+    ``donate=False`` at cut 2, cut 3 fused, cyclepsl with padded slots
+    and pipelined sync and async, every fused_adam launch in place, and
+    a guarded run with donation off; glm4-9b at depth 4 through the
+    train step's ``donated()`` bit-equal to its ``fn``; with four cards,
+    glm4-9b at depth 4 on (2, 2) donated bit-equal to undonated and held
+    to one card by phase 25's criteria, and glm4-9b and olmoe-1b-7b
+    whole on (2, 2) and (1, 4), donated, each card's peak against the
+    donated dry run's (glm4-9b within 5%).
 
 It then prints the ``kernels`` JSON line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -1156,7 +1169,7 @@ def take_census(mesh) -> dict:
 
 
 def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
-                keep_state=False, cohort=COHORT):
+                keep_state=False, cohort=COHORT, donate=False):
     """A transformer path: ``build_train_step`` for ``cfg`` (its
     published cut; whisper's encoder and decoder), ``cohort`` clients,
     batch 2 a client, sequence 2048 (whisper: 1500 frames and 448 text
@@ -1182,7 +1195,9 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
     and its ``C / cohort_size(mesh)`` slots, the same launches on every
     rank (a block is a leaf as a whole leaf is; the slot counts above
     are the rank's), and each round's census of both axes kept;
-    ``keep_state`` returns the final state."""
+    ``keep_state`` returns the final state; ``donate`` runs the step as
+    its bundle donates (``StepBundle.donated()``: the state stepped in
+    place)."""
     from repro_torch.configs import InputShape
     from repro_torch.core.cyclesl import CycleConfig
     from repro_torch.launch.mesh import cohort_size
@@ -1217,13 +1232,14 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
                   fused_adam=(len(tree_leaves(server.params)) * steps
                               + len(tree_leaves(clients.params))) * rounds)
     batches = [bundle.make_batch(r) for r in range(rounds)]
+    step = bundle.donated() if donate else bundle.fn
     torch.cuda.synchronize()
     reset_counters()
     take_census(mesh)
     stamps, metrics, census = [time.perf_counter()], [], []
     for r in range(rounds):
         xs, ys = batches[r]
-        server, clients, m = bundle.fn(server, clients, xs, ys, r)
+        server, clients, m = step(server, clients, xs, ys, r)
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
         metrics.append({k: float(v) for k, v in m.items()})
@@ -1263,7 +1279,7 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
     return {**extra, "profile": prof, "config": {
                 "arch": cfg.name, "n_layers": L, "cut": cut, "cohort": C,
                 "batch": b, "seq": seq, "server_steps": steps,
-                "dtype": cfg.dtype,
+                "dtype": cfg.dtype, "donate": donate,
                 **({"frames": WHISPER_FRAMES} if audio else {})},
             "params_client": n_client, "params_server": n_server,
             "state_bytes": state_bytes, "init_s": init_s,
@@ -5904,7 +5920,10 @@ def counted_round(torch, label, cfg, rounds=3):
     shape = InputShape(label, SEQ, COHORT * BATCH, "train")
     cycle = CycleConfig(server_epochs=1, server_batch=BATCH)
     t0 = time.perf_counter()
-    rec = dry_run(cfg, shape, None, cohort=COHORT, cycle=cycle)
+    # the card runs bundle.fn, which keeps its arguments: so does the
+    # dry run it is held to (phase 32 holds the donated step)
+    rec = dry_run(cfg, shape, None, cohort=COHORT, cycle=cycle,
+                  donate=False)
     meta_s = time.perf_counter() - t0
     gc.collect()
     torch.cuda.empty_cache()
@@ -6148,18 +6167,19 @@ def kv_rank_runs(mesh, rounds, want_rows):
     return out
 
 
-def kv_dry_run(torch, cfg, m):
+def kv_dry_run(torch, cfg, m, d=1, donate=False):
     """The dry run's record of ``cfg``'s train step at phase 25's protocol
     (cohort 2, batch 2 a client, sequence 2048, server batch 2) as rank 0
-    of a (1, m) mesh on ``meta``, over torch's fake process group, which
-    it ends after."""
+    of a (d, m) mesh on ``meta``, over torch's fake process group, which
+    it ends after; ``donate`` runs the step as its bundle donates."""
     from repro_torch.configs import InputShape
     from repro_torch.core.cyclesl import CycleConfig
     from repro_torch.launch.dryrun import dry_run
     shape = InputShape("kv dry run", SEQ, COHORT * BATCH, "train")
     cycle = CycleConfig(server_epochs=1, server_batch=BATCH)
     try:
-        return dry_run(cfg, shape, (1, m), cohort=COHORT, cycle=cycle)
+        return dry_run(cfg, shape, (d, m), cohort=COHORT, cycle=cycle,
+                       donate=donate)
     finally:
         torch.distributed.destroy_process_group()
 
@@ -6405,6 +6425,445 @@ def run_kv_groups_phase(out_path):
     return 0
 
 
+# ------------------------------------------------ phase 32: donated state
+DONATE_ARCH = "glm4-9b"
+DONATE_DEPTH = 4
+DONATE_PARAMS = os.path.join(ROOT, "build", "chip_smoke_donate_unsharded.pt")
+DONATE_PEAK_RTOL = 0.05        # a card's peak against the donated dry run's
+# the undonated peaks a card that PERF.md records: olmoe-1b-7b whole on
+# (1, 4) and (2, 2) as the cards read them, glm4-9b whole on (1, 4) as
+# the dry run reads it
+UNDONATED_PEAKS = {("olmoe-1b-7b", (1, 4)): 52.70e9,
+                   ("olmoe-1b-7b", (2, 2)): 58.42e9,
+                   ("glm4-9b", (1, 4)): 72.85e9}
+DONATE_WORLD = ((2, 2), (1, 4))
+DONATE_WHOLE = ("glm4-9b", "olmoe-1b-7b")
+
+
+def donate_kernel_checks(torch, dev):
+    """Phase 32a: ``fused_adam_`` (the in-place entry) at the femnist
+    server's dense leaf, the femnist client stack and server replicas,
+    olmoe's stacked client embedding and the olmoe server experts a rank
+    of (1, 4) holds: bit-equal to the out-of-place kernel on the same
+    inputs; with ``keep`` turning one slot off (for a single entity, the
+    entity) that slot's p, m and v bit-equal to their inputs and the
+    others to the out-of-place result; against ``ref.fused_adam_ref_`` on
+    the card to ``fused_adam``'s tolerance (phase 3's ``check``), and the
+    device ms of both entries in this one call.  Returns the femnist
+    server row (the kernels line's) and every shape's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device=dev).manual_seed(32)
+    olmoe = get_config("olmoe-1b-7b")
+    mo = olmoe.moe
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = (
+        ("femnist server dense", (3136, 2048), 3, f32),
+        ("femnist client stack", (5, 5, 5, 32, 64), [0, 1, 2, 3, 4], f32),
+        ("femnist server replicas", (5, 3136, 2048), [4, 4, 4, 9, 0], f32),
+        ("olmoe client embedding", (COHORT, olmoe.vocab_padded,
+                                    olmoe.d_model), [0, 3], bf16),
+        ("olmoe server experts, a rank of (1, 4)",
+         (olmoe.n_layers - olmoe.cut_layers, mo.n_experts // 4,
+          olmoe.d_model, mo.d_ff_expert), 3, bf16))
+    kw = dict(lr=1e-3)
+    out, checks, row = [], {}, None
+    for label, shape, steps, dtype in cases:
+        q = lib = None
+        p0 = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        g = torch.randn(shape, device=dev, generator=gen).to(dtype)
+        m0 = torch.randn(shape, device=dev, generator=gen) * 0.1
+        v0 = torch.rand(shape, device=dev, generator=gen) * 0.1
+        step = torch.tensor(steps, dtype=torch.int32, device=dev)
+        fresh = lambda: (p0.clone(), m0.clone(), v0.clone())
+        want = ops.fused_adam(p0, g, m0, v0, step, **kw)
+        p, m, v = fresh()
+        got = ops.fused_adam_(p, g, m, v, step, **kw)
+        same = (got[0] is p and got[1] is m and got[2] is v
+                and all(torch.equal(a, b) for a, b in zip(got, want)))
+        # one slot off: the middle row of a stack, a lone entity whole
+        keep = torch.ones(step.shape, dtype=torch.int32, device=dev)
+        off = step.numel() // 2
+        keep.view(-1)[off] = 0
+        p, m, v = fresh()
+        ops.fused_adam_(p, g, m, v, step, keep=keep, **kw)
+        if step.dim():
+            on = torch.arange(step.numel(), device=dev) != off
+            kept = all(torch.equal(a[off], b[off]) for a, b in
+                       zip((p, m, v), (p0, m0, v0)))
+            stepped = all(torch.equal(a[on], b[on]) for a, b in
+                          zip((p, m, v), want))
+        else:
+            kept = all(torch.equal(a, b) for a, b in
+                       zip((p, m, v), (p0, m0, v0)))
+            p, m, v = fresh()
+            ops.fused_adam_(p, g, m, v, step, keep=torch.ones_like(keep),
+                            **kw)
+            stepped = all(torch.equal(a, b) for a, b in
+                          zip((p, m, v), want))
+        del want, p, m, v
+        checks[f"{label}: in place == out of place"] = same
+        checks[f"{label}: a slot off kept, the others stepped"] = (
+            kept and stepped)
+        copy_ms = device_ms(lambda: ops.fused_adam(p0, g, m0, v0, step,
+                                                   **kw))
+        pk, mk, vk = fresh()
+        pp, mp, vp = fresh()
+        if label == "femnist server dense":
+            q = p0.clone().requires_grad_(True)
+            q.grad = g.clone()
+            lib = torch.optim.Adam([q], lr=1e-3, fused=True,
+                                   capturable=True).step
+        r = check("fused_adam_inplace",
+                  f"{list(shape)} {str(dtype)[6:]} step{list(step.shape)}",
+                  lambda: ops.fused_adam_(pk, g, mk, vk, step, **kw),
+                  lambda: ref.fused_adam_ref_(pp, g, mp, vp, step, **kw),
+                  1e-6, kernel_cost("fused_adam", p0, g, m0, v0, step),
+                  library=lib, ulps=1)
+        r = {**r, "label": label, "copy_ms": copy_ms}
+        print(f"donate kernel {label} {list(shape)} {str(dtype)[6:]}: in "
+              f"place {r['ms']:.4f} ms, out of place {copy_ms:.4f} ms "
+              f"(device ms, one call); bit-equal {same}; a slot off kept "
+              f"{kept}, the others stepped {stepped}")
+        out.append(r)
+        if row is None:
+            row = r
+        del p0, g, m0, v0, pk, mk, vk, pp, mp, vp, q, lib
+        free(torch)
+    return row, out, checks
+
+
+# label: (config fields, cycle fields); under async pipelining the state
+# is not donated (the server steps out of place, its copies in place)
+DONATE_PAIRS = {
+    "cut2": ({"cut": 2}, {}),
+    "cut3 fused": ({"cut": 3}, {"fused_gather_loss": True}),
+    "cyclepsl padded": ({"cut": 2, "algo": "cyclepsl",
+                         "variable_attendance": True}, {}),
+    "sync1": ({"cut": 2, "pipeline_depth": 1}, {}),
+    "async1": ({"cut": 2, "pipeline_depth": 1,
+                "pipeline_staleness": "async"}, {}),
+}
+
+
+def _form_launches(run) -> dict:
+    """A run's launches without fused_adam's split by entry."""
+    return {k: v for k, v in run["launches"].items()
+            if not k.startswith("fused_adam/")}
+
+
+def donate_engine(torch, rounds, dev="cuda"):
+    """Phase 32b: the Engine at its defaults (donated on the card)
+    against ``donate=False`` on the main path's config (cut 2, cut 3
+    with ``fused_gather_loss``, cyclepsl under variable attendance with
+    padded slots, pipelined sync and async at depth 1), ``rounds``
+    rounds each: every metric and the final state bit-equal, the
+    launches equal with every fused_adam launch in place (under async
+    pipelining those of the round's copies alone), and ``torch.cuda.max_memory_allocated`` above what the
+    card held before, donated no more than undonated; then a guarded run
+    at the defaults: donation off (no in-place launch), its state the
+    undonated cut-2 run's."""
+    from repro_torch.api import ExperimentConfig
+    from repro_torch.resilience import ResilienceConfig
+    out, checks = {}, {}
+
+    def one(label, cfg, donate):
+        free(torch)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        r = run_engine(torch, cfg, dev, donate=donate)
+        r["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        r["donate"] = r.pop("engine").donate
+        r.pop("res")
+        return r
+
+    for label, (kw, cyc) in DONATE_PAIRS.items():
+        cfg = ExperimentConfig(rounds=rounds, eval_every=rounds,
+                               **{**MAIN, **kw}).with_cycle(**cyc)
+        d, u = one(label, cfg, None), one(label, cfg, False)
+        fa = d["launches"]["fused_adam"]
+        inplace = d["launches"]["fused_adam/inplace"]
+        state = kw.get("pipeline_staleness") != "async"
+        checks[f"{label}: donated by default, bit-equal to donate=False"] = (
+            d["donate"] is True and u["donate"] is False and _same(torch, d, u))
+        checks[f"{label}: launches equal, "
+               + ("every fused_adam in place" if state
+                  else "the copies' fused_adam in place")] = (
+            _form_launches(d) == _form_launches(u) and fa > 0
+            and (inplace == fa if state else 0 < inplace < fa)
+            and d["launches"]["fused_adam/copy"] == fa - inplace
+            and u["launches"]["fused_adam/copy"] == fa
+            and u["launches"]["fused_adam/inplace"] == 0)
+        checks[f"{label}: donated peak <= undonated"] = (
+            d["peak_bytes"] <= u["peak_bytes"])
+        print(f"donate {label}: {rounds} rounds bit-equal "
+              f"{_same(torch, d, u)}; peak {d['peak_bytes'] / 1e6:.2f} MB "
+              f"donated, {u['peak_bytes'] / 1e6:.2f} MB undonated; launches "
+              f"{d['launches']} / {u['launches']}; wall {d['wall_s']:.3f}s "
+              f"/ {u['wall_s']:.3f}s")
+        out[label] = {k: {f: r[f] for f in ("rows", "launches", "peak_bytes",
+                                            "wall_s", "donate")}
+                      for k, r in (("donated", d), ("undonated", u))}
+        if label == "cut2":
+            want = u
+    cfg = ExperimentConfig(rounds=rounds, eval_every=rounds, cut=2,
+                           resilience=ResilienceConfig(guard=True), **MAIN)
+    g = one("guarded", cfg, None)
+    checks["guarded: donation off, no in-place launch"] = (
+        g["donate"] is False and g["launches"]["fused_adam/inplace"] == 0
+        and g["launches"]["fused_adam/copy"] > 0)
+    checks["guarded: state bit-equal to the undonated run"] = state_diff(
+        torch, g["state"], want["state"]) == 0.0
+    print(f"donate guarded: donate {g['donate']}, launches {g['launches']}, "
+          f"state diff to undonated cut2 "
+          f"{state_diff(torch, g['state'], want['state'])}")
+    out["guarded"] = {f: g[f] for f in ("launches", "peak_bytes", "donate")}
+    return out, checks
+
+
+def donate_rank_runs(mesh, rounds, want_rows):
+    """Phase 32c in spawned ranks, one card each, on the spawn's (2, 2)
+    mesh: glm4-9b at depth 4 undonated and donated, each rank's digest
+    of its state and metrics, the donated run gathered whole and held to
+    this phase's one-card run (rank 0 reads its weights from
+    ``DONATE_PARAMS``; :func:`tp_against_unsharded`); then for each mesh
+    of ``DONATE_WORLD`` (built over the same ranks) each arch of
+    ``DONATE_WHOLE`` whole, donated, ``rounds`` timed rounds with exact
+    launches and the card's peak above what it held before.  Only rank 0
+    prints; every rank returns its own numbers."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_engine_mesh
+    rank = torch.distributed.get_rank()
+    if rank != 0:
+        sys.stdout = open(os.devnull, "w")
+    t0 = time.perf_counter()
+    cfg4 = get_config(DONATE_ARCH).with_(n_layers=DONATE_DEPTH)
+    out = {"s": {}}
+    for label, donate in (("undonated", False), ("donated", True)):
+        free(torch)
+        run = split_round(torch, f"donate (2, 2) depth {DONATE_DEPTH} "
+                          f"{label}", cfg4, rounds, mesh=mesh,
+                          keep_state=True, donate=donate)
+        server, clients = run.pop("state")
+        run["digest"] = _digest(torch, (server, clients), run["metrics"])
+        if donate:
+            params = whole_step_state(mesh, cfg4, server, clients)
+            del server, clients
+            out["against_unsharded"] = (
+                tp_against_unsharded(torch, params, run["metrics"],
+                                     want_rows, 2 * rounds,
+                                     path=DONATE_PARAMS)
+                if rank == 0 else None)
+            del params
+        else:
+            del server, clients
+        out[f"depth4 {label}"] = run
+    out["s"]["depth 4"] = time.perf_counter() - t0
+    for shape in DONATE_WORLD:
+        if (mesh.shape["data"], mesh.shape["model"]) != shape:
+            mesh = make_engine_mesh(shape, ("data", "model"), "cuda")
+        lab = f"({shape[0]}, {shape[1]})"
+        for arch in DONATE_WHOLE:
+            free(torch)
+            base = torch.cuda.memory_allocated()
+            run = split_round(torch, f"donate {lab} {arch} whole",
+                              get_config(arch), rounds, mesh=mesh,
+                              donate=True)
+            run["base_bytes"] = base
+            run.pop("census", None)
+            out[f"{lab} {arch}"] = run
+            out["s"][f"{lab} {arch}"] = time.perf_counter() - t0
+    return out
+
+
+def donate_world(torch, out, checks, want_rows, rounds):
+    """The four-card part of :func:`donate_phase`, into ``out`` and
+    ``checks``: the donated dry runs of every whole run, one spawn of
+    four ranks (:func:`donate_rank_runs`), and the ranks' runs held to
+    them."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.meshcheck import spawn_ranks
+    t0 = time.perf_counter()
+    dry = {}
+    for shape in DONATE_WORLD:
+        for arch in DONATE_WHOLE:
+            rec = kv_dry_run(torch, get_config(arch), shape[1], d=shape[0],
+                             donate=True)
+            dry[(arch, shape)] = rec
+            print(f"donate dry run of {arch} whole on {shape}, donated: "
+                  f"state {rec['state_bytes'] / 1e9:.2f} GB, peak "
+                  f"{rec['peak_bytes'] / 1e9:.2f} GB, fits {rec['fits']}")
+    out["dry_runs"] = {f"{a} {s}": {k: r[k] for k in ("state_bytes",
+                                                      "peak_bytes", "fits")}
+                       for (a, s), r in dry.items()}
+    out["s"]["dry runs"] = time.perf_counter() - t0
+    # glm4-9b whole peaks near 70 GB on (2, 2): the ranks allocate in
+    # expandable segments (phase 31's reason); a failing rank ends all
+    free(torch)
+    env = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        ranks = spawn_ranks(4, donate_rank_runs, (rounds, want_rows), "cuda",
+                            shape=DONATE_WORLD[0], timeout=900)
+    finally:
+        if env is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+    out["s"]["world"] = time.perf_counter() - t0
+    r0 = ranks[0]
+    held = r0["against_unsharded"]
+    checks["(2, 2) depth 4 donated bit-equal to undonated on every rank"] = \
+        all(r["depth4 donated"]["digest"] == r["depth4 undonated"]["digest"]
+            for r in ranks)
+    checks["(2, 2) depth 4 launches: donated == undonated"] = all(
+        _form_launches(r["depth4 donated"])
+        == _form_launches(r["depth4 undonated"]) for r in ranks)
+    checks["(2, 2) depth 4 donated against one card"] = held["ok"]
+    print(f"donate (2, 2) depth {DONATE_DEPTH}: donated against undonated "
+          f"bit-equal on every rank "
+          f"{checks['(2, 2) depth 4 donated bit-equal to undonated on every rank']}"
+          f"; against one card {held}; peak a card "
+          f"{r0['depth4 donated']['peak_bytes'] / 1e9:.2f} GB donated, "
+          f"{r0['depth4 undonated']['peak_bytes'] / 1e9:.2f} GB undonated")
+    whole = {}
+    for (arch, shape), rec in dry.items():
+        key = f"({shape[0]}, {shape[1]}) {arch}"
+        runs = [r[key] for r in ranks]
+        peak = max(r["peak_bytes"] - r["base_bytes"] for r in runs)
+        err = (peak - rec["peak_bytes"]) / rec["peak_bytes"]
+        w = runs[0]
+        before = UNDONATED_PEAKS.get((arch, shape))
+        checks[f"{key} whole fits a card"] = peak < 80e9
+        checks[f"{key} whole alike on every rank"] = all(
+            r["metrics"] == w["metrics"] and r["launches"] == w["launches"]
+            for r in runs)
+        if arch == DONATE_ARCH:
+            checks[f"{key} whole peak within 5% of the donated dry run's"] = \
+                abs(err) <= DONATE_PEAK_RTOL
+        print(f"donate {key} whole, donated: {w['rounds_per_s']:.3f} "
+              f"rounds/s, {w['tokens_per_s']:.1f} tokens/s, peak "
+              f"{peak / 1e9:.2f} GB a card (max over ranks; the donated dry "
+              f"run's {rec['peak_bytes'] / 1e9:.2f} GB, {err:+.2%}; "
+              + ("" if before is None else
+                 f"undonated before {before / 1e9:.2f} GB; ")
+              + f"entity states {w['state_bytes'] / 1e9:.2f} GB a card, the "
+              f"dry run's {rec['state_bytes'] / 1e9:.2f} GB)")
+        whole[key] = {"peak_bytes_max": peak, "peak_err": err,
+                      "dry_peak_bytes": rec["peak_bytes"],
+                      "undonated_peak_before": before,
+                      "state_bytes": w["state_bytes"],
+                      "rounds_per_s": w["rounds_per_s"],
+                      "tokens_per_s": w["tokens_per_s"],
+                      "round_s": w["round_s"], "launches": w["launches"],
+                      "metrics": w["metrics"]}
+    out["world"] = {"whole": whole, "against_unsharded": held,
+                    "depth4": {k: {f: r0[k][f] for f in (
+                        "metrics", "launches", "peak_bytes", "rounds_per_s")}
+                        for k in ("depth4 undonated", "depth4 donated")},
+                    "s": r0["s"]}
+
+
+def donate_phase(torch, rounds=ROUNDS, engine_rounds=10, dev="cuda"):
+    """Phase 32: the donated TrainState.  One card: (a) the in-place
+    kernel (:func:`donate_kernel_checks`); (b) the Engine donated
+    against undonated (:func:`donate_engine`); glm4-9b at depth 4
+    (bf16, cohort 2, batch 2, sequence 2048) through
+    ``build_train_step``'s ``fn`` and its ``donated()``, bit for bit with
+    the same launches.  With four cards (c): :func:`donate_world`.
+    Raises on any miss."""
+    from repro_torch.configs import get_config
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    out, checks = {"s": {}}, {}
+    cards = torch.cuda.device_count()
+    row, shapes, kchecks = donate_kernel_checks(torch, dev)
+    checks.update(kchecks)
+    out["kernel_row"], out["kernel_shapes"] = row, shapes
+    out["s"]["kernels"] = time.perf_counter() - t_phase
+    out["engine"], echecks = donate_engine(torch, engine_rounds, dev)
+    checks.update(echecks)
+    out["s"]["engine"] = time.perf_counter() - t_phase
+    cfg4 = get_config(DONATE_ARCH).with_(n_layers=DONATE_DEPTH)
+    runs = {}
+    for label, donate in (("undonated", False), ("donated", True)):
+        free(torch)
+        r = split_round(torch, f"donate one card depth {DONATE_DEPTH} "
+                        f"{label}", cfg4, rounds, keep_state=True,
+                        donate=donate)
+        state = r.pop("state")
+        if not donate:
+            want = tree_map(lambda t: t.cpu(), state)
+            if cards >= 4:
+                os.makedirs(os.path.dirname(DONATE_PARAMS), exist_ok=True)
+                torch.save((want[0].params, want[1].params), DONATE_PARAMS)
+        else:
+            checks["one card depth 4 donated bit-equal to undonated"] = all(
+                torch.equal(x, y.cpu()) for x, y in zip(
+                    tree_leaves(want), tree_leaves(state))) and (
+                runs["undonated"]["metrics"] == r["metrics"])
+            del want
+        del state
+        runs[label] = r
+    d, u = runs["donated"], runs["undonated"]
+    fa = d["launches"]["fused_adam"]
+    checks["one card depth 4 launches equal, donated all in place"] = (
+        _form_launches(d) == _form_launches(u)
+        and d["launches"]["fused_adam/inplace"] == fa
+        and u["launches"]["fused_adam/copy"] == fa)
+    checks["one card depth 4 donated peak below undonated"] = (
+        d["peak_bytes"] < u["peak_bytes"])
+    print(f"donate one card {DONATE_ARCH} depth {DONATE_DEPTH}: peak "
+          f"{d['peak_bytes'] / 1e9:.2f} GB donated, "
+          f"{u['peak_bytes'] / 1e9:.2f} GB undonated; rounds/s "
+          f"{d['rounds_per_s']:.3f} / {u['rounds_per_s']:.3f}; "
+          + ", ".join(f"{k} {v}" for k, v in checks.items()
+                      if k.startswith("one card")))
+    out["one_card"] = {k: {f: r[f] for f in (
+        "metrics", "launches", "peak_bytes", "rounds_per_s", "state_bytes")}
+        for k, r in runs.items()}
+    out["s"]["one card"] = time.perf_counter() - t_phase
+    free(torch)
+    if cards < 4:
+        print("donate: fewer than four cards, so the four-card part of "
+              "phase 32 did not run")
+    else:
+        donate_world(torch, out, checks, u["metrics"], rounds)
+    out["s"]["phase"] = time.perf_counter() - t_phase
+    bad = [k for k, v in checks.items() if not v]
+    out["checks"] = checks
+    print("donate: seconds " + json.dumps({k: round(v, 1)
+                                           for k, v in out["s"].items()}))
+    if bad:
+        raise AssertionError(f"donate: {bad}")
+    return out
+
+
+def run_donate_phase(out_path):
+    """The entry of ``--donate-phase``: phase 32 alone, its report written
+    to ``out_path``."""
+    import torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(f"donate: {smi}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}")
+    _build.build_all()
+    t0 = time.perf_counter()
+    res = donate_phase(torch)
+    res["s"]["total"] = time.perf_counter() - t0
+    res["nvidia_smi"] = smi
+    print(f"donate: phase 32 took {res['s']['total']:.1f}s")
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=10,
@@ -6438,6 +6897,9 @@ def main(argv=None):
     ap.add_argument("--kv-groups-phase", default=None, metavar="OUT",
                     help="run phase 31 alone (the process main() starts "
                          "for it) and write its report to OUT")
+    ap.add_argument("--donate-phase", default=None, metavar="OUT",
+                    help="run phase 32 alone (the process main() starts "
+                         "for it) and write its report to OUT")
     args = ap.parse_args(argv)
     if args.mesh_phase:
         return run_mesh_phase(args.mesh_phase, args.profile)
@@ -6453,6 +6915,8 @@ def main(argv=None):
         return run_engine_paths_phase(args.engine_paths_mesh_phase)
     if args.kv_groups_phase:
         return run_kv_groups_phase(args.kv_groups_phase)
+    if args.donate_phase:
+        return run_donate_phase(args.donate_phase)
 
     import torch
     if not torch.cuda.is_available():
@@ -6483,15 +6947,17 @@ def main(argv=None):
 
     # 4-5. the main path and the fused variant
     r = args.rounds
+    # the Engine donates its state on the card: every fused_adam launch
+    # is the in-place entry
     main_run = drive(torch, "main cut2", ExperimentConfig(
         rounds=r, eval_every=r, cut=2, **MAIN),
         {"feature_resample": 2 * 5 * r, "fused_adam": (2 * 5 + 4) * r,
-         "gather_loss": 0})
+         "fused_adam/inplace": (2 * 5 + 4) * r, "gather_loss": 0})
     fused_run = drive(torch, "fused cut3", ExperimentConfig(
         rounds=r, eval_every=r, cut=3, **MAIN).with_cycle(
             fused_gather_loss=True),
         {"feature_resample": 0, "fused_adam": (1 * 5 + 5) * r,
-         "gather_loss": 5 * r})
+         "fused_adam/inplace": (1 * 5 + 5) * r, "gather_loss": 5 * r})
 
     profiles = {}
     if args.profile:
@@ -6682,11 +7148,25 @@ def main(argv=None):
     with open(kv_out) as f:
         kv_group_runs = json.load(f)
     t31 = time.perf_counter()
+
+    # 32. the donated TrainState, in a process of its own (with four
+    # cards glm4-9b and olmoe-1b-7b whole on (2, 2) and (1, 4) in spawned
+    # ranks)
+    dn_out = os.path.join(ROOT, "build", "chip_smoke_donate.json")
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--donate-phase", dn_out], timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 32 (donated state) exited "
+                           f"{proc.returncode}")
+    with open(dn_out) as f:
+        donate_runs = json.load(f)
+    t32 = time.perf_counter()
     phase_s.update({"18": t19 - t18, "19": t20 - t19, "20": t21 - t20,
                     "21-22": t22 - t21b, "23": t23 - t22, "24": t24 - t23,
                     "25": t25 - t24, "26": t26 - t25, "27": t27 - t26,
                     "28": t28 - t27, "29": t29 - t28, "30": t30 - t29,
-                    "31": t31 - t30})
+                    "31": t31 - t30, "32": t32 - t31})
     print("phases took " + ", ".join(f"{k}: {v:.1f}s"
                                      for k, v in phase_s.items()))
 
@@ -6696,14 +7176,23 @@ def main(argv=None):
                "flash_attention": "src/repro/kernels/flash_attention.py:70",
                "topk_gating": "src/repro/kernels/topk_gating.py:38",
                "ssd_scan": "src/repro/kernels/ssd_scan.py:61"}
+    # phase 32's in-place entry, at the femnist server's dense leaf: the
+    # main path's (donated) Adam kernel; the out-of-place entry's
+    # launches are the olmoe round's, whose step keeps its arguments
+    sources["fused_adam_inplace"] = sources["fused_adam"]
+    rows["fused_adam_inplace"] = donate_runs["kernel_row"]
+    counts = {"fused_adam": ("fused_adam/copy", olmoe),
+              "fused_adam_inplace": ("fused_adam/inplace", main_run)}
     kernels = []
     for name, row in rows.items():
         run = {"gather_loss": fused_run, "flash_attention": olmoe,
                "topk_gating": olmoe, "ssd_scan": zamba}.get(name, main_run)
+        key, run = counts.get(name, (name, run))
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-            "replaces": sources[name], "launches": run["launches"][name],
+            "source": "src/repro_torch/kernels/csrc/"
+                      f"{name.replace('_inplace', '')}.cu",
+            "replaces": sources[name], "launches": run["launches"][key],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
@@ -6727,6 +7216,7 @@ def main(argv=None):
                        "engine_paths_mesh": engine_paths_runs,
                        "tooling": tooling_runs,
                        "kv_groups": kv_group_runs,
+                       "donate": donate_runs,
                        "phase_s": phase_s}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))

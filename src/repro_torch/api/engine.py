@@ -187,6 +187,20 @@ class Engine:
     the host group's collectives a checkpointing run on more than one
     rank agrees over (None otherwise).
 
+    ``donate`` donates the TrainState to every round, as the reference's
+    Engine does (``api.phases.build_algorithm(..., donate=True)``: the
+    entities are stepped in place, so a card holds each one's state
+    once).  ``None`` turns it on for a CUDA device and off on the CPU;
+    ``True`` is honoured on the CPU too.  It is off whenever
+    ``cfg.resilience.active``: the guard's recovery re-runs a faulted
+    round from the pre-round state and rolls back to its snapshot ring,
+    which must outlive the dispatch.  The pipelined tail donates the
+    state only under ``pipeline_staleness == "sync"`` (an async extract
+    of a later cohort still reads the pre-tail state, on the card on the
+    side stream); it donates its stage in both modes.  On a mesh each
+    rank donates its own blocks and slots.  A state passed to
+    :meth:`run` is donated with the rest: the caller reads it no more.
+
     ``profiler`` (a ``utils.profiling.RoundProfiler``) times the run
     loop's host sections, ``sample``, ``dispatch``, ``sync`` and
     ``eval``, where the reference's Engine opens them, and ``run()``
@@ -201,6 +215,7 @@ class Engine:
                  callbacks: Sequence = (),
                  plan_fn: Optional[PlanFn] = None,
                  side_stream: bool = True,
+                 donate: Optional[bool] = None,
                  profiler=None,
                  log=print):
         cfg.validate()
@@ -274,11 +289,19 @@ class Engine:
                     "which would leave the server inner loop with zero "
                     "valid steps in sparse rounds; lower cycle.server_batch "
                     "or raise min_cohort")
+        if donate is None:
+            donate = self.device.type == "cuda"
+        if cfg.resilience.active:
+            # the pre-round state and the snapshot ring must outlive
+            # every dispatch, so a faulted round can re-run from them
+            donate = False
+        self.donate = donate
         opt_s, opt_c = adam(cfg.lr_server), adam(cfg.lr_client)
         self.algo: SLAlgorithm = build_algorithm(
             program, task, opt_s, opt_c, cfg.cycle, plan_fn=plan_fn,
             device=self.device, resilience=cfg.resilience, mesh=self.mesh,
-            shard_data=cfg.shard_cohort, n_clients=fed.n_clients)
+            shard_data=cfg.shard_cohort, n_clients=fed.n_clients,
+            donate=donate)
         # ---- pipelined rounds: the (extract, tail) pair, so cohort k+1's
         # feature extraction can be in flight while cohort k's server
         # phase runs.  None for the fused sequential programs (nothing to
@@ -291,7 +314,9 @@ class Engine:
                 device=self.device, resilience=cfg.resilience,
                 staleness_weighting=cfg.staleness_weighting,
                 staleness_lambda=cfg.staleness_lambda, mesh=self.mesh,
-                shard_data=cfg.shard_cohort, n_clients=fed.n_clients)
+                shard_data=cfg.shard_cohort, n_clients=fed.n_clients,
+                donate=donate,
+                donate_state=cfg.pipeline_staleness == "sync")
         if self.pipeline is None:
             # whole rounds deliver fresh params whatever depth says
             self._sched_lag = 0

@@ -50,6 +50,19 @@ an entity to its slots (the shared client's broadcast, the server's
 replicas) gathers it whole over ``data`` first, as a slot's copy is
 whole there (the reference's role 'client'), and a mean over the slots
 back into it hands each rank its block of the sum.
+
+``build_algorithm(..., donate=True)`` donates the TrainState, the
+port's counterpart of the reference's ``donate_argnums=(0,)``: the
+round steps the server and the shared client model in place
+(``core.protocol.entity_step(..., donate=True)``), and the copies it
+makes of them (the server's replicas, the cohort's client models)
+likewise, so a round holds each entity's state once; a masked step is
+skipped in the kernel instead of selected against a kept copy.  An
+entity that a later phase still reads in its pre-step state is stepped
+as before: the server of a program whose feature gradients read θ_S^t
+(``FeatureGradients(use_updated=False)``: psl, sflv1, sglr).  The
+numbers are the undonated round's, bit for bit; the caller reads the
+state it passed in no more.
 """
 from __future__ import annotations
 
@@ -69,8 +82,8 @@ from repro_torch.core.protocol import (DataBlocks, EntityState, SlotSplit,
                                        data_blocks, entity_mean, entity_step,
                                        gather_slots, init_entity,
                                        masked_entity_mean, put_entities,
-                                       select_entities, slot_mean,
-                                       stack_entities, take_entities)
+                                       slot_mean, stack_entities,
+                                       take_entities)
 from repro_torch.core.split import SplitTask
 from repro_torch.optim import Optimizer
 from repro_torch.resilience.guards import health_vector
@@ -119,6 +132,13 @@ class PhaseContext:
     opt_client: Optimizer
     cycle: CycleConfig
     plan_fn: Optional[PlanFn] = None
+    # step in place: the round's own copies of an entity (the server's
+    # replicas, the cohort's client models), and the TrainState's server
+    # and shared client model (the server only where no phase reads
+    # θ_S^t after its step)
+    donate_copies: bool = False
+    donate_server: bool = False
+    donate_client: bool = False
 
 
 @dataclass
@@ -235,7 +255,8 @@ class ExtractFeatures(Phase):
             v.shared_client = whole_entity(ctx.task, state.client_global,
                                            "client")
             v.cohort_clients = broadcast_entity(v.shared_client,
-                                                v.ys.shape[0])
+                                                v.ys.shape[0],
+                                                fresh=ctx.donate_copies)
         else:
             v.cohort_clients = take_entities(state.clients, v.cohort,
                                              v.store_rows, v.split)
@@ -276,7 +297,8 @@ class ServerUpdate(Phase):
             server, sloss = server_inner_loop(
                 ctx.task, v.state.server, ctx.opt_server, store, v.key,
                 ctx.cycle, batch=v.ys.shape[1], plan_fn=ctx.plan_fn,
-                grad_scale=v.stale_w, split=v.split)
+                grad_scale=v.stale_w, split=v.split,
+                donate=ctx.donate_server)
             v.metrics["server_loss"] = sloss
         elif self.mode == "replica_avg":
             whole = whole_entity(ctx.task, v.state.server, "server")
@@ -284,8 +306,9 @@ class ServerUpdate(Phase):
             if v.stale_w is not None:
                 gs = tree_map(lambda g: g * v.stale_w, gs)
             # C replicas with a [C] step take one stacked step
-            rep = entity_step(broadcast_entity(whole, v.ys.shape[0]),
-                              gs, ctx.opt_server)
+            rep = entity_step(broadcast_entity(whole, v.ys.shape[0],
+                                               fresh=ctx.donate_copies),
+                              gs, ctx.opt_server, donate=ctx.donate_copies)
             into = mean_into(ctx.task, "server", whole)
             server = (entity_mean(rep, v.split, into) if v.mask is None
                       else masked_entity_mean(rep, v.mask, v.split, into))
@@ -298,7 +321,8 @@ class ServerUpdate(Phase):
                               mean_into(ctx.task, "server"))
             if v.stale_w is not None:
                 gmean = tree_map(lambda g: g * v.stale_w, gmean)
-            server = entity_step(v.state.server, gmean, ctx.opt_server)
+            server = entity_step(v.state.server, gmean, ctx.opt_server,
+                                 donate=ctx.donate_server)
             v.metrics["server_loss"] = masked_mean(
                 gather_slots(losses, v.split), v.mask)
         else:
@@ -348,12 +372,13 @@ class ClientUpdate(Phase):
         if self.chained:
             entity, gnorms = v.state.client_global, []
             for c in range(v.fgrads.shape[0]):
-                new, gn = client_update_one(ctx.task, entity, _slot(v.xs, c),
-                                            v.fgrads[c], ctx.opt_client, clip)
-                if v.mask is not None:
-                    new = select_entities(v.mask[c], new, entity)
-                    gn = torch.where(v.mask[c] > 0, gn, 0.0)
-                entity = new
+                keep = None if v.mask is None else v.mask[c]
+                entity, gn = client_update_one(
+                    ctx.task, entity, _slot(v.xs, c), v.fgrads[c],
+                    ctx.opt_client, clip, donate=ctx.donate_client,
+                    keep=keep)
+                if keep is not None:
+                    gn = torch.where(keep > 0, gn, 0.0)
                 gnorms.append(gn)
             v.cohort_clients, gnorms = entity, torch.stack(gnorms)
         else:
@@ -361,7 +386,7 @@ class ClientUpdate(Phase):
                     else v.split.local(v.mask))
             v.cohort_clients, gnorms = client_updates(
                 ctx.task, v.cohort_clients, ctx.opt_client, v.xs, v.fgrads,
-                grad_clip=clip, mask=mask)
+                grad_clip=clip, mask=mask, donate=ctx.donate_copies)
             gnorms = gather_slots(gnorms, v.split)
         if self.record_gnorm:
             v.metrics["client_grad_norm_mean"] = masked_mean(gnorms, v.mask)
@@ -450,14 +475,13 @@ class SequentialChainRound(Phase):
                                                  server.params, x, y)
             fgs.append(_feature_grad(task, client.params, server.params,
                                      x, y))
-            new_s = entity_step(server, gs, opt_s)
-            new_c = entity_step(client, gc, opt_c)
-            if v.mask is not None:
-                m = v.mask[c]
-                new_s = select_entities(m, new_s, server)
-                new_c = select_entities(m, new_c, client)
-                loss = torch.where(m > 0, loss, 0.0)
-            server, client = new_s, new_c
+            keep = None if v.mask is None else v.mask[c]
+            server = entity_step(server, gs, opt_s,
+                                 donate=ctx.donate_server, keep=keep)
+            client = entity_step(client, gc, opt_c,
+                                 donate=ctx.donate_client, keep=keep)
+            if keep is not None:
+                loss = torch.where(keep > 0, loss, 0.0)
             losses.append(loss)
         v.metrics.update(server_loss=masked_mean(torch.stack(losses), v.mask),
                          **feat_grad_metrics(torch.stack(fgs), mask=v.mask))
@@ -478,16 +502,17 @@ class ServerSequentialRound(Phase):
             loss, gc, gs = _joint_value_and_grad(task, cp, server.params,
                                                  x, y)
             fgs.append(_feature_grad(task, cp, server.params, x, y))
-            new_s = entity_step(server, gs, opt_s)
-            if v.mask is not None:
-                new_s = select_entities(v.mask[c], new_s, server)
-                loss = torch.where(v.mask[c] > 0, loss, 0.0)
-            server = new_s
+            keep = None if v.mask is None else v.mask[c]
+            server = entity_step(server, gs, opt_s,
+                                 donate=ctx.donate_server, keep=keep)
+            if keep is not None:
+                loss = torch.where(keep > 0, loss, 0.0)
             losses.append(loss)
             gcs.append(gc)
         stepped = entity_step(
-            broadcast_entity(v.state.client_global, v.ys.shape[0]),
-            stack_entities(gcs), opt_c)
+            broadcast_entity(v.state.client_global, v.ys.shape[0],
+                             fresh=ctx.donate_copies),
+            stack_entities(gcs), opt_c, donate=ctx.donate_copies)
         client_global = (entity_mean(stepped) if v.mask is None
                          else masked_entity_mean(stepped, v.mask))
         v.metrics.update(server_loss=masked_mean(torch.stack(losses), v.mask),
@@ -507,12 +532,13 @@ class LocalFedAvgRound(Phase):
         cp, sp = cli.params, srv.params
         outs = [_joint_value_and_grad(task, cp, sp, _slot(v.xs, c),
                                       _slot(v.ys, c)) for c in range(n)]
-        servers = entity_step(broadcast_entity(srv, n),
+        own = ctx.donate_copies
+        servers = entity_step(broadcast_entity(srv, n, fresh=own),
                               stack_entities([gs for _, _, gs in outs]),
-                              ctx.opt_server)
-        clients = entity_step(broadcast_entity(cli, n),
+                              ctx.opt_server, donate=own)
+        clients = entity_step(broadcast_entity(cli, n, fresh=own),
                               stack_entities([gc for _, gc, _ in outs]),
-                              ctx.opt_client)
+                              ctx.opt_client, donate=own)
         s_into = mean_into(task, "server", srv)
         c_into = mean_into(task, "client", cli)
         if v.mask is None:
@@ -722,7 +748,8 @@ def build_algorithm(program: RoundProgram, task: SplitTask,
                     plan_fn: Optional[PlanFn] = None,
                     device="cpu", resilience: Any = None, mesh: Any = None,
                     shard_data: bool = True,
-                    n_clients: Optional[int] = None) -> SLAlgorithm:
+                    n_clients: Optional[int] = None,
+                    donate: bool = False) -> SLAlgorithm:
     """Bind a RoundProgram to a task and optimizers.
 
     ``resilience`` (a ``ResilienceConfig`` with ``guard=True``) appends
@@ -738,11 +765,15 @@ def build_algorithm(program: RoundProgram, task: SplitTask,
     the cohort; such a round holds its weights whole over ``data`` (the
     algorithm's ``task`` has no ``fsdp``).  On a mesh the guard's
     verdict is agreed over every rank (:class:`HealthGuard`).
+
+    ``donate`` donates the TrainState to every round (see the module's
+    docstring; on a mesh each rank its blocks and slots): the caller
+    must not read a state it passed to ``round`` again.
     """
     ctx_mesh, task, rows = round_placement(program, task, mesh, shard_data,
                                            n_clients)
-    ctx = PhaseContext(task, opt_server, opt_client, cycle.check_ported(),
-                       plan_fn)
+    ctx = _context(program, task, opt_server, opt_client, cycle, plan_fn,
+                   copies=donate, state=donate)
     guard = _guard(resilience, mesh, ctx_mesh, task)
     init = _init_fn(program, task, opt_server, opt_client, device, rows)
 
@@ -759,6 +790,32 @@ def build_algorithm(program: RoundProgram, task: SplitTask,
 
     return SLAlgorithm(program.name, init, round_fn,
                        program.uses_global_client, ctx_mesh, rows, task)
+
+
+def _reads_server_before_step(program: RoundProgram) -> bool:
+    """Whether a phase reads θ_S^t after the server's step: the classic
+    programs' feature gradients at the pre-update server."""
+    return any(isinstance(p, FeatureGradients) and not p.use_updated
+               for p in program.phases)
+
+
+def _context(program, task, opt_server, opt_client, cycle, plan_fn, *,
+             copies: bool, state: bool) -> PhaseContext:
+    """The round's PhaseContext, with what its steps may write in place:
+    the round's own copies (``copies``) and the TrainState's entities
+    (``state``; the server not where a phase reads θ_S^t after its
+    step).  A donated step takes the fused Adam step: an optimizer
+    without one (a schedule) is refused here."""
+    if (copies or state) and (opt_server.apply_ is None
+                              or opt_client.apply_ is None):
+        raise ValueError("donation needs the fused Adam step (a constant "
+                         "lr) on both sides: pass donate=False with a "
+                         "schedule")
+    return PhaseContext(
+        task, opt_server, opt_client, cycle.check_ported(), plan_fn,
+        donate_copies=copies,
+        donate_server=state and not _reads_server_before_step(program),
+        donate_client=state)
 
 
 def _init_fn(program, task, opt_server, opt_client, device, rows):
@@ -833,7 +890,8 @@ def build_pipelined_algorithm(program: RoundProgram, task: SplitTask,
                               staleness_weighting: str = "none",
                               staleness_lambda: float = 0.5,
                               mesh: Any = None, shard_data: bool = True,
-                              n_clients: Optional[int] = None
+                              n_clients: Optional[int] = None,
+                              donate: bool = False, donate_state: bool = True
                               ) -> Optional[PipelinedAlgorithm]:
     """Split a RoundProgram into the (extract, tail) pair.
 
@@ -857,6 +915,12 @@ def build_pipelined_algorithm(program: RoundProgram, task: SplitTask,
     pool of its slots' rows with the whole [T] validity, which the
     tail's server phase reads through the shard-local route or the
     gathered pool, as the whole round does.
+
+    ``donate`` donates the stage into the tail (its copies of the
+    cohort's client models are stepped in place; the caller drops the
+    stage with the round) and, with ``donate_state``, the TrainState too,
+    as :func:`build_algorithm` donates it.  The Engine donates the state
+    only in sync mode: an async extract still reads the pre-tail state.
     """
     split = split_program(program)
     if split is None:
@@ -864,8 +928,8 @@ def build_pipelined_algorithm(program: RoundProgram, task: SplitTask,
     head, tail_phases = split
     ctx_mesh, task, rows = round_placement(program, task, mesh, shard_data,
                                            n_clients)
-    ctx = PhaseContext(task, opt_server, opt_client, cycle.check_ported(),
-                       plan_fn)
+    ctx = _context(program, task, opt_server, opt_client, cycle, plan_fn,
+                   copies=donate, state=donate and donate_state)
     pools = any(getattr(p, "mode", None) == "cycle" for p in tail_phases)
     guard = _guard(resilience, mesh, ctx_mesh, task)
 
@@ -890,7 +954,8 @@ def build_pipelined_algorithm(program: RoundProgram, task: SplitTask,
                        else torch.exp(-staleness_lambda * lg))
         cohort_clients = stage.clients
         if program.uses_global_client:     # to this rank's slots
-            cohort_clients = broadcast_entity(stage.clients, ys.shape[0])
+            cohort_clients = broadcast_entity(stage.clients, ys.shape[0],
+                                              fresh=ctx.donate_copies)
         feats = stage.feats
         if feats is None:                 # rebuild the [C, b, ...] view
             pooled = stage.store.features

@@ -28,6 +28,12 @@ every step gathers them at use, and the backward hands each rank its
 block of the gradient, reduce-scattered from the data-parallel
 minibatch's partial sums or sliced from the replicated one's; the step
 runs on the blocks.
+
+``donate`` (every entry point's keyword, off by default) steps the
+server and the clients in place (``core.protocol.entity_step(...,
+donate=True)``): the caller reads the entities it passed in no more.  A
+masked step is then skipped in the kernel (``keep``) instead of selected
+against a kept copy, so a round holds each entity's state once.
 """
 from __future__ import annotations
 
@@ -43,8 +49,7 @@ from repro_torch.core.feature_store import (FeatureStore, gather_batch,
                                             shard_local_fused_loss,
                                             shard_local_gather)
 from repro_torch.core.protocol import (EntityState, SlotSplit, entity_step,
-                                       gather_slots, select_entities,
-                                       slot_mean)
+                                       gather_slots, slot_mean)
 from repro_torch.core.split import SplitTask
 from repro_torch.kernels import ops
 from repro_torch.optim import Optimizer, clip_by_global_norm
@@ -139,7 +144,8 @@ def _value_and_grad(loss_fn, params):
 def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
                       store: FeatureStore, key: int, ccfg: CycleConfig,
                       batch: int, plan_fn: Optional[PlanFn] = None,
-                      grad_scale=None, split: Optional[SlotSplit] = None
+                      grad_scale=None, split: Optional[SlotSplit] = None,
+                      donate: bool = False
                       ) -> tuple[EntityState, torch.Tensor]:
     """E epochs of minibatch training on the resampled feature dataset.
 
@@ -155,7 +161,8 @@ def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
     and head loss through ``kernels.ops.fused_gather_loss_mean`` when the
     task exposes a linear server head.  ``grad_scale`` (a scalar tensor,
     or None) multiplies every clipped gradient before the optimizer
-    step: the staleness-weighting hook of pipelined rounds.
+    step: the staleness-weighting hook of pipelined rounds.  ``donate``
+    steps ``server`` in place (a masked step skipped by ``keep``).
 
     ``split`` puts the loop on a mesh: ``store`` holds this rank's pool
     slice, the plan (from the full validity, the same on every rank)
@@ -253,12 +260,13 @@ def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
             leaves[i] = g
         return summed[-1], tree_unflatten_like(grads, leaves)
 
-    def apply_step(entity, idx):
+    def apply_step(entity, idx, keep=None):
         loss, grads = step_loss_and_grads(entity.params, idx)
         grads = _maybe_clip(grads, ccfg.grad_clip, task.tp, plan, fsdp)
         if grad_scale is not None:
             grads = tree_map(lambda g: g * grad_scale, grads)
-        return entity_step(entity, grads, opt_s), loss
+        return entity_step(entity, grads, opt_s, donate=donate,
+                           keep=keep), loss
 
     if step_ok is None:
         losses = []
@@ -270,8 +278,8 @@ def server_inner_loop(task: SplitTask, server: EntityState, opt_s: Optimizer,
     ok2 = step_ok.to(device=device, dtype=torch.bool).reshape(-1)
     loss_sum = torch.zeros((), dtype=torch.float32, device=device)
     for s in range(plan2.shape[0]):
-        stepped, loss = apply_step(server, plan2[s])
-        server = select_entities(ok2[s], stepped, server)
+        # a step whose rows are not all live passes the server through
+        server, loss = apply_step(server, plan2[s], keep=ok2[s])
         loss_sum = loss_sum + torch.where(ok2[s], loss, 0.0)
     denom = torch.clamp(ok2.sum().float(), min=1.0)
     return server, loss_sum / denom
@@ -316,24 +324,27 @@ def _client_grads(task: SplitTask, params, x, g, grad_clip):
 
 
 def client_update_one(task: SplitTask, entity: EntityState, x, g,
-                      opt_c: Optimizer, grad_clip: Optional[float] = None
+                      opt_c: Optimizer, grad_clip: Optional[float] = None,
+                      *, donate: bool = False, keep=None
                       ) -> tuple[EntityState, torch.Tensor]:
     """One client's phase-5 step: pull ``g`` through the local VJP,
-    optionally clip, take one optimizer step.  Returns the stepped entity
-    and the global norm of the applied (clipped) grads."""
+    optionally clip, take one optimizer step (``donate`` and ``keep`` as
+    ``core.protocol.entity_step`` takes them).  Returns the stepped
+    entity and the global norm of the applied (clipped) grads."""
     grads, gnorm = _client_grads(task, entity.params, x, g, grad_clip)
-    return entity_step(entity, grads, opt_c), gnorm
+    return entity_step(entity, grads, opt_c, donate=donate, keep=keep), gnorm
 
 
 def client_updates(task: SplitTask, clients: EntityState, opt_c: Optimizer,
                    xs, feat_grads, grad_clip: Optional[float] = None,
-                   mask=None) -> tuple[EntityState, torch.Tensor]:
+                   mask=None, donate: bool = False
+                   ) -> tuple[EntityState, torch.Tensor]:
     """Pull B_i^g through each slot's VJP and step the stacked cohort.
 
     The per-slot gradients are stacked and the whole cohort steps at
     once: the fused Adam kernel bias-corrects each slot with its own
     step.  With ``mask`` set, padded slots pass through unchanged and
-    their grad norm reads 0.
+    their grad norm reads 0.  ``donate`` steps ``clients`` in place.
     """
     per_slot = [_client_grads(task, tree_map(lambda p: p[c], clients.params),
                               _slot(xs, c), feat_grads[c], grad_clip)
@@ -341,9 +352,9 @@ def client_updates(task: SplitTask, clients: EntityState, opt_c: Optimizer,
     grads = tree_map(lambda *gs: torch.stack(gs),
                      *(g for g, _ in per_slot))
     gnorms = torch.stack([n for _, n in per_slot])
-    new_clients = entity_step(clients, grads, opt_c)
+    new_clients = entity_step(clients, grads, opt_c, donate=donate,
+                              keep=mask)
     if mask is not None:
-        new_clients = select_entities(mask, new_clients, clients)
         gnorms = torch.where(mask > 0, gnorms, 0.0)
     return new_clients, gnorms
 
@@ -369,22 +380,25 @@ def cyclesl_tail(task: SplitTask, server: EntityState, clients: EntityState,
                  opt_s: Optimizer, opt_c: Optimizer, xs, ys, key: int,
                  ccfg: CycleConfig, feats, store: FeatureStore,
                  plan_fn: Optional[PlanFn] = None,
-                 split: Optional[SlotSplit] = None):
+                 split: Optional[SlotSplit] = None, donate: bool = False):
     """Phases 3-5 of Algorithm 1 on an extract handoff.  Returns
     (server', clients', metrics).  With ``split`` the cohort arrays and
     ``clients`` are this rank's slots, and the metrics run over every
-    rank's (the same on every rank)."""
+    rank's (the same on every rank).  ``donate`` steps ``server`` and
+    ``clients`` in place: the feature gradients read the updated server
+    alone, so nothing reads the old one."""
     batch = tree_leaves(ys)[0].shape[1]
     server, server_loss = server_inner_loop(
         task, server, opt_s, store, key, ccfg, batch=batch, plan_fn=plan_fn,
-        split=split)
+        split=split, donate=donate)
     fgrads = feature_gradients(task, server.params, feats, ys, ccfg,
                                split=split)
     fg_flat = fgrads.reshape(fgrads.shape[0], -1).float()
     per_sample_norm = gather_slots(torch.linalg.vector_norm(fg_flat, dim=-1)
                                    / fg_flat.shape[-1] ** 0.5, split)
     clients, client_gnorms = client_updates(task, clients, opt_c, xs, fgrads,
-                                            grad_clip=ccfg.grad_clip)
+                                            grad_clip=ccfg.grad_clip,
+                                            donate=donate)
     client_gnorms = gather_slots(client_gnorms, split)
     metrics = {
         "server_loss": server_loss,
@@ -398,11 +412,13 @@ def cyclesl_tail(task: SplitTask, server: EntityState, clients: EntityState,
 def cyclesl_round(task: SplitTask, server: EntityState, clients: EntityState,
                   opt_s: Optimizer, opt_c: Optimizer, xs, ys, key: int,
                   ccfg: CycleConfig, plan_fn: Optional[PlanFn] = None,
-                  split: Optional[SlotSplit] = None):
+                  split: Optional[SlotSplit] = None, donate: bool = False):
     """One full CycleSL round (Algorithm 1) on cohort-stacked [C, b, ...]
     batches and a cohort-stacked client EntityState: extract ∘ tail.
     Returns (server', clients', metrics).  ``split`` runs it on a mesh's
-    batch axes, the batches and ``clients`` this rank's slots."""
+    batch axes, the batches and ``clients`` this rank's slots;
+    ``donate`` steps ``server`` and ``clients`` in place."""
     feats, store = cyclesl_extract(task, clients, xs, ys)
     return cyclesl_tail(task, server, clients, opt_s, opt_c, xs, ys, key,
-                        ccfg, feats, store, plan_fn=plan_fn, split=split)
+                        ccfg, feats, store, plan_fn=plan_fn, split=split,
+                        donate=donate)

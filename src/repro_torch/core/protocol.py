@@ -18,6 +18,12 @@ into an entity whose leaves split over ``data`` (FSDP, ``into``: a
 :class:`DataBlocks`) hands each rank its block of the sum instead
 (``sharding.parallel.reduce_to_blocks``), the other leaves' sums all
 reduced as before.
+
+One exception to the functional rule: a *donated* step
+(``entity_step(..., donate=True)``) writes the new params and moments
+into the entity's own storages, the port's counterpart of the
+reference's donated TrainState buffers; its caller reads the old
+entity no more.
 """
 from __future__ import annotations
 
@@ -84,18 +90,41 @@ def init_entity(params, opt: Optimizer) -> EntityState:
                        torch.zeros((), dtype=torch.int32, device=device))
 
 
-def entity_step(entity: EntityState, grads, opt: Optimizer) -> EntityState:
-    """One optimizer step; works on one entity or a stacked cohort."""
+def entity_step(entity: EntityState, grads, opt: Optimizer, *,
+                donate: bool = False, keep=None) -> EntityState:
+    """One optimizer step; works on one entity or a stacked cohort.
+
+    ``keep`` (a scalar, or [C] for a stacked cohort, > 0 where a slot
+    steps) makes the others a no-op: they keep their params, moments and
+    step.  ``donate`` writes the step into the entity's own storages
+    (the fused Adam kernel's in-place entry, the masked slots skipped
+    in the kernel) and returns an EntityState over them; only the step
+    counter is a new tensor, ``step + keep``.  Undonated, the step
+    returns new tensors and ``keep`` selects them against the old ones
+    (:func:`select_entities`), the same numbers.  A schedule (no fused
+    step) cannot donate."""
+    if donate:
+        if opt.apply_ is None:
+            raise ValueError("a donated step needs the fused Adam step (a "
+                             "constant lr): this optimizer has none")
+        k = None if keep is None else (torch.as_tensor(keep) > 0).to(
+            device=entity.step.device, dtype=torch.int32)
+        params, opt_state = opt.apply_(grads, entity.opt_state,
+                                       entity.params, entity.step, keep=k)
+        return EntityState(params, opt_state,
+                           entity.step + (1 if k is None else k))
     if opt.apply is not None:
         # fused path (the fused-Adam kernel): one pass that produces new
         # params + new optimizer state directly
         new_params, new_opt = opt.apply(grads, entity.opt_state,
                                         entity.params, entity.step)
-        return EntityState(new_params, new_opt, entity.step + 1)
-    updates, new_opt = opt.update(grads, entity.opt_state, entity.params,
-                                  entity.step)
-    return EntityState(apply_updates(entity.params, updates), new_opt,
-                       entity.step + 1)
+        new = EntityState(new_params, new_opt, entity.step + 1)
+    else:
+        updates, new_opt = opt.update(grads, entity.opt_state, entity.params,
+                                      entity.step)
+        new = EntityState(apply_updates(entity.params, updates), new_opt,
+                          entity.step + 1)
+    return new if keep is None else select_entities(keep, new, entity)
 
 
 def stack_entities(entities: list[EntityState]) -> EntityState:
@@ -168,9 +197,15 @@ def entity_mean(stacked: EntityState,
         stacked, [(s / n).to(x.dtype) for s, x in zip(sums, leaves)])
 
 
-def broadcast_entity(entity: EntityState, n: int) -> EntityState:
+def broadcast_entity(entity: EntityState, n: int,
+                     fresh: bool = False) -> EntityState:
     """Replicate one entity n times along a new leading dim.  The copies
-    are materialized: the fused kernels take contiguous leaves."""
+    are materialized: the fused kernels take contiguous leaves.  At
+    ``n == 1`` they are a view of ``entity``'s storage unless ``fresh``
+    asks for storage of their own (copies a donated step may write)."""
+    if fresh and n == 1:
+        return tree_map(lambda x: x.unsqueeze(0).clone(
+            memory_format=torch.contiguous_format), entity)
     return tree_map(lambda x: x.unsqueeze(0).expand((n,) + tuple(x.shape))
                     .contiguous(), entity)
 

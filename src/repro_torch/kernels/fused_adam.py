@@ -1,8 +1,12 @@
 """One fused Adam step over one leaf.
 
-Port of ``repro/kernels/fused_adam.py``.  On CUDA tensors the wrapper
-launches the hand-written kernel in ``csrc/fused_adam.cu``; on CPU
-or ``meta`` tensors it runs the plain version, ``ref.fused_adam_ref``.
+Port of ``repro/kernels/fused_adam.py``.  Two entries: ``fused_adam``
+returns new (p, m, v), and ``fused_adam_`` updates them in place (the
+donated step: no second copy of the state, and a masked no-op step
+skips an entity in the kernel instead of selecting against a kept
+copy).  On CUDA tensors each launches its hand-written kernel in
+``csrc/fused_adam.cu``; on CPU or ``meta`` tensors it runs the plain
+version, ``ref.fused_adam_ref`` or ``ref.fused_adam_ref_``.
 """
 from __future__ import annotations
 
@@ -14,22 +18,17 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels._count import (PLAIN_DEVICES, counted,
                                         kernel_layout)
 
-launches = 0          # kernel launches since the last reset
+launches = 0          # kernel launches since the last reset, both entries
+design_launches = {"copy": 0, "inplace": 0}   # the same, by entry
 
 _ARGTYPES = [c_void_p] * 8 + [c_int64, c_int64, c_int] + [c_double] * 5 + [
     c_void_p]
+_INPLACE_ARGTYPES = [c_void_p] * 6 + [c_int64, c_int64, c_int] + [
+    c_double] * 5 + [c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-@counted("fused_adam")
-def fused_adam(p, g, m, v, step, *, lr: float, b1: float = 0.9,
-               b2: float = 0.999, eps: float = 1e-8,
-               weight_decay: float = 0.0):
-    """One Adam step; returns new (p, m, v) and leaves the inputs as
-    they are.  p and g are float32 or bfloat16 of one shape, m and v
-    float32.  ``step`` is an int32 tensor on the same device: a scalar,
-    or [C] for a leaf stacked over C entities ([C, ...]), each row then
-    corrected with its own count."""
+def _check(p, g, m, v, step):
     if not (p.shape == g.shape == m.shape == v.shape):
         raise ValueError(f"shape mismatch: p {tuple(p.shape)}, g "
                          f"{tuple(g.shape)}, m {tuple(m.shape)}, v "
@@ -45,6 +44,45 @@ def fused_adam(p, g, m, v, step, *, lr: float, b1: float = 0.9,
                          f"dims of p, got {step.dtype} {tuple(step.shape)}")
     if len({t.device for t in (p, g, m, v, step)}) != 1:
         raise ValueError("p, g, m, v and step must lie on one device")
+
+
+def _check_inplace(p, g, m, v, step, keep):
+    """What the in-place step needs beyond :func:`_check`: a ``keep`` of
+    int32 flags shaped as ``step`` on its device, every operand
+    contiguous, and no two operands sharing a byte (the kernel's
+    pointers are ``__restrict__``, and a written operand that another
+    reads would be read half updated)."""
+    ops = [p, g, m, v, step]
+    if keep is not None:
+        if keep.dtype != torch.int32 or keep.shape != step.shape:
+            raise ValueError(f"keep must be int32 of step's shape "
+                             f"{tuple(step.shape)}, got {keep.dtype} "
+                             f"{tuple(keep.shape)}")
+        if keep.device != p.device:
+            raise ValueError("keep must lie on the operands' device")
+        ops.append(keep)
+    if not all(t.is_contiguous() for t in ops):
+        raise ValueError("fused_adam_ needs contiguous operands")
+    if p.device.type == "meta":          # no addresses to compare
+        return
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                   for t in ops if t.numel())
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        if start < end:
+            raise ValueError("fused_adam_ operands overlap: each of p, g, m, "
+                             "v, step and keep needs storage of its own")
+
+
+@counted("fused_adam")
+def fused_adam(p, g, m, v, step, *, lr: float, b1: float = 0.9,
+               b2: float = 0.999, eps: float = 1e-8,
+               weight_decay: float = 0.0):
+    """One Adam step; returns new (p, m, v) and leaves the inputs as
+    they are.  p and g are float32 or bfloat16 of one shape, m and v
+    float32.  ``step`` is an int32 tensor on the same device: a scalar,
+    or [C] for a leaf stacked over C entities ([C, ...]), each row then
+    corrected with its own count."""
+    _check(p, g, m, v, step)
     kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
     if p.device.type in PLAIN_DEVICES:
         return kernel_layout(ref.fused_adam_ref(p, g, m, v, step, **kw))
@@ -60,9 +98,46 @@ def fused_adam(p, g, m, v, step, *, lr: float, b1: float = 0.9,
     fn = _build.entry("fused_adam", _ARGTYPES)
     global launches
     launches += 1
+    design_launches["copy"] += 1
     _build.check(fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
                     step.data_ptr(), p2.data_ptr(), m2.data_ptr(),
                     v2.data_ptr(), n, n // step.numel(), _DTYPES[p.dtype],
                     lr, b1, b2, eps, weight_decay, _build.stream_of(p)),
                  "fused_adam")
     return p2, m2, v2
+
+
+@counted("fused_adam")
+def fused_adam_(p, g, m, v, step, *, keep=None, lr: float, b1: float = 0.9,
+                b2: float = 0.999, eps: float = 1e-8,
+                weight_decay: float = 0.0):
+    """The step of :func:`fused_adam` written into ``p``, ``m`` and ``v``
+    themselves; returns them, the same objects.  ``keep`` (None, or an
+    int32 flag an entity, shaped as ``step``) leaves the entities whose
+    flag is 0 untouched: ``select_entities(keep, fused_adam(...), old)``
+    without the old copy.  Each written tensor's autograd version is
+    bumped, so a graph that saved one of them raises instead of reading
+    the new values."""
+    _check(p, g, m, v, step)
+    _check_inplace(p, g, m, v, step, keep)
+    kw = dict(lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay)
+    if p.device.type in PLAIN_DEVICES:
+        return ref.fused_adam_ref_(p, g, m, v, step, keep=keep, **kw)
+    if p.device.type != "cuda":
+        raise ValueError(f"no fused_adam kernel for {p.device}")
+    n = p.numel()
+    if n == 0:
+        return p, m, v
+    fn = _build.entry("fused_adam_inplace", _INPLACE_ARGTYPES,
+                      source="fused_adam")
+    global launches
+    launches += 1
+    design_launches["inplace"] += 1
+    _build.check(fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+                    step.data_ptr(), None if keep is None else keep.data_ptr(),
+                    n, n // step.numel(), _DTYPES[p.dtype], lr, b1, b2, eps,
+                    weight_decay, _build.stream_of(p)),
+                 "fused_adam_inplace")
+    for t in (p, m, v):
+        torch.autograd.graph.increment_version(t)
+    return p, m, v

@@ -16,7 +16,8 @@ from repro_torch.kernels import gather_loss as _gl
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import topk_gating as _tk
-from repro_torch.kernels.fused_adam import fused_adam  # noqa: F401 (public)
+from repro_torch.kernels.fused_adam import (  # noqa: F401 (public)
+    fused_adam, fused_adam_)
 
 
 def resample_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -62,6 +62,23 @@ def fused_adam_ref(p, g, m, v, step, *, lr, b1=0.9, b2=0.999, eps=1e-8,
     return (p.float() + upd).to(p.dtype), m2, v2
 
 
+def fused_adam_ref_(p, g, m, v, step, *, keep=None, lr, b1=0.9, b2=0.999,
+                    eps=1e-8, weight_decay=0.0):
+    """:func:`fused_adam_ref` written back into ``p``, ``m`` and ``v``
+    (``copy_``); returns them, the same objects.  ``keep`` (None, or an
+    int32 flag an entity, shaped as ``step``) keeps an entity whose flag
+    is 0 as it was: the out-of-place result selected by ``keep`` against
+    the inputs, as ``core.protocol.select_entities`` selects."""
+    new = fused_adam_ref(p, g, m, v, step, lr=lr, b1=b1, b2=b2, eps=eps,
+                         weight_decay=weight_decay)
+    if keep is not None:
+        k = keep.reshape(tuple(keep.shape) + (1,) * (p.dim() - keep.dim()))
+        new = [torch.where(k > 0, n, o) for n, o in zip(new, (p, m, v))]
+    for dst, src in zip((p, m, v), new):
+        dst.copy_(src)
+    return p, m, v
+
+
 # ------------------------------------------------------------ attention
 def mask_bias(q_pos, k_pos, window: Optional[int], causal: bool = True):
     """Additive float32 mask bias [..., Sq, Sk] from absolute positions:

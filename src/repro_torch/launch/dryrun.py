@@ -16,7 +16,9 @@ Each record holds:
   the step's tensors hold at once while it runs, from the state and the
   batch to every op's new outputs until each is freed, with a
   hand-written kernel's temporaries left out (its outputs kept), as
-  ``utils.cost.count`` tracks storages;
+  ``utils.cost.count`` tracks storages.  The step runs as its bundle
+  donates (``StepBundle.donated()``: the train step's state stepped in
+  place), as the reference compiles it with ``donate_argnums``;
 * ``cost`` — ``count``'s summary (FLOPs, eager traffic, collective
   bytes, by op and by kernel) and ``census``, the mesh's collectives;
 * ``fits`` — whether ``peak_bytes`` fits an H100's 80 GB.
@@ -94,11 +96,12 @@ def state_bytes(args, kind: str) -> int:
 
 
 def dry_run(cfg, shape, mesh_shape=None, *, cohort: Optional[int] = None,
-            cycle: CycleConfig = CycleConfig()) -> dict:
+            cycle: CycleConfig = CycleConfig(), donate: bool = True) -> dict:
     """One step of ``cfg`` at ``shape`` built on ``meta`` and counted:
     the record's fields without its names.  ``mesh_shape`` None runs it
     unsharded; else as rank 0 of a fake group's mesh.  ``cohort``
-    defaults to the batch axes' ranks."""
+    defaults to the batch axes' ranks.  ``donate`` runs the step as its
+    bundle donates; False runs ``fn`` with its arguments kept."""
     from repro_torch.launch.mesh import cohort_size
     from repro_torch.launch.steps import build_step
     mesh = None if mesh_shape is None else meta_mesh(tuple(mesh_shape))
@@ -107,7 +110,8 @@ def dry_run(cfg, shape, mesh_shape=None, *, cohort: Optional[int] = None,
     bundle = build_step(cfg, shape, cycle, cohort=cohort, device="meta",
                         mesh=mesh)
     args = step_args(bundle, shape.kind)
-    cost = count(bundle.fn, *args, mesh=mesh)
+    cost = count(bundle.donated() if donate else bundle.fn, *args,
+                 mesh=mesh)
     return {"step": bundle.name, "cohort": cohort,
             "state_bytes": state_bytes(args, shape.kind),
             "peak_bytes": cost.peak_bytes, "cost": cost.summary(),

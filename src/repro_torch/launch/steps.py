@@ -39,6 +39,7 @@ The mesh's device is the step's.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -70,12 +71,28 @@ from repro_torch.sharding.specs import (decode_rows, decode_state_zeros,
 class StepBundle:
     """``fn(*init_state(seed), *make_batch(seed), ...)`` runs one step on
     ``device``; ``init_state`` draws random state there from a seed and
-    ``make_batch`` draws a batch with numpy and moves it there."""
+    ``make_batch`` draws a batch with numpy and moves it there.
+
+    ``donate`` lists the arguments the step may consume, as the
+    reference's ``donate_argnums``: ``fn`` itself leaves its arguments
+    as they are (the reference's ``fn`` before ``jax.jit``), and
+    :meth:`donated` is the step that updates them in place."""
     name: str
     fn: Callable
     init_state: Callable[[int], tuple]
     make_batch: Callable[[int], tuple]
     device: torch.device
+    donate: tuple = ()
+
+    def donated(self) -> Callable:
+        """``fn`` with its ``donate`` arguments consumed, the port's
+        counterpart of ``jax.jit(fn, donate_argnums=donate)``: the
+        entities among them are stepped in place and the rest are the
+        caller's to drop, so none of them may be read after the call.
+        ``fn`` itself where the bundle donates nothing."""
+        if not self.donate:
+            return self.fn
+        return functools.partial(self.fn, donate=True)
 
 
 # ------------------------------------------------------------ whisper task
@@ -224,16 +241,20 @@ def build_train_step(cfg: ArchConfig, shape: InputShape,
     On ``mesh`` (see the module's docstring) ``init_state`` gives this
     rank's shards and slots, ``make_batch`` this rank's slots, and the
     step this rank's new shards and slots with metrics that are the same
-    on every rank."""
+    on every rank.
+
+    The bundle donates ``(0, 1)``: ``donated()`` (``fn(...,
+    donate=True)``) steps the server and the clients in place."""
     sub = _train_substrate(cfg, shape, cycle, cohort, device, mesh)
 
-    def train_step(server, clients, xs, ys, key: int):
+    def train_step(server, clients, xs, ys, key: int, *,
+                   donate: bool = False):
         return cyclesl_round(sub.task, server, clients, sub.opt_s, sub.opt_c,
                              xs, ys, key, sub.cycle, plan_fn=plan_fn,
-                             split=sub.split)
+                             split=sub.split, donate=donate)
 
     return StepBundle("train", train_step, sub.init_state, sub.make_batch,
-                      sub.device)
+                      sub.device, donate=(0, 1))
 
 
 def build_pipelined_train_steps(cfg: ArchConfig, shape: InputShape,
@@ -249,21 +270,25 @@ def build_pipelined_train_steps(cfg: ArchConfig, shape: InputShape,
     :func:`build_train_step`'s round exactly, on ``mesh`` too (placed
     as that step is: the extract's pool holds the rank's slots' rows,
     and the tail's server phase reads it over the cohort's split).
-    Both bundles share ``init_state`` and ``make_batch``."""
+    Both bundles share ``init_state`` and ``make_batch``.  The tail
+    donates ``(0, 1, 5, 6)``, as the reference's: its ``donated()`` steps
+    the server and the clients in place, and the stage (``feats``,
+    ``store``) dies with the round."""
     sub = _train_substrate(cfg, shape, cycle, cohort, device, mesh)
 
     def extract_step(clients, xs, ys):
         return cyclesl_extract(sub.task, clients, xs, ys)
 
-    def tail_step(server, clients, xs, ys, key: int, feats, store):
+    def tail_step(server, clients, xs, ys, key: int, feats, store, *,
+                  donate: bool = False):
         return cyclesl_tail(sub.task, server, clients, sub.opt_s, sub.opt_c,
                             xs, ys, key, sub.cycle, feats, store,
-                            plan_fn=plan_fn, split=sub.split)
+                            plan_fn=plan_fn, split=sub.split, donate=donate)
 
     return (StepBundle("train_extract", extract_step, sub.init_state,
                        sub.make_batch, sub.device),
             StepBundle("train_tail", tail_step, sub.init_state,
-                       sub.make_batch, sub.device))
+                       sub.make_batch, sub.device, donate=(0, 1, 5, 6)))
 
 
 # ----------------------------------------------------------- prefill step

@@ -33,6 +33,10 @@ class Optimizer:
     # update + apply_updates: one kernel pass over each leaf.  Must be
     # numerically equivalent to the update path.
     apply: Optional[Callable[..., tuple[Any, Any]]] = None
+    # its in-place form (the donated step): (grads, state, params, step,
+    # keep=None) -> (params, state), the same tensors updated where they
+    # lie; an entity whose int32 ``keep`` flag is 0 is left as it was
+    apply_: Optional[Callable[..., tuple[Any, Any]]] = None
 
 
 def apply_updates(params, updates):
@@ -116,12 +120,12 @@ def adam(lr: float | Callable[[Any], Any], b1: float = 0.9, b2: float = 0.999,
             upd = tree_map(one, m, v, params)
         return upd, {"m": m, "v": v}
 
-    def apply(grads, state, params, step):
+    def leafwise(kernel, grads, state, params, step, **extra):
         # leafwise fused update: each (p, g, m, v) is read once and
         # (p, m, v) written once per step; a gradient that autograd left
         # strided (through a permute) is packed for the kernel
-        outs = [ops.fused_adam(p, g.contiguous(), m, v, step, lr=lr, b1=b1,
-                               b2=b2, eps=eps, weight_decay=weight_decay)
+        outs = [kernel(p, g.contiguous(), m, v, step, lr=lr, b1=b1, b2=b2,
+                       eps=eps, weight_decay=weight_decay, **extra)
                 for p, g, m, v in zip(tree_leaves(params),
                                       tree_leaves(grads),
                                       tree_leaves(state["m"]),
@@ -130,7 +134,15 @@ def adam(lr: float | Callable[[Any], Any], b1: float = 0.9, b2: float = 0.999,
                 {"m": tree_unflatten_like(params, [o[1] for o in outs]),
                  "v": tree_unflatten_like(params, [o[2] for o in outs])})
 
-    return Optimizer(init, update, apply if fused else None)
+    def apply(grads, state, params, step):
+        return leafwise(ops.fused_adam, grads, state, params, step)
+
+    def apply_(grads, state, params, step, keep=None):
+        return leafwise(ops.fused_adam_, grads, state, params, step,
+                        keep=keep)
+
+    return (Optimizer(init, update, apply, apply_) if fused
+            else Optimizer(init, update))
 
 
 def clip_by_global_norm(grads, max_norm: float, norm=None):

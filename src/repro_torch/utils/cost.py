@@ -91,10 +91,13 @@ def kernel_cost(name: str, *args, data: bool = True, **kw):
         m = idx.shape[0]
         return 0, (_rows_read(idx, data) + m) * row + 4 * m, src.dtype
     if name == "fused_adam":
+        # either entry: the in-place one moves the same bytes, and its
+        # per-entity keep flags besides
         p, _g, _m, _v, step = args[:5]
         n = p.numel()
-        return (14 * n, n * (3 * p.element_size() + 4 * 4) + 4 * step.numel(),
-                p.dtype)
+        keep = kw.get("keep")
+        return (14 * n, n * (3 * p.element_size() + 4 * 4) + 4 * step.numel()
+                + (0 if keep is None else 4 * keep.numel()), p.dtype)
     if name == "gather_loss":
         src, labels, idx, w = args[:4]
         b = args[4] if len(args) > 4 else kw.get("b")

@@ -4,7 +4,10 @@ as rank 0 of a mesh over torch's fake process group.
 Its state bytes are the CPU-initialized state's on (1, 1) and rank 0's
 ``shard_plan`` blocks on (2, 2); ``count`` on meta is ``count`` on the
 CPU; the fake group's census on (1, 2) is a real gloo (1, 2) round's;
-the CLI runs over one whole arch and the roofline reads its records.
+the CLI runs over one whole arch and the roofline reads its records;
+the train step runs as its bundle donates, which lowers the peak by at
+least the server entity's params and moments and leaves the state, the
+FLOPs and the collective bytes as they were.
 """
 import json
 import math
@@ -137,3 +140,25 @@ def test_the_cli_runs_one_whole_arch_and_the_roofline_reads_it(tmp_path,
     assert {r["dominant"] for r in rows if r["status"] == "ok"} <= {
         "compute", "memory", "collective"}
     assert "| whisper-base | train_4k | 1x1 |" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch,mesh", [("olmoe-1b-7b", None),
+                                       ("zamba2-1.2b", None),
+                                       ("glm4-9b", (2, 2))])
+def test_a_donated_step_peaks_lower_by_the_server_entity(arch, mesh):
+    cfg = smoke_config(arch)
+    donated = dry_run(cfg, SHAPE, mesh, cohort=C, cycle=CYCLE)
+    kept = dry_run(cfg, SHAPE, mesh, cohort=C, cycle=CYCLE, donate=False)
+    bundle = build_train_step(cfg, SHAPE, CYCLE, cohort=C, device="meta")
+    assert bundle.donate == (0, 1)
+    server, _ = bundle.init_state(0)
+    entity = sum(t.numel() * t.element_size()
+                 for t in tree_leaves((server.params, server.opt_state)))
+    if mesh is not None:      # a quarter: no more than rank 0's blocks
+        entity = sum(t.numel() * t.element_size() for t in tree_leaves(
+            (server.params, server.opt_state))) // 4
+    assert donated["state_bytes"] == kept["state_bytes"]
+    assert kept["peak_bytes"] - donated["peak_bytes"] >= entity > 0
+    for k in ("flops", "collective_bytes", "by_kernel"):
+        assert donated["cost"][k] == kept["cost"][k], k
+    assert donated["census"] == kept["census"]
