@@ -187,7 +187,15 @@ Phases, each of which ends the script with a non-zero exit on failure:
     glm4-9b at depth 4 on (2, 2) donated bit-equal to undonated and held
     to one card by phase 25's criteria, and glm4-9b and olmoe-1b-7b
     whole on (2, 2) and (1, 4), donated, each card's peak against the
-    donated dry run's (glm4-9b within 5%).
+    donated dry run's (glm4-9b within 5%);
+33. the redesigned fused_adam, in a process of its own: both entries at
+    phase 32a's shapes and at edge shapes that force a row's scalar head
+    and tail (one element, entities of 5 f32 and of 1001 bf16), against
+    the plain version, in place bit-equal to out of place, a kept slot
+    untouched, views one element into a larger buffer bit-equal to the
+    aligned run (the scalar path against the vector path), each kernel's
+    registers and 16-byte accesses, and the device ms of both entries and
+    of ``Adam(fused=True, capturable=True)`` in one call.
 
 It then prints the ``kernels`` JSON line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -221,10 +229,26 @@ WHISPER_FRAMES, WHISPER_TEXT = 1500, 448
 # the output by far more, which the checks print and assert
 SSD_F32_REL = 1e-4
 CHECKS = []           # every kernel check of phase 3, for the report
-# the __global__ functions of src/repro_torch/kernels/csrc, for profiles
-PORT_KERNELS = ("gather_rows_kernel", "fused_adam_kernel",
-                "gather_loss_kernel", "flash_wgmma_kernel", "flash_fwd_kernel",
-                "topk_gating_kernel", "ssd_wgmma_kernel", "ssd_scan_kernel")
+
+
+def port_kernels() -> tuple:
+    """The ``__global__`` functions of the port's kernel sources
+    (``_build.SOURCES`` under src/repro_torch/kernels/csrc), read from the
+    sources so that a profile names every one of them."""
+    from repro_torch.kernels import _build
+    names = []
+    for src in _build.SOURCES:
+        names += re.findall(r"__global__\s+void\s+(?:__launch_bounds__\("
+                            r"[^)]*\)\s+)?(\w+)\s*\(",
+                            (_build.CSRC / f"{src}.cu").read_text())
+    return tuple(names)
+
+
+def port_kernel_of(name, kernels) -> str | None:
+    """The port kernel (one of ``kernels``) that a profiler's kernel name
+    (demangled, template arguments and all) launched, or None."""
+    return next((fn for fn in kernels if re.search(rf"\b{fn}\b", name)),
+                None)
 
 
 def eager_ms(fn, iters=50, warmup=5):
@@ -1006,9 +1030,10 @@ def device_profile(torch, label, run):
     for name, count, t in rows[:12]:
         print(f"profile {label}:   {t / 1e3:8.3f}ms {count:6d}x {name[:90]}")
     # the port's own kernels, however small, by their function names
+    kernels = port_kernels()
     ours = [{"name": fn, "count": c, "device_ms": t / 1e3}
-            for n, c, t in rows for fn in PORT_KERNELS
-            if re.search(rf"\b{fn}\b", n)]
+            for n, c, t in rows
+            if (fn := port_kernel_of(n, kernels)) is not None]
     for r in ours:
         print(f"profile {label}: port kernel {r['name']} {r['count']}x "
               f"{r['device_ms']:.3f}ms ({r['device_ms'] * 1e3 / busy:.2%} of "
@@ -6440,6 +6465,24 @@ DONATE_WORLD = ((2, 2), (1, 4))
 DONATE_WHOLE = ("glm4-9b", "olmoe-1b-7b")
 
 
+def adam_path_cases(torch):
+    """The main path's fused_adam leaves that phases 32a and 33 hold both
+    entries at: (label, shape, step counts, dtype)."""
+    from repro_torch.configs import get_config
+    olmoe = get_config("olmoe-1b-7b")
+    mo = olmoe.moe
+    f32, bf16 = torch.float32, torch.bfloat16
+    return (
+        ("femnist server dense", (3136, 2048), 3, f32),
+        ("femnist client stack", (5, 5, 5, 32, 64), [0, 1, 2, 3, 4], f32),
+        ("femnist server replicas", (5, 3136, 2048), [4, 4, 4, 9, 0], f32),
+        ("olmoe client embedding", (COHORT, olmoe.vocab_padded,
+                                    olmoe.d_model), [0, 3], bf16),
+        ("olmoe server experts, a rank of (1, 4)",
+         (olmoe.n_layers - olmoe.cut_layers, mo.n_experts // 4,
+          olmoe.d_model, mo.d_ff_expert), 3, bf16))
+
+
 def donate_kernel_checks(torch, dev):
     """Phase 32a: ``fused_adam_`` (the in-place entry) at the femnist
     server's dense leaf, the femnist client stack and server replicas,
@@ -6451,24 +6494,11 @@ def donate_kernel_checks(torch, dev):
     the card to ``fused_adam``'s tolerance (phase 3's ``check``), and the
     device ms of both entries in this one call.  Returns the femnist
     server row (the kernels line's) and every shape's numbers."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device=dev).manual_seed(32)
-    olmoe = get_config("olmoe-1b-7b")
-    mo = olmoe.moe
-    f32, bf16 = torch.float32, torch.bfloat16
-    cases = (
-        ("femnist server dense", (3136, 2048), 3, f32),
-        ("femnist client stack", (5, 5, 5, 32, 64), [0, 1, 2, 3, 4], f32),
-        ("femnist server replicas", (5, 3136, 2048), [4, 4, 4, 9, 0], f32),
-        ("olmoe client embedding", (COHORT, olmoe.vocab_padded,
-                                    olmoe.d_model), [0, 3], bf16),
-        ("olmoe server experts, a rank of (1, 4)",
-         (olmoe.n_layers - olmoe.cut_layers, mo.n_experts // 4,
-          olmoe.d_model, mo.d_ff_expert), 3, bf16))
     kw = dict(lr=1e-3)
     out, checks, row = [], {}, None
-    for label, shape, steps, dtype in cases:
+    for label, shape, steps, dtype in adam_path_cases(torch):
         q = lib = None
         p0 = torch.randn(shape, device=dev, generator=gen).to(dtype)
         g = torch.randn(shape, device=dev, generator=gen).to(dtype)
@@ -6864,6 +6894,240 @@ def run_donate_phase(out_path):
     return 0
 
 
+# phase 33: edge shapes that force a row's scalar head and tail (label,
+# shape, step counts, dtype name), the cases that also run on views one
+# element into a larger buffer, and the redesign's targets: a share of
+# the byte bound, and in place within 3% of out of place
+ADAM_EDGES = (("one element", (1,), 3, "float32"),
+              ("entities of 5", (3, 5), [0, 1, 2], "float32"),
+              ("entities of 1001", (7, 1001), list(range(7)), "bfloat16"))
+ADAM_OFFSET = ("femnist server dense", "entities of 5", "entities of 1001")
+ADAM_TARGETED = ("femnist server dense", "femnist server replicas",
+                 "olmoe client embedding",
+                 "olmoe server experts, a rank of (1, 4)")
+ADAM_TARGET_SHARE, ADAM_INPLACE_SLACK = 0.85, 1.03
+
+
+def _one_in(torch, t):
+    """``t``'s values in a contiguous view one element into a larger
+    buffer (its base 4 or 2 bytes off 16)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _adam_path(tensors, rows) -> str:
+    """The kernel's path for these operands (p first): "vector" where
+    they share a 16-byte aligned element, else "scalar"."""
+    from repro_torch.kernels.fused_adam import plan_of
+    return "vector" if plan_of(tensors, rows).phase >= 0 else "scalar"
+
+
+def adam_build_facts():
+    """Each fused_adam kernel's registers and 16-byte loads and stores in
+    its SASS, read with the toolkit's cuobjdump from the built library;
+    None where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import _build
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    lib = str(_build.build_all(("fused_adam",))["fused_adam"])
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+
+    def label(fn):
+        return (("bf16" if "nv_bfloat16" in fn else "f32") + " "
+                + ("in place" if "Lb1E" in fn else "out of place"))
+    facts = {label(fn): {"registers": int(r)} for fn, r in re.findall(
+        r"Function (\S+):\s*REG:(\d+)", res)}
+    for block in sass.split("Function : ")[1:]:
+        f = facts.setdefault(label(block.split("\n", 1)[0]), {})
+        f["LDG.128"] = block.count("LDG.E.128")
+        f["STG.128"] = block.count("STG.E.128")
+    for k, f in sorted(facts.items()):
+        print(f"adam build {k}: {f}")
+    return facts
+
+
+def adam_case(torch, label, shape, steps, dtype, gen, dev):
+    """One phase 33 shape: both entries against the plain version, in
+    place bit-equal to out of place, a slot whose ``keep`` is 0 untouched,
+    the offset views (where ``label`` is in ``ADAM_OFFSET``) bit-equal to
+    the aligned run, and the device ms of both entries (out of place, in
+    place, in place, out of place) and, at the femnist server's dense
+    leaf, of ``Adam(fused=True, capturable=True)``.  Returns (row,
+    checks)."""
+    from repro_torch.kernels import ops, ref
+    kw = dict(lr=1e-3)
+    p0 = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    g = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    m0 = torch.randn(shape, device=dev, generator=gen) * 0.1
+    v0 = torch.rand(shape, device=dev, generator=gen) * 0.1
+    step = torch.tensor(steps, dtype=torch.int32, device=dev)
+    rows = step.numel()
+    fresh = lambda: (p0.clone(), m0.clone(), v0.clone())
+    checks = {}
+    want = ref.fused_adam_ref(p0, g, m0, v0, step, **kw)
+    copy = ops.fused_adam(p0, g, m0, v0, step, **kw)
+    path = _adam_path((p0, g, m0, v0, *copy), rows)
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(copy, want))
+    checks["out of place against the plain version"] = all(
+        within(a, b, 1e-6, 1) for a, b in zip(copy, want))
+    del want
+    pp, mp, vp = fresh()
+    ref.fused_adam_ref_(pp, g, mp, vp, step, **kw)
+    p, m, v = fresh()
+    ops.fused_adam_(p, g, m, v, step, **kw)
+    checks["in place against the plain version"] = all(
+        within(a, b, 1e-6, 1) for a, b in zip((p, m, v), (pp, mp, vp)))
+    checks["in place == out of place"] = all(
+        torch.equal(a, b) for a, b in zip((p, m, v), copy))
+    del pp, mp, vp
+    # one slot off: the middle row of a stack, a lone entity whole
+    keep = torch.ones(step.shape, dtype=torch.int32, device=dev)
+    off = rows // 2
+    keep.view(-1)[off] = 0
+    p, m, v = fresh()
+    ops.fused_adam_(p, g, m, v, step, keep=keep, **kw)
+    if step.dim():
+        on = torch.arange(rows, device=dev) != off
+        checks["a slot off kept, the others stepped"] = all(
+            torch.equal(a[off], b[off]) for a, b in
+            zip((p, m, v), (p0, m0, v0))) and all(
+            torch.equal(a[on], b[on]) for a, b in zip((p, m, v), copy))
+    else:
+        checks["a slot off kept"] = all(
+            torch.equal(a, b) for a, b in zip((p, m, v), (p0, m0, v0)))
+    del p, m, v
+    paths = {"aligned": path}
+    if label in ADAM_OFFSET:
+        # every operand one element in: out of place against aligned
+        # outputs the operands share no 16-byte element (the scalar
+        # path), in place they do, one element later (a head, then
+        # vectors); m alone one element in leaves them none
+        po, go, mo, vo = (_one_in(torch, t) for t in (p0, g, m0, v0))
+        oc = ops.fused_adam(po, go, mo, vo, step, **kw)
+        paths["offset, out of place"] = _adam_path((po, go, mo, vo, *oc),
+                                                   rows)
+        checks["offset out of place (scalar path) == aligned (vector "
+               "path)"] = (paths["offset, out of place"] == "scalar"
+                           and path == "vector" and all(
+                               torch.equal(a, b) for a, b in zip(oc, copy)))
+        paths["offset, in place"] = _adam_path((po, go, mo, vo), rows)
+        ops.fused_adam_(po, go, mo, vo, step, **kw)
+        checks["offset in place (a head, then vectors) == aligned"] = (
+            paths["offset, in place"] == "vector" and all(
+                torch.equal(a, b) for a, b in zip((po, mo, vo), copy)))
+        p, v, mo = p0.clone(), v0.clone(), _one_in(torch, m0)
+        paths["m alone offset, in place"] = _adam_path((p, g, mo, v), rows)
+        ops.fused_adam_(p, g, mo, v, step, **kw)
+        checks["m alone offset in place (scalar path) == aligned"] = (
+            paths["m alone offset, in place"] == "scalar" and all(
+                torch.equal(a, b) for a, b in zip((p, mo, v), copy)))
+        del po, go, mo, vo, oc, p, v
+    del copy
+    pk, mk, vk = fresh()
+    out_ms = [device_ms(lambda: ops.fused_adam(p0, g, m0, v0, step, **kw))]
+    in_ms = [device_ms(lambda: ops.fused_adam_(pk, g, mk, vk, step, **kw))]
+    lib_ms = None
+    if label == "femnist server dense":
+        q = p0.clone().requires_grad_(True)
+        q.grad = g.clone()
+        opt = torch.optim.Adam([q], lr=1e-3, fused=True, capturable=True)
+        lib_ms = [device_ms(opt.step), device_ms(opt.step)]
+        del q, opt
+    in_ms.append(device_ms(lambda: ops.fused_adam_(pk, g, mk, vk, step,
+                                                   **kw)))
+    out_ms.append(device_ms(lambda: ops.fused_adam(p0, g, m0, v0, step,
+                                                   **kw)))
+    from repro_torch.launch.roofline import bound
+    flops, nbytes, cdt = kernel_cost("fused_adam", p0, g, m0, v0, step)
+    b_ms, b_by = bound(nbytes, flops, cdt)
+    o, i = sum(out_ms) / 2, sum(in_ms) / 2
+    lib = None if lib_ms is None else sum(lib_ms) / 2
+    row = {"label": label, "shape": list(shape), "dtype": str(dtype)[6:],
+           "step": list(step.shape), "paths": paths, "max_abs_err": err,
+           "out_ms": out_ms, "in_ms": in_ms, "library_ms": lib_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "out_share": b_ms / o,
+           "in_share": b_ms / i, "in_over_out": i / o}
+    print(f"adam {label} {list(shape)} {row['dtype']} step{row['step']}: "
+          f"{path} path, max_abs_err {err:.3e}; out of place {o:.4f} ms "
+          f"({out_ms[0]:.4f}, {out_ms[1]:.4f}), in place {i:.4f} ms "
+          f"({in_ms[0]:.4f}, {in_ms[1]:.4f}); bound {b_ms:.5f} ms ({b_by}), "
+          f"share {b_ms / o:.1%} / {b_ms / i:.1%}; in place / out of place "
+          f"{i / o:.4f}; Adam(fused=True) "
+          + ("n/a" if lib is None else f"{lib:.4f} ms ({lib_ms[0]:.4f}, "
+             f"{lib_ms[1]:.4f})"))
+    del p0, g, m0, v0, pk, mk, vk
+    free(torch)
+    return row, checks
+
+
+def adam_phase(torch, dev="cuda"):
+    """Phase 33: the redesigned ``fused_adam`` (one body for both
+    entries, 16-byte accesses, the entity known per block) at phase 32a's
+    shapes and at edge shapes that force a row's scalar head and tail
+    (:func:`adam_case`), with each kernel's registers and 16-byte
+    accesses (:func:`adam_build_facts`), and whether the redesign's
+    targets held at the four timed path shapes (printed, not asserted:
+    they are times).  Raises on any miss of a check."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(33)
+    out = {"build": adam_build_facts(), "rows": [], "targets": {}}
+    checks = {}
+    cases = [*adam_path_cases(torch),
+             *((lb, sh, st, getattr(torch, dt)) for lb, sh, st, dt in
+               ADAM_EDGES)]
+    for label, shape, steps, dtype in cases:
+        row, c = adam_case(torch, label, shape, steps, dtype, gen, dev)
+        checks.update({f"{label}: {k}": v for k, v in c.items()})
+        out["rows"].append(row)
+    for r in out["rows"]:
+        if r["label"] not in ADAM_TARGETED:
+            continue
+        t = {"share": min(r["out_share"], r["in_share"]) >= ADAM_TARGET_SHARE,
+             "in place within 3%": r["in_over_out"] <= ADAM_INPLACE_SLACK}
+        if r["library_ms"] is not None:
+            t["in place faster than Adam(fused=True)"] = (
+                sum(r["in_ms"]) < sum(r["library_ms"]))
+        out["targets"][r["label"]] = t
+        print(f"adam target {r['label']}: {t}")
+    out["checks"] = checks
+    out["s"] = time.perf_counter() - t0
+    bad = [k for k, v in checks.items() if not v]
+    print(f"adam: {len(checks) - len(bad)} of {len(checks)} checks held in "
+          f"{out['s']:.1f}s")
+    if bad:
+        raise AssertionError(f"adam: {bad}")
+    return out
+
+
+def run_adam_phase(out_path):
+    """The entry of ``--adam-phase``: phase 33 alone, its report written
+    to ``out_path``."""
+    import torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(f"adam: {smi}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}")
+    _build.build_all()
+    res = adam_phase(torch)
+    res["nvidia_smi"] = smi
+    print(f"adam: phase 33 took {res['s']:.1f}s")
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=10,
@@ -6900,6 +7164,9 @@ def main(argv=None):
     ap.add_argument("--donate-phase", default=None, metavar="OUT",
                     help="run phase 32 alone (the process main() starts "
                          "for it) and write its report to OUT")
+    ap.add_argument("--adam-phase", default=None, metavar="OUT",
+                    help="run phase 33 alone (the process main() starts "
+                         "for it) and write its report to OUT")
     args = ap.parse_args(argv)
     if args.mesh_phase:
         return run_mesh_phase(args.mesh_phase, args.profile)
@@ -6917,6 +7184,8 @@ def main(argv=None):
         return run_kv_groups_phase(args.kv_groups_phase)
     if args.donate_phase:
         return run_donate_phase(args.donate_phase)
+    if args.adam_phase:
+        return run_adam_phase(args.adam_phase)
 
     import torch
     if not torch.cuda.is_available():
@@ -7162,11 +7431,23 @@ def main(argv=None):
     with open(dn_out) as f:
         donate_runs = json.load(f)
     t32 = time.perf_counter()
+
+    # 33. the redesigned fused_adam, in a process of its own: both entries
+    # at the path's shapes and the edge shapes, timed in one call
+    ad_out = os.path.join(ROOT, "build", "chip_smoke_adam.json")
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--adam-phase", ad_out], timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 33 (fused_adam) exited {proc.returncode}")
+    with open(ad_out) as f:
+        adam_runs = json.load(f)
+    t33 = time.perf_counter()
     phase_s.update({"18": t19 - t18, "19": t20 - t19, "20": t21 - t20,
                     "21-22": t22 - t21b, "23": t23 - t22, "24": t24 - t23,
                     "25": t25 - t24, "26": t26 - t25, "27": t27 - t26,
                     "28": t28 - t27, "29": t29 - t28, "30": t30 - t29,
-                    "31": t31 - t30, "32": t32 - t31})
+                    "31": t31 - t30, "32": t32 - t31, "33": t33 - t32})
     print("phases took " + ", ".join(f"{k}: {v:.1f}s"
                                      for k, v in phase_s.items()))
 
@@ -7216,7 +7497,7 @@ def main(argv=None):
                        "engine_paths_mesh": engine_paths_runs,
                        "tooling": tooling_runs,
                        "kv_groups": kv_group_runs,
-                       "donate": donate_runs,
+                       "donate": donate_runs, "adam": adam_runs,
                        "phase_s": phase_s}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))

@@ -7,10 +7,18 @@ skips an entity in the kernel instead of selecting against a kept
 copy).  On CUDA tensors each launches its hand-written kernel in
 ``csrc/fused_adam.cu``; on CPU or ``meta`` tensors it runs the plain
 version, ``ref.fused_adam_ref`` or ``ref.fused_adam_ref_``.
+
+Both entries launch one kernel body with a plan made here
+(:func:`plan`): a block takes a tile of 256 16-byte vectors of one
+entity's row, and the elements of a row before its first vector and
+after its last are stepped one at a time.  Where the operands lie on
+16 bytes at no common element, the whole leaf takes the kernel's scalar
+path.
 """
 from __future__ import annotations
 
 from ctypes import c_double, c_int, c_int64, c_void_p
+from typing import NamedTuple
 
 import torch
 
@@ -21,11 +29,50 @@ from repro_torch.kernels._count import (PLAIN_DEVICES, counted,
 launches = 0          # kernel launches since the last reset, both entries
 design_launches = {"copy": 0, "inplace": 0}   # the same, by entry
 
-_ARGTYPES = [c_void_p] * 8 + [c_int64, c_int64, c_int] + [c_double] * 5 + [
+# n, n_per_entity, dtype, and the plan's phase and tiles
+_LEAF_ARGTYPES = [c_int64, c_int64, c_int, c_int, c_int64]
+_ARGTYPES = [c_void_p] * 8 + _LEAF_ARGTYPES + [c_double] * 5 + [c_void_p]
+_INPLACE_ARGTYPES = [c_void_p] * 6 + _LEAF_ARGTYPES + [c_double] * 5 + [
     c_void_p]
-_INPLACE_ARGTYPES = [c_void_p] * 6 + [c_int64, c_int64, c_int] + [
-    c_double] * 5 + [c_void_p]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's constants (csrc/fused_adam.cu: kThreads, Width<P>): p's
+# elements in 16 bytes, and the vectors a thread issues at once
+THREADS = 256
+VEC = {torch.float32: 4, torch.bfloat16: 8}
+UNROLL = {torch.float32: 1, torch.bfloat16: 1}
+
+
+class Plan(NamedTuple):
+    """How one launch covers a leaf of ``rows`` entities of
+    ``n_per_entity`` elements: block (x, y) takes tile x of row y (and of
+    rows y + 65535, ...).  ``phase`` is the first element, counted from
+    the leaf's start, at which every operand lies on 16 bytes, or -1:
+    then every element takes the scalar path."""
+    phase: int
+    tiles: int          # blocks along a row
+    rows: int
+    n_per_entity: int
+    vec: int            # elements a vector
+    tile: int           # elements a block takes of its row
+
+
+def plan(spans, dtype, n: int, rows: int) -> Plan:
+    """The launch plan of a leaf of ``n`` elements of ``dtype`` over
+    ``rows`` entities, whose operands (read and written) start at the
+    ``(address, element size)`` pairs ``spans``."""
+    vec = VEC[dtype]
+    tile = THREADS * UNROLL[dtype] * vec
+    npe = n // rows
+    phase = next((k for k in range(vec)
+                   if all((a + k * s) % 16 == 0 for a, s in spans)), -1)
+    return Plan(phase, -(-npe // tile), rows, npe, vec, tile)
+
+
+def plan_of(tensors, rows: int) -> Plan:
+    """:func:`plan` for these operands (p first), over ``rows`` entities."""
+    p = tensors[0]
+    return plan([(t.data_ptr(), t.element_size()) for t in tensors],
+                p.dtype, p.numel(), rows)
 
 
 def _check(p, g, m, v, step):
@@ -95,14 +142,16 @@ def fused_adam(p, g, m, v, step, *, lr: float, b1: float = 0.9,
     n = p.numel()
     if n == 0:
         return p2, m2, v2
+    pl = plan_of((p, g, m, v, p2, m2, v2), step.numel())
     fn = _build.entry("fused_adam", _ARGTYPES)
     global launches
     launches += 1
     design_launches["copy"] += 1
     _build.check(fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
                     step.data_ptr(), p2.data_ptr(), m2.data_ptr(),
-                    v2.data_ptr(), n, n // step.numel(), _DTYPES[p.dtype],
-                    lr, b1, b2, eps, weight_decay, _build.stream_of(p)),
+                    v2.data_ptr(), n, pl.n_per_entity, _DTYPES[p.dtype],
+                    pl.phase, pl.tiles, lr, b1, b2, eps, weight_decay,
+                    _build.stream_of(p)),
                  "fused_adam")
     return p2, m2, v2
 
@@ -128,6 +177,7 @@ def fused_adam_(p, g, m, v, step, *, keep=None, lr: float, b1: float = 0.9,
     n = p.numel()
     if n == 0:
         return p, m, v
+    pl = plan_of((p, g, m, v), step.numel())
     fn = _build.entry("fused_adam_inplace", _INPLACE_ARGTYPES,
                       source="fused_adam")
     global launches
@@ -135,8 +185,8 @@ def fused_adam_(p, g, m, v, step, *, keep=None, lr: float, b1: float = 0.9,
     design_launches["inplace"] += 1
     _build.check(fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
                     step.data_ptr(), None if keep is None else keep.data_ptr(),
-                    n, n // step.numel(), _DTYPES[p.dtype], lr, b1, b2, eps,
-                    weight_decay, _build.stream_of(p)),
+                    n, pl.n_per_entity, _DTYPES[p.dtype], pl.phase, pl.tiles,
+                    lr, b1, b2, eps, weight_decay, _build.stream_of(p)),
                  "fused_adam_inplace")
     for t in (p, m, v):
         torch.autograd.graph.increment_version(t)
