@@ -195,7 +195,18 @@ Phases, each of which ends the script with a non-zero exit on failure:
     untouched, views one element into a larger buffer bit-equal to the
     aligned run (the scalar path against the vector path), each kernel's
     registers and 16-byte accesses, and the device ms of both entries and
-    of ``Adam(fused=True, capturable=True)`` in one call.
+    of ``Adam(fused=True, capturable=True)`` in one call;
+34. rematerialisation (``models.module.remat``), in a process of its
+    own: olmoe-1b-7b at depth 4, zamba2-1.2b and whisper-base whole at
+    phase 7's protocol, each run as the port runs it, with
+    ``module.remat`` swapped for a plain call, and as the port again,
+    in turns: the states after 3 rounds bit for bit the same, a lower
+    ``max_memory_allocated`` with remat (the round's, where activations
+    set it, and the feature gradients' pass's), the launches by kernel
+    as counted with and without the recompute, and rounds/s both ways
+    (``remat_dry_runs`` gives the dry run's side on any machine).
+    Phase 32's four-card runs print their peaks beside those measured
+    before remat.
 
 It then prints the ``kernels`` JSON line and, last, the device line
 ``{"ok": true, "device": {...}}``.  Without a card, or outside a
@@ -1128,32 +1139,38 @@ def card_against_cpu(torch):
     return out
 
 
-def block_launches(cfg, lo, hi):
+def block_launches(cfg, lo, hi, shared=True):
     """Kernel launches of one forward through blocks [lo, hi): an
     attention block launches flash_attention once (and topk_gating once
     when it is MoE), a mamba2 block ssd_scan once, and the hybrid
     family's shared attention block flash_attention once after each of
-    its positions inside the range.  Nothing is checkpointed, so no
-    forward runs twice, and the backwards recompute plain versions,
-    which launch nothing."""
+    its positions inside the range (``shared=False`` leaves it out: it
+    runs outside any checkpoint, so a recompute does not run it).  The
+    backwards of the kernels recompute plain versions, which launch
+    nothing."""
     from repro_torch.models.transformer import block_kind
     kind, n = block_kind(cfg), hi - lo
     if kind in ("mamba", "hybrid"):
-        shared = cfg.ssm.shared_attn_positions if kind == "hybrid" else ()
+        pos = (cfg.ssm.shared_attn_positions
+               if kind == "hybrid" and shared else ())
         out = {"ssd_scan": n, "topk_gating": 0,
-               "flash_attention": sum(lo <= p < hi for p in shared)}
+               "flash_attention": sum(lo <= p < hi for p in pos)}
     else:
         out = {"ssd_scan": 0, "flash_attention": n,
                "topk_gating": n if kind == "moe" else 0}
     return by_design(cfg, out)
 
 
-def half_launches(cfg, half):
+def half_launches(cfg, half, again=False):
     """Kernel launches of one forward through the ``"client"`` or
     ``"server"`` half of the train step's split, or the ``"whole"``
     model: ``block_launches`` of its blocks; whisper's encoder (the
     client) launches flash_attention once a block and its decoder twice
-    (``whisper_forward_launches``)."""
+    (``whisper_forward_launches``).  ``again`` counts the recompute a
+    backward through the half runs first instead: every group of blocks
+    is under ``module.remat`` and runs its forward once more, all of its
+    kernels with it (its last op that saves a tensor comes after them),
+    but for the hybrid's shared block, which is in no group."""
     if cfg.family == "audio":
         n = whisper_forward_launches(cfg, encode=half != "server",
                                      decode=half != "client")
@@ -1162,7 +1179,24 @@ def half_launches(cfg, half):
     lo, hi = {"client": (0, cfg.cut_layers),
               "server": (cfg.cut_layers, cfg.n_layers),
               "whole": (0, cfg.n_layers)}[half]
-    return block_launches(cfg, lo, hi)
+    return block_launches(cfg, lo, hi, shared=not again)
+
+
+def round_launches(cfg, c_local, steps, again=True):
+    """Kernel launches of one CycleSL round of the train step by kernel
+    (and by design): the client half runs forward ``c_local`` times in
+    the extract (under ``no_grad``: once) and ``c_local`` times in the
+    VJPs, the server half once in each of ``steps`` server steps and
+    ``c_local`` times in the feature gradients; every pass under grad
+    recomputes its groups in its backward (``half_launches(...,
+    again=True)``); ``again=False`` leaves the recompute out."""
+    client, srv = half_launches(cfg, "client"), half_launches(cfg, "server")
+    c_again = half_launches(cfg, "client", again=True)
+    s_again = half_launches(cfg, "server", again=True)
+    if not again:
+        c_again = s_again = {k: 0 for k in client}
+    return {k: c_local * (2 * client[k] + c_again[k])
+            + (steps + c_local) * (srv[k] + s_again[k]) for k in client}
 
 
 def by_design(cfg, out):
@@ -1194,7 +1228,7 @@ def take_census(mesh) -> dict:
 
 
 def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
-                keep_state=False, cohort=COHORT, donate=False):
+                keep_state=False, cohort=COHORT, donate=False, remat=True):
     """A transformer path: ``build_train_step`` for ``cfg`` (its
     published cut; whisper's encoder and decoder), ``cohort`` clients,
     batch 2 a client, sequence 2048 (whisper: 1500 frames and 448 text
@@ -1206,23 +1240,30 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
     in the extract and C times in the client VJPs, the server blocks
     [cut, L) once in each of the steps = C * b / server batch server
     steps and C times in the feature gradients, each forward launching
-    ``half_launches``; feature_resample gathers features and labels
-    (whisper: features, tokens and labels) once a server step;
+    ``half_launches``, and each of them but the extract's (under
+    ``no_grad``) again in its backward's recompute
+    (:func:`round_launches`); feature_resample gathers features and
+    labels (whisper: features, tokens and labels) once a server step;
     fused_adam steps every server leaf once a server step and every
     stacked client leaf once; gather_loss never runs (no linear server
-    head).  olmoe-1b-7b at depth 4, cut 2: 16 block
-    forwards a round, each one flash_attention and one topk_gating
-    launch.  zamba2-1.2b, 38 blocks cut after 4: 8 + 68 + 68 + 8 = 152
-    ssd_scan launches a round, and flash_attention 2 * (steps + C) = 8
-    (the shared block after blocks 12 and 25, both on the server).
+    head).  olmoe-1b-7b at depth 4, cut 2: 16 block forwards a round and
+    12 recomputes, each one flash_attention and one topk_gating launch.
+    zamba2-1.2b, 38 blocks cut after 4: 8 + 68 + 68 + 8 = 152 ssd_scan
+    launches a round and 8 + 136 = 144 recomputes, 296 in all, and
+    flash_attention 2 * (steps + C) = 8 (the shared block after blocks
+    12 and 25, both on the server, in no checkpoint).
 
     ``mesh`` runs the step on a mesh (phase 25): each rank its blocks
     and its ``C / cohort_size(mesh)`` slots, the same launches on every
     rank (a block is a leaf as a whole leaf is; the slot counts above
     are the rank's), and each round's census of both axes kept;
-    ``keep_state`` returns the final state; ``donate`` runs the step as
+    ``keep_state`` returns the final state; ``peak_bytes`` is the whole
+    call's peak, init included, ``step_peak_bytes`` the rounds' (what a
+    dry run of the step models); ``donate`` runs the step as
     its bundle donates (``StepBundle.donated()``: the state stepped in
-    place)."""
+    place); ``remat=False`` expects the launches of a run with
+    ``module.remat`` swapped for a plain call (phase 34: no
+    recompute)."""
     from repro_torch.configs import InputShape
     from repro_torch.core.cyclesl import CycleConfig
     from repro_torch.launch.mesh import cohort_size
@@ -1249,8 +1290,7 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
                 // c_local)
     steps = cycle.server_epochs * (C * b // cycle.server_batch)
     client, srv = half_launches(cfg, "client"), half_launches(cfg, "server")
-    per_round = {k: 2 * c_local * client[k] + (steps + c_local) * srv[k]
-                 for k in client}
+    per_round = round_launches(cfg, c_local, steps, again=remat)
     expect = {k: n * rounds for k, n in per_round.items()}
     expect.update(feature_resample=(3 if audio else 2) * steps * rounds,
                   gather_loss=0,
@@ -1259,6 +1299,11 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
     batches = [bundle.make_batch(r) for r in range(rounds)]
     step = bundle.donated() if donate else bundle.fn
     torch.cuda.synchronize()
+    # the draw of the whole model before a rank keeps its shards can peak
+    # above the rounds (with remat it does on a mesh); the dry run models
+    # a step, so the rounds' peak is kept apart
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     reset_counters()
     take_census(mesh)
     stamps, metrics, census = [time.perf_counter()], [], []
@@ -1271,7 +1316,8 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
         if mesh is not None:
             census.append(take_census(mesh))
     launches = read_counters()
-    peak = torch.cuda.max_memory_allocated()
+    step_peak = torch.cuda.max_memory_allocated()
+    peak = max(init_peak, step_peak)
     rps = (rounds - 1) / (stamps[-1] - stamps[1])
     tokens = C * b * seq
     print(f"{label}: {cfg.name} L={L} cut={cut} d={cfg.d_model}, params "
@@ -1286,7 +1332,7 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
           f"{rps * tokens:.1f} tokens/s; peak memory {peak / 1e9:.2f} GB; "
           f"launches {launches} (expected {expect}; a round: client blocks "
           f"{client} x {2 * c_local}, server blocks {srv} x "
-          f"{steps + c_local})")
+          f"{steps + c_local}, each backward's recompute beside them)")
     vals = [v for m in metrics for v in m.values()]
     if not all(math.isfinite(x) for x in vals):
         raise AssertionError(f"{label}: non-finite metrics {metrics}")
@@ -1310,7 +1356,8 @@ def split_round(torch, label, cfg, rounds=ROUNDS, profile=False, mesh=None,
             "state_bytes": state_bytes, "init_s": init_s,
             "round_s": [b - a for a, b in zip(stamps, stamps[1:])],
             "rounds_per_s": rps, "tokens_per_s": rps * tokens,
-            "peak_bytes": peak, "metrics": metrics, "launches": launches,
+            "peak_bytes": peak, "step_peak_bytes": step_peak,
+            "metrics": metrics, "launches": launches,
             "expected_launches": expect}
 
 
@@ -3311,7 +3358,12 @@ def tp_census(cfg, m, chunk=512, c_local=COHORT):
     server forward, a logits gather (the rank's [b, chunk, vocab / m] in
     the model's dtype) and (backward) the head input's float32 reduce
     per chunk of 512 positions; a split client half adds one norm (a
-    float) a slot."""
+    float) a slot.  Each block is a group under ``module.remat``, so
+    each backward pass first runs its forward again, up to its last op
+    that saves a tensor: the attention's reduce and the MoE's (its
+    router losses follow it) are issued again, a dense FFN's closing
+    reduce is not (only the residual add follows it, unless a sandwich
+    norm does), and each chunk's recompute gathers its logits again."""
     from repro_torch.sharding.parallel import sharded_units
     units = sharded_units(cfg, {"model": m})
     C, b, S = c_local, BATCH, SEQ
@@ -3328,22 +3380,22 @@ def tp_census(cfg, m, chunk=512, c_local=COHORT):
     bwd = C * cut + (steps + C) * (L - cut)
     if units["attn"]:
         norms = 2 * cfg.hd * f32 if cfg.attn.qk_norm else 0
-        add("all_reduce/attn", fwd, act)
+        add("all_reduce/attn", fwd + bwd, act)
         add("all_reduce/act_grad", bwd, act + norms)
     if units["moe"]:
         gs = min(cfg.moe.group_size, b * S)
         tokens = -(-(b * S) // gs) * gs
-        add("all_reduce/moe", fwd, tokens * d * f32)
+        add("all_reduce/moe", fwd + bwd, tokens * d * f32)
         add("all_reduce/moe_grad", bwd, tokens * (d + cfg.moe.top_k) * f32)
     if units["ffn"]:
-        add("all_reduce/ffn", fwd, act)
+        add("all_reduce/ffn", fwd + (bwd if cfg.sandwich_norm else 0), act)
         add("all_reduce/act_grad", bwd, act)
     if units["vocab"]:
         cs = min(chunk, S)
         n_chunks = -(-S // cs)
         elt = 2 if cfg.dtype == "bfloat16" else 4
         add("all_reduce/embed", 2 * C, act)
-        add("all_gather/logits", n_chunks * (steps + C),
+        add("all_gather/logits", 2 * n_chunks * (steps + C),
             b * cs * cfg.vocab_padded // m * elt)
         add("all_reduce/act_grad", n_chunks * (steps + C), b * cs * d * f32)
     if any(units.values()):
@@ -4216,7 +4268,14 @@ def ssm_tp_census(cfg, m, c_local, cohort=COHORT, chunk=512):
     each server forward a logits gather (the rank's vocab / m columns in
     the model's dtype) and the head input's reduce, per chunk of 512
     positions (whisper: the whole 448); a split client half adds one
-    norm (a float) a slot."""
+    norm (a float) a slot.  Each Mamba block and each whisper block is a
+    group under ``module.remat`` (the hybrid's shared block is not), so
+    each backward pass first runs the block's forward again, up to its
+    last op that saves a tensor: the gate norm's and the attentions'
+    reduces are issued again, the closing reduce of a Mamba block's
+    output or of an MLP is not (only the residual add follows it); each
+    loss chunk's recompute gathers its logits again (whisper's loss is
+    no chunk)."""
     from repro_torch.sharding.parallel import sharded_units
     units = sharded_units(cfg, {"model": m})
     b, f32 = BATCH, 4
@@ -4234,8 +4293,8 @@ def ssm_tp_census(cfg, m, c_local, cohort=COHORT, chunk=512):
         E, D, S = cfg.enc_layers, cfg.n_layers, WHISPER_TEXT
         enc, dec = b * WHISPER_FRAMES * d * f32, b * S * d * f32
         if units["attn"]:
-            add("all_reduce/attn", 2 * c_local * E, enc)
-            add("all_reduce/attn", 2 * srv * D, dec)
+            add("all_reduce/attn", 3 * c_local * E, enc)
+            add("all_reduce/attn", 4 * srv * D, dec)
             add("all_reduce/act_grad", c_local * E, enc)
             add("all_reduce/act_grad", srv * D - c_local, dec)
             add("all_reduce/act_grad", srv * D, dec + enc)
@@ -4258,7 +4317,7 @@ def ssm_tp_census(cfg, m, c_local, cohort=COHORT, chunk=512):
             gn2 = 2 * s.n_groups * s.d_state
             conv_ch = s.expand * d + gn2
             bc = (d + s.d_conv) * gn2 if s.n_groups == 1 else 0
-            add("all_reduce/norm", fwd, norm)
+            add("all_reduce/norm", fwd + bwd, norm)
             add("all_reduce/mamba", fwd, act)
             add("all_reduce/norm_grad", bwd, norm)
             add("all_reduce/mamba_grad", bwd, act + (conv_ch + bc) * f32)
@@ -4275,7 +4334,7 @@ def ssm_tp_census(cfg, m, c_local, cohort=COHORT, chunk=512):
             cs = min(chunk, S)
             n_chunks = -(-S // cs)
             add("all_reduce/embed", 2 * c_local, act)
-            add("all_gather/logits", n_chunks * srv,
+            add("all_gather/logits", 2 * n_chunks * srv,
                 b * cs * cfg.vocab_padded // m * elt)
             add("all_reduce/act_grad", n_chunks * srv, b * cs * d * f32)
     if any(units.values()):
@@ -5388,9 +5447,7 @@ def pipelined_olmoe(torch, mesh):
     server, clients = whole.init_state(0)
     xs, ys = whole.make_batch(0)
     c_local, steps = C // cohort_size(mesh), C
-    client, srv = half_launches(cfg, "client"), half_launches(cfg, "server")
-    expect = {k: 2 * c_local * client[k] + (steps + c_local) * srv[k]
-              for k in client}
+    expect = round_launches(cfg, c_local, steps)
     expect.update(feature_resample=2 * steps, gather_loss=0,
                   fused_adam=len(tree_leaves(server.params)) * steps
                   + len(tree_leaves(clients.params)))
@@ -6356,7 +6413,9 @@ def kv_world(torch, out, checks, want_rows, full, rounds, dev):
                 for r in ranks)
     peak = max(r["whole"]["peak_bytes"] - r["whole"]["base_bytes"]
                for r in ranks)
-    peak_err = (peak - dry["peak_bytes"]) / dry["peak_bytes"]
+    step_peak = max(r["whole"]["step_peak_bytes"] - r["whole"]["base_bytes"]
+                    for r in ranks)
+    peak_err = (step_peak - dry["peak_bytes"]) / dry["peak_bytes"]
     checks["(1, 4) whole fits a card"] = peak < 80e9
     checks["(1, 4) whole peak within 5% of the dry run's"] = \
         abs(peak_err) <= KV_PEAK_RTOL
@@ -6364,9 +6423,9 @@ def kv_world(torch, out, checks, want_rows, full, rounds, dev):
     print(f"kv (1, 4) {KV_ARCH} whole: {w['rounds_per_s']:.3f} rounds/s, "
           f"{w['tokens_per_s']:.1f} tokens/s, peak {peak / 1e9:.2f} GB a "
           f"card (max over ranks, above {w['base_bytes'] / 1e9:.2f} GB held "
-          f"before; the dry run's {dry['peak_bytes'] / 1e9:.2f} GB, "
-          f"{peak_err:+.2%}), entity states {w['state_bytes'] / 1e9:.2f} GB "
-          f"a card; census a round {_census_line(w['census'][0])} "
+          f"before), its rounds' {step_peak / 1e9:.2f} GB (the dry run's "
+          f"{dry['peak_bytes'] / 1e9:.2f} GB, {peak_err:+.2%}), entity "
+          f"states {w['state_bytes'] / 1e9:.2f} GB a card; census a round {_census_line(w['census'][0])} "
           f"(predicted {_census_line(want)}); depth 4 against unsharded "
           f"{held}; with the group sum dropped "
           f"{r0['planted_against_unsharded']}, kv group copies alike "
@@ -6412,8 +6471,8 @@ def kv_world(torch, out, checks, want_rows, full, rounds, dev):
         "rank0": {k: r0[k] for k in ("depth4", "against_unsharded",
                                      "planted", "planted_against_unsharded",
                                      "whole", "s")},
-        "peak_bytes_max": peak, "peak_err": peak_err,
-        "census_predicted": want, "census_predicted_depth4": want4,
+        "peak_bytes_max": peak, "step_peak_bytes_max": step_peak,
+        "peak_err": peak_err, "census_predicted": want, "census_predicted_depth4": want4,
         "decode": {"rms_err": err, "rms_planted": bad,
                    "rms_bf16_noise": noise, "rms_gap_noise": gap_noise,
                    "launches": r0["tf"]["tf"]["launches"]},
@@ -6461,6 +6520,9 @@ DONATE_PEAK_RTOL = 0.05        # a card's peak against the donated dry run's
 UNDONATED_PEAKS = {("olmoe-1b-7b", (1, 4)): 52.70e9,
                    ("olmoe-1b-7b", (2, 2)): 58.42e9,
                    ("glm4-9b", (1, 4)): 72.85e9}
+# the donated whole runs' peaks a card before remat, as four H100s read
+# them (PERF.md)
+DONATED_PEAKS = {("glm4-9b", (2, 2)): 66.76e9, ("glm4-9b", (1, 4)): 50.42e9}
 DONATE_WORLD = ((2, 2), (1, 4))
 DONATE_WHOLE = ("glm4-9b", "olmoe-1b-7b")
 
@@ -6762,9 +6824,11 @@ def donate_world(torch, out, checks, want_rows, rounds):
         key = f"({shape[0]}, {shape[1]}) {arch}"
         runs = [r[key] for r in ranks]
         peak = max(r["peak_bytes"] - r["base_bytes"] for r in runs)
-        err = (peak - rec["peak_bytes"]) / rec["peak_bytes"]
+        step_peak = max(r["step_peak_bytes"] - r["base_bytes"] for r in runs)
+        err = (step_peak - rec["peak_bytes"]) / rec["peak_bytes"]
         w = runs[0]
         before = UNDONATED_PEAKS.get((arch, shape))
+        unremat = DONATED_PEAKS.get((arch, shape))
         checks[f"{key} whole fits a card"] = peak < 80e9
         checks[f"{key} whole alike on every rank"] = all(
             r["metrics"] == w["metrics"] and r["launches"] == w["launches"]
@@ -6774,15 +6838,20 @@ def donate_world(torch, out, checks, want_rows, rounds):
                 abs(err) <= DONATE_PEAK_RTOL
         print(f"donate {key} whole, donated: {w['rounds_per_s']:.3f} "
               f"rounds/s, {w['tokens_per_s']:.1f} tokens/s, peak "
-              f"{peak / 1e9:.2f} GB a card (max over ranks; the donated dry "
+              f"{peak / 1e9:.2f} GB a card (max over ranks, init included), "
+              f"its rounds' {step_peak / 1e9:.2f} GB (the donated dry "
               f"run's {rec['peak_bytes'] / 1e9:.2f} GB, {err:+.2%}; "
               + ("" if before is None else
                  f"undonated before {before / 1e9:.2f} GB; ")
+              + ("" if unremat is None else
+                 f"donated before remat {unremat / 1e9:.2f} GB; ")
               + f"entity states {w['state_bytes'] / 1e9:.2f} GB a card, the "
               f"dry run's {rec['state_bytes'] / 1e9:.2f} GB)")
-        whole[key] = {"peak_bytes_max": peak, "peak_err": err,
+        whole[key] = {"peak_bytes_max": peak, "step_peak_bytes_max": step_peak,
+                      "peak_err": err,
                       "dry_peak_bytes": rec["peak_bytes"],
                       "undonated_peak_before": before,
+                      "donated_peak_before_remat": unremat,
                       "state_bytes": w["state_bytes"],
                       "rounds_per_s": w["rounds_per_s"],
                       "tokens_per_s": w["tokens_per_s"],
@@ -7128,6 +7197,246 @@ def run_adam_phase(out_path):
     return 0
 
 
+# phase 34: rematerialisation, in a process of its own
+# (``python3 chip_smoke.py --remat-phase OUT``): each config at phase 7's
+# protocol as the port runs it and with ``module.remat`` swapped for a
+# plain call (arch, depth or None for the whole model)
+REMAT_CONFIGS = (("olmoe-1b-7b", OLMOE_DEPTH), ("zamba2-1.2b", None),
+                 ("whisper-base", None))
+# the configs whose round peaks outside the training passes, so that
+# remat leaves it (``remat_dry_runs``: olmoe at depth 4 peaks in its
+# clients' Adam step, 65.88 GB both ways), and how close it stays there
+# (the caching allocator's own bytes; an H100 read 65.96 GB both ways)
+REMAT_PEAK_ELSEWHERE = ("olmoe-1b-7b",)
+REMAT_SAME_PEAK_RTOL = 1e-3
+
+
+@contextlib.contextmanager
+def remat_swapped():
+    """Inside, ``models.module.remat`` is a plain call: every group's
+    activations stay for the backward and no forward runs twice, as
+    before the port rematerialised."""
+    from repro_torch.models import module
+    real = module.remat
+    module.remat = lambda fn, *args: fn(*args)
+    try:
+        yield
+    finally:
+        module.remat = real
+
+
+def remat_config(arch, depth):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg if depth is None else cfg.with_(n_layers=depth)
+
+
+def feature_grad_task(cfg):
+    from repro_torch.core.split import make_transformer_task
+    from repro_torch.launch.steps import make_whisper_task
+    return (make_whisper_task(cfg) if cfg.family == "audio"
+            else make_transformer_task(cfg))
+
+
+def feature_grad_pass(cfg, server, feats, ys):
+    """The feature gradients of a round (``core.cyclesl.feature_gradients``
+    of the frozen server over every slot's features, their losses summed
+    before one backward): the pass that holds the most activations at
+    once, C server forwards, and that remat cuts to C server inputs a
+    group."""
+    from repro_torch.core.cyclesl import CycleConfig, feature_gradients
+    return feature_gradients(feature_grad_task(cfg), server.params, feats,
+                             ys, CycleConfig())
+
+
+def feature_grad_inputs(cfg, clients, xs):
+    """``feature_grad_pass``'s features: the extract of ``clients`` on
+    ``xs``."""
+    from repro_torch.core.cyclesl import extract_features
+    return extract_features(feature_grad_task(cfg), clients.params, xs)
+
+
+def card_feature_grad_bytes(torch, cfg, server, clients):
+    """The most bytes ``feature_grad_pass`` allocates on the card above
+    what was allocated before it, at phase 7's batch of seed 0 and the
+    features of ``clients``."""
+    from repro_torch.configs import InputShape
+    from repro_torch.core.cyclesl import CycleConfig
+    from repro_torch.launch.steps import build_train_step
+    seq = WHISPER_TEXT if cfg.family == "audio" else SEQ
+    bundle = build_train_step(cfg, InputShape("fg", seq, COHORT * BATCH,
+                                              "train"),
+                              CycleConfig(server_epochs=1,
+                                          server_batch=BATCH),
+                              cohort=COHORT, device="cuda")
+    xs, ys = bundle.make_batch(0)
+    feats = feature_grad_inputs(cfg, clients, xs)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    g = feature_grad_pass(cfg, server, feats, ys)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(g.float()).all()):
+        raise AssertionError(f"{cfg.name}: non-finite feature gradients")
+    return torch.cuda.max_memory_allocated() - base
+
+
+def remat_dry_runs(torch, configs=REMAT_CONFIGS):
+    """The dry run on ``meta`` of each config's train step at phase 7's
+    protocol (``bundle.fn``, which keeps its arguments, as the card
+    runs it), rematerialised and with the swap: {arch: {"peak_bytes",
+    "plain_peak_bytes", "flops", "plain_flops", "fg_bytes",
+    "plain_fg_bytes"}}, ``fg_bytes`` the most bytes
+    ``feature_grad_pass`` holds above its arguments.  Needs no card."""
+    from repro_torch.configs import InputShape
+    from repro_torch.core.cyclesl import CycleConfig
+    from repro_torch.launch.dryrun import dry_run, step_args
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.utils.cost import count
+    from repro_torch.utils.tree import tree_leaves
+    out = {}
+    for arch, depth in configs:
+        cfg = remat_config(arch, depth)
+        seq = WHISPER_TEXT if cfg.family == "audio" else SEQ
+        shape = InputShape(f"remat {arch}", seq, COHORT * BATCH, "train")
+        cycle = CycleConfig(server_epochs=1, server_batch=BATCH)
+        bundle = build_train_step(cfg, shape, cycle, cohort=COHORT,
+                                  device="meta")
+        server, clients, xs, ys, _ = step_args(bundle, "train")
+        feats = feature_grad_inputs(cfg, clients, xs)
+        held = sum(t.numel() * t.element_size()
+                   for t in tree_leaves((server, feats, ys))
+                   if isinstance(t, torch.Tensor))
+        r = out[arch] = {}
+        for key, ctx in (("", contextlib.nullcontext),
+                         ("plain_", remat_swapped)):
+            with ctx():
+                rec = dry_run(cfg, shape, None, cohort=COHORT, cycle=cycle,
+                              donate=False)
+                fg = count(feature_grad_pass, cfg, server, feats, ys)
+            r.update({f"{key}peak_bytes": rec["peak_bytes"],
+                      f"{key}flops": rec["cost"]["flops"],
+                      f"{key}fg_bytes": fg.peak_bytes - held})
+        print(f"remat dry run {arch} (depth {cfg.n_layers}): peak "
+              f"{r['peak_bytes'] / 1e9:.2f} GB with remat, "
+              f"{r['plain_peak_bytes'] / 1e9:.2f} GB without; the feature "
+              f"gradients' pass {r['fg_bytes'] / 1e9:.2f} / "
+              f"{r['plain_fg_bytes'] / 1e9:.2f} GB above its inputs; FLOPs "
+              f"{r['flops']:.4e} / {r['plain_flops']:.4e} = "
+              f"{r['flops'] / r['plain_flops']:.4f}x")
+    return out
+
+
+def remat_phase(torch, rounds=ROUNDS):
+    """Phase 34: each of ``REMAT_CONFIGS`` through ``split_round`` as the
+    port runs it (remat), with ``module.remat`` swapped for a plain call
+    (plain), and as the port again, in one process: the states and
+    metrics after ``rounds`` rounds bit for bit the same in all three,
+    the launches by kernel exactly ``round_launches`` with the recompute
+    and without it, ``max_memory_allocated`` over the rounds lower with
+    remat (within ``REMAT_SAME_PEAK_RTOL`` where the round peaks
+    outside the training passes: ``REMAT_PEAK_ELSEWHERE``), the feature
+    gradients' pass (``card_feature_grad_bytes``) lower with remat, and
+    rounds/s of each run (the two remat runs around the plain one).
+    Raises on any miss.  The dry run's side (``remat_dry_runs``) needs
+    no card and is not run here."""
+    from repro_torch.utils.tree import tree_map
+    t0 = time.perf_counter()
+    out = {"runs": {}, "s": {}}
+    checks = {}
+    for arch, depth in REMAT_CONFIGS:
+        cfg = remat_config(arch, depth)
+        runs, first = [], None
+        for turn, remat in enumerate((True, False, True)):
+            free(torch)
+            label = (f"remat {arch} {'remat' if remat else 'plain'} "
+                     f"{turn + 1}")
+            with (contextlib.nullcontext() if remat else remat_swapped()):
+                r = split_round(torch, label, cfg, rounds, keep_state=True,
+                                remat=remat)
+                state = r.pop("state")
+                r["fg_bytes"] = card_feature_grad_bytes(torch, cfg, *state)
+            if first is None:
+                first = tree_map(lambda t: t.cpu(), state)
+                r["bit_equal"] = True
+            else:
+                r["bit_equal"] = (state_diff(torch, first, state) == 0.0
+                                  and r["metrics"] == runs[0]["metrics"])
+            del state
+            runs.append(r)
+        del first
+        a, p, b = runs
+        rps = (a["rounds_per_s"] + b["rounds_per_s"]) / 2
+        checks[f"{arch} states bit-equal with and without remat"] = (
+            p["bit_equal"] and b["bit_equal"])
+        top = max(a["step_peak_bytes"], b["step_peak_bytes"])
+        plain = p["step_peak_bytes"]
+        if arch not in REMAT_PEAK_ELSEWHERE:
+            checks[f"{arch} round peak lower with remat"] = top < plain
+        else:
+            checks[f"{arch} round peak within {REMAT_SAME_PEAK_RTOL:.1%} "
+                   "with and without remat (its clients' step sets it)"] = (
+                abs(top - plain) <= REMAT_SAME_PEAK_RTOL * plain)
+        checks[f"{arch} feature gradients' peak lower with remat"] = (
+            max(a["fg_bytes"], b["fg_bytes"]) < p["fg_bytes"])
+        print(f"remat {arch} (depth {cfg.n_layers}): the rounds' peak "
+              f"{a['step_peak_bytes']:,} / {b['step_peak_bytes']:,} B with "
+              f"remat, {p['step_peak_bytes']:,} B without; the feature "
+              f"gradients' pass {a['fg_bytes']:,} / {b['fg_bytes']:,} B "
+              f"above its inputs, {p['fg_bytes']:,} without; rounds/s "
+              f"{a['rounds_per_s']:.4f}, {p['rounds_per_s']:.4f} plain, "
+              f"{b['rounds_per_s']:.4f} in turns: {rps / p['rounds_per_s']:.4f}"
+              f"x the plain run; bit-equal "
+              f"{p['bit_equal']} / {b['bit_equal']}; launches a round "
+              f"{ {k: v // rounds for k, v in a['launches'].items()} } with "
+              f"remat, "
+              f"{ {k: v // rounds for k, v in p['launches'].items()} } "
+              f"without")
+        out["runs"][arch] = {
+            "n_layers": cfg.n_layers,
+            "turns": [{k: r[k] for k in (
+                "peak_bytes", "step_peak_bytes", "fg_bytes", "rounds_per_s",
+                "round_s", "metrics", "launches", "expected_launches",
+                "bit_equal")} for r in runs],
+            "rounds_per_s_remat": rps, "step_peak_bytes_remat": top,
+            "step_peak_bytes_plain": plain,
+            "rounds_per_s_plain": p["rounds_per_s"]}
+        out["s"][arch] = time.perf_counter() - t0
+    free(torch)
+    out["checks"] = checks
+    bad = [k for k, v in checks.items() if not v]
+    print(f"remat: {len(checks) - len(bad)} of {len(checks)} checks held; "
+          "seconds " + json.dumps({k: round(v, 1)
+                                   for k, v in out["s"].items()}))
+    if bad:
+        raise AssertionError(f"remat: {bad}")
+    return out
+
+
+def run_remat_phase(out_path):
+    """The entry of ``--remat-phase``: phase 34 alone, its report written
+    to ``out_path``."""
+    import torch
+    from repro_torch.kernels import _build
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    print(f"remat: {smi}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}")
+    _build.build_all()
+    t0 = time.perf_counter()
+    res = remat_phase(torch)
+    res["s"]["total"] = time.perf_counter() - t0
+    res["nvidia_smi"] = smi
+    print(f"remat: phase 34 took {res['s']['total']:.1f}s")
+    with open(out_path, "w") as f:
+        json.dump(res, f, indent=1, default=str)
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rounds", type=int, default=10,
@@ -7167,6 +7476,9 @@ def main(argv=None):
     ap.add_argument("--adam-phase", default=None, metavar="OUT",
                     help="run phase 33 alone (the process main() starts "
                          "for it) and write its report to OUT")
+    ap.add_argument("--remat-phase", default=None, metavar="OUT",
+                    help="run phase 34 alone (the process main() starts "
+                         "for it) and write its report to OUT")
     args = ap.parse_args(argv)
     if args.mesh_phase:
         return run_mesh_phase(args.mesh_phase, args.profile)
@@ -7186,7 +7498,10 @@ def main(argv=None):
         return run_donate_phase(args.donate_phase)
     if args.adam_phase:
         return run_adam_phase(args.adam_phase)
+    if args.remat_phase:
+        return run_remat_phase(args.remat_phase)
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7443,13 +7758,27 @@ def main(argv=None):
     with open(ad_out) as f:
         adam_runs = json.load(f)
     t33 = time.perf_counter()
+
+    # 34. rematerialisation, in a process of its own: olmoe-1b-7b at depth
+    # 4, zamba2-1.2b and whisper-base whole with and without remat
+    rm_out = os.path.join(ROOT, "build", "chip_smoke_remat.json")
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--remat-phase", rm_out], timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 34 (remat) exited {proc.returncode}")
+    with open(rm_out) as f:
+        remat_runs = json.load(f)
+    t34 = time.perf_counter()
     phase_s.update({"18": t19 - t18, "19": t20 - t19, "20": t21 - t20,
                     "21-22": t22 - t21b, "23": t23 - t22, "24": t24 - t23,
                     "25": t25 - t24, "26": t26 - t25, "27": t27 - t26,
                     "28": t28 - t27, "29": t29 - t28, "30": t30 - t29,
-                    "31": t31 - t30, "32": t32 - t31, "33": t33 - t32})
+                    "31": t31 - t30, "32": t32 - t31, "33": t33 - t32,
+                    "34": t34 - t33})
     print("phases took " + ", ".join(f"{k}: {v:.1f}s"
                                      for k, v in phase_s.items()))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s in all")
 
     sources = {"feature_resample": "src/repro/kernels/feature_resample.py:24",
                "fused_adam": "src/repro/kernels/fused_adam.py:44",
@@ -7498,6 +7827,7 @@ def main(argv=None):
                        "tooling": tooling_runs,
                        "kv_groups": kv_group_runs,
                        "donate": donate_runs, "adam": adam_runs,
+                       "remat": remat_runs,
                        "phase_s": phase_s}, f,
                       indent=1)
     print(json.dumps({"kernels": kernels}))

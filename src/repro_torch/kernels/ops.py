@@ -158,13 +158,18 @@ class _SSDScan(torch.autograd.Function):
     """The SSD scan whose forward is the ``ssd_scan`` kernel (its plain
     version on the CPU) and whose backward recomputes that plain version,
     ``ref.ssd_chunked``, under autograd (the JAX package has no kernel
-    backward and differentiates ``ssd_chunked``, checkpointed per chunk,
-    the same way).  The recompute runs every chunk at once, folded into
-    the batch, from the states entering the chunks; their float32
-    [B * L / Q, Q, Q, H] tensors are 268 MB each at zamba2-1.2b's B 2,
-    L 2048, Q 256, H 64, some 1.6 GB for the few that autograd keeps; a
-    loop over chunks would keep an eighth of that but launch eight times
-    the kernels.  The final state carries no gradient."""
+    backward and differentiates ``ssd_chunked`` the same way).  The one
+    difference that remains from the JAX package's remat: its
+    ``mamba2.py:50`` checkpoints each SSD chunk, so its backward holds
+    one chunk's intermediates at a time, where this recompute runs every
+    chunk at once, folded into the batch, from the states entering the
+    chunks; their float32 [B * L / Q, Q, Q, H] tensors are 268 MB each
+    at zamba2-1.2b's B 2, L 2048, Q 256, H 64, some 1.6 GB for the few
+    that autograd keeps while one block's backward runs; a loop over
+    chunks would keep an eighth of that but launch eight times the
+    kernels.  (The block around the scan is itself rematerialised, as a
+    group of ``models.transformer``.)  The final state carries no
+    gradient."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, chunk):

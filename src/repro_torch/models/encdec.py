@@ -28,9 +28,12 @@ self-attention's cache holds the rank's heads (its block under
 every rank (the cross-attention reads all of its width).
 The decode self-attention is ``attention.attend_decode`` (the plain
 ring-cache product), and ``decode_step`` recomputes the cross K/V of
-``enc_out`` at every step, as the JAX package does.  As in
-``models/transformer.py`` the JAX package's ``jax.checkpoint`` per block
-is dropped: each block's activations stay for the backward.
+``enc_out`` at every step, as the JAX package does.  As the JAX package
+scans each side's blocks under ``jax.checkpoint``, :meth:`EncDec.encode`
+and :meth:`EncDec.decode_train` run each block under ``module.remat``:
+a training step keeps each block's input (and the decoder's
+``enc_out``) for the backward and recomputes the block there, its
+``flash_attention`` launches and ``model``-axis collectives with it.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import module
 from repro_torch.models.attention import KVCache, kv_cache_init
 from repro_torch.models.layers import (embedding, embedding_init, layernorm,
                                        layernorm_init)
@@ -134,12 +138,16 @@ class EncDec:
         T = frames.shape[1]
         x = frames + enc_params["pos"][:T][None]
         n = enc_params["blocks"]["norm_attn"]["scale"].shape[0]
-        for i in range(n):
-            bp = tree_map(lambda a: a[i], enc_params["blocks"])
+
+        def block(x, bp):
             h = layernorm(bp["norm_attn"], x, cfg.norm_eps)
             x = x + _attend(bp["attn"], cfg, h, h, tp)
             h = layernorm(bp["norm_ffn"], x, cfg.norm_eps)
-            x = x + ffn_lib.gelu_mlp(bp["ffn"], h, tp)
+            return x + ffn_lib.gelu_mlp(bp["ffn"], h, tp)
+
+        for i in range(n):
+            x = module.remat(block, x,
+                             tree_map(lambda a: a[i], enc_params["blocks"]))
         return layernorm(enc_params["final_norm"], x, cfg.norm_eps)
 
     # ---------------- decoder (server part) ----------------
@@ -153,8 +161,8 @@ class EncDec:
         x = x + dec_params["pos"][:S][None]
         positions = positions_for(B, S, tokens.device)
         n = dec_params["blocks"]["norm_self"]["scale"].shape[0]
-        for i in range(n):
-            bp = tree_map(lambda a: a[i], dec_params["blocks"])
+
+        def block(x, enc_out, bp):
             h = layernorm(bp["norm_self"], x, cfg.norm_eps)
             a, _ = attn_lib.attend_full(bp["self_attn"], cfg, h, positions,
                                         None, tp)
@@ -162,7 +170,11 @@ class EncDec:
             h = layernorm(bp["norm_cross"], x, cfg.norm_eps)
             x = x + _attend(bp["cross_attn"], cfg, h, enc_out, tp)
             h = layernorm(bp["norm_ffn"], x, cfg.norm_eps)
-            x = x + ffn_lib.gelu_mlp(bp["ffn"], h, tp)
+            return x + ffn_lib.gelu_mlp(bp["ffn"], h, tp)
+
+        for i in range(n):
+            x = module.remat(block, x, enc_out,
+                             tree_map(lambda a: a[i], dec_params["blocks"]))
         x = layernorm(dec_params["final_norm"], x, cfg.norm_eps)
         return EncDec._logits(dec_params, cfg, x, tp)
 

@@ -7,6 +7,11 @@ transformer there without a trip through host memory.  :data:`SHAPES`,
 a stand-in generator on the ``meta`` device, draws nothing: an init
 made with it gives the weights' shapes and dtypes alone, which is all a
 sharding plan reads.
+
+:func:`remat` is the port's ``jax.checkpoint``: the model stacks call
+it as ``module.remat(fn, *args)`` for each group of blocks and each loss
+chunk, so a training step keeps a group's input for the backward and
+recomputes the rest there.
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import math
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.utils.tree import tree_map
 
@@ -73,3 +79,23 @@ def stacked_init(init_fn: Callable[[torch.Generator], object],
         tree_map(lambda o, x: o[i].copy_(x), out, draw)
         first = None
     return out
+
+
+def remat(fn: Callable, *args):
+    """``fn(*args)``, its activations rematerialised as under
+    ``jax.checkpoint``: the tensors among ``args`` are kept for the
+    backward, and whatever else ``fn``'s backward reads is recomputed
+    there by running ``fn`` again, up to its last op that saves a tensor
+    (torch's early stop: an op after it, whose output no backward reads,
+    does not run again).  That recompute launches the group's kernels
+    and issues its collectives a second time.
+
+    The non-reentrant checkpoint, the form that
+    ``torch.autograd.grad(..., inputs)`` takes.  The forward draws no
+    random numbers, so no generator state is stashed.  Where grad is off
+    (``no_grad``, ``inference_mode``: extraction, evaluation, prefill,
+    decode, serving) nothing is recorded and ``fn`` runs once as it is."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)

@@ -4,13 +4,18 @@ Port of ``repro/models/transformer.py`` for the full-sequence path:
 
   embed -> [client blocks] -> CUT -> [server blocks] -> final_norm -> head
 
-Blocks are stacked along a leading layer dim.  The JAX package scans
-over groups of ``period`` blocks (2 for gemma2's local/global pair, else
-1) under ``jax.checkpoint``; here a Python loop runs the groups and
-nothing is checkpointed: each block's activations stay for the backward
-(a few GB at the full-width olmoe round, B = 2, S = 2048), and every
-attention, router and SSD-scan kernel launches once per block per
-forward, with no recompute.  The attention and scan backwards recompute
+Blocks are stacked along a leading layer dim.  As the JAX package
+scans over groups of ``period`` blocks (2 for gemma2's local/global
+pair, else 1) under ``jax.checkpoint``, a Python loop here runs each
+group under ``module.remat``: a training step keeps each group's input
+[B, S, d] for the backward and recomputes the group's forward there, so
+its activations live one group at a time.  Each loss chunk of
+:meth:`Transformer.chunked_lm_loss` is recomputed the same way, so no
+[B, chunk, vocab_padded] tile lives until the backward.  The recompute
+launches the group's attention, router and SSD-scan kernels and issues
+its ``model``-axis collectives again (up to the group's last op that
+saves a tensor); under ``no_grad`` (extraction, evaluation, prefill)
+every group runs once.  The attention and scan backwards recompute
 their plain versions (``kernels.ops``), which launch no kernel.  The
 hybrid family (zamba2) applies ONE shared attention block after each
 listed mamba block.  The full-sequence functions take ``tp``, a
@@ -43,6 +48,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import mamba2 as mamba_lib
+from repro_torch.models import module
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (embedding, rmsnorm, rmsnorm_init,
                                        softcap, unembed)
@@ -179,6 +185,26 @@ def _moe_decode(params, cfg: ArchConfig, h, group_size, tp, rows):
     return f[rows.rank * n:(rows.rank + 1) * n]
 
 
+def _group(x, metrics, gparams, cfg: ArchConfig, positions,
+           layer_offset: int, long_context: bool, tp=None):
+    """One group of blocks (``gparams``, one block's params each), the
+    body that ``Transformer._run_stack`` rematerialises: the JAX
+    package's ``group_body``, the metrics carried through it.  Returns
+    (x, metrics plus the group's)."""
+    kind = block_kind(cfg)
+    period = pattern_period(cfg)
+    for slot, bp in enumerate(gparams):
+        if kind in ("mamba", "hybrid"):
+            x, m = mamba_block(bp, cfg, x, tp)
+        else:
+            local = _is_local(cfg, (layer_offset + slot) % period
+                              if period > 1 else 0)
+            window = attn_lib.layer_window(cfg, local, long_context)
+            x, m = dense_or_moe_block(bp, cfg, x, positions, window, tp)
+        metrics = {k: metrics[k] + m[k] for k in metrics}
+    return x, metrics
+
+
 # --------------------------------------------------------------- the model
 class Transformer:
     """Namespace of functions for decoder-only models."""
@@ -208,41 +234,38 @@ class Transformer:
     @staticmethod
     def _run_stack(blocks, cfg: ArchConfig, x, positions, *, layer_offset: int,
                    long_context: bool, tp=None):
-        """Blocks in order, in groups of ``period``.  Returns
-        (x, metrics summed over the blocks)."""
-        kind = block_kind(cfg)
+        """Blocks in order, in groups of ``period``, each group under
+        ``module.remat`` (:func:`_group`).  Returns (x, metrics summed
+        over the blocks)."""
         period = pattern_period(cfg)
         n = tree_leaves(blocks)[0].shape[0]
         metrics = _zero_metrics(x.device)
         if n == 0:
             return x, metrics
         assert n % period == 0, f"stack of {n} not divisible by period {period}"
-        for i in range(n):
-            bp = tree_map(lambda a: a[i], blocks)
-            if kind in ("mamba", "hybrid"):
-                x, m = mamba_block(bp, cfg, x, tp)
-            else:
-                slot = i % period
-                local = _is_local(cfg, (layer_offset + slot) % period
-                                  if period > 1 else 0)
-                window = attn_lib.layer_window(cfg, local, long_context)
-                x, m = dense_or_moe_block(bp, cfg, x, positions, window, tp)
-            metrics = {k: metrics[k] + m[k] for k in metrics}
+        for g in range(0, n, period):
+            gparams = [tree_map(lambda a: a[i], blocks)
+                       for i in range(g, g + period)]
+            x, metrics = module.remat(_group, x, metrics, gparams, cfg,
+                                      positions, layer_offset, long_context,
+                                      tp)
         return x, metrics
 
     @staticmethod
     def _hybrid_stack(blocks, shared_attn, cfg: ArchConfig, x, positions, *,
                       first_block: int, n_blocks: int, long_context: bool,
                       tp=None):
-        """Mamba blocks [first, first + n) with the shared attention block
-        applied after every block index listed in
-        ``cfg.ssm.shared_attn_positions``."""
+        """Mamba blocks [first, first + n), each a group of its own under
+        ``module.remat``, with the shared attention block applied after
+        every block index listed in ``cfg.ssm.shared_attn_positions``,
+        outside any checkpoint, as the JAX package applies it between
+        its checkpointed runs of mamba blocks."""
         window = attn_lib.layer_window(cfg, False, long_context)
         metrics = _zero_metrics(x.device)
         for i in range(n_blocks):
-            x, m = mamba_block(tree_map(lambda a: a[i], blocks), cfg, x,
-                               tp)
-            metrics = {k: metrics[k] + m[k] for k in metrics}
+            x, metrics = module.remat(_group, x, metrics,
+                                      [tree_map(lambda a: a[i], blocks)],
+                                      cfg, None, 0, long_context, tp)
             if first_block + i in cfg.ssm.shared_attn_positions:
                 x, m = dense_or_moe_block(shared_attn, cfg, x, positions,
                                           window, tp)
@@ -311,11 +334,13 @@ class Transformer:
     def chunked_lm_loss(params, cfg: ArchConfig, hidden, labels,
                         chunk: int = 512, tp=None):
         """Cross-entropy from final hidden states over sequence chunks of
-        ``chunk`` positions, each a [B, chunk, vocab_padded] logits tile;
-        padded vocab columns are masked to -1e30 and label -1 (sequence
-        padding) is left out.  Returns (mean nll, mean accuracy).  On a
-        ``model`` axis each tile is gathered whole (``head``) and the
-        arithmetic is the same."""
+        ``chunk`` positions, each a [B, chunk, vocab_padded] logits tile
+        under ``module.remat`` (recomputed in the backward, as the JAX
+        package checkpoints each chunk); padded vocab columns are masked
+        to -1e30 and label -1 (sequence padding) is left out.  Returns
+        (mean nll, mean accuracy).  On a ``model`` axis each tile is
+        gathered whole (``head``), in the chunk and so again in its
+        recompute, and the arithmetic is the same."""
         B, S, d = hidden.shape
         chunk = min(chunk, S)
         if S % chunk:
@@ -326,9 +351,8 @@ class Transformer:
         n_pad = cfg.vocab_padded - cfg.vocab
         pad_cols = torch.arange(cfg.vocab_padded,
                                 device=hidden.device) >= cfg.vocab
-        nll_sum = correct_sum = count = 0.0
-        for lo in range(0, S, chunk):
-            h, l = hidden[:, lo:lo + chunk], labels[:, lo:lo + chunk]
+
+        def one(h, l):
             logits = Transformer.head(params, cfg, h, keep_padded=True,
                                       tp=tp)
             if n_pad:
@@ -338,9 +362,16 @@ class Transformer:
             lc = torch.clamp(l, min=0).long()
             nll = -torch.gather(ll, -1, lc[..., None])[..., 0]
             correct = (torch.argmax(ll, -1) == lc).float()
-            nll_sum = nll_sum + torch.sum(nll * valid)
-            correct_sum = correct_sum + torch.sum(correct * valid)
-            count = count + torch.sum(valid)
+            return (torch.sum(nll * valid), torch.sum(correct * valid),
+                    torch.sum(valid))
+
+        nll_sum = correct_sum = count = 0.0
+        for lo in range(0, S, chunk):
+            nll, correct, valid = module.remat(one, hidden[:, lo:lo + chunk],
+                                               labels[:, lo:lo + chunk])
+            nll_sum = nll_sum + nll
+            correct_sum = correct_sum + correct
+            count = count + valid
         n = torch.clamp(count, min=1.0)
         return nll_sum / n, correct_sum / n
 

@@ -484,11 +484,16 @@ def _model_calls(cfg, units, c_local, steps=2, chunks=1) -> dict:
     backward, each split unit's input gradient (``copy_to_model``) once.
     The client blocks run forward in the extract and in each slot's VJP
     (backward there), the server blocks forward and backward in each
-    server step and each slot's feature gradient.  A split vocab adds
-    the embedding's reduce to each client forward and, to each server
-    forward, a logits gather and (backward) the head input's reduce per
-    512-position chunk; a split client half adds one norm reduce a
-    slot."""
+    server step and each slot's feature gradient.  Each block is a group
+    under ``module.remat``, so each backward pass first runs its forward
+    again, up to its last op that saves a tensor: the attention's reduce
+    and the MoE's (its router losses follow it) are issued again, a
+    dense FFN's closing reduce is not (only the residual add follows it,
+    unless a sandwich norm does).  A split vocab adds the embedding's
+    reduce to each client forward and, to each server forward, a logits
+    gather (again in each chunk's recompute) and (backward) the head
+    input's reduce per 512-position chunk; a split client half adds one
+    norm reduce a slot."""
     calls: dict = {}
 
     def add(key, n):
@@ -498,15 +503,16 @@ def _model_calls(cfg, units, c_local, steps=2, chunks=1) -> dict:
     ffn = "moe" if cfg.moe is not None else "ffn"
     fwd = 2 * c_local * cut + (steps + c_local) * (L - cut)
     bwd = c_local * cut + (steps + c_local) * (L - cut)
+    again = {"attn": True, "moe": True, "ffn": cfg.sandwich_norm}
     for unit, grad in (("attn", "act_grad"), (ffn, "moe_grad"
                                               if ffn == "moe"
                                               else "act_grad")):
         if units[unit]:
-            add(f"all_reduce/{unit}", fwd)
+            add(f"all_reduce/{unit}", fwd + (bwd if again[unit] else 0))
             add(f"all_reduce/{grad}", bwd)
     if units["vocab"]:
         add("all_reduce/embed", 2 * c_local)
-        add("all_gather/logits", chunks * (steps + c_local))
+        add("all_gather/logits", 2 * chunks * (steps + c_local))
         add("all_reduce/act_grad", chunks * (steps + c_local))
     if any(units.values()):
         add("all_reduce/grad_norm", c_local)
@@ -520,7 +526,9 @@ def test_census_of_a_round_is_as_counted(name, request):
     a [b, S, d] or [b, S, vocab / 2] float32 activation is 2 * 32 * 256
     * 4 = 65536 bytes; an attention block's input gradient also carries
     the q and k norms' two 64-wide scales (66048), the MoE's the
-    combine weights [1, 64 * 2] (66048); a norm is one float."""
+    combine weights [1, 64 * 2] (66048); a norm is one float.  The
+    attention and MoE reduces and the logits gathers count their
+    recomputes' too (8 forward, 6 again in a backward)."""
     world, arch = _case(request, name)
     _, _, m, c_local = CASES[name]
     cfg = ranks.config(*(OLMOE if arch == "olmoe" else GLM4))
@@ -532,11 +540,11 @@ def test_census_of_a_round_is_as_counted(name, request):
             assert got == _model_calls(cfg, units, c_local)
     if name == "olmoe (1, 2)":
         act = 65536
-        want = {"embed": 4 * act, "attn": 8 * act, "moe": 8 * act,
+        want = {"embed": 4 * act, "attn": 14 * act, "moe": 14 * act,
                 "act_grad": 6 * (act + 512) + 4 * act,
                 "moe_grad": 6 * (act + 512), "grad_norm": 2 * 4}
         got = world[0][name]["census"][0]
-        assert got["model/all_gather/logits"]["bytes"] == 4 * act
+        assert got["model/all_gather/logits"]["bytes"] == 8 * act
         assert {k.split("/")[-1]: v["bytes"] for k, v in got.items()
                 if k.startswith("model/all_reduce")} == want
         # the batch axes hold one rank: no batch collective runs

@@ -459,7 +459,14 @@ def _model_calls(cfg, units, c_local, steps=2) -> dict:
     here).  Whisper's decoder blocks take a self- and a
     cross-attention; in a slot's feature gradient the first
     self-attention reads only frozen weights, so its input gradient is
-    never asked.  A split client half adds one norm reduce a slot."""
+    never asked.  A split client half adds one norm reduce a slot.
+    Each Mamba block and each whisper block is a group under
+    ``module.remat`` (the hybrid's shared block is not), so each backward
+    pass first runs the block's forward again, up to its last op that
+    saves a tensor: the gate norm's and the attentions' reduces are
+    issued again, the closing reduce of a Mamba block's output or of an
+    MLP is not (only the residual add follows it); each loss chunk's
+    recompute gathers its logits again (whisper's loss is no chunk)."""
     calls: dict = {}
 
     def add(key, n):
@@ -470,7 +477,7 @@ def _model_calls(cfg, units, c_local, steps=2) -> dict:
         E, D = cfg.enc_layers, cfg.n_layers
         cfwd, cbwd = 2 * c_local * E, c_local * E
         if units["attn"]:
-            add("all_reduce/attn", cfwd + 2 * srv * D)
+            add("all_reduce/attn", cfwd + 2 * srv * D + cbwd + 2 * srv * D)
             add("all_reduce/act_grad", cbwd + 2 * srv * D - c_local)
         if units["ffn"]:
             add("all_reduce/ffn", cfwd + srv * D)
@@ -484,7 +491,7 @@ def _model_calls(cfg, units, c_local, steps=2) -> dict:
         fwd = 2 * c_local * cut + srv * (L - cut)
         bwd = c_local * cut + srv * (L - cut)
         if units["mamba"]:
-            for key, n in (("norm", fwd), ("mamba", fwd),
+            for key, n in (("norm", fwd + bwd), ("mamba", fwd),
                            ("norm_grad", bwd), ("mamba_grad", bwd)):
                 add(f"all_reduce/{key}", n)
         shared = sum(cut <= p < L for p in cfg.ssm.shared_attn_positions) \
@@ -495,7 +502,7 @@ def _model_calls(cfg, units, c_local, steps=2) -> dict:
                 add("all_reduce/act_grad", srv * shared)
         if units["vocab"]:
             add("all_reduce/embed", 2 * c_local)
-            add("all_gather/logits", srv)
+            add("all_gather/logits", 2 * srv)
             add("all_reduce/act_grad", srv)
     if any(units.values()):
         add("all_reduce/grad_norm", c_local)
@@ -509,7 +516,9 @@ def test_census_of_a_round_is_as_counted(name, request):
     a [b, S, d] float32 activation is 2 * 32 * 256 * 4 = 65536 bytes,
     the gate norm's [b, S, 1] 256, a Mamba block's input gradient
     65536 + conv_b's 576 + the B/C weights' 256 x 64 and 4 x 64, as
-    float32: 134400."""
+    float32: 134400.  The gate norm's reduces and the logits gathers
+    count their recomputes' too (8 forward, 6 again in a backward; 4
+    gathers, 4 again)."""
     world, arch = _case(request, name)
     _, _, (d, m) = CASES[name]
     cfg = ranks.config(arch)
@@ -521,12 +530,12 @@ def test_census_of_a_round_is_as_counted(name, request):
             assert got == _model_calls(cfg, units, C // d)
     if name == f"{ZAMBA} (1, 2)":
         act = 65536
-        want = {"embed": 4 * act, "norm": 8 * 256, "mamba": 8 * act,
+        want = {"embed": 4 * act, "norm": 14 * 256, "mamba": 8 * act,
                 "attn": 4 * act, "ffn": 4 * act, "act_grad": 12 * act,
                 "norm_grad": 6 * 256, "mamba_grad": 6 * 134400,
                 "grad_norm": 2 * 4}
         got = world[0][name]["census"][0]
-        assert got["model/all_gather/logits"]["bytes"] == 4 * act
+        assert got["model/all_gather/logits"]["bytes"] == 8 * act
         assert {k.split("/")[-1]: v["bytes"] for k, v in got.items()
                 if k.startswith("model/all_reduce")} == want
         assert not any(not k.startswith("model/") for k in got)
